@@ -1,0 +1,76 @@
+// K1: paged KV write, the prefill-side page scatter.
+//
+// Replaces: dynamo_tpu/ops/pallas_kv_write.py, paged_kv_write / _kernel
+// (the bf16 branch). For each source page i of a prefill chunk it copies
+// new_k[i] and new_v[i] ([page_size, K*Hd]) into pool page page_table[i],
+// in place. Page 0 is the trash page: padding pages of a dispatch all
+// land there, so several blocks may write it at once (its contents are
+// never read as valid KV).
+//
+// Bound on the H100: bytes. It reads each source page once and writes it
+// once, with no arithmetic, so the floor is 2 * bytes / 3.35 TB/s.
+//
+// Design: the copy is dtype-blind (16-byte vectors), one block per
+// (page, K-or-V, slice of the page). A page of the 8B model is 128 KB; it
+// is cut into 16 KB slices so a 64-page chunk launches 1024 blocks and
+// every SM has loads in flight. Each thread moves four 16-byte vectors per
+// step, loads first, so four requests are outstanding per thread. Page
+// ids outside [0, num_pages) are skipped rather than written.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kUnroll = 4;
+constexpr long long kSliceBytes = 16384;
+
+__global__ void __launch_bounds__(kThreads) paged_kv_write_kernel(
+    uint4* __restrict__ k_pool, uint4* __restrict__ v_pool,
+    const int32_t* __restrict__ page_table,
+    const uint4* __restrict__ new_k, const uint4* __restrict__ new_v,
+    long long num_pages, long long page_vecs, long long slice_vecs) {
+  const long long i = blockIdx.x;
+  const int32_t page = page_table[i];
+  if (page < 0 || page >= num_pages) return;
+  const uint4* __restrict__ src = (blockIdx.y == 0 ? new_k : new_v) + i * page_vecs;
+  uint4* __restrict__ dst = (blockIdx.y == 0 ? k_pool : v_pool) + (long long)page * page_vecs;
+  const long long lo = (long long)blockIdx.z * slice_vecs;
+  const long long hi = lo + slice_vecs < page_vecs ? lo + slice_vecs : page_vecs;
+  for (long long j = lo + threadIdx.x; j < hi; j += (long long)kThreads * kUnroll) {
+    uint4 buf[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long jj = j + (long long)u * kThreads;
+      if (jj < hi) buf[u] = src[jj];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long jj = j + (long long)u * kThreads;
+      if (jj < hi) dst[jj] = buf[u];
+    }
+  }
+}
+
+}  // namespace
+
+// page_bytes must be a multiple of 16 and every pointer 16-byte aligned
+// (the Python wrapper checks both). Returns cudaGetLastError().
+extern "C" int paged_kv_write_launch(
+    void* k_pool, void* v_pool, const void* page_table,
+    const void* new_k, const void* new_v,
+    long long n_pages, long long num_pages, long long page_bytes,
+    void* stream) {
+  if (n_pages <= 0) return 0;
+  const long long page_vecs = page_bytes / 16;
+  long long slices = (page_bytes + kSliceBytes - 1) / kSliceBytes;
+  if (slices < 1) slices = 1;
+  const long long slice_vecs = (page_vecs + slices - 1) / slices;
+  dim3 grid((unsigned)n_pages, 2, (unsigned)slices);
+  paged_kv_write_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (uint4*)k_pool, (uint4*)v_pool, (const int32_t*)page_table,
+      (const uint4*)new_k, (const uint4*)new_v,
+      num_pages, page_vecs, slice_vecs);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,267 @@
+// K2: causal chunked-prefill flash attention read in place from the paged
+// KV pool.
+//
+// Replaces: dynamo_tpu/ops/pallas_prefill.py, flash_prefill_attention /
+// _kernel (the bf16 branch). Row b's queries sit at absolute positions
+// pos0[b] .. pos0[b] + t_valid[b] - 1 and attend keys with k_pos <= q_pos
+// through the row's block table; rows at or past t_valid are 0. q arrives
+// with rope applied and unscaled; scale hd**-0.5 is applied here, to q in
+// f32, as the reference does.
+//
+// Bound on the H100: at the engine's shapes (chunks of 512 over a prompt)
+// operations dominate: ~2 * 2 * B * H * Hd * T * T / 2 FLOPs against one
+// read of q/K/V. This first version runs the two products on the CUDA
+// cores in f32 (67 TFLOP/s peak, not the tensor cores' 989), so it sits
+// well above the bound; wgmma/TMA tiles are later work.
+//
+// Design: one block per (query tile, kv head, sequence). The tile holds
+// 64 query rows: 64 / G positions times the G query heads that share the
+// kv head, so each staged key row serves all of them (GQA). Keys stream
+// in chunks of 32 up to the tile's causal limit (chunks above it are never
+// loaded); K/V rows are gathered through the block table with 16-byte
+// loads into shared memory (K rows padded by 16 bytes so the score loop's
+// vector reads are free of bank conflicts). Each warp owns 16 rows: lane j
+// scores key j for all of them, the row max and sum come from warp
+// shuffles, and the probabilities go through shared memory to the PV
+// product, where lane l owns features l, l+32, ... of the f32 accumulator.
+// Scores, running max/denominator and accumulator are f32; output bf16.
+// Masking is by absolute position, which also hides the garbage tail rows
+// the page-scatter write leaves past t_valid in a chunk's last page.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <float.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kRows = 64;
+constexpr int kKeys = 32;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerWarp = kRows / kWarps;
+constexpr float kNegInf = -0.7f * FLT_MAX;
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  return (size_t)kRows * HD * 4            // q tile, f32, pre-scaled
+         + (size_t)kRows * kKeys * 4       // probabilities
+         + (size_t)kKeys * (HD + 8) * 2    // K chunk (padded rows)
+         + (size_t)kKeys * HD * 2;         // V chunk
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
+    const __nv_bfloat16* __restrict__ q,       // [B, T, H, HD]
+    const __nv_bfloat16* __restrict__ k_pool,  // [num_slots, K*HD]
+    const __nv_bfloat16* __restrict__ v_pool,
+    const int32_t* __restrict__ tables,        // [B, W]
+    const int32_t* __restrict__ pos0,          // [B]
+    const int32_t* __restrict__ t_valid,       // [B]
+    __nv_bfloat16* __restrict__ out,           // [B, T, H, HD]
+    int T, int H, int K, int W, int page_size, float scale) {
+  constexpr int DPL = HD / 32;  // accumulator features per lane
+  constexpr int KROW = HD + 8;  // padded K row, bf16 elements
+  const int G = H / K;
+  const int TQ = kRows / G;
+  const int rows = TQ * G;
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int t0 = blockIdx.x * TQ;
+  const int kw = K * HD;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tlen = t_valid[b];
+  const int p0 = pos0[b];
+  const int t_end = min(T, t0 + TQ);
+  const int n_valid = max(0, min(tlen, t_end) - t0);
+
+  auto out_at = [&](int r, int d) -> __nv_bfloat16* {
+    const int t = t0 + r / G;
+    const int h = kh * G + r % G;
+    return out + (((long long)b * T + t) * H + h) * HD + d;
+  };
+
+  if (n_valid == 0) {  // the whole tile is past t_valid: zeros
+    for (int idx = threadIdx.x; idx < rows * HD; idx += kThreads) {
+      const int r = idx / HD;
+      if (t0 + r / G < T) *out_at(r, idx % HD) = __float2bfloat16(0.f);
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* p_s = q_s + kRows * HD;
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(p_s + kRows * kKeys);
+  __nv_bfloat16* v_s = k_s + kKeys * KROW;
+
+  for (int idx = threadIdx.x; idx < kRows * HD; idx += kThreads) {
+    const int r = idx / HD;
+    const int d = idx % HD;
+    const int t = t0 + r / G;
+    float v = 0.f;
+    if (r < rows && t < T) {
+      const int h = kh * G + r % G;
+      v = __bfloat162float(q[(((long long)b * T + t) * H + h) * HD + d]) * scale;
+    }
+    q_s[idx] = v;
+  }
+
+  float m_i[kRowsPerWarp], l_i[kRowsPerWarp], acc[kRowsPerWarp][DPL];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    m_i[i] = kNegInf;
+    l_i[i] = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < DPL; ++dd) acc[i][dd] = 0.f;
+  }
+
+  // causal limit: the tile's last valid query position, plus one
+  const int kend = p0 + t0 + n_valid;
+  constexpr int VPR = HD / 8;  // 16-byte vectors per K/V row
+  for (int c0 = 0; c0 < kend; c0 += kKeys) {
+    __syncthreads();  // the previous chunk's readers are done
+    for (int idx = threadIdx.x; idx < kKeys * VPR; idx += kThreads) {
+      const int j = idx / VPR;
+      const int vi = idx % VPR;
+      const int pos = c0 + j;
+      uint4 kv = make_uint4(0, 0, 0, 0);
+      uint4 vv = make_uint4(0, 0, 0, 0);
+      if (pos < kend) {
+        const int pi = pos / page_size;
+        const int page = pi < W ? tables[(long long)b * W + pi] : 0;
+        const long long base = ((long long)page * page_size + pos % page_size) * kw + kh * HD;
+        kv = reinterpret_cast<const uint4*>(k_pool + base)[vi];
+        vv = reinterpret_cast<const uint4*>(v_pool + base)[vi];
+      }
+      *reinterpret_cast<uint4*>(k_s + j * KROW + vi * 8) = kv;
+      *reinterpret_cast<uint4*>(v_s + j * HD + vi * 8) = vv;
+    }
+    __syncthreads();
+
+    // scores: lane j against key c0 + j, for this warp's rows
+    float s[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.f;
+    const __nv_bfloat16* krow = k_s + lane * KROW;
+#pragma unroll 2
+    for (int d = 0; d < HD; d += 8) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(krow + d);
+      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      float kf[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(k2[e]);
+        kf[2 * e] = f.x;
+        kf[2 * e + 1] = f.y;
+      }
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float4* qr = reinterpret_cast<const float4*>(q_s + (warp + kWarps * i) * HD + d);
+        const float4 a = qr[0];
+        const float4 c = qr[1];
+        s[i] += a.x * kf[0] + a.y * kf[1] + a.z * kf[2] + a.w * kf[3]
+              + c.x * kf[4] + c.y * kf[5] + c.z * kf[6] + c.w * kf[7];
+      }
+    }
+
+    // mask by absolute position, online softmax update
+    const int kpos = c0 + lane;
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int r = warp + kWarps * i;
+      const int tt = r / G;
+      const bool valid = r < rows && tt < n_valid && kpos <= p0 + t0 + tt;
+      const float sv = valid ? s[i] : kNegInf;
+      const float m_new = fmaxf(m_i[i], warp_max(sv));
+      const float p = valid ? expf(sv - m_new) : 0.f;
+      const float alpha = expf(m_i[i] - m_new);
+      l_i[i] = l_i[i] * alpha + warp_sum(p);
+      m_i[i] = m_new;
+      p_s[r * kKeys + lane] = p;
+#pragma unroll
+      for (int dd = 0; dd < DPL; ++dd) acc[i][dd] *= alpha;
+    }
+    __syncwarp();
+
+    // PV: lane owns features lane + 32 * dd
+#pragma unroll 4
+    for (int j = 0; j < kKeys; ++j) {
+      float vf[DPL];
+#pragma unroll
+      for (int dd = 0; dd < DPL; ++dd) vf[dd] = __bfloat162float(v_s[j * HD + lane + 32 * dd]);
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float p = p_s[(warp + kWarps * i) * kKeys + j];
+#pragma unroll
+        for (int dd = 0; dd < DPL; ++dd) acc[i][dd] += p * vf[dd];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = warp + kWarps * i;
+    if (r >= rows || t0 + r / G >= T) continue;
+    const float denom = fmaxf(l_i[i], 1e-30f);
+#pragma unroll
+    for (int dd = 0; dd < DPL; ++dd) {
+      *out_at(r, lane + 32 * dd) = __float2bfloat16(acc[i][dd] / denom);
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k_pool, const void* v_pool,
+           const void* tables, const void* pos0, const void* t_valid, void* out,
+           int B, int T, int H, int K, int W, int page_size, float scale,
+           cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<HD>();
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_prefill_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int G = H / K;
+  const int TQ = kRows / G;
+  dim3 grid((unsigned)((T + TQ - 1) / TQ), (unsigned)K, (unsigned)B);
+  flash_prefill_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pool, (const __nv_bfloat16*)v_pool,
+      (const int32_t*)tables, (const int32_t*)pos0, (const int32_t*)t_valid,
+      (__nv_bfloat16*)out, T, H, K, W, page_size, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// head_dim in {32, 64, 128} and 1 <= H/K <= 64 (checked by the wrapper;
+// -1 here otherwise). Returns cudaGetLastError().
+extern "C" int flash_prefill_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* tables, const void* pos0, const void* t_valid, void* out,
+    int B, int T, int H, int K, int HD, int W, int page_size, float scale,
+    void* stream) {
+  if (B <= 0 || T <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (HD) {
+    case 32: return launch<32>(q, k_pool, v_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, s);
+    case 64: return launch<64>(q, k_pool, v_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, s);
+    case 128: return launch<128>(q, k_pool, v_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, s);
+    default: return -1;
+  }
+}

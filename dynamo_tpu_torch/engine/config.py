@@ -1,0 +1,96 @@
+"""Engine configuration (the JAX package's `EngineConfig`, without the mesh).
+
+The fields keep their names and meaning. The features this slice of the
+port does not run yet keep their fields with the "off" value, and setting
+one raises `NotImplementedError` at construction: a request for weight or
+KV quantization, speculative or mixed steps, the step pipeline, host
+offload or TP overlap must never be served by a silent approximation.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Union
+
+from dynamo_tpu_torch.models.config import ModelConfig, get_config
+
+# field -> the value that means "off"; anything else is not ported yet
+_UNPORTED = {
+    "quantization": None,
+    "kv_quantization": None,
+    "kv_quant_group": None,
+    "host_kv_pages": 0,
+    "spec_decode": False,
+    "mixed_batching": False,
+    "step_pipeline": False,
+    "tp_overlap": False,
+}
+
+
+@dataclass
+class EngineConfig:
+    model: Union[str, ModelConfig] = "tiny"
+    checkpoint_dir: Optional[str] = None  # HF safetensors dir; None = random init
+    dtype: str = "bfloat16"               # "bfloat16" or "float32"
+
+    # tokens per KV page; prefill_chunk must be a multiple of it (the
+    # page-scatter write lands whole pages)
+    page_size: int = 64
+    num_pages: Optional[int] = None  # total pages incl. trash page 0; None = auto
+    hbm_utilization: float = 0.85    # fraction of free device memory for KV
+
+    max_batch_size: int = 8       # decode slots
+    max_model_len: int = 2048     # context limit per sequence
+    prefill_chunk: int = 512      # longest single prefill call
+    # total tokens (padded rows x bucket) in one batched prefill dispatch
+    prefill_group_tokens: int = 32768
+    decode_steps: int = 8         # decode steps per dispatch (device-side loop)
+    # during a pure admission wave, hold decode until this fraction of
+    # slots is decode-ready (never delays running streams); 0 disables
+    decode_ready_frac: float = 1.0
+    # admission picks the highest priority class first (FIFO within one)
+    priority_scheduling: bool = True
+    seed: int = 0
+
+    quantization: Optional[str] = None
+    kv_quantization: Optional[str] = None
+    kv_quant_group: Optional[int] = None
+    host_kv_pages: int = 0
+    spec_decode: bool = False
+    mixed_batching: bool = False
+    step_pipeline: bool = False
+    tp_overlap: bool = False
+
+    def __post_init__(self) -> None:
+        for name, off in _UNPORTED.items():
+            if getattr(self, name) != off:
+                raise NotImplementedError(
+                    f"EngineConfig.{name}={getattr(self, name)!r}: not ported "
+                    "to dynamo_tpu_torch yet (see ROADMAP.md)"
+                )
+        if self.dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"dtype must be bfloat16 or float32, got {self.dtype!r}")
+        if self.prefill_chunk % self.page_size:
+            raise ValueError(
+                f"prefill_chunk ({self.prefill_chunk}) must be a multiple of "
+                f"page_size ({self.page_size})"
+            )
+
+    def model_config(self) -> ModelConfig:
+        cfg = get_config(self.model) if isinstance(self.model, str) else self.model
+        return cfg if cfg.dtype == self.dtype else cfg.with_(dtype=self.dtype)
+
+    @property
+    def max_pages_per_seq(self) -> int:
+        return -(-self.max_model_len // self.page_size)
+
+    def prefill_buckets(self) -> list[int]:
+        """Power-of-two token buckets for prefill calls, ending at
+        prefill_chunk."""
+        buckets = []
+        b = max(self.page_size, 16)
+        while b < self.prefill_chunk:
+            buckets.append(b)
+            b *= 2
+        buckets.append(self.prefill_chunk)
+        return buckets

@@ -1,0 +1,112 @@
+"""K2: causal chunked-prefill flash attention over the paged KV pool.
+
+Port of `dynamo_tpu/ops/pallas_prefill.py::flash_prefill_attention` (bf16
+branch); the CUDA kernel is `csrc/prefill_attention.cu`. Row b's queries
+sit at positions `pos0[b] .. pos0[b] + t_valid[b] - 1` (pos0 need not be
+page-aligned) and attend keys with `k_pos <= q_pos` through the row's
+block table. Rows at or past `t_valid` are 0. q arrives with rope applied
+and unscaled; `hd**-0.5` is applied here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dynamo_tpu_torch.ops import _cuda
+from dynamo_tpu_torch.ops.attention import slots_from_pages
+
+HEAD_DIMS = (32, 64, 128)
+MAX_GROUP = 64
+
+
+def flash_prefill_attention_plain(
+    q, k_cache, v_cache, block_tables, pos0, t_valid, *, page_size
+):
+    """Plain PyTorch version: gather the rows' slots, mask by absolute
+    position and by t_valid, softmax in f32."""
+    flash_prefill_attention_plain.calls += 1
+    b, t, h, hd = q.shape
+    kh = k_cache.shape[1] // hd
+    g = h // kh
+    smat = slots_from_pages(block_tables, page_size).long()  # [B, C]
+    c = smat.shape[1]
+    k = k_cache[smat].reshape(b, c, kh, hd).float()
+    v = v_cache[smat].reshape(b, c, kh, hd).float()
+    qf = q.float().reshape(b, t, kh, g, hd) * hd ** -0.5
+    s = torch.einsum("btkgd,bckd->bkgtc", qf, k)
+    tt = torch.arange(t, device=q.device)
+    q_pos = pos0.long()[:, None] + tt[None, :]                         # [B, T]
+    k_pos = torch.arange(c, device=q.device)
+    valid = (k_pos[None, None, :] <= q_pos[:, :, None]) & (
+        tt[None, :, None] < t_valid.long()[:, None, None]
+    )                                                                  # [B, T, C]
+    valid = valid[:, None, None]
+    s = torch.where(valid, s, torch.full_like(s, -0.7 * torch.finfo(torch.float32).max))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * valid
+    denom = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    out = torch.einsum("bkgtc,bckd->btkgd", p / denom, v)
+    return out.reshape(b, t, h, hd).to(q.dtype)
+
+
+flash_prefill_attention_plain.calls = 0
+
+
+def flash_prefill_attention(
+    q, k_cache, v_cache, block_tables, pos0, t_valid, *, page_size
+):
+    """q [B, T, H, Hd] (rope applied, unscaled); pools [num_slots, K*Hd];
+    block_tables [B, W], pos0 and t_valid [B] int32. Returns [B, T, H, Hd]
+    in q.dtype. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (bf16, head_dim in {32, 64, 128})."""
+    if q.device.type == "cpu":
+        return flash_prefill_attention_plain(
+            q, k_cache, v_cache, block_tables, pos0, t_valid, page_size=page_size
+        )
+    req = _cuda.require
+    req(q.device.type == "cuda", f"unsupported device {q.device}")
+    b, t, h, hd = q.shape
+    num_slots, kw = k_cache.shape
+    req(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
+    req(kw % hd == 0, "pool width must be K * head_dim")
+    kh = kw // hd
+    req(h % kh == 0 and h // kh <= MAX_GROUP, f"unsupported GQA group {h}/{kh}")
+    req(num_slots % page_size == 0, "pool rows must be whole pages")
+    req(v_cache.shape == k_cache.shape, "k/v pools differ in shape")
+    req(block_tables.dim() == 2 and block_tables.shape[0] == b, "block_tables must be [B, W]")
+    req(pos0.shape == (b,) and t_valid.shape == (b,), "pos0/t_valid must be [B]")
+    for x in (q, k_cache, v_cache):
+        req(x.dtype == torch.bfloat16, "q and pools must be bfloat16")
+    for x in (block_tables, pos0, t_valid):
+        req(x.dtype == torch.int32, "tables and positions must be int32")
+    for x in (q, k_cache, v_cache, block_tables, pos0, t_valid):
+        req(x.device == q.device, "all tensors must be on one device")
+        req(x.is_contiguous(), "tensors must be contiguous")
+    out = torch.empty_like(q)
+    lib = _launcher()
+    err = lib.flash_prefill_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        block_tables.data_ptr(), pos0.data_ptr(), t_valid.data_ptr(),
+        out.data_ptr(), b, t, h, kh, hd, block_tables.shape[1], page_size,
+        hd ** -0.5, _cuda.stream_ptr(q.device),
+    )
+    _cuda.check(err, "flash_prefill_attention")
+    flash_prefill_attention.launches += 1
+    return out
+
+
+flash_prefill_attention.launches = 0
+
+
+def _launcher():
+    lib = _cuda.load("prefill_attention")
+    fn = lib.flash_prefill_launch
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return lib

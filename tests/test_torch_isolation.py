@@ -1,0 +1,69 @@
+"""The port stands alone: no module of dynamo_tpu_torch, and not
+chip_smoke.py, imports jax, jaxlib or the JAX package dynamo_tpu, and
+building a CPU TorchEngine loads none of them. The test process itself has
+jax loaded (tests/conftest.py), so the import check runs in a fresh
+interpreter."""
+
+from __future__ import annotations
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu"}
+
+
+def _port_files():
+    pkg = os.path.join(ROOT, "dynamo_tpu_torch")
+    for base, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(base, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_forbidden_imports():
+    files = list(_port_files())
+    assert len(files) > 15
+    bad = [
+        (os.path.relpath(p, ROOT), root)
+        for p in files for root in _imported_roots(p) if root in FORBIDDEN
+    ]
+    assert bad == []
+
+
+def test_engine_import_loads_no_jax():
+    code = f"""
+import json, sys
+sys.path.insert(0, {ROOT!r})
+before = set(sys.modules)
+import dynamo_tpu_torch
+from dynamo_tpu_torch import EngineConfig, TorchEngine
+eng = TorchEngine(EngineConfig(model="tiny", dtype="float32", num_pages=16), device="cpu")
+new = set(sys.modules) - before
+print(json.dumps({{
+    "dynamo_tpu": sorted(m for m in sys.modules if m.split(".")[0] == "dynamo_tpu"),
+    "jax": sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib")),
+    "port": "dynamo_tpu_torch.engine.engine" in new,
+}}))
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=ROOT,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"dynamo_tpu": [], "jax": [], "port": True}
