@@ -13,16 +13,16 @@
 // (2 * sum(lengths) * K * Hd * 2 bytes) for ~4 FLOPs per byte, far below
 // the ~295 FLOP/byte at which the tensor cores would bound it.
 //
-// Design: one block per (kv head, sequence), 8 warps. The block first
-// stores its own kv head's slice of the new row, so no two blocks write
-// the same bytes. Each warp then walks every 8th key position; a key row
-// (Hd bf16) is one coalesced load across the warp, lane l holding
-// features [l*Hd/32, (l+1)*Hd/32). Four keys are loaded before any is
-// used, to keep loads in flight. The dot products for the G query heads
+// Design: one block per (kv head, sequence), 8 warps. Every warp holds
+// its kv head's slice of the new row in registers and warp 0 stores it,
+// so no two blocks write the same bytes. Each warp then walks every 8th
+// key position; a key row (Hd bf16) is one coalesced load across the
+// warp, lane l holding features [l*Hd/32, (l+1)*Hd/32). Four keys are
+// loaded before any is used, to keep loads in flight. The dot products for the G query heads
 // that share the kv head finish with warp shuffles, and each warp keeps
 // an f32 online softmax (max, denominator, accumulator) per head. At the
-// position being written the kernel uses the new row it was given, not a
-// re-read of the pool. The eight warps' partial states are merged through
+// position being written the kernel uses the new row from registers, not
+// a re-read of the pool. The eight warps' partial states are merged through
 // shared memory at the end. Splitting long sequences over several blocks
 // (flash-decode with a combine pass) is later work: at B = 8 and K = 8
 // this launches only 64 blocks.
@@ -92,11 +92,19 @@ __global__ void __launch_bounds__(kThreads) fused_decode_kernel(
     return (long long)page * page_size + pos % page_size;
   };
 
-  if (wpos >= 0) {  // this kv head's slice of the new row
-    const long long base = slot_of(wpos) * kw + kh * HD;
-    for (int d = threadIdx.x; d < HD; d += kThreads) {
-      k_pool[base + d] = nk[d];
-      v_pool[base + d] = nv[d];
+  // this kv head's slice of the new row, held in registers (lane l owns
+  // features [l*DPL, (l+1)*DPL)); warp 0 stores it into the pool
+  float nkf[DPL], nvf[DPL];
+  if (wpos >= 0) {
+    load_row<DPL>(nk + lane * DPL, nkf);
+    load_row<DPL>(nv + lane * DPL, nvf);
+    if (warp == 0) {
+      const long long base = slot_of(wpos) * kw + kh * HD + lane * DPL;
+#pragma unroll
+      for (int dd = 0; dd < DPL; ++dd) {
+        k_pool[base + dd] = __float2bfloat16(nkf[dd]);  // bf16 -> f32 -> bf16 is exact
+        v_pool[base + dd] = __float2bfloat16(nvf[dd]);
+      }
     }
   }
 
@@ -125,19 +133,16 @@ __global__ void __launch_bounds__(kThreads) fused_decode_kernel(
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int pos = p0 + u * kWarps;
-      if (pos < L) {
-        const __nv_bfloat16* kr;
-        const __nv_bfloat16* vr;
-        if (pos == wpos) {
-          kr = nk;
-          vr = nv;
-        } else {
-          const long long base = slot_of(pos) * kw + kh * HD;
-          kr = k_pool + base;
-          vr = v_pool + base;
+      if (pos == wpos) {  // the new row, from registers: no re-read of the pool
+#pragma unroll
+        for (int dd = 0; dd < DPL; ++dd) {
+          kf[u][dd] = nkf[dd];
+          vf[u][dd] = nvf[dd];
         }
-        load_row<DPL>(kr + lane * DPL, kf[u]);
-        load_row<DPL>(vr + lane * DPL, vf[u]);
+      } else if (pos < L) {
+        const long long base = slot_of(pos) * kw + kh * HD + lane * DPL;
+        load_row<DPL>(k_pool + base, kf[u]);
+        load_row<DPL>(v_pool + base, vf[u]);
       }
     }
 #pragma unroll
