@@ -203,10 +203,7 @@ class TorchEngine:
                 f"prompt of {len(pre.token_ids)} tokens cannot fit the KV pool "
                 f"({self.num_pages - 1} pages x {self.page_size} tokens)"
             )
-        seq = Sequence.from_request(
-            request, pre, self.page_size, self.config.max_model_len
-        )
-        seq.t_submit = time.perf_counter()
+        seq = Sequence.from_request(request, pre, self.config.max_model_len)
         self.waiting.append(seq)
         self._ensure_loop()
         self._wake.set()
@@ -321,7 +318,6 @@ class TorchEngine:
             del self.waiting[idx]
             seq.slot = slot
             seq.prefilling = True
-            seq.t_admit = time.perf_counter()
             self.slots[slot] = seq
             self._mark_slot_tables(seq)
             self._prefilling.append(seq)
@@ -336,7 +332,6 @@ class TorchEngine:
         if fresh is None:
             return False
         seq.page_ids = fresh
-        seq.num_cached = 0
         seq.num_computed = 0
         return True
 
@@ -607,10 +602,8 @@ class TorchEngine:
     # ---- bookkeeping --------------------------------------------------
 
     def _append_token(self, seq: Sequence, token: int) -> None:
-        seq.blocks.extend([token])
+        seq.tokens.append(token)
         seq.generated += 1
-        if seq.generated == 1:
-            seq.t_first_emit = time.perf_counter()
         seq.out_queue.put_nowait(EngineOutput(token_ids=[token]).to_dict())
         reason = seq.check_finish(token)
         if reason:
@@ -625,6 +618,5 @@ class TorchEngine:
         if seq in self._prefilling:
             self._prefilling.remove(seq)
         seq.prefilling = False
-        seq.finish = reason
         seq.out_queue.put_nowait(EngineOutput.final(reason).to_dict())
         self._wake.set()

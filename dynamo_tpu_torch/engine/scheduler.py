@@ -1,24 +1,24 @@
 """Sequence state and admission/preemption policy for continuous batching.
 
-The reference inherits scheduling from vLLM (its fork patch adds
-remote-prefill-aware scheduling, reference: patch:334-935); here the
-scheduler is native and deliberately simple and single-threaded (the engine
-loop is the only caller — the reference's progress-engine pattern,
-SURVEY.md §5):
+Port of `dynamo_tpu/engine/scheduler.py`, holding only what the port's
+engine reads. The scheduler is deliberately simple and single-threaded
+(the engine loop is the only caller):
 
-- FIFO admission into fixed decode **slots** (static batch shape for XLA);
-- prompt pages allocated up front (after prefix-cache match), decode pages
-  grown one at a time;
+- FIFO admission into fixed decode **slots** (highest priority class
+  first when the engine schedules by priority);
+- prompt pages allocated up front, decode pages grown one at a time;
 - when a decode-time page allocation fails, the most-recently admitted
-  sequence is preempted: pages released, sequence requeued at the front —
-  its re-prefill usually rides the prefix cache.
+  sequence is preempted: pages released, sequence requeued at the front,
+  and its prompt plus generated tokens re-prefilled on re-admission.
+
+Tokens are a plain list: prefix-cache reuse is not ported yet, so no
+block hashes are kept per sequence.
 """
 
 from __future__ import annotations
 
 import asyncio
 import itertools
-import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -28,7 +28,6 @@ from dynamo_tpu_torch.llm.protocols.common import (
     FINISH_REASON_LENGTH,
     PreprocessedRequest,
 )
-from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
 from dynamo_tpu_torch.runtime.pipeline.context import Context
 
 _seq_counter = itertools.count()
@@ -37,224 +36,57 @@ _seq_counter = itertools.count()
 @dataclass
 class Sequence:
     ctx: Context
-    pre: PreprocessedRequest
-    blocks: TokenBlockSequence          # prompt + sampled tokens, hashed per page
+    tokens: list[int]                   # prompt + sampled tokens
     out_queue: asyncio.Queue = field(default_factory=asyncio.Queue)
     seq_id: int = field(default_factory=lambda: next(_seq_counter))
 
-    prompt_len: int = 0
     page_ids: list[int] = field(default_factory=list)
-    num_cached: int = 0        # prefix-cache tokens reused at admission
     num_computed: int = 0      # tokens whose KV is valid in pages
-    registered_pages: int = 0  # leading pages whose hashes are registered
     slot: int = -1
     generated: int = 0
-    finish: Optional[str] = None
     prefilling: bool = False   # admitted but prompt KV not yet complete
     device_pos: int = 0        # next position a decode dispatch will write
-    carry_pending: bool = False  # prefill first token awaiting emission
-    # (it rides the next decode dispatch's input carry; normally emitted
-    # early by the per-group fetch task below, at sync as the fallback)
-    first_task: Optional[object] = None  # in-flight first-token fetch
-    # metadata attached to the first emitted token (prefix-hit stats etc.)
-    first_meta: Optional[dict] = None
-    # engine-side latency decomposition (perf_counter stamps): submit =
-    # generate() accepted, admit = slot assigned, first_dispatched = the
-    # prefill dispatch that sampled the first token RETURNED (device-side
-    # work done or queued; excludes the host fetch/delivery RTT) — the
-    # split that attributes client TTFT between engine and transport
-    t_submit: float = 0.0
-    t_admit: float = 0.0
-    t_first_dispatched: float = 0.0
-    # first token actually EMITTED host-side (fetch landed): with t_submit
-    # it is the engine-observed TTFT, with finish time and `generated` the
-    # request's mean ITL — the inputs of the request-finish summaries the
-    # engine hands to subscribe_requests (Prometheus histograms)
-    t_first_emit: float = 0.0
-    # disagg: (first_token, k [L,T,Kh*Hd], v) delivered by a remote prefill
-    # worker — admission injects this into pages instead of computing it
-    preloaded: Optional[tuple] = None
-    # self-speculative decoding: per-sequence n-gram proposer
-    # (engine/spec.NgramProposer), created at admission when the engine
-    # runs spec_decode; survives preemption (the token history it indexes
-    # does not change across a re-prefill)
-    spec: Optional[object] = None
-    # multimodal: [T_img, D] embeddings replacing token lookups starting
-    # at embeds_offset; embed sequences skip the prefix cache (block
-    # hashes over placeholder ids would alias distinct images)
-    prompt_embeds: Optional[object] = None
-    embeds_offset: int = 0
-    # end-to-end deadline, epoch seconds (time.time() domain — wall clock
-    # so it survives process hops on the data plane); 0.0 = none. Set
-    # from Context metadata (x-request-timeout) or the engine's
-    # request_timeout_s default; checked by the admission shed and the
-    # cancellation sweep (docs/robustness.md "Deadlines").
-    deadline: float = 0.0
-    # per-request prefix/offload ledger (stamped at page reservation,
-    # reported in the finish summary): HBM prefix pages reused, host-tier
-    # pages restored, host-tier hits the restore cost gate declined (and
-    # why) — the request-level explanation behind the aggregate
-    # prefix-hit / offload-gate numbers (docs/observability.md).
-    blocks_reused: int = 0
-    blocks_restored: int = 0
-    blocks_declined: int = 0
-    gate_reason: str = ""
-    # tenant label for per-tenant SLO attainment (Context metadata
-    # "tenant", stamped by the HTTP frontend from x-tenant-id)
-    tenant: str = "default"
-    # tenant priority class (Context metadata "priority", stamped by the
-    # frontend admission gate from the --slo-targets config; higher =
-    # more important). Orders admission picks and preemption-victim
-    # selection (pick_admission_index / pick_preemption_victim below) so
-    # a batch-traffic burst cannot starve interactive tenants. 0 (the
-    # default class) everywhere keeps both policies exactly FIFO /
-    # most-recent — byte-identical to the pre-priority engine.
+    # tenant priority class (Context metadata "priority"; higher = more
+    # important): orders admission picks and preemption-victim selection
     priority: int = 0
 
     # per-request sampling (resolved once at admission)
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
-    frequency_penalty: float = 0.0
-    presence_penalty: float = 0.0
-    repetition_penalty: float = 1.0
-    seed: int = -1                 # -1 = engine stream key
-    want_logprobs: bool = False
-    top_logprobs: int = 0          # alternatives per position (<= 8)
-    cum_logprob: float = 0.0
     max_new_tokens: int = 0
     eos_ids: frozenset[int] = frozenset()
     ignore_eos: bool = False
 
-    @property
-    def has_penalties(self) -> bool:
-        return (
-            self.frequency_penalty != 0.0
-            or self.presence_penalty != 0.0
-            or self.repetition_penalty != 1.0
-        )
-
-    @property
-    def needs_ext_sampling(self) -> bool:
-        """True when the plain greedy/temperature/top-k/top-p sampler is
-        not enough for this request: penalties and per-request seeds
-        need the extended (counts/seeded) sampler, logprobs need the
-        logsumexp outputs. The host-built step families (spec verify,
-        mixed prefill+decode) cover only the plain hot path and must
-        route these requests through the normal dispatches — ONE
-        predicate so the three gates cannot drift apart."""
-        return (
-            self.has_penalties
-            or self.seed >= 0
-            or self.want_logprobs
-            or self.top_logprobs > 0
-        )
-
     @classmethod
     def from_request(
-        cls, ctx: Context, pre: PreprocessedRequest, page_size: int,
-        max_model_len: int, blocks: Optional[TokenBlockSequence] = None,
+        cls, ctx: Context, pre: PreprocessedRequest, max_model_len: int,
     ) -> "Sequence":
-        if blocks is not None and (
-            blocks.block_size != page_size
-            or blocks.total_tokens != len(pre.token_ids)
-        ):
-            # a stale or mismatched precompute silently corrupts the
-            # prefix cache (wrong chained hashes) — recompute instead
-            blocks = None
-        seq = cls(
-            ctx=ctx,
-            pre=pre,
-            # the disagg decision path hashes the prompt once and threads
-            # the TokenBlockSequence through generate(); local requests
-            # hash here
-            blocks=blocks or TokenBlockSequence(pre.token_ids, page_size),
-            prompt_len=len(pre.token_ids),
-        )
+        seq = cls(ctx=ctx, tokens=list(pre.token_ids))
         so = pre.sampling_options
         seq.temperature = 0.0 if so.greedy else float(so.temperature or 0.0)
         seq.top_k = int(so.top_k or 0)
         seq.top_p = float(so.top_p if so.top_p is not None else 1.0)
-        seq.frequency_penalty = float(so.frequency_penalty or 0.0)
-        seq.presence_penalty = float(so.presence_penalty or 0.0)
-        seq.repetition_penalty = float(
-            so.repetition_penalty if so.repetition_penalty else 1.0
-        )
-        # Fold any user-supplied seed into the non-negative int32 domain:
-        # the engine stores seeds in int32 device buffers and uses -1 as
-        # the "unseeded" sentinel. Folding (rather than rejecting) keeps
-        # OpenAI-style arbitrary-width seeds (e.g. 2**40) and negative
-        # seeds reproducible instead of overflowing numpy assignment or
-        # silently losing determinism.
-        seq.seed = (int(so.seed) & 0x7FFFFFFF) if so.seed is not None else -1
-        seq.want_logprobs = bool(getattr(so, "logprobs", False))
-        from dynamo_tpu_torch.ops.sampling import TOP_LOGPROBS_MAX
-
-        seq.top_logprobs = (
-            max(0, min(int(getattr(so, "top_logprobs", 0) or 0),
-                       TOP_LOGPROBS_MAX))
-            if seq.want_logprobs else 0
-        )
-        budget = max_model_len - seq.prompt_len
+        budget = max_model_len - len(seq.tokens)
         mt = pre.stop_conditions.max_tokens
         seq.max_new_tokens = max(0, min(budget, mt) if mt is not None else budget)
         seq.eos_ids = frozenset(
             list(pre.eos_token_ids) + list(pre.stop_conditions.stop_token_ids)
         )
         seq.ignore_eos = pre.stop_conditions.ignore_eos
-        if pre.prompt_embeds is not None:
-            import numpy as np
-
-            seq.prompt_embeds = np.asarray(pre.prompt_embeds, np.float32)
-            seq.embeds_offset = int(pre.embeds_offset)
-        tenant = ctx.metadata.get("tenant")
-        if tenant:
-            seq.tenant = str(tenant)
         try:
             seq.priority = int(ctx.metadata.get("priority") or 0)
         except (TypeError, ValueError):
             seq.priority = 0
-        # deadline rides Context metadata across hops (the HTTP frontend
-        # stamps it from x-request-timeout; see llm/http/service.py)
-        try:
-            seq.deadline = float(ctx.metadata.get("deadline") or 0.0)
-        except (TypeError, ValueError):
-            seq.deadline = 0.0
         return seq
-
-    def past_deadline(self, now: Optional[float] = None) -> bool:
-        if not self.deadline:
-            return False
-        return (now if now is not None else time.time()) > self.deadline
-
-    @property
-    def no_cache(self) -> bool:
-        """Prefix caching is unsound from the first embed position on:
-        block hashes cover the placeholder token ids, not the image
-        contents. The text prefix BEFORE embeds_offset stays cacheable
-        (see cacheable_pages)."""
-        return self.prompt_embeds is not None
-
-    def cacheable_pages(self, page_size: int) -> Optional[int]:
-        """Page count eligible for prefix-cache match/registration; None
-        means unlimited (no embeds)."""
-        if self.prompt_embeds is None:
-            return None
-        return self.embeds_offset // page_size
-
-    @property
-    def tokens(self) -> list[int]:
-        return self.blocks.all_tokens()
 
     @property
     def total_tokens(self) -> int:
-        return self.blocks.total_tokens
+        return len(self.tokens)
 
     @property
     def last_token(self) -> int:
-        if self.blocks.partial:
-            return self.blocks.partial[-1]
-        return self.blocks.blocks[-1].tokens[-1]
+        return self.tokens[-1]
 
     def check_finish(self, new_token: int) -> Optional[str]:
         """Engine-level stop: eos/stop ids and token budget (stop *strings*
@@ -269,19 +101,16 @@ class Sequence:
 
 
 # ---------------------------------------------------------------- priority
-# Pure scheduling policy over Sequence.priority (docs/control.md): kept
-# here, next to the state they order, so the engine's two call sites
-# (admission pick in _admit_new, victim pick in _ensure_pages_through)
-# cannot drift apart and both are unit-testable without an engine.
+# Pure scheduling policy over Sequence.priority, kept next to the state it
+# orders so the engine's two call sites (admission pick in _admit_new,
+# victim pick in _ensure_pages_through) cannot drift apart.
 
 
 def pick_admission_index(waiting) -> int:
     """Index of the next sequence to admit: highest priority class
-    first, FIFO within a class. With uniform priorities this is index 0
-    — exactly the pre-priority FIFO admission, byte-identical. One
-    enumerate pass: `waiting` is a deque, where positional indexing is
-    O(i) and an index-loop scan would go quadratic exactly in the long-
-    queue overload case priorities exist for."""
+    first, FIFO within a class (index 0 when priorities are uniform).
+    One enumerate pass: `waiting` is a deque, where positional indexing
+    is O(i)."""
     best, best_prio = 0, None
     for i, seq in enumerate(waiting):
         if best_prio is None or seq.priority > best_prio:
@@ -292,8 +121,5 @@ def pick_admission_index(waiting) -> int:
 def pick_preemption_victim(seqs: list) -> "Sequence":
     """The sequence to preempt when a page allocation fails: lowest
     priority class first, most-recently-admitted (highest seq_id) within
-    the class — interactive tenants keep their pages while the newest
-    batch work re-queues (its re-prefill usually rides the prefix
-    cache). With uniform priorities this is max(seq_id) — exactly the
-    pre-priority recency policy."""
+    the class; max(seq_id) when priorities are uniform."""
     return max(seqs, key=lambda s: (-s.priority, s.seq_id))

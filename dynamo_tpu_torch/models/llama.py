@@ -81,8 +81,8 @@ class KVCache(NamedTuple):
     v: tuple
 
 
-def init_kv_cache(cfg: ModelConfig, num_slots: int, dtype=torch.bfloat16,
-                  device="cpu") -> KVCache:
+def init_kv_cache(cfg: ModelConfig, num_slots: int, *, device,
+                  dtype=torch.bfloat16) -> KVCache:
     shape = (num_slots, cfg.num_kv_heads * cfg.head_dim)
     return KVCache(
         k=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_layers)),
@@ -214,8 +214,8 @@ def logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tens
     return (hidden @ head).float()
 
 
-def init_params(cfg: ModelConfig, seed: int, dtype=torch.bfloat16,
-                device="cpu") -> Params:
+def init_params(cfg: ModelConfig, seed: int, *, device,
+                dtype=torch.bfloat16) -> Params:
     """Random-init params from an explicit seed (tests, benchmarks): normal
     weights scaled by fan_in**-0.5, embeddings by 0.02, unit norms — the
     JAX package's scheme, with torch's generator (so other values)."""
@@ -265,7 +265,7 @@ def param_count(params: Params) -> int:
     return layers + sum(w.numel() for k, w in params.items() if k != "layers")
 
 
-def params_from_jax(tree: Params, dtype=None, device="cpu") -> Params:
+def params_from_jax(tree: Params, *, device, dtype=None) -> Params:
     """Carry a JAX parameter tree (leaves as numpy arrays, e.g. from
     `jax.device_get`) over to the port's layout: same keys, same [in, out]
     orientation. bf16 leaves (ml_dtypes) go through float32, which is

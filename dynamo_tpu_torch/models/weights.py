@@ -98,8 +98,8 @@ _HF_LAYER_MAP = {
 }
 
 
-def load_params(model_dir: str, cfg: ModelConfig, dtype=torch.bfloat16,
-                device="cpu") -> Params:
+def load_params(model_dir: str, cfg: ModelConfig, *, device,
+                dtype=torch.bfloat16) -> Params:
     """Load a dense Llama-family HF checkpoint dir onto `device`, one
     tensor at a time."""
     if cfg.num_experts:

@@ -16,7 +16,6 @@ from __future__ import annotations
 import torch
 
 CANDIDATES = 64  # shortlist width for top-k/top-p
-TOP_LOGPROBS_MAX = 8  # alternatives width (kept for the scheduler's clamp)
 
 
 def shortlist_mask(scaled: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor):

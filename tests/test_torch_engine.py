@@ -125,6 +125,19 @@ async def test_preemption_resumes_streams_unchanged():
     assert list(got) == solo
 
 
+@pytest.mark.parametrize("prios", [[0, 0, 0, 0], [0, 2, 1, 2], [3, 0, 3, 1, 0]])
+def test_priority_policy_matches_jax(prios):
+    from collections import deque
+    from types import SimpleNamespace
+
+    from dynamo_tpu.engine import scheduler as jsched
+    from dynamo_tpu_torch.engine import scheduler
+
+    seqs = [SimpleNamespace(priority=p, seq_id=i) for i, p in enumerate(prios)]
+    assert scheduler.pick_admission_index(deque(seqs)) == jsched.pick_admission_index(deque(seqs))
+    assert scheduler.pick_preemption_victim(seqs) is jsched.pick_preemption_victim(seqs)
+
+
 def test_default_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

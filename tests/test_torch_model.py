@@ -5,6 +5,7 @@ reader against the `safetensors` package."""
 
 from __future__ import annotations
 
+import inspect
 import os
 
 import jax
@@ -55,7 +56,7 @@ def _jax_tree(cfg, seed=0):
 def test_params_from_jax_carries_every_leaf():
     jc, _ = _configs("tiny")
     tree = jax.device_get(jllama.init_params(jc, jax.random.PRNGKey(1), dtype=jnp.bfloat16))
-    port = llama.params_from_jax(tree)
+    port = llama.params_from_jax(tree, device="cpu")
     assert set(port) == set(tree)
     assert len(port["layers"]) == len(tree["layers"])
     for lp_t, lp_j in zip(port["layers"], tree["layers"]):
@@ -74,7 +75,7 @@ def test_params_from_jax_carries_every_leaf():
 def test_prefill_then_decode_matches_jax(variant):
     jc, tc = _configs(variant)
     tree = _jax_tree(jc)
-    params = llama.params_from_jax(tree)
+    params = llama.params_from_jax(tree, device="cpu")
     rng = np.random.RandomState(5)
     t = 20
     toks = rng.randint(1, jc.vocab_size, size=(1, t + 1)).astype(np.int32)
@@ -101,7 +102,7 @@ def test_prefill_then_decode_matches_jax(variant):
 
     # port: the engine's paths, page-scatter write + flash prefill (one
     # 32-token bucket), then the fused write + decode attention step
-    kv = llama.init_kv_cache(tc, num_slots, dtype=torch.float32)
+    kv = llama.init_kv_cache(tc, num_slots, dtype=torch.float32, device="cpu")
     bucket = 32
     tok_b = np.zeros((1, bucket), np.int32)
     tok_b[0, :t] = toks[0, :t]
@@ -127,7 +128,7 @@ def test_prefill_then_decode_matches_jax(variant):
     np.testing.assert_allclose(t_dec, j_dec, rtol=2e-4, atol=2e-4)
 
     # port: the gather-oracle mode, the JAX call's own shape
-    kv = llama.init_kv_cache(tc, num_slots, dtype=torch.float32)
+    kv = llama.init_kv_cache(tc, num_slots, dtype=torch.float32, device="cpu")
     smat_t = torch.from_numpy(smat)
     h, _ = llama.forward(
         params, tc, torch.from_numpy(toks[:, :t]), torch.arange(t)[None], kv,
@@ -139,6 +140,18 @@ def test_prefill_then_decode_matches_jax(variant):
         torch.from_numpy(slots(t + 1)[t:]), smat_t,
     )
     np.testing.assert_allclose(llama.logits(params, tc, h2).numpy(), j_dec, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize(
+    "fn", [llama.init_params, llama.init_kv_cache, llama.params_from_jax, load_params],
+    ids=lambda f: f.__name__,
+)
+def test_model_builders_take_an_explicit_device(fn):
+    # no silent CPU default: a model built for the engine's forward must be
+    # placed where the caller says
+    param = inspect.signature(fn).parameters["device"]
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY
+    assert param.default is inspect.Parameter.empty
 
 
 def test_safetensors_reader_matches_package():
@@ -159,7 +172,7 @@ def test_load_params_matches_jax_loader():
     jc, tc = jax_load_config(CKPT), load_config(CKPT)
     assert tc == tcfg.ModelConfig(**{f: getattr(jc, f) for f in jc.__dataclass_fields__})
     tree = jax.device_get(jax_load_params(CKPT, jc, dtype=jnp.float32))
-    port = load_params(CKPT, tc, dtype=torch.float32)
+    port = load_params(CKPT, tc, dtype=torch.float32, device="cpu")
     for lp_t, lp_j in zip(port["layers"], tree["layers"]):
         assert set(lp_t) == set(lp_j)
         for k in lp_j:
