@@ -1,30 +1,40 @@
 """Chip smoke test of the PyTorch/CUDA port (dynamo_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--pairs N]
 
 Phases, each printed on its own line; any failure exits non-zero and the
 final result line is printed only when every phase passed:
 
 1. card and versions (nvidia-smi name and power limit, torch, CUDA);
-2. build: the three CUDA kernels under dynamo_tpu_torch/csrc, one nvcc each,
-   all in parallel;
+2. build: the three CUDA sources under dynamo_tpu_torch/csrc (six kernels:
+   K1-K3 for bf16 KV, K5-K7 their int8 forms), one nvcc each, all in
+   parallel;
 3. each kernel against its plain PyTorch version on the same inputs, at
-   Llama-3.1-8B per-layer shapes (K=8, Hd=128, H=32, page 64, B=8, chunk
-   512 over ~576 tokens) and on small ragged cases (Hd 32 and 64; 1, 2 and
-   8 query heads per kv head): the KV write byte-exact, attention within
-   one bf16 ulp per element (see ATOL_F32), with CUDA-event times (median
-   of 20) for the kernel, the plain version and one PyTorch library call
-   computing the same function, and the least time the card could take
-   (bytes over memory rate or FLOPs over the bf16 peak);
+   Llama-3.1-8B per-layer shapes (K=8, Hd=128, H=32, B=8, chunk 512 over
+   ~576 tokens, decode lengths 512-600; page 64, and page 128 for the int8
+   kernels) and on small ragged cases (Hd 32 and 64; 1, 2 and 8 query
+   heads per kv head): KV writes byte-exact (pools and scale pools),
+   attention within one bf16 ulp per element (see ATOL_F32), with
+   CUDA-event times (median of 20) for the kernel, the plain version and
+   one PyTorch library call computing the same function (each call queued
+   behind a device-side spin, so the events time the device's work, not
+   the host's launch), and the least time the card could take (bytes over
+   memory rate or FLOPs over the bf16 peak). No PyTorch call takes int8 pages with scales, so the int8
+   kernels' library figure is SDPA over the gathered KV dequantized to
+   bf16 beforehand, outside the timing;
 4. real weights: the vendored trained checkpoint tests/data/tiny-trained-llama
-   through the port's safetensors reader in bf16 on the GPU; the greedy
-   continuation of "the capital of france is" must start with "paris" and
-   agree with the same engine run on the CPU in float32;
+   through the port's safetensors reader in bf16 on the GPU, with bf16 and
+   with int8 KV; the greedy continuation of "the capital of france is"
+   must start with "paris" and agree with the same engine run on the CPU
+   in float32;
 5. full width: llama-3.1-8b (32 layers, d 4096) in bf16 from seeded random
    weights, eight concurrent requests (ISL 512, OSL 64) through
    TorchEngine.generate. Launch counters are zeroed just before and read
-   just after: each kernel must have run, the expected number of times,
-   and no plain version may have run.
+   just after: each kernel of the path must have run, the expected number
+   of times, and no other kernel and no plain version may have run;
+6. the same at full width with int8 KV (kv_quantization="int8"), on phase
+   5's weights: K5-K7 run, K1-K3 and every plain version do not. With
+   --pairs N, phases 5 and 6 run N times in turns, to show their spread.
 
 Then a `kernels` JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -32,6 +42,7 @@ Then a `kernels` JSON line, the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import argparse
 import asyncio
 import json
 import os
@@ -69,7 +80,16 @@ def card_peaks(name: str):
     return "SXM", PEAKS["SXM"]
 
 
+# ~1 ms of device-side spin (at the H100's ~2 GHz) queued before each timed
+# call, so the host has launched the call before the device reaches it
+SPIN_CYCLES = 2_000_000
+
+
 def time_ms(fn, iters=20, warmup=3) -> float:
+    """Median CUDA-event time of one call of fn. Each call is queued behind
+    a device-side spin, so the events bracket the device's work and not the
+    host time a wrapper takes to launch it (a call that syncs with the host,
+    as some plain versions do, still includes its host time)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -77,6 +97,7 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -324,29 +345,292 @@ def check_decode(peaks, gen, dev):
                 bound_ms=b_ms, bound_by=by)
 
 
-# ---------------------------------------------------------------- phases 4, 5
+# ------------------------------------------------------- phase 3, int8 KV
+
+
+def _q_pools(num_pages, page, kh, hd, gen, dev):
+    """int8 pools and scale pools [P, K, page] quantized from random bf16
+    rows, as the engine fills them."""
+    from dynamo_tpu_torch.ops.quant import quantize_kv_rows, scales_to_page_tiles
+
+    k, v = _pools(num_pages, page, kh * hd, gen, dev)
+    (kq, ks), (vq, vs) = quantize_kv_rows(k, kh), quantize_kv_rows(v, kh)
+    return kq, vq, scales_to_page_tiles(ks, page), scales_to_page_tiles(vs, page)
+
+
+def _dequant_pool(pool, scales):
+    """A whole int8 pool dequantized through its scale pool, [N, K*Hd] f32."""
+    from dynamo_tpu_torch.ops.quant import dequantize_kv_rows
+
+    # [P, K, S] -> per-slot [P*S, K]
+    dense = scales.transpose(1, 2).reshape(-1, scales.shape[1])
+    return dequantize_kv_rows(pool, dense)
+
+
+def _swap_heads(scales):
+    """Scale pool with kv heads 0 and 1 swapped: a kernel reading the wrong
+    head's scales."""
+    out = scales.clone()
+    out[:, [0, 1]] = scales[:, [1, 0]]
+    return out
+
+
+def _same_bytes(a, b):
+    return torch.equal(a.view(torch.int8), b.view(torch.int8))
+
+
+def check_kv_write_q(peaks, gen, dev):
+    from dynamo_tpu_torch.ops import kv_write as m
+
+    for label, (num_pages, page, kh, hd, n) in {
+        "8b-p64": (200, 64, 8, 128, 64), "8b-p128": (100, 128, 8, 128, 32),
+        "small": (40, 16, 2, 32, 7),
+    }.items():
+        kw = kh * hd
+        k, v, ks, vs = _q_pools(num_pages, page, kh, hd, gen, dev)
+        table = torch.randperm(num_pages - 1, generator=gen, device=dev)[:n].to(torch.int32) + 1
+        table[-1] = 0  # a padding page into the trash page
+        nk, nv, nks, nvs = _q_pools(n, page, kh, hd, gen, dev)
+        nk, nv = nk.view(n, page, kw), nv.view(n, page, kw)
+        mine = [x.clone() for x in (k, v, ks, vs)]
+        plain = [x.clone() for x in (k, v, ks, vs)]
+        out = m.paged_kv_write(mine[0], mine[1], table, nk, nv, mine[2], mine[3], nks, nvs,
+                               page_size=page)
+        assert all(a is b for a, b in zip(out, mine))
+        m.paged_kv_write_q_plain(plain[0], plain[1], table, nk, nv, plain[2], plain[3], nks, nvs,
+                                 page_size=page)
+        torch.cuda.synchronize()
+        # byte-exact, trash page aside (several writers race on it)
+        for x, y, per_page in zip(mine, plain, (page, page, 1, 1)):
+            assert _same_bytes(x[per_page:], y[per_page:]), f"kv_write_q {label}: differs from plain"
+        assert not torch.equal(mine[0], k) and not torch.equal(mine[2], ks), \
+            f"kv_write_q {label}: pools not updated in place"
+        kernel = lambda: m.paged_kv_write(  # noqa: E731
+            mine[0], mine[1], table, nk, nv, mine[2], mine[3], nks, nvs, page_size=page)
+        if label == "8b-p128":
+            p128_ms = time_ms(kernel)
+        if label == "8b-p64":
+            ms = time_ms(kernel)
+            plain_ms = time_ms(lambda: m.paged_kv_write_q_plain(
+                plain[0], plain[1], table, nk, nv, plain[2], plain[3], nks, nvs, page_size=page))
+            idx = table.long()
+            dst = [mine[0].view(num_pages, -1), mine[1].view(num_pages, -1),
+                   mine[2].view(num_pages, -1), mine[3].view(num_pages, -1)]
+            src = [nk.view(n, -1), nv.view(n, -1), nks.view(n, -1), nvs.view(n, -1)]
+
+            def lib():
+                for d_, s_ in zip(dst, src):
+                    d_.index_copy_(0, idx, s_)
+
+            lib_ms = time_ms(lib)
+            nbytes = 2 * (2 * n * page * kw + 2 * n * kh * page * 4) + n * 4
+            b_ms, by = bound_ms(nbytes, 0.0, peaks)
+    log(f"[kernel] kv_write_q: pools and scale pools byte-exact at 8B page 64/128 and small; "
+        f"{ms:.4f} ms at page 64 (page 128: {p128_ms:.4f}; plain {plain_ms:.4f}, index_copy_ "
+        f"{lib_ms:.4f}, bound {b_ms:.4f} by {by})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=by)
+
+
+def check_prefill_q(peaks, gen, dev):
+    from dynamo_tpu_torch.ops import prefill_attention as m
+
+    cases = {
+        # B, T, H, K, Hd, page, W, pos0, t_valid
+        "8b-p64": (8, 512, 32, 8, 128, 64, 9, [64] * 8, [512] * 8),
+        "8b-p128": (8, 512, 32, 8, 128, 128, 5, [64] * 8, [512] * 8),
+        "small": (4, 48, 4, 2, 32, 16, 6, [0, 16, 7, 40], [48, 20, 1, 0]),
+        "g1": (2, 40, 4, 4, 64, 16, 5, [0, 9], [40, 31]),
+        "g8": (2, 24, 16, 2, 64, 16, 4, [8, 0], [24, 5]),
+    }
+    errs = {}
+    for label, (b, t, h, kh, hd, page, w, pos0, tlen) in cases.items():
+        num_pages = b * w + 3
+        k, v, ks, vs = _q_pools(num_pages, page, kh, hd, gen, dev)
+        tables = _tables(b, w, num_pages, gen, dev)
+        q = torch.randn((b, t, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+        p0 = torch.tensor(pos0, dtype=torch.int32, device=dev)
+        tl = torch.tensor(tlen, dtype=torch.int32, device=dev)
+        got = m.flash_prefill_attention(q, k, v, tables, p0, tl, ks, vs, page_size=page)
+        want = m.flash_prefill_attention_q_plain(q, k, v, tables, p0, tl, ks, vs, page_size=page)
+        torch.cuda.synchronize()
+        valid = torch.arange(t, device=dev)[None] < tl[:, None]  # [B, T]
+        assert torch.all(got[~valid] == 0), f"prefill_q {label}: rows past t_valid not 0"
+        c = compare_bf16(got[valid], want[valid])
+        msg = f"[kernel] prefill_attention_q {label}: {fmt(c)}"
+        if label == "8b-p64":
+            # the check's power on these inputs: two heads' scales swapped
+            off = m.flash_prefill_attention_q_plain(
+                q, k, v, tables, p0, tl, _swap_heads(ks), _swap_heads(vs), page_size=page)
+            c_off = compare_bf16(off[valid], want[valid])
+            msg += f"; heads 0/1 scales swapped: {fmt(c_off)}"
+            assert not c_off["ok"], "prefill_q: the check cannot see swapped scales"
+        log(msg)
+        assert c["ok"], f"prefill_q {label}: outside one bf16 ulp + {ATOL_F32}"
+        errs[label] = c["max_abs_err"]
+        if label == "8b-p128":
+            p128_ms = time_ms(lambda: m.flash_prefill_attention(
+                q, k, v, tables, p0, tl, ks, vs, page_size=page))
+        if label == "8b-p64":
+            ms = time_ms(lambda: m.flash_prefill_attention(
+                q, k, v, tables, p0, tl, ks, vs, page_size=page))
+            plain_ms = time_ms(lambda: m.flash_prefill_attention_q_plain(
+                q, k, v, tables, p0, tl, ks, vs, page_size=page))
+            kd = _dequant_pool(k, ks).to(torch.bfloat16)
+            vd = _dequant_pool(v, vs).to(torch.bfloat16)
+            qq, kk, vv, mask = _sdpa_prefill_inputs(q, kd, vd, tables, p0, tl, page)
+            lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask))
+            kv_rows = sum(p + n for p, n in zip(pos0, tlen))
+            nbytes = (2 * q.numel() * 2 + 2 * kv_rows * kh * (hd + 4)
+                      + (tables.numel() + 2 * b) * 4)
+            flops = sum(
+                4 * h * hd * sum(p + j + 1 for j in range(n)) for p, n in zip(pos0, tlen)
+            )
+            b_ms, by = bound_ms(nbytes, flops, peaks)
+    log(f"[kernel] prefill_attention_q: every case within one bf16 ulp + 2**-16; {ms:.4f} ms "
+        f"at page 64 (page 128: {p128_ms:.4f}; plain {plain_ms:.4f}, sdpa over KV dequantized "
+        f"to bf16 beforehand {lib_ms:.4f}, bound {b_ms:.4f} by {by})")
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=by)
+
+
+def check_decode_q(peaks, gen, dev):
+    from dynamo_tpu_torch.ops import decode_attention as m
+    from dynamo_tpu_torch.ops.quant import quantize_kv_rows
+
+    cases = {
+        # B, H, K, Hd, page, W, lengths (write_pos = length - 1; 0 = idle row)
+        "8b-p64": (8, 32, 8, 128, 64, 10, [576, 570, 590, 600, 512, 577, 583, 560]),
+        "8b-p128": (8, 32, 8, 128, 128, 5, [576, 570, 590, 600, 512, 577, 583, 560]),
+        "small": (4, 4, 2, 32, 16, 6, [37, 0, 1, 80]),
+        "g1": (3, 4, 4, 64, 16, 6, [1, 95, 0]),
+        "g8": (2, 16, 2, 64, 16, 6, [50, 96]),
+    }
+    errs = {}
+    for label, (b, h, kh, hd, page, w, lengths) in cases.items():
+        num_pages = b * w + 3
+        k, v, ks, vs = _q_pools(num_pages, page, kh, hd, gen, dev)
+        tables = _tables(b, w, num_pages, gen, dev)
+        q = torch.randn((b, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+        nk_bf = torch.randn((b, kh * hd), generator=gen, device=dev).to(torch.bfloat16)
+        nv_bf = torch.randn((b, kh * hd), generator=gen, device=dev).to(torch.bfloat16)
+        (nk, nks), (nv, nvs) = quantize_kv_rows(nk_bf, kh), quantize_kv_rows(nv_bf, kh)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        wpos = torch.tensor([n - 1 if n else -1 for n in lengths], dtype=torch.int32, device=dev)
+        mine = [x.clone() for x in (k, v, ks, vs)]
+        plain = [x.clone() for x in (k, v, ks, vs)]
+        got, *rp = m.fused_paged_decode_attention(
+            q, nk, nv, mine[0], mine[1], tables, lens, wpos, mine[2], mine[3], nks, nvs,
+            page_size=page)
+        assert all(a is b for a, b in zip(rp, mine))
+        want = m.fused_paged_decode_attention_q_plain(
+            q, nk, nv, plain[0], plain[1], tables, lens, wpos, plain[2], plain[3], nks, nvs,
+            page_size=page)[0]
+        ro = m.paged_decode_attention(q, mine[0], mine[1], tables, lens, mine[2], mine[3],
+                                      page_size=page)
+        torch.cuda.synchronize()
+        for x, y in zip(mine, plain):
+            assert _same_bytes(x, y), f"decode_q {label}: pools differ after the write"
+        assert not torch.equal(mine[0], k) and not torch.equal(mine[2], ks), \
+            f"decode_q {label}: pools not updated in place"
+        idle = lens == 0
+        assert torch.all(got[idle] == 0) and torch.all(ro[idle] == 0), f"decode_q {label}: idle rows not 0"
+        c, c_ro = compare_bf16(got, want), compare_bf16(ro, want)
+        msg = f"[kernel] decode_attention_q {label}: {fmt(c)}; read-only: {fmt(c_ro)}"
+        if label in ("8b-p64", "small"):
+            # the check's power on these inputs: the new token attended
+            # through its bf16 row instead of its quantized one (the
+            # plain bf16 version over the dequantized pools), and two
+            # heads' scales swapped
+            kd, vd = _dequant_pool(plain[0], plain[2]), _dequant_pool(plain[1], plain[3])
+            bf16_row = m.fused_paged_decode_attention_plain(
+                q, nk_bf.float(), nv_bf.float(), kd, vd, tables, lens, wpos, page_size=page)[0]
+            swapped = m.fused_paged_decode_attention_q_plain(
+                q, nk, nv, plain[0].clone(), plain[1].clone(), tables, lens,
+                wpos.new_full((b,), -1), _swap_heads(plain[2]), _swap_heads(plain[3]),
+                nks, nvs, page_size=page)[0]
+            c_row, c_swap = compare_bf16(bf16_row, want), compare_bf16(swapped, want)
+            msg += f"; new row in bf16: {fmt(c_row)}; heads 0/1 scales swapped: {fmt(c_swap)}"
+            assert not c_row["ok"], "decode_q: the check cannot see the bf16 new row"
+            assert not c_swap["ok"], "decode_q: the check cannot see swapped scales"
+        log(msg)
+        assert c["ok"] and c_ro["ok"], f"decode_q {label}: outside one bf16 ulp + {ATOL_F32}"
+        errs[label] = max(c["max_abs_err"], c_ro["max_abs_err"])
+        fused = lambda: m.fused_paged_decode_attention(  # noqa: E731
+            q, nk, nv, mine[0], mine[1], tables, lens, wpos, mine[2], mine[3], nks, nvs,
+            page_size=page)
+        if label == "8b-p128":
+            p128_ms = time_ms(fused)
+        if label == "8b-p64":
+            ms = time_ms(fused)
+            plain_ms = time_ms(lambda: m.fused_paged_decode_attention_q_plain(
+                q, nk, nv, plain[0], plain[1], tables, lens, wpos, plain[2], plain[3], nks, nvs,
+                page_size=page))
+            kd = _dequant_pool(mine[0], mine[2]).to(torch.bfloat16)
+            vd = _dequant_pool(mine[1], mine[3]).to(torch.bfloat16)
+            qq, kk, vv, _ = _sdpa_prefill_inputs(q[:, None], kd, vd, tables, lens - 1, lens, page)
+            mask = (torch.arange(kk.shape[2], device=dev)[None] < lens[:, None].long())[:, None, None]
+            lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask))
+            total = sum(lengths)
+            nbytes = (2 * q.numel() * 2 + 2 * 2 * nk.numel() + 2 * 2 * nks.numel() * 4
+                      + 2 * total * kh * (hd + 4) + (tables.numel() + 2 * b) * 4)
+            flops = 4 * h * hd * total
+            b_ms, by = bound_ms(nbytes, flops, peaks)
+    log(f"[kernel] decode_attention_q: every case within one bf16 ulp + 2**-16, pools and "
+        f"scale pools equal after the write; {ms:.4f} ms at page 64 (page 128: {p128_ms:.4f}; "
+        f"plain {plain_ms:.4f}, sdpa over KV dequantized to bf16 beforehand {lib_ms:.4f}, "
+        f"bound {b_ms:.4f} by {by})")
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=by)
+
+
+# ---------------------------------------------------------------- phases 4-6
+
+
+BF16_KERNELS = ("kv_write", "prefill_attention", "decode_attention")
+INT8_KERNELS = ("kv_write_q", "prefill_attention_q", "decode_attention_q")
 
 
 def counters():
+    """kernel name -> (wrapper, its launch counter, the plain version)."""
     from dynamo_tpu_torch.ops import decode_attention as d
     from dynamo_tpu_torch.ops import kv_write as w
     from dynamo_tpu_torch.ops import prefill_attention as p
 
     return {
-        "kv_write": (w.paged_kv_write, w.paged_kv_write_plain),
-        "prefill_attention": (p.flash_prefill_attention, p.flash_prefill_attention_plain),
-        "decode_attention": (d.fused_paged_decode_attention, d.fused_paged_decode_attention_plain),
+        "kv_write": (w.paged_kv_write, "launches", w.paged_kv_write_plain),
+        "prefill_attention": (p.flash_prefill_attention, "launches",
+                              p.flash_prefill_attention_plain),
+        "decode_attention": (d.fused_paged_decode_attention, "launches",
+                             d.fused_paged_decode_attention_plain),
+        "kv_write_q": (w.paged_kv_write, "launches_q", w.paged_kv_write_q_plain),
+        "prefill_attention_q": (p.flash_prefill_attention, "launches_q",
+                                p.flash_prefill_attention_q_plain),
+        "decode_attention_q": (d.fused_paged_decode_attention, "launches_q",
+                               d.fused_paged_decode_attention_q_plain),
     }
 
 
 def reset_counts():
-    for kern, plain in counters().values():
-        kern.launches = 0
+    for kern, attr, plain in counters().values():
+        setattr(kern, attr, 0)
         plain.calls = 0
 
 
 def read_counts():
-    return {n: (k.launches, p.calls) for n, (k, p) in counters().items()}
+    return {n: (getattr(k, attr), p.calls) for n, (k, attr, p) in counters().items()}
+
+
+def check_counts(counts, want, what):
+    """Every kernel in `want` launched exactly that often (and at least
+    once), every other kernel never, and no plain version at all."""
+    for name, (launches, plain) in counts.items():
+        n = want.get(name, 0)
+        assert launches == n and (n > 0 or name not in want), \
+            f"{what}: {name} launched {launches} times, expected {n}"
+        assert plain == 0, f"{what}: the plain version of {name} ran {plain} times"
 
 
 async def run_requests(engine, prompts, osl):
@@ -387,11 +671,11 @@ def phase_real_weights(dev):
     ids = [vocab.get(w, vocab["<unk>"]) for w in re.findall(r"\w+|[^\w\s]+", prompt.lower())]
     n = 16
 
-    def run(device, dtype):
+    def run(device, dtype, kv_quant):
         eng = TorchEngine(EngineConfig(
             model=load_config(CKPT), checkpoint_dir=CKPT, dtype=dtype, page_size=16,
             num_pages=64, max_batch_size=4, max_model_len=256, prefill_chunk=32,
-            decode_steps=4,
+            decode_steps=4, kv_quantization=kv_quant,
         ), device=device)
 
         async def go():
@@ -401,24 +685,28 @@ def phase_real_weights(dev):
 
         return asyncio.run(go())
 
-    ref = run("cpu", "float32")
-    reset_counts()
-    got = run(dev, "bfloat16")
-    counts = read_counts()
-    text = " ".join(inv[i] for i in got if i not in special)
-    log(f"[real] tiny-trained-llama bf16 on {dev}: {prompt!r} -> {text!r}; "
-        f"cpu f32 reference agrees on {sum(a == b for a, b in zip(got, ref))}/{n}; launches {counts}")
-    assert len(got) == n, f"expected {n} tokens, got {len(got)}"
-    assert text.startswith("paris"), f"real checkpoint answered {text!r}"
-    assert got[:8] == ref[:8], f"GPU bf16 {got} vs CPU f32 {ref}"
-    for name, (launches, plain) in counts.items():
-        assert launches > 0 and plain == 0, f"real-weights path: {name} launches {launches}, plain {plain}"
+    for kv_quant, names in ((None, BF16_KERNELS), ("int8", INT8_KERNELS)):
+        ref = run("cpu", "float32", kv_quant)
+        reset_counts()
+        got = run(dev, "bfloat16", kv_quant)
+        counts = read_counts()
+        text = " ".join(inv[i] for i in got if i not in special)
+        kv = kv_quant or "bf16"
+        log(f"[real] tiny-trained-llama bf16, {kv} KV on {dev}: {prompt!r} -> {text!r}; cpu f32 "
+            f"reference agrees on {sum(a == b for a, b in zip(got, ref))}/{n}; launches {counts}")
+        assert len(got) == n, f"expected {n} tokens, got {len(got)}"
+        assert text.startswith("paris"), f"real checkpoint ({kv} KV) answered {text!r}"
+        assert got[:8] == ref[:8], f"GPU bf16 {got} vs CPU f32 {ref} ({kv} KV)"
+        for name, (launches, plain) in counts.items():
+            assert (launches > 0) == (name in names) and plain == 0, \
+                f"real-weights path, {kv} KV: {name} launches {launches}, plain {plain}"
 
 
 async def profile_round(engine, prompts):
-    """Device busy share and the kernels that take the device time, over
-    one round of requests traced by torch.profiler (after the measured run,
-    so the trace costs the measurement nothing)."""
+    """Device busy share, the kernels that take the device time and the
+    host ops that take the host's (self CPU time, with the calls that wait
+    for the device), over one round of requests traced by torch.profiler
+    (after the measured run, so the trace costs the measurement nothing)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -426,10 +714,11 @@ async def profile_round(engine, prompts):
         await run_requests(engine, prompts, 16)
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
-    rows = []
+    rows, host = [], []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side ops; their device time is in the kernel rows
+            host.append((e.self_cpu_time_total, e.key, e.count))
+            continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = e.self_cuda_time_total
@@ -445,22 +734,37 @@ async def profile_round(engine, prompts):
             {"name": k[:80], "ms": us / 1e3, "share": us / busy, "calls": n}
             for us, k, n in rows[:12]
         ],
+        "host_top": [
+            {"name": k[:60], "self_ms": us / 1e3, "calls": n}
+            for us, k, n in sorted(host, reverse=True)[:12]
+        ],
+        "host_waits": {
+            k: n for _, k, n in host
+            if any(w in k for w in ("Synchronize", "Memcpy", "local_scalar", "aten::item"))
+        },
     }
 
 
-def phase_full_width(dev):
+def phase_full_width(dev, kv_quant=None, params=None):
+    """Serve eight requests at full width; returns the main path's launch
+    counts, the metrics and the engine's parameters (for the next phase)."""
     from dynamo_tpu_torch import EngineConfig, TorchEngine
 
     isl, osl, nreq = 512, 64, 8
     cfg = EngineConfig(
         model="llama-3.1-8b", dtype="bfloat16", page_size=64, num_pages=256,
         max_batch_size=8, max_model_len=2048, prefill_chunk=512, decode_steps=8, seed=0,
+        kv_quantization=kv_quant,
     )
+    tag = f"[8b {kv_quant or 'bf16'} KV]"
     t0 = time.perf_counter()
-    eng = TorchEngine(cfg, device=dev)
+    eng = TorchEngine(cfg, params=params, device=dev)
     torch.cuda.synchronize()
-    log(f"[8b] llama-3.1-8b random init (seed 0): {eng.param_count / 1e9:.3f} B params, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, {time.perf_counter() - t0:.1f} s")
+    kv_bytes = sum(x.numel() * x.element_size()
+                   for pools in eng.kv for x in (pools or ()))
+    log(f"{tag} llama-3.1-8b random init (seed 0): {eng.param_count / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, KV pools {kv_bytes / 1e9:.3f} GB "
+        f"({eng.num_pages} pages of {eng.page_size}), {time.perf_counter() - t0:.1f} s")
     rng = np.random.RandomState(0)
     vocab = eng.model_cfg.vocab_size
     prompts = [rng.randint(0, vocab, size=isl).tolist() for _ in range(nreq)]
@@ -486,14 +790,13 @@ def phase_full_width(dev):
     for toks, _, reason, _ in res:
         assert len(toks) == osl and reason == "length", f"stream of {len(toks)} tokens ({reason})"
         assert all(0 <= t < vocab for t in toks)
-    want = {
-        "kv_write": layers * d["prefill_dispatches"],
-        "prefill_attention": layers * d["prefill_dispatches"],
-        "decode_attention": layers * d["decode_dispatches"] * cfg.decode_steps,
-    }
-    for name, (launches, plain) in counts.items():
-        assert launches > 0 and launches == want[name], f"{name}: {launches} launches, expected {want[name]}"
-        assert plain == 0, f"{name}: plain version ran {plain} times on the main path"
+    names = INT8_KERNELS if kv_quant else BF16_KERNELS
+    want = dict(zip(names, (
+        layers * d["prefill_dispatches"],
+        layers * d["prefill_dispatches"],
+        layers * d["decode_dispatches"] * cfg.decode_steps,
+    )))
+    check_counts(counts, want, f"full width, {kv_quant or 'bf16'} KV")
     ttft = sorted(r[1] for r in res)
     first_done = min(r[1] for r in res)
     decode_toks = nreq * (osl - 1)
@@ -510,16 +813,24 @@ def phase_full_width(dev):
         "decode_dispatches": d["decode_dispatches"],
         "decode_window_s": decode_window,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "kv_pool_gb": kv_bytes / 1e9,
         "preemptions": d["preemptions"],
     }
-    log(f"[8b] {nreq} x (ISL {isl}, OSL {osl}) through TorchEngine.generate: " + json.dumps(m))
-    log(f"[profile] one more round ({nreq} x ISL {isl}, OSL 16) under torch.profiler: " + json.dumps(prof))
-    log(f"[8b] launches on the main path: {json.dumps({k: v[0] for k, v in counts.items()})}; "
+    log(f"{tag} {nreq} x (ISL {isl}, OSL {osl}) through TorchEngine.generate: " + json.dumps(m))
+    log(f"[profile] {kv_quant or 'bf16'} KV, one more round ({nreq} x ISL {isl}, OSL 16) "
+        "under torch.profiler: " + json.dumps(prof))
+    log(f"{tag} launches on the main path: {json.dumps({k: v[0] for k, v in counts.items()})}; "
         f"plain calls: {json.dumps({k: v[1] for k, v in counts.items()})}")
-    return {k: v[0] for k, v in counts.items()}, m
+    params = eng.params
+    del eng
+    return {k: v[0] for k, v in counts.items()}, m, params
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--pairs", type=int, default=1,
+                    help="full-width runs of phases 5 and 6, in turns (default 1)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script needs one GPU", file=sys.stderr)
         return 2
@@ -540,7 +851,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.build()
-    log(f"[build] {len(_cuda.SOURCES)} kernels built in {time.perf_counter() - t0:.1f} s "
+    log(f"[build] {len(_cuda.SOURCES)} sources (six kernels) built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_cuda.NVCC_FLAGS[:2])})")
     for n, text in _cuda.build_logs.items():
         for line in text.splitlines():
@@ -553,9 +864,20 @@ def main() -> int:
         "kv_write": check_kv_write(peaks, gen, dev),
         "prefill_attention": check_prefill(peaks, gen, dev),
         "decode_attention": check_decode(peaks, gen, dev),
+        "kv_write_q": check_kv_write_q(peaks, gen, dev),
+        "prefill_attention_q": check_prefill_q(peaks, gen, dev),
+        "decode_attention_q": check_decode_q(peaks, gen, dev),
     }
     phase_real_weights(dev)
-    launches, _ = phase_full_width(dev)
+    launches, _, params = phase_full_width(dev)
+    torch.cuda.empty_cache()
+    launches_q, _, params = phase_full_width(dev, kv_quant="int8", params=params)
+    for _ in range(args.pairs - 1):  # more bf16/int8 pairs, for the spread
+        for kv_quant in (None, "int8"):
+            torch.cuda.empty_cache()
+            _, _, params = phase_full_width(dev, kv_quant=kv_quant, params=params)
+    del params
+    launches.update({k: launches_q[k] for k in INT8_KERNELS})
 
     meta = {
         "kv_write": ("dynamo_tpu_torch/csrc/kv_write.cu", "dynamo_tpu/ops/pallas_kv_write.py:60"),
@@ -563,6 +885,11 @@ def main() -> int:
                               "dynamo_tpu/ops/pallas_prefill.py:224"),
         "decode_attention": ("dynamo_tpu_torch/csrc/decode_attention.cu",
                              "dynamo_tpu/ops/pallas_attention.py:622"),
+        "kv_write_q": ("dynamo_tpu_torch/csrc/kv_write.cu", "dynamo_tpu/ops/pallas_kv_write.py:45"),
+        "prefill_attention_q": ("dynamo_tpu_torch/csrc/prefill_attention.cu",
+                                "dynamo_tpu/ops/pallas_prefill.py:152"),
+        "decode_attention_q": ("dynamo_tpu_torch/csrc/decode_attention.cu",
+                               "dynamo_tpu/ops/pallas_attention.py:244"),
     }
     kernels = []
     for k, r in results.items():

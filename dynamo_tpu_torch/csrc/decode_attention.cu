@@ -1,36 +1,51 @@
-// K3: paged decode attention fused with the new token's KV write.
+// K3 and K5: paged decode attention fused with the new token's KV write.
 //
 // Replaces: dynamo_tpu/ops/pallas_attention.py,
-// fused_paged_decode_attention / _decode_kernel (the bf16 branch), and its
-// read-only use paged_decode_attention (write_pos = -1). One query token
-// per sequence: if write_pos[b] >= 0 the new K/V row is stored at that
-// position's slot, then the query attends lengths[b] keys (the count
-// includes the new token). Rows with lengths == 0 output 0. As in the
-// reference, q is scaled by hd**-0.5 and rounded to the working type
-// before the dot products.
+// fused_paged_decode_attention / _decode_kernel (K3, the bf16 branch) and
+// _decode_kernel_q (K5, the int8 branch), and their read-only use
+// paged_decode_attention (write_pos = -1). One query token per sequence:
+// if write_pos[b] >= 0 the new K/V row is stored at that position's slot,
+// then the query attends lengths[b] keys (the count includes the new
+// token). Rows with lengths == 0 output 0. As in the reference, q is
+// scaled by hd**-0.5 and rounded to the working type before the dot
+// products.
+//
+// K5 reads int8 pools with f32 scale pools [num_pages, K, page_size]
+// (ops/quant.py layout). The new row arrives quantized with its scales
+// [B, K]; both are stored at write_pos, and the new token is attended
+// through that quantized row. The math is f32 on the int8 values: the K
+// scale multiplies the score, the V scale multiplies the probability
+// before the P.V product ((p * vs) . v_int8 == p . dequant(v)).
 //
 // Bound on the H100: bytes. Each step streams every live K/V row once
-// (2 * sum(lengths) * K * Hd * 2 bytes) for ~4 FLOPs per byte, far below
-// the ~295 FLOP/byte at which the tensor cores would bound it.
+// (2 * sum(lengths) * K * Hd bytes per element size, plus 8 bytes of
+// scales per row and kv head for K5) for ~4 FLOPs per byte (~8 at int8),
+// far below the ~295 FLOP/byte at which the tensor cores would bound it.
 //
 // Design: one block per (kv head, sequence), 8 warps. Every warp holds
-// its kv head's slice of the new row in registers and warp 0 stores it,
-// so no two blocks write the same bytes. Each warp then walks every 8th
-// key position; a key row (Hd bf16) is one coalesced load across the
-// warp, lane l holding features [l*Hd/32, (l+1)*Hd/32). Four keys are
-// loaded before any is used, to keep loads in flight. The dot products for the G query heads
-// that share the kv head finish with warp shuffles, and each warp keeps
-// an f32 online softmax (max, denominator, accumulator) per head. At the
-// position being written the kernel uses the new row from registers, not
-// a re-read of the pool. The eight warps' partial states are merged through
-// shared memory at the end. Splitting long sequences over several blocks
-// (flash-decode with a combine pass) is later work: at B = 8 and K = 8
-// this launches only 64 blocks.
+// its kv head's slice of the new row in registers and warp 0 stores it
+// (lane 0 also its two scales), so no two blocks write the same bytes.
+// Each warp then walks every 8th key position; a key row (Hd elements) is
+// one coalesced load across the warp, lane l holding features
+// [l*Hd/32, (l+1)*Hd/32): 8 bytes a lane for bf16 at Hd 128, 4 for int8.
+// (Sixteen int8 features a lane would need a lane's q and accumulator
+// slices for 16 features of every one of up to 8 query heads, 256 floats,
+// more than the 255 registers a thread has.) Four keys are loaded before
+// any is used, to keep loads in flight. The dot products for the G query
+// heads that share the kv head finish with warp shuffles, and each warp
+// keeps an f32 online softmax (max, denominator, accumulator) per head. At
+// the position being written the kernel uses the new row (and its scales)
+// from registers, not a re-read of the pool. The eight warps' partial
+// states are merged through shared memory at the end. Splitting long
+// sequences over several blocks (flash-decode with a combine pass) is
+// later work: at B = 8 and K = 8 this launches only 64 blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -62,13 +77,34 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* f) {
   }
 }
 
-template <int HD>
+template <int DPL>
+__device__ __forceinline__ void load_row(const int8_t* p, float* f) {
+  if constexpr (DPL == 4) {
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    f[0] = c.x; f[1] = c.y; f[2] = c.z; f[3] = c.w;
+  } else if constexpr (DPL == 2) {
+    const char2 c = *reinterpret_cast<const char2*>(p);
+    f[0] = c.x; f[1] = c.y;
+  } else {
+    f[0] = *p;
+  }
+}
+
+// f holds values of T's own type widened to f32, so both casts are exact
+__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float f) { *p = __float2bfloat16(f); }
+__device__ __forceinline__ void store_elem(int8_t* p, float f) { *p = (int8_t)__float2int_rn(f); }
+
+template <int HD, bool kQuant>
 __global__ void __launch_bounds__(kThreads) fused_decode_kernel(
     const __nv_bfloat16* __restrict__ q,       // [B, H, HD]
-    const __nv_bfloat16* __restrict__ new_k,   // [B, K*HD] (unused when no write)
-    const __nv_bfloat16* __restrict__ new_v,
-    __nv_bfloat16* __restrict__ k_pool,        // [num_slots, K*HD]
-    __nv_bfloat16* __restrict__ v_pool,
+    const typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type* __restrict__ new_k,
+    const typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type* __restrict__ new_v,
+    typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type* __restrict__ k_pool,
+    typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type* __restrict__ v_pool,
+    const float* __restrict__ new_ks,          // [B, K] (K5; unused when no write)
+    const float* __restrict__ new_vs,
+    float* __restrict__ ks_pool,               // [num_pages, K, page_size] (K5)
+    float* __restrict__ vs_pool,
     const int32_t* __restrict__ tables,        // [B, W]
     const int32_t* __restrict__ lengths,       // [B]
     const int32_t* __restrict__ write_pos,     // [B]
@@ -83,27 +119,38 @@ __global__ void __launch_bounds__(kThreads) fused_decode_kernel(
   const int lane = threadIdx.x & 31;
   const int L = lengths[b];
   const int wpos = write_pos[b];
-  const __nv_bfloat16* nk = new_k + (long long)b * kw + kh * HD;
-  const __nv_bfloat16* nv = new_v + (long long)b * kw + kh * HD;
 
-  auto slot_of = [&](int pos) -> long long {
+  auto page_of = [&](int pos) -> long long {
     const int pi = pos / page_size;
-    const int page = pi < W ? tables[(long long)b * W + pi] : 0;
-    return (long long)page * page_size + pos % page_size;
+    return pi < W ? tables[(long long)b * W + pi] : 0;
+  };
+  // this kv head's scale of position pos in scale-pool page `page`
+  auto scale_at = [&](long long page, int pos) -> long long {
+    return (page * K + kh) * page_size + pos % page_size;
   };
 
   // this kv head's slice of the new row, held in registers (lane l owns
   // features [l*DPL, (l+1)*DPL)); warp 0 stores it into the pool
   float nkf[DPL], nvf[DPL];
+  float nks = 1.f, nvs = 1.f;
   if (wpos >= 0) {
-    load_row<DPL>(nk + lane * DPL, nkf);
-    load_row<DPL>(nv + lane * DPL, nvf);
+    load_row<DPL>(new_k + (long long)b * kw + kh * HD + lane * DPL, nkf);
+    load_row<DPL>(new_v + (long long)b * kw + kh * HD + lane * DPL, nvf);
+    const long long page = page_of(wpos);
+    if constexpr (kQuant) {
+      nks = new_ks[(long long)b * K + kh];
+      nvs = new_vs[(long long)b * K + kh];
+      if (warp == 0 && lane == 0) {
+        ks_pool[scale_at(page, wpos)] = nks;
+        vs_pool[scale_at(page, wpos)] = nvs;
+      }
+    }
     if (warp == 0) {
-      const long long base = slot_of(wpos) * kw + kh * HD + lane * DPL;
+      const long long base = (page * page_size + wpos % page_size) * kw + kh * HD + lane * DPL;
 #pragma unroll
       for (int dd = 0; dd < DPL; ++dd) {
-        k_pool[base + dd] = __float2bfloat16(nkf[dd]);  // bf16 -> f32 -> bf16 is exact
-        v_pool[base + dd] = __float2bfloat16(nvf[dd]);
+        store_elem(k_pool + base + dd, nkf[dd]);
+        store_elem(v_pool + base + dd, nvf[dd]);
       }
     }
   }
@@ -130,19 +177,29 @@ __global__ void __launch_bounds__(kThreads) fused_decode_kernel(
 
   for (int p0 = warp; p0 < L; p0 += kWarps * kUnroll) {
     float kf[kUnroll][DPL], vf[kUnroll][DPL];
+    float ksc[kUnroll], vsc[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int pos = p0 + u * kWarps;
+      ksc[u] = 1.f;
+      vsc[u] = 1.f;
       if (pos == wpos) {  // the new row, from registers: no re-read of the pool
 #pragma unroll
         for (int dd = 0; dd < DPL; ++dd) {
           kf[u][dd] = nkf[dd];
           vf[u][dd] = nvf[dd];
         }
+        ksc[u] = nks;
+        vsc[u] = nvs;
       } else if (pos < L) {
-        const long long base = slot_of(pos) * kw + kh * HD + lane * DPL;
+        const long long page = page_of(pos);
+        const long long base = (page * page_size + pos % page_size) * kw + kh * HD + lane * DPL;
         load_row<DPL>(k_pool + base, kf[u]);
         load_row<DPL>(v_pool + base, vf[u]);
+        if constexpr (kQuant) {
+          ksc[u] = ks_pool[scale_at(page, pos)];
+          vsc[u] = vs_pool[scale_at(page, pos)];
+        }
       }
     }
 #pragma unroll
@@ -155,13 +212,15 @@ __global__ void __launch_bounds__(kThreads) fused_decode_kernel(
 #pragma unroll
         for (int dd = 0; dd < DPL; ++dd) s += qr[g][dd] * kf[u][dd];
         s = warp_sum(s);
+        if constexpr (kQuant) s *= ksc[u];
         const float m_new = fmaxf(m[g], s);
         const float alpha = expf(m[g] - m_new);
         const float p = expf(s - m_new);
         l[g] = l[g] * alpha + p;
         m[g] = m_new;
+        const float pv = kQuant ? p * vsc[u] : p;
 #pragma unroll
-        for (int dd = 0; dd < DPL; ++dd) o[g][dd] = o[g][dd] * alpha + p * vf[u][dd];
+        for (int dd = 0; dd < DPL; ++dd) o[g][dd] = o[g][dd] * alpha + pv * vf[u][dd];
       }
     }
   }
@@ -198,34 +257,57 @@ __global__ void __launch_bounds__(kThreads) fused_decode_kernel(
   }
 }
 
-template <int HD>
+template <int HD, bool kQuant>
 int launch(const void* q, const void* new_k, const void* new_v, void* k_pool, void* v_pool,
+           const void* new_ks, const void* new_vs, void* ks_pool, void* vs_pool,
            const void* tables, const void* lengths, const void* write_pos, void* out,
            int B, int H, int K, int W, int page_size, float scale, cudaStream_t stream) {
+  using T = typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type;
   dim3 grid((unsigned)K, (unsigned)B);
-  fused_decode_kernel<HD><<<grid, kThreads, 0, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)new_k, (const __nv_bfloat16*)new_v,
-      (__nv_bfloat16*)k_pool, (__nv_bfloat16*)v_pool, (const int32_t*)tables,
-      (const int32_t*)lengths, (const int32_t*)write_pos, (__nv_bfloat16*)out,
-      H, K, W, page_size, scale);
+  fused_decode_kernel<HD, kQuant><<<grid, kThreads, 0, stream>>>(
+      (const __nv_bfloat16*)q, (const T*)new_k, (const T*)new_v, (T*)k_pool, (T*)v_pool,
+      (const float*)new_ks, (const float*)new_vs, (float*)ks_pool, (float*)vs_pool,
+      (const int32_t*)tables, (const int32_t*)lengths, (const int32_t*)write_pos,
+      (__nv_bfloat16*)out, H, K, W, page_size, scale);
   return (int)cudaGetLastError();
+}
+
+template <bool kQuant>
+int dispatch(const void* q, const void* new_k, const void* new_v, void* k_pool, void* v_pool,
+             const void* new_ks, const void* new_vs, void* ks_pool, void* vs_pool,
+             const void* tables, const void* lengths, const void* write_pos, void* out,
+             int B, int H, int K, int HD, int W, int page_size, float scale, void* stream) {
+  if (B <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (HD) {
+    case 32: return launch<32, kQuant>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s);
+    case 64: return launch<64, kQuant>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s);
+    case 128: return launch<128, kQuant>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s);
+    default: return -1;
+  }
 }
 
 }  // namespace
 
-// head_dim in {32, 64, 128} and 1 <= H/K <= 8 (checked by the wrapper; -1
-// here otherwise). new_k/new_v may be null when every write_pos is -1.
+// K3. head_dim in {32, 64, 128} and 1 <= H/K <= 8 (checked by the wrapper;
+// -1 here otherwise). new_k/new_v may be null when every write_pos is -1.
 // Returns cudaGetLastError().
 extern "C" int fused_decode_launch(
     const void* q, const void* new_k, const void* new_v, void* k_pool, void* v_pool,
     const void* tables, const void* lengths, const void* write_pos, void* out,
     int B, int H, int K, int HD, int W, int page_size, float scale, void* stream) {
-  if (B <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (HD) {
-    case 32: return launch<32>(q, new_k, new_v, k_pool, v_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s);
-    case 64: return launch<64>(q, new_k, new_v, k_pool, v_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s);
-    case 128: return launch<128>(q, new_k, new_v, k_pool, v_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s);
-    default: return -1;
-  }
+  return dispatch<false>(q, new_k, new_v, k_pool, v_pool, nullptr, nullptr, nullptr, nullptr,
+                         tables, lengths, write_pos, out, B, H, K, HD, W, page_size, scale, stream);
+}
+
+// K5: int8 pools and new rows, f32 scale pools [num_pages, K, page_size] and
+// new scales [B, K]; the same shape rules as K3. new_k/new_v/new_ks/new_vs
+// may be null when every write_pos is -1.
+extern "C" int fused_decode_q_launch(
+    const void* q, const void* new_k, const void* new_v, void* k_pool, void* v_pool,
+    const void* new_ks, const void* new_vs, void* ks_pool, void* vs_pool,
+    const void* tables, const void* lengths, const void* write_pos, void* out,
+    int B, int H, int K, int HD, int W, int page_size, float scale, void* stream) {
+  return dispatch<true>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool,
+                        tables, lengths, write_pos, out, B, H, K, HD, W, page_size, scale, stream);
 }

@@ -1,12 +1,20 @@
-// K2: causal chunked-prefill flash attention read in place from the paged
-// KV pool.
+// K2 and K6: causal chunked-prefill flash attention read in place from the
+// paged KV pool.
 //
 // Replaces: dynamo_tpu/ops/pallas_prefill.py, flash_prefill_attention /
-// _kernel (the bf16 branch). Row b's queries sit at absolute positions
-// pos0[b] .. pos0[b] + t_valid[b] - 1 and attend keys with k_pos <= q_pos
-// through the row's block table; rows at or past t_valid are 0. q arrives
-// with rope applied and unscaled; scale hd**-0.5 is applied here, to q in
-// f32, as the reference does.
+// _kernel, its bf16 branch (K2) and its int8 branch (K6). Row b's queries
+// sit at absolute positions pos0[b] .. pos0[b] + t_valid[b] - 1 and attend
+// keys with k_pos <= q_pos through the row's block table; rows at or past
+// t_valid are 0. q arrives with rope applied and unscaled; scale hd**-0.5
+// is applied here, to q in f32, as the reference does.
+//
+// K6 reads int8 pools with f32 scale pools [num_pages, K, page_size]
+// (ops/quant.py layout). As in the reference the math stays f32 on the
+// int8 values: the K scale multiplies the score, the V scale multiplies
+// the probability before the P.V product ((p * vs) . v_int8 ==
+// p . dequant(v)); the denominator sums the unscaled probabilities. The
+// rows are never dequantized to bf16, which would round where the
+// reference does not.
 //
 // Bound on the H100: at the engine's shapes (chunks of 512 over a prompt)
 // operations dominate: ~2 * 2 * B * H * Hd * T * T / 2 FLOPs against one
@@ -19,19 +27,23 @@
 // kv head, so each staged key row serves all of them (GQA). Keys stream
 // in chunks of 32 up to the tile's causal limit (chunks above it are never
 // loaded); K/V rows are gathered through the block table with 16-byte
-// loads into shared memory (K rows padded by 16 bytes so the score loop's
-// vector reads are free of bank conflicts). Each warp owns 16 rows: lane j
-// scores key j for all of them, the row max and sum come from warp
-// shuffles, and the probabilities go through shared memory to the PV
-// product, where lane l owns features l, l+32, ... of the f32 accumulator.
-// Scores, running max/denominator and accumulator are f32; output bf16.
-// Masking is by absolute position, which also hides the garbage tail rows
-// the page-scatter write leaves past t_valid in a chunk's last page.
+// loads into shared memory, in the pool's own type (int8 rows are half
+// the bytes of bf16 ones), K rows padded by 16 bytes so the score loop's
+// vector reads are free of bank conflicts; K6 also stages each key's two
+// scales. Each warp owns 16 rows: lane j scores key j for all of them, the
+// row max and sum come from warp shuffles, and the probabilities go
+// through shared memory to the PV product, where lane l owns features l,
+// l+32, ... of the f32 accumulator. Scores, running max/denominator and
+// accumulator are f32; output bf16. Masking is by absolute position,
+// which also hides the garbage tail rows the page-scatter write leaves
+// past t_valid in a chunk's last page.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -54,26 +66,53 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  return (size_t)kRows * HD * 4            // q tile, f32, pre-scaled
-         + (size_t)kRows * kKeys * 4       // probabilities
-         + (size_t)kKeys * (HD + 8) * 2    // K chunk (padded rows)
-         + (size_t)kKeys * HD * 2;         // V chunk
+// the 8 elements of group `h` of a 16-byte vector, widened to f32
+// (one group of bf16, two of int8)
+__device__ __forceinline__ void unpack8(const uint4& raw, int, float* f, const __nv_bfloat16*) {
+  const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 x = __bfloat1622float2(k2[e]);
+    f[2 * e] = x.x;
+    f[2 * e + 1] = x.y;
+  }
 }
 
-template <int HD>
+__device__ __forceinline__ void unpack8(const uint4& raw, int h, float* f, const int8_t*) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw) + 8 * h;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) f[e] = c[e];
+}
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return x; }
+
+template <int HD, bool kQuant>
+constexpr size_t smem_bytes() {
+  constexpr size_t es = kQuant ? 1 : 2;
+  return (size_t)kRows * HD * 4            // q tile, f32, pre-scaled
+         + (size_t)kRows * kKeys * 4       // probabilities
+         + (size_t)kKeys * (HD * es + 16)  // K chunk (padded rows)
+         + (size_t)kKeys * HD * es         // V chunk
+         + (kQuant ? 2 * kKeys * 4 : 0);   // the chunk's K and V scales
+}
+
+template <int HD, bool kQuant>
 __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const __nv_bfloat16* __restrict__ q,       // [B, T, H, HD]
-    const __nv_bfloat16* __restrict__ k_pool,  // [num_slots, K*HD]
-    const __nv_bfloat16* __restrict__ v_pool,
+    const typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type* __restrict__ k_pool,
+    const typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type* __restrict__ v_pool,
+    const float* __restrict__ ks_pool,         // [num_pages, K, page_size] (K6)
+    const float* __restrict__ vs_pool,
     const int32_t* __restrict__ tables,        // [B, W]
     const int32_t* __restrict__ pos0,          // [B]
     const int32_t* __restrict__ t_valid,       // [B]
     __nv_bfloat16* __restrict__ out,           // [B, T, H, HD]
     int T, int H, int K, int W, int page_size, float scale) {
-  constexpr int DPL = HD / 32;  // accumulator features per lane
-  constexpr int KROW = HD + 8;  // padded K row, bf16 elements
+  using Tkv = typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type;
+  constexpr int DPL = HD / 32;                    // accumulator features per lane
+  constexpr int EPV = 16 / sizeof(Tkv);           // elements per 16-byte vector
+  constexpr int KROW = HD + 16 / sizeof(Tkv);     // padded K row, elements
   const int G = H / K;
   const int TQ = kRows / G;
   const int rows = TQ * G;
@@ -105,8 +144,10 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* q_s = reinterpret_cast<float*>(smem_raw);
   float* p_s = q_s + kRows * HD;
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(p_s + kRows * kKeys);
-  __nv_bfloat16* v_s = k_s + kKeys * KROW;
+  Tkv* k_s = reinterpret_cast<Tkv*>(p_s + kRows * kKeys);
+  Tkv* v_s = k_s + kKeys * KROW;
+  float* ks_s = reinterpret_cast<float*>(v_s + kKeys * HD);  // kQuant only
+  float* vs_s = ks_s + kKeys;
 
   for (int idx = threadIdx.x; idx < kRows * HD; idx += kThreads) {
     const int r = idx / HD;
@@ -131,7 +172,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 
   // causal limit: the tile's last valid query position, plus one
   const int kend = p0 + t0 + n_valid;
-  constexpr int VPR = HD / 8;  // 16-byte vectors per K/V row
+  constexpr int VPR = HD / EPV;  // 16-byte vectors per K/V row
   for (int c0 = 0; c0 < kend; c0 += kKeys) {
     __syncthreads();  // the previous chunk's readers are done
     for (int idx = threadIdx.x; idx < kKeys * VPR; idx += kThreads) {
@@ -140,15 +181,25 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
       const int pos = c0 + j;
       uint4 kv = make_uint4(0, 0, 0, 0);
       uint4 vv = make_uint4(0, 0, 0, 0);
+      float ksc = 0.f, vsc = 0.f;
       if (pos < kend) {
         const int pi = pos / page_size;
-        const int page = pi < W ? tables[(long long)b * W + pi] : 0;
-        const long long base = ((long long)page * page_size + pos % page_size) * kw + kh * HD;
+        const long long page = pi < W ? tables[(long long)b * W + pi] : 0;
+        const long long base = (page * page_size + pos % page_size) * kw + kh * HD;
         kv = reinterpret_cast<const uint4*>(k_pool + base)[vi];
         vv = reinterpret_cast<const uint4*>(v_pool + base)[vi];
+        if (kQuant && vi == 0) {
+          const long long si = (page * K + kh) * page_size + pos % page_size;
+          ksc = ks_pool[si];
+          vsc = vs_pool[si];
+        }
       }
-      *reinterpret_cast<uint4*>(k_s + j * KROW + vi * 8) = kv;
-      *reinterpret_cast<uint4*>(v_s + j * HD + vi * 8) = vv;
+      *reinterpret_cast<uint4*>(k_s + j * KROW + vi * EPV) = kv;
+      *reinterpret_cast<uint4*>(v_s + j * HD + vi * EPV) = vv;
+      if (kQuant && vi == 0) {
+        ks_s[j] = ksc;
+        vs_s[j] = vsc;
+      }
     }
     __syncthreads();
 
@@ -156,26 +207,29 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     float s[kRowsPerWarp];
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.f;
-    const __nv_bfloat16* krow = k_s + lane * KROW;
+    const Tkv* krow = k_s + lane * KROW;
 #pragma unroll 2
-    for (int d = 0; d < HD; d += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(krow + d);
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      float kf[8];
+    for (int d0 = 0; d0 < HD; d0 += EPV) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(krow + d0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(k2[e]);
-        kf[2 * e] = f.x;
-        kf[2 * e + 1] = f.y;
-      }
+      for (int hh = 0; hh < EPV / 8; ++hh) {
+        const int d = d0 + 8 * hh;
+        float kf[8];
+        unpack8(raw, hh, kf, krow);
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float4* qr = reinterpret_cast<const float4*>(q_s + (warp + kWarps * i) * HD + d);
-        const float4 a = qr[0];
-        const float4 c = qr[1];
-        s[i] += a.x * kf[0] + a.y * kf[1] + a.z * kf[2] + a.w * kf[3]
-              + c.x * kf[4] + c.y * kf[5] + c.z * kf[6] + c.w * kf[7];
+        for (int i = 0; i < kRowsPerWarp; ++i) {
+          const float4* qr = reinterpret_cast<const float4*>(q_s + (warp + kWarps * i) * HD + d);
+          const float4 a = qr[0];
+          const float4 c = qr[1];
+          s[i] += a.x * kf[0] + a.y * kf[1] + a.z * kf[2] + a.w * kf[3]
+                + c.x * kf[4] + c.y * kf[5] + c.z * kf[6] + c.w * kf[7];
+        }
       }
+    }
+    float kscale = 1.f, vscale = 1.f;
+    if constexpr (kQuant) {
+      kscale = ks_s[lane];
+      vscale = vs_s[lane];
     }
 
     // mask by absolute position, online softmax update
@@ -185,13 +239,13 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
       const int r = warp + kWarps * i;
       const int tt = r / G;
       const bool valid = r < rows && tt < n_valid && kpos <= p0 + t0 + tt;
-      const float sv = valid ? s[i] : kNegInf;
+      const float sv = valid ? (kQuant ? s[i] * kscale : s[i]) : kNegInf;
       const float m_new = fmaxf(m_i[i], warp_max(sv));
       const float p = valid ? expf(sv - m_new) : 0.f;
       const float alpha = expf(m_i[i] - m_new);
       l_i[i] = l_i[i] * alpha + warp_sum(p);
       m_i[i] = m_new;
-      p_s[r * kKeys + lane] = p;
+      p_s[r * kKeys + lane] = kQuant ? p * vscale : p;
 #pragma unroll
       for (int dd = 0; dd < DPL; ++dd) acc[i][dd] *= alpha;
     }
@@ -202,7 +256,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     for (int j = 0; j < kKeys; ++j) {
       float vf[DPL];
 #pragma unroll
-      for (int dd = 0; dd < DPL; ++dd) vf[dd] = __bfloat162float(v_s[j * HD + lane + 32 * dd]);
+      for (int dd = 0; dd < DPL; ++dd) vf[dd] = to_f32(v_s[j * HD + lane + 32 * dd]);
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
         const float p = p_s[(warp + kWarps * i) * kKeys + j];
@@ -224,44 +278,69 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   }
 }
 
-template <int HD>
+template <int HD, bool kQuant>
 int launch(const void* q, const void* k_pool, const void* v_pool,
+           const void* ks_pool, const void* vs_pool,
            const void* tables, const void* pos0, const void* t_valid, void* out,
            int B, int T, int H, int K, int W, int page_size, float scale,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  using Tkv = typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type;
+  constexpr size_t smem = smem_bytes<HD, kQuant>();
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_prefill_kernel<HD, kQuant>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const int G = H / K;
   const int TQ = kRows / G;
   dim3 grid((unsigned)((T + TQ - 1) / TQ), (unsigned)K, (unsigned)B);
-  flash_prefill_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pool, (const __nv_bfloat16*)v_pool,
+  flash_prefill_kernel<HD, kQuant><<<grid, kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const Tkv*)k_pool, (const Tkv*)v_pool,
+      (const float*)ks_pool, (const float*)vs_pool,
       (const int32_t*)tables, (const int32_t*)pos0, (const int32_t*)t_valid,
       (__nv_bfloat16*)out, T, H, K, W, page_size, scale);
   return (int)cudaGetLastError();
 }
 
+template <bool kQuant>
+int dispatch(const void* q, const void* k_pool, const void* v_pool,
+             const void* ks_pool, const void* vs_pool,
+             const void* tables, const void* pos0, const void* t_valid, void* out,
+             int B, int T, int H, int K, int HD, int W, int page_size, float scale,
+             void* stream) {
+  if (B <= 0 || T <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (HD) {
+    case 32: return launch<32, kQuant>(q, k_pool, v_pool, ks_pool, vs_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, s);
+    case 64: return launch<64, kQuant>(q, k_pool, v_pool, ks_pool, vs_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, s);
+    case 128: return launch<128, kQuant>(q, k_pool, v_pool, ks_pool, vs_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, s);
+    default: return -1;
+  }
+}
+
 }  // namespace
 
-// head_dim in {32, 64, 128} and 1 <= H/K <= 64 (checked by the wrapper;
-// -1 here otherwise). Returns cudaGetLastError().
+// K2. head_dim in {32, 64, 128} and 1 <= H/K <= 64 (checked by the
+// wrapper; -1 here otherwise). Returns cudaGetLastError().
 extern "C" int flash_prefill_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* tables, const void* pos0, const void* t_valid, void* out,
     int B, int T, int H, int K, int HD, int W, int page_size, float scale,
     void* stream) {
-  if (B <= 0 || T <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (HD) {
-    case 32: return launch<32>(q, k_pool, v_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, s);
-    case 64: return launch<64>(q, k_pool, v_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, s);
-    case 128: return launch<128>(q, k_pool, v_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, s);
-    default: return -1;
-  }
+  return dispatch<false>(q, k_pool, v_pool, nullptr, nullptr, tables, pos0, t_valid, out,
+                         B, T, H, K, HD, W, page_size, scale, stream);
+}
+
+// K6: int8 pools with f32 scale pools [num_pages, K, page_size]; the same
+// shape rules as K2.
+extern "C" int flash_prefill_q_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* ks_pool, const void* vs_pool,
+    const void* tables, const void* pos0, const void* t_valid, void* out,
+    int B, int T, int H, int K, int HD, int W, int page_size, float scale,
+    void* stream) {
+  return dispatch<true>(q, k_pool, v_pool, ks_pool, vs_pool, tables, pos0, t_valid, out,
+                        B, T, H, K, HD, W, page_size, scale, stream);
 }

@@ -2,9 +2,10 @@
 
 The fields keep their names and meaning. The features this slice of the
 port does not run yet keep their fields with the "off" value, and setting
-one raises `NotImplementedError` at construction: a request for weight or
-KV quantization, speculative or mixed steps, the step pipeline, host
+one raises `NotImplementedError` at construction: a request for weight
+quantization, int4 KV, speculative or mixed steps, the step pipeline, host
 offload or TP overlap must never be served by a silent approximation.
+`kv_quantization="int8"` is ported.
 """
 
 from __future__ import annotations
@@ -17,7 +18,6 @@ from dynamo_tpu_torch.models.config import ModelConfig, get_config
 # field -> the value that means "off"; anything else is not ported yet
 _UNPORTED = {
     "quantization": None,
-    "kv_quantization": None,
     "kv_quant_group": None,
     "host_kv_pages": 0,
     "spec_decode": False,
@@ -53,7 +53,7 @@ class EngineConfig:
     seed: int = 0
 
     quantization: Optional[str] = None
-    kv_quantization: Optional[str] = None
+    kv_quantization: Optional[str] = None  # None or "int8" (int4 not ported yet)
     kv_quant_group: Optional[int] = None
     host_kv_pages: int = 0
     spec_decode: bool = False
@@ -68,6 +68,11 @@ class EngineConfig:
                     f"EngineConfig.{name}={getattr(self, name)!r}: not ported "
                     "to dynamo_tpu_torch yet (see ROADMAP.md)"
                 )
+        if self.kv_quantization not in (None, "int8"):
+            raise NotImplementedError(
+                f"EngineConfig.kv_quantization={self.kv_quantization!r}: only "
+                "'int8' is ported to dynamo_tpu_torch yet (see ROADMAP.md)"
+            )
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be bfloat16 or float32, got {self.dtype!r}")
         if self.prefill_chunk % self.page_size:

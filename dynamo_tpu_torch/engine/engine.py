@@ -11,6 +11,9 @@ Port of `dynamo_tpu/engine/engine.py::JaxEngine`, main path only:
 - multi-step decode: `decode_steps` tokens per dispatch in a device-side
   loop (sampled tokens feed the next step without a host sync); each
   layer runs the fused write + decode attention kernel;
+- KV pools in the model's dtype, or int8 with per-token-per-kv-head f32
+  scale pools (`kv_quantization="int8"`), which the int8 forms of the
+  three kernels read and write;
 - on-device sampling: greedy, temperature, top-k, top-p;
 - streamed `EngineOutput` frames, finishing on max_tokens or EOS.
 
@@ -115,7 +118,7 @@ class TorchEngine:
         self.num_pages = config.num_pages or self._auto_num_pages()
         self.kv = llama.init_kv_cache(
             self.model_cfg, self.num_pages * self.page_size, dtype=self._dtype,
-            device=self.device,
+            device=self.device, kv_quant=config.kv_quantization, page_size=self.page_size,
         )
         self.allocator = PageAllocator(self.num_pages, self.page_size)
         self._inv_freq = torch.from_numpy(rope_inv_freq(self.model_cfg)).to(self.device)
@@ -145,7 +148,9 @@ class TorchEngine:
 
     def _check_kernel_shapes(self) -> None:
         """Refuse at construction what the CUDA kernels do not take, rather
-        than failing the first request."""
+        than failing the first request. The int8 kernels (K5-K7) take the
+        shapes their bf16 counterparts (K1-K3) take: bf16 activations,
+        these head dims and GQA groups, any page size."""
         from dynamo_tpu_torch.ops import decode_attention
 
         m = self.model_cfg
@@ -163,10 +168,13 @@ class TorchEngine:
 
     def _auto_num_pages(self) -> int:
         cfg, m = self.config, self.model_cfg
-        page_bytes = (
-            m.num_layers * cfg.page_size * m.num_kv_heads * m.head_dim * 2
-            * torch.empty((), dtype=self._dtype).element_size()
-        )
+        if cfg.kv_quantization == "int8":
+            # 1-byte K and V rows plus one f32 K and V scale per kv head
+            token_bytes = 2 * m.num_kv_heads * (m.head_dim + 4)
+        else:
+            token_bytes = (2 * m.num_kv_heads * m.head_dim
+                           * torch.empty((), dtype=self._dtype).element_size())
+        page_bytes = m.num_layers * cfg.page_size * token_bytes
         fallback = cfg.max_batch_size * cfg.max_pages_per_seq + 17
         if self.device.type != "cuda":
             return fallback
@@ -439,14 +447,14 @@ class TorchEngine:
         t0 = time.perf_counter()
         dev = self.device
         pos_t = torch.from_numpy(pos_arr).to(dev)
-        attn = llama.AttnSpec.gather(
-            None, write_tables=torch.from_numpy(wtables.reshape(-1)).to(dev),
-            page_size=ps, block_tables=torch.from_numpy(btables).to(dev),
-            q_pos0=pos_t[:, 0].contiguous(), lengths=torch.from_numpy(t_valid).to(dev),
+        attn = llama.AttnSpec.page_write(
+            torch.from_numpy(wtables.reshape(-1)).to(dev),
+            torch.from_numpy(btables).to(dev), pos_t[:, 0].contiguous(),
+            torch.from_numpy(t_valid).to(dev), ps,
         )
         hidden, _ = llama.forward(
             self.params, self.model_cfg, torch.from_numpy(tok_arr).to(dev), pos_t,
-            self.kv, None, attn, inv_freq=self._inv_freq,
+            self.kv, attn, inv_freq=self._inv_freq,
         )
         last_h = hidden[torch.arange(n, device=dev), torch.from_numpy(last_idx).to(dev)]
         lg = llama.logits(self.params, self.model_cfg, last_h)
@@ -591,7 +599,7 @@ class TorchEngine:
             )
             hidden, _ = llama.forward(
                 self.params, self.model_cfg, tokens[:, None], positions[:, None],
-                self.kv, None, attn, inv_freq=self._inv_freq,
+                self.kv, attn, inv_freq=self._inv_freq,
             )
             lg = llama.logits(self.params, self.model_cfg, hidden[:, 0])
             tokens = sample_tokens(lg, self._gen, temp, topk, topp, all_greedy=all_greedy)

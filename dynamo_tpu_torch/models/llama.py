@@ -6,94 +6,125 @@ per-layer list under "layers") at the JAX package's layout: linear weights
 are [in_features, out_features] so matmuls are `x @ w`, and KV pools are
 per-layer [num_slots, K*Hd] tensors updated in place.
 
-Attention goes through one of the `AttnSpec` modes below; the two the
-engine's main path uses run the hand-written kernels on a GPU (page-scatter
-write + flash prefill for prefill chunks, fused write + decode attention
-for decode steps) and their plain versions on the CPU.
+Attention goes through one of the two `AttnSpec` modes below; both run the
+hand-written kernels on a GPU (page-scatter write + flash prefill for
+prefill chunks, fused write + decode attention for decode steps) and their
+plain versions on the CPU. With int8 KV (`init_kv_cache(kv_quant="int8")`)
+the fresh rows are quantized before they reach the pools, as in the
+reference, and the kernels' int8 forms read them with their scales.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.ops.attention import paged_attention, write_kv_slots
 from dynamo_tpu_torch.ops.decode_attention import fused_paged_decode_attention
 from dynamo_tpu_torch.ops.kv_write import paged_kv_write
 from dynamo_tpu_torch.ops.norm import rms_norm
 from dynamo_tpu_torch.ops.prefill_attention import flash_prefill_attention
+from dynamo_tpu_torch.ops.quant import (
+    init_kv_scale_pool,
+    quantize_kv_rows,
+    scales_to_page_tiles,
+)
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
 
 Params = dict[str, Any]
 
 
 class AttnSpec:
-    """How attention reads (and the step writes) the paged KV pool:
+    """How a step writes the paged KV pool and attends over it:
 
-    - gather: `slot_matrix` [B, C] position-ordered slots; new KV is
-      row-scattered by `write_kv_slots`, then the plain oracle
-      `paged_attention` reads it (`lengths` = ragged query lengths).
-    - page-write prefill: `write_tables` [n_pages] page ids -> whole pages
-      go through the page-scatter kernel (K1), then `block_tables` [B, W],
-      `q_pos0` [B] and `lengths` [B] (valid chunk rows) drive the flash
-      prefill kernel (K2) over them.
-    - paged decode (T == 1): `block_tables` + `lengths` (attended KV count)
-      + `write_pos` [B] (-1 = skip) -> the fused write + decode attention
-      kernel (K3).
+    - page-write prefill (`page_write`): `write_tables` [n_pages] page ids
+      -> the chunk's whole pages go through the page-scatter kernel (K1,
+      or K7 for int8), then `block_tables` [B, W], `q_pos0` [B] and
+      `lengths` [B] (valid chunk rows) drive the flash prefill kernel (K2,
+      or K6) over them.
+    - paged decode (`paged_decode`, T == 1): `block_tables` + `lengths`
+      (attended KV count) + `write_pos` [B] (-1 = skip) -> the fused
+      write + decode attention kernel (K3, or K5).
     """
 
-    def __init__(self, slot_matrix=None, block_tables=None, lengths=None,
-                 write_pos=None, page_size: int = 16, write_tables=None,
-                 q_pos0=None):
-        self.slot_matrix = slot_matrix
+    def __init__(self, block_tables, lengths, page_size: int, write_pos=None,
+                 write_tables=None, q_pos0=None):
         self.block_tables = block_tables
         self.lengths = lengths
-        self.write_pos = write_pos
         self.page_size = page_size
+        self.write_pos = write_pos
         self.write_tables = write_tables
         self.q_pos0 = q_pos0
 
     @classmethod
-    def gather(cls, slot_matrix, write_tables=None, page_size: int = 16,
-               block_tables=None, q_pos0=None, lengths=None):
-        return cls(slot_matrix=slot_matrix, write_tables=write_tables,
-                   page_size=page_size, block_tables=block_tables,
-                   q_pos0=q_pos0, lengths=lengths)
+    def page_write(cls, write_tables, block_tables, q_pos0, lengths, page_size):
+        """Counterpart of the JAX package's `AttnSpec.gather(None,
+        write_tables=..., block_tables=..., q_pos0=...)` flash prefill."""
+        return cls(block_tables=block_tables, lengths=lengths, page_size=page_size,
+                   write_tables=write_tables, q_pos0=q_pos0)
 
     @classmethod
     def paged_decode(cls, block_tables, lengths, page_size, write_pos):
         """Counterpart of the JAX package's `AttnSpec.pallas_decode`."""
         return cls(block_tables=block_tables, lengths=lengths,
-                   write_pos=write_pos, page_size=page_size)
+                   page_size=page_size, write_pos=write_pos)
 
 
 class KVCache(NamedTuple):
     """Per-layer flat slot pools: k/v are length-L tuples of
     [num_slots, K*Hd] tensors, updated in place by every step. A page is
     [page_size, K*Hd] contiguous rows, so the [num_pages, page_size, K*Hd]
-    view the kernels take is free."""
+    view the kernels take is free. With int8 KV, k/v hold int8 and ks/vs
+    the per-token-per-kv-head f32 scale pools [num_pages, K, page_size]
+    (ops/quant.py); ks/vs are None with bf16/f32 pools."""
 
     k: tuple
     v: tuple
+    ks: Optional[tuple] = None
+    vs: Optional[tuple] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.ks is not None
 
 
 def init_kv_cache(cfg: ModelConfig, num_slots: int, *, device,
-                  dtype=torch.bfloat16) -> KVCache:
+                  dtype=torch.bfloat16, kv_quant: Optional[str] = None,
+                  page_size: Optional[int] = None) -> KVCache:
+    """Zeroed pools; `kv_quant="int8"` makes int8 pools plus scale pools of
+    1.0 (the scale pools are page-blocked, so `page_size` is required)."""
     shape = (num_slots, cfg.num_kv_heads * cfg.head_dim)
+    n = cfg.num_layers
+    if kv_quant is None:
+        return KVCache(
+            k=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(n)),
+            v=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(n)),
+        )
+    if kv_quant != "int8":
+        raise ValueError(f"unknown kv_quant {kv_quant!r}; the port has 'int8'")
+    if not page_size or num_slots % page_size:
+        raise ValueError("int8 KV needs a page_size that divides num_slots")
+
+    def scales():
+        return init_kv_scale_pool(num_slots // page_size, page_size, cfg.num_kv_heads,
+                                  device=device)
+
     return KVCache(
-        k=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_layers)),
-        v=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_layers)),
+        k=tuple(torch.zeros(shape, dtype=torch.int8, device=device) for _ in range(n)),
+        v=tuple(torch.zeros(shape, dtype=torch.int8, device=device) for _ in range(n)),
+        ks=tuple(scales() for _ in range(n)),
+        vs=tuple(scales() for _ in range(n)),
     )
 
 
 def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
-                write_slots, attn: AttnSpec, positions):
+                attn: AttnSpec, kv_ks=None, kv_vs=None):
     b, t, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    quant = kv_ks is not None
     q = x @ lp["wq"]
     k = x @ lp["wk"]
     v = x @ lp["wv"]
@@ -105,46 +136,57 @@ def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
     k = apply_rope(k.reshape(b, t, kh, hd), cos, sin)
     v = v.reshape(b, t, kh, hd)
 
-    if attn.block_tables is not None and attn.write_pos is not None:
-        out, kv_k, kv_v = fused_paged_decode_attention(
-            q[:, 0].contiguous(),
-            k[:, 0].reshape(b, kh * hd).contiguous(),
-            v[:, 0].reshape(b, kh * hd).contiguous(),
-            kv_k, kv_v, attn.block_tables, attn.lengths, attn.write_pos,
+    if attn.write_pos is not None:
+        new_k = k[:, 0].reshape(b, kh * hd).contiguous()
+        new_v = v[:, 0].reshape(b, kh * hd).contiguous()
+        scales = ()
+        if quant:
+            # the kernel stores the quantized rows and their scales and
+            # attends the new token through them; K and V rows quantize in
+            # one call (one set of eager launches on a host-bound step)
+            rows, sc = quantize_kv_rows(torch.stack((new_k, new_v)), kh)
+            new_k, new_v = rows
+            scales = (kv_ks, kv_vs, sc[0], sc[1])
+        out = fused_paged_decode_attention(
+            q[:, 0].contiguous(), new_k, new_v,
+            kv_k, kv_v, attn.block_tables, attn.lengths, attn.write_pos, *scales,
             page_size=attn.page_size,
-        )
-        out = out[:, None]
-    elif attn.write_tables is not None:
+        )[0][:, None]
+    else:
         # whole [page, K*Hd] blocks: rows pad up to whole pages; the tail
         # garbage lands in the sequence's own not-yet-valid positions
-        # (masked by position) or in the trash page
+        # (masked by position) or in the trash page. int8 rows are
+        # quantized first and padded after, with scale 1.0 (the pool's
+        # initial value), as in the reference.
         ps = attn.page_size
         t_pad = -(-t // ps) * ps
         k2 = k.reshape(b, t, kh * hd)
         v2 = v.reshape(b, t, kh * hd)
+        if quant:
+            (k2, v2), (ks2, vs2) = quantize_kv_rows(torch.stack((k2, v2)), kh)
         if t_pad != t:
             k2 = F.pad(k2, (0, 0, 0, t_pad - t))
             v2 = F.pad(v2, (0, 0, 0, t_pad - t))
+            if quant:
+                ks2 = F.pad(ks2, (0, 0, 0, t_pad - t), value=1.0)
+                vs2 = F.pad(vs2, (0, 0, 0, t_pad - t), value=1.0)
         n_pg = b * (t_pad // ps)
-        kv_k, kv_v = paged_kv_write(
+        scale_pages = pools = ()
+        if quant:
+            scale_pages = (scales_to_page_tiles(ks2.reshape(b * t_pad, kh), ps),
+                           scales_to_page_tiles(vs2.reshape(b * t_pad, kh), ps))
+            pools = (kv_ks, kv_vs)
+        paged_kv_write(
             kv_k, kv_v, attn.write_tables,
             k2.reshape(n_pg, ps, kh * hd).contiguous(),
             v2.reshape(n_pg, ps, kh * hd).contiguous(),
-            page_size=ps,
+            *pools, *scale_pages, page_size=ps,
         )
         out = flash_prefill_attention(
             q.contiguous(), kv_k, kv_v, attn.block_tables, attn.q_pos0,
-            attn.lengths, page_size=ps,
+            attn.lengths, *pools, page_size=ps,
         )
-    else:
-        write_kv_slots(
-            kv_k, kv_v, write_slots,
-            k.reshape(b * t, kh * hd), v.reshape(b * t, kh * hd),
-        )
-        out = paged_attention(
-            q, kv_k, kv_v, attn.slot_matrix, positions, q_lens=attn.lengths,
-        )
-    return out.reshape(b, t, h * hd) @ lp["wo"], kv_k, kv_v
+    return out.reshape(b, t, h * hd) @ lp["wo"]
 
 
 _ACTIVATIONS = {
@@ -159,16 +201,14 @@ def _mlp_block(lp: Params, x, act: str = "silu"):
     return (gate * (x @ lp["w_up"])) @ lp["w_down"]
 
 
-def layer_step(lp, cfg, x, cos, sin, kv_k, kv_v, write_slots, attn, positions):
-    """One transformer layer (attention + FFN, pre-norm residuals)."""
+def layer_step(lp, cfg, x, cos, sin, kv_k, kv_v, attn, kv_ks=None, kv_vs=None):
+    """One transformer layer (attention + FFN, pre-norm residuals); the
+    layer's pools are updated in place."""
     w_off = cfg.norm_weight_offset
     attn_in = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps, weight_offset=w_off)
-    attn_out, kv_k, kv_v = _attn_block(
-        lp, cfg, attn_in, cos, sin, kv_k, kv_v, write_slots, attn, positions
-    )
-    x = x + attn_out
+    x = x + _attn_block(lp, cfg, attn_in, cos, sin, kv_k, kv_v, attn, kv_ks, kv_vs)
     mlp_in = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps, weight_offset=w_off)
-    return x + _mlp_block(lp, mlp_in, act=cfg.hidden_act), kv_k, kv_v
+    return x + _mlp_block(lp, mlp_in, act=cfg.hidden_act)
 
 
 def forward(
@@ -177,8 +217,7 @@ def forward(
     tokens: torch.Tensor,       # [B, T] int
     positions: torch.Tensor,    # [B, T] int absolute positions
     kv: KVCache,
-    write_slots: torch.Tensor,  # [B*T] int flat slots of the new tokens (0 = trash)
-    attn,                       # AttnSpec, or a raw [B, C] slot matrix (gather)
+    attn: AttnSpec,
     inv_freq: torch.Tensor | None = None,  # rope_inv_freq(cfg) on x's device
 ) -> tuple[torch.Tensor, KVCache]:
     """One model step. Returns (hidden [B, T, D] after the final norm, kv);
@@ -188,8 +227,6 @@ def forward(
     step would make the host wait for the device each time."""
     if cfg.num_experts:
         raise NotImplementedError("MoE models are not ported to dynamo_tpu_torch yet")
-    if not isinstance(attn, AttnSpec):
-        attn = AttnSpec.gather(attn)
     x = params["embed"][tokens.long()]
     if cfg.scale_embeddings:
         # gemma: embedding outputs scaled by sqrt(d), rounded to x's dtype
@@ -198,9 +235,8 @@ def forward(
         inv_freq = torch.from_numpy(rope_inv_freq(cfg)).to(x.device)
     cos, sin = rope_cos_sin(inv_freq, positions)  # [B, T, Hd]
     for l, lp in enumerate(params["layers"]):
-        x, _, _ = layer_step(
-            lp, cfg, x, cos, sin, kv.k[l], kv.v[l], write_slots, attn, positions
-        )
+        scales = (kv.ks[l], kv.vs[l]) if kv.quantized else ()
+        x = layer_step(lp, cfg, x, cos, sin, kv.k[l], kv.v[l], attn, *scales)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps,
                  weight_offset=cfg.norm_weight_offset)
     return x, kv

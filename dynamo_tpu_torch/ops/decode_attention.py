@@ -1,12 +1,18 @@
-"""K3: paged decode attention fused with the new token's KV write.
+"""K3 and K5: paged decode attention fused with the new token's KV write.
 
 Port of `dynamo_tpu/ops/pallas_attention.py::fused_paged_decode_attention`
-(bf16 branch) and its read-only use `paged_decode_attention`; the CUDA
-kernel is `csrc/decode_attention.cu`. One query per sequence: when
-`write_pos[b] >= 0` the new K/V row is stored at that position (the caller
-keeps `write_pos < lengths`, as the engine does), then the query attends
-`lengths[b]` keys, the new one included. Rows with `lengths == 0` output 0.
-The pools are updated in place.
+(K3 the bf16 branch `_decode_kernel`, K5 the int8 branch `_decode_kernel_q`)
+and its read-only use `paged_decode_attention`; both CUDA kernels are in
+`csrc/decode_attention.cu`. One query per sequence: when `write_pos[b] >= 0`
+the new K/V row is stored at that position (the caller keeps `write_pos <
+lengths`, as the engine does), then the query attends `lengths[b]` keys,
+the new one included. Rows with `lengths == 0` output 0. The pools are
+updated in place.
+
+With scale pools (int8 KV, ops/quant.py layout) the pools and the new rows
+are int8 and `new_ks`/`new_vs` [B, K] are the new rows' scales: they are
+stored beside the row, and the new token is attended through its
+quantized row, as in the reference.
 """
 
 from __future__ import annotations
@@ -17,34 +23,34 @@ import torch
 
 from dynamo_tpu_torch.ops import _cuda
 from dynamo_tpu_torch.ops.attention import slots_from_pages
+from dynamo_tpu_torch.ops.quant import (
+    dequantize_kv_rows,
+    gather_kv_scales,
+    scatter_kv_scales,
+)
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8
 
 
-def fused_paged_decode_attention_plain(
-    q, new_k, new_v, k_cache, v_cache, block_tables, lengths, write_pos, *,
-    page_size,
-):
-    """Plain PyTorch version: row write, then gathered attention over the
-    first `lengths[b]` slots. As in the reference, q is scaled and rounded
-    to its own dtype before the f32 dot products."""
-    fused_paged_decode_attention_plain.calls += 1
-    b, h, hd = q.shape
-    kh = k_cache.shape[1] // hd
-    g = h // kh
+def _write_rows(k_cache, v_cache, block_tables, write_pos, new_k, new_v, page_size):
+    """Store each writing row's new K/V at its position; returns the rows
+    that wrote and their flat slots."""
     rows = torch.nonzero(write_pos >= 0).flatten()
-    if rows.numel():
-        wp = write_pos[rows].long()
-        page = block_tables[rows, wp // page_size].long()
-        slots = page * page_size + wp % page_size
-        k_cache[slots] = new_k[rows].to(k_cache.dtype)
-        v_cache[slots] = new_v[rows].to(v_cache.dtype)
-    smat = slots_from_pages(block_tables, page_size).long()  # [B, C]
-    c = smat.shape[1]
-    k = k_cache[smat].reshape(b, c, kh, hd).float()
-    v = v_cache[smat].reshape(b, c, kh, hd).float()
-    qs = (q.float() * hd ** -0.5).to(q.dtype).float().reshape(b, kh, g, hd)
+    wp = write_pos[rows].long()
+    slots = block_tables[rows, wp // page_size].long() * page_size + wp % page_size
+    k_cache[slots] = new_k[rows].to(k_cache.dtype)
+    v_cache[slots] = new_v[rows].to(v_cache.dtype)
+    return rows, slots
+
+
+def _attend(q, k, v, lengths):
+    """One-query attention over gathered f32 KV [B, C, K, Hd], the first
+    `lengths[b]` positions. As in the reference, q is scaled and rounded to
+    its own dtype before the f32 dot products."""
+    b, h, hd = q.shape
+    c, kh = k.shape[1], k.shape[2]
+    qs = (q.float() * hd ** -0.5).to(q.dtype).float().reshape(b, kh, h // kh, hd)
     s = torch.einsum("bkgd,bckd->bkgc", qs, k)
     valid = (torch.arange(c, device=q.device)[None, :] < lengths.long()[:, None])
     valid = valid[:, None, None, :]
@@ -53,51 +59,109 @@ def fused_paged_decode_attention_plain(
     p = torch.exp(s - m) * valid
     denom = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
     out = torch.einsum("bkgc,bckd->bkgd", p / denom, v)
-    return out.reshape(b, h, hd).to(q.dtype), k_cache, v_cache
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
+def fused_paged_decode_attention_plain(
+    q, new_k, new_v, k_cache, v_cache, block_tables, lengths, write_pos, *,
+    page_size,
+):
+    """Plain PyTorch version of K3: row write, then gathered attention over
+    the first `lengths[b]` slots."""
+    fused_paged_decode_attention_plain.calls += 1
+    b, _, hd = q.shape
+    kh = k_cache.shape[1] // hd
+    _write_rows(k_cache, v_cache, block_tables, write_pos, new_k, new_v, page_size)
+    smat = slots_from_pages(block_tables, page_size).long()  # [B, C]
+    k = k_cache[smat].reshape(b, smat.shape[1], kh, hd).float()
+    v = v_cache[smat].reshape(b, smat.shape[1], kh, hd).float()
+    return _attend(q, k, v, lengths), k_cache, v_cache
 
 
 fused_paged_decode_attention_plain.calls = 0
 
 
+def fused_paged_decode_attention_q_plain(
+    q, new_k, new_v, k_cache, v_cache, block_tables, lengths, write_pos,
+    k_scales, v_scales, new_ks, new_vs, *, page_size,
+):
+    """Plain PyTorch version of K5: int8 row and scale write, then the
+    gathered rows dequantized to f32 and K3's attention over them."""
+    fused_paged_decode_attention_q_plain.calls += 1
+    b, _, hd = q.shape
+    kh = k_cache.shape[1] // hd
+    rows, slots = _write_rows(
+        k_cache, v_cache, block_tables, write_pos, new_k, new_v, page_size)
+    scatter_kv_scales(k_scales, slots, new_ks[rows])
+    scatter_kv_scales(v_scales, slots, new_vs[rows])
+    flat = slots_from_pages(block_tables, page_size).long().reshape(-1)
+    c = flat.shape[0] // b
+    k = dequantize_kv_rows(k_cache[flat], gather_kv_scales(k_scales, flat))
+    v = dequantize_kv_rows(v_cache[flat], gather_kv_scales(v_scales, flat))
+    out = _attend(q, k.reshape(b, c, kh, hd), v.reshape(b, c, kh, hd), lengths)
+    return out, k_cache, v_cache, k_scales, v_scales
+
+
+fused_paged_decode_attention_q_plain.calls = 0
+
+
 def fused_paged_decode_attention(
-    q, new_k, new_v, k_cache, v_cache, block_tables, lengths, write_pos, *,
-    page_size,
+    q, new_k, new_v, k_cache, v_cache, block_tables, lengths, write_pos,
+    k_scales=None, v_scales=None, new_ks=None, new_vs=None, *, page_size,
 ):
     """q [B, H, Hd] (rope applied, unscaled); new_k/new_v [B, K*Hd];
     pools [num_slots, K*Hd]; block_tables [B, W], lengths and write_pos [B]
-    int32. Returns (out [B, H, Hd], k_cache, v_cache) with the pools
-    updated in place. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (bf16, head_dim in {32, 64, 128}, H/K <= 8)."""
+    int32. With scale pools `k_scales`/`v_scales` [num_pages, K, page_size]
+    f32, the pools and new rows are int8 and `new_ks`/`new_vs` [B, K] f32.
+    Returns (out [B, H, Hd], k_cache, v_cache[, k_scales, v_scales]) with
+    the pools updated in place. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bf16 q, head_dim in {32, 64, 128},
+    H/K <= 8)."""
+    quant = k_scales is not None
     if q.device.type == "cpu":
+        if quant:
+            return fused_paged_decode_attention_q_plain(
+                q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
+                write_pos, k_scales, v_scales, new_ks, new_vs, page_size=page_size,
+            )
         return fused_paged_decode_attention_plain(
             q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
             write_pos, page_size=page_size,
         )
     out = _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
-                  write_pos, page_size)
+                  write_pos, page_size, k_scales, v_scales, new_ks, new_vs)
+    if quant:
+        return out, k_cache, v_cache, k_scales, v_scales
     return out, k_cache, v_cache
 
 
-def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths, *, page_size):
+def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths,
+                           k_scales=None, v_scales=None, *, page_size):
     """Read-only decode attention (KV already written): the same kernel
     with every write skipped. Returns [B, H, Hd]."""
     b = q.shape[0]
     no_write = torch.full((b,), -1, dtype=torch.int32, device=q.device)
     if q.device.type == "cpu":
-        kw = k_cache.shape[1]
-        zeros = torch.zeros((b, kw), dtype=k_cache.dtype)
+        zeros = torch.zeros((b, k_cache.shape[1]), dtype=k_cache.dtype)
+        if k_scales is not None:
+            ones = torch.ones((b, k_scales.shape[1]))
+            return fused_paged_decode_attention_q_plain(
+                q, zeros, zeros, k_cache, v_cache, block_tables, lengths,
+                no_write, k_scales, v_scales, ones, ones, page_size=page_size,
+            )[0]
         return fused_paged_decode_attention_plain(
             q, zeros, zeros, k_cache, v_cache, block_tables, lengths,
             no_write, page_size=page_size,
         )[0]
     return _launch(q, None, None, k_cache, v_cache, block_tables, lengths,
-                   no_write, page_size)
+                   no_write, page_size, k_scales, v_scales, None, None)
 
 
 def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
-            write_pos, page_size):
+            write_pos, page_size, k_scales, v_scales, new_ks, new_vs):
     req = _cuda.require
     req(q.device.type == "cuda", f"unsupported device {q.device}")
+    quant = k_scales is not None
     b, h, hd = q.shape
     num_slots, kw = k_cache.shape
     req(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
@@ -108,36 +172,62 @@ def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
     req(v_cache.shape == k_cache.shape, "k/v pools differ in shape")
     req(block_tables.dim() == 2 and block_tables.shape[0] == b, "block_tables must be [B, W]")
     req(lengths.shape == (b,) and write_pos.shape == (b,), "lengths/write_pos must be [B]")
+    pool_dtype = torch.int8 if quant else torch.bfloat16
     tensors = [q, k_cache, v_cache, block_tables, lengths, write_pos]
     if new_k is not None:
         req(new_k.shape == (b, kw) and new_v.shape == (b, kw), "new rows must be [B, K*Hd]")
         tensors += [new_k, new_v]
         for x in (new_k, new_v):
-            req(x.dtype == torch.bfloat16, "new rows must be bfloat16")
-    for x in (q, k_cache, v_cache):
-        req(x.dtype == torch.bfloat16, "q and pools must be bfloat16")
+            req(x.dtype == pool_dtype, f"new rows must be {pool_dtype}")
+    req(q.dtype == torch.bfloat16, "q must be bfloat16")
+    for x in (k_cache, v_cache):
+        req(x.dtype == pool_dtype, f"pools must be {pool_dtype}")
+    if quant:
+        req(v_scales is not None, "int8 KV needs both scale pools")
+        req(k_scales.shape == (num_slots // page_size, kh, page_size)
+            and v_scales.shape == k_scales.shape,
+            f"scale pools must be [{num_slots // page_size}, {kh}, {page_size}]")
+        tensors += [k_scales, v_scales]
+        scales = [k_scales, v_scales]
+        if new_k is not None:
+            req(new_ks is not None and new_vs is not None, "int8 rows need their scales")
+            req(new_ks.shape == (b, kh) and new_vs.shape == (b, kh), "new scales must be [B, K]")
+            tensors += [new_ks, new_vs]
+            scales += [new_ks, new_vs]
+        for x in scales:
+            req(x.dtype == torch.float32, "scales must be float32")
     for x in (block_tables, lengths, write_pos):
         req(x.dtype == torch.int32, "tables, lengths and write_pos must be int32")
     for x in tensors:
         req(x.device == q.device, "all tensors must be on one device")
         req(x.is_contiguous(), "tensors must be contiguous")
+
+    def ptr(x):
+        return x.data_ptr() if x is not None else None
+
     out = torch.empty_like(q)
     lib = _launcher()
+    tail = (ptr(block_tables), ptr(lengths), ptr(write_pos), ptr(out),
+            b, h, kh, hd, block_tables.shape[1], page_size, hd ** -0.5,
+            _cuda.stream_ptr(q.device))
+    if quant:
+        err = lib.fused_decode_q_launch(
+            ptr(q), ptr(new_k), ptr(new_v), ptr(k_cache), ptr(v_cache),
+            ptr(new_ks), ptr(new_vs), ptr(k_scales), ptr(v_scales), *tail,
+        )
+        _cuda.check(err, "fused_paged_decode_attention (int8)")
+        fused_paged_decode_attention.launches_q += 1
+        return out
     err = lib.fused_decode_launch(
-        q.data_ptr(),
-        new_k.data_ptr() if new_k is not None else None,
-        new_v.data_ptr() if new_v is not None else None,
-        k_cache.data_ptr(), v_cache.data_ptr(), block_tables.data_ptr(),
-        lengths.data_ptr(), write_pos.data_ptr(), out.data_ptr(),
-        b, h, kh, hd, block_tables.shape[1], page_size, hd ** -0.5,
-        _cuda.stream_ptr(q.device),
+        ptr(q), ptr(new_k), ptr(new_v), ptr(k_cache), ptr(v_cache), *tail,
     )
     _cuda.check(err, "fused_paged_decode_attention")
     fused_paged_decode_attention.launches += 1
     return out
 
 
-fused_paged_decode_attention.launches = 0
+fused_paged_decode_attention.launches = 0    # K3 (bf16 pools)
+fused_paged_decode_attention.launches_q = 0  # K5 (int8 pools + scale pools)
 
 
 def _launcher():
@@ -149,4 +239,10 @@ def _launcher():
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+        fq = lib.fused_decode_q_launch
+        fq.argtypes = (
+            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fq.restype = ctypes.c_int
     return lib

@@ -1,9 +1,12 @@
-"""K1: page-scatter KV write, the prefill-side cache update.
+"""K1 and K7: page-scatter KV write, the prefill-side cache update.
 
-Port of `dynamo_tpu/ops/pallas_kv_write.py::paged_kv_write` (bf16 branch);
-the CUDA kernel is `csrc/kv_write.cu`. For each page i of a prefill chunk
-the source block `new_k[i]`/`new_v[i]` ([page_size, K*Hd]) is copied into
-pool page `page_table[i]`, in place. Page 0 is the trash page.
+Port of `dynamo_tpu/ops/pallas_kv_write.py::paged_kv_write`: K1 is the
+bf16 branch (`_kernel`), K7 the int8 branch (`_kernel_q`); both CUDA
+kernels are in `csrc/kv_write.cu`. For each page i of a prefill chunk the
+source block `new_k[i]`/`new_v[i]` ([page_size, K*Hd]) is copied into pool
+page `page_table[i]`, in place. With scale pools (int8 KV) the page's
+scale tiles `new_ks[i]`/`new_vs[i]` ([K, page_size] f32, ops/quant.py
+layout) ride the same page-table routing. Page 0 is the trash page.
 
 Correct-use contract (the engine's chunking guarantees both):
 - chunk starts are page-aligned (prefill_chunk % page_size == 0);
@@ -22,27 +25,57 @@ from dynamo_tpu_torch.ops import _cuda
 
 
 def paged_kv_write_plain(k_cache, v_cache, page_table, new_k, new_v, *, page_size):
-    """Plain PyTorch version: whole-page copies through the free
+    """Plain PyTorch version of K1: whole-page copies through the free
     [num_pages, page_size, K*Hd] view of each pool, in page-table order
     (a page listed twice, e.g. trash page 0, keeps the last write)."""
     paged_kv_write_plain.calls += 1
-    kp = k_cache.view(-1, page_size, k_cache.shape[1])
-    vp = v_cache.view(-1, page_size, v_cache.shape[1])
-    for i, page in enumerate(page_table.tolist()):
-        kp[page] = new_k[i]
-        vp[page] = new_v[i]
+    _copy_pages(k_cache, v_cache, page_table, new_k, new_v, page_size)
     return k_cache, v_cache
 
 
 paged_kv_write_plain.calls = 0
 
 
-def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v, *, page_size):
-    """Scatter whole pages into the slot pools [num_slots, K*Hd], in place;
-    returns the (same) pools. `page_table` [n_pages] int32 destination page
-    ids, `new_k`/`new_v` [n_pages, page_size, K*Hd] source blocks. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+def paged_kv_write_q_plain(k_cache, v_cache, page_table, new_k, new_v,
+                           ks_cache, vs_cache, new_ks, new_vs, *, page_size):
+    """Plain PyTorch version of K7: K1's page copies plus the scale tiles,
+    page by page in the same order."""
+    paged_kv_write_q_plain.calls += 1
+    _copy_pages(k_cache, v_cache, page_table, new_k, new_v, page_size)
+    for i, page in enumerate(page_table.tolist()):
+        ks_cache[page] = new_ks[i]
+        vs_cache[page] = new_vs[i]
+    return k_cache, v_cache, ks_cache, vs_cache
+
+
+paged_kv_write_q_plain.calls = 0
+
+
+def _copy_pages(k_cache, v_cache, page_table, new_k, new_v, page_size):
+    kp = k_cache.view(-1, page_size, k_cache.shape[1])
+    vp = v_cache.view(-1, page_size, v_cache.shape[1])
+    for i, page in enumerate(page_table.tolist()):
+        kp[page] = new_k[i]
+        vp[page] = new_v[i]
+
+
+def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
+                   ks_cache=None, vs_cache=None, new_ks=None, new_vs=None, *,
+                   page_size):
+    """Scatter whole pages into the slot pools [num_slots, K*Hd], in place.
+    `page_table` [n_pages] int32 destination page ids, `new_k`/`new_v`
+    [n_pages, page_size, K*Hd] source blocks. With scale pools
+    `ks_cache`/`vs_cache` [num_pages, K, page_size] f32 the pools are int8
+    and `new_ks`/`new_vs` [n_pages, K, page_size] are the pages' scale
+    tiles. Returns the (same) pools: (k, v), or (k, v, ks, vs) with scales.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    quant = ks_cache is not None
     if k_cache.device.type == "cpu":
+        if quant:
+            return paged_kv_write_q_plain(
+                k_cache, v_cache, page_table, new_k, new_v, ks_cache, vs_cache,
+                new_ks, new_vs, page_size=page_size,
+            )
         return paged_kv_write_plain(
             k_cache, v_cache, page_table, new_k, new_v, page_size=page_size
         )
@@ -51,34 +84,60 @@ def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v, *, page_size):
     dev = k_cache.device
     num_slots, kw = k_cache.shape
     n = page_table.shape[0]
+    num_pages = num_slots // page_size
     req(num_slots % page_size == 0, "pool rows must be whole pages")
     req(v_cache.shape == k_cache.shape, "k/v pools differ in shape")
     req(new_k.shape == (n, page_size, kw) and new_v.shape == new_k.shape,
         f"source pages must be [{n}, {page_size}, {kw}], got {tuple(new_k.shape)}")
-    for t in (k_cache, v_cache, new_k, new_v, page_table):
-        req(t.device == dev, "all tensors must be on one device")
-        req(t.is_contiguous(), "tensors must be contiguous")
+    tensors = [k_cache, v_cache, new_k, new_v, page_table]
     for t in (v_cache, new_k, new_v):
         req(t.dtype == k_cache.dtype, "pools and source pages differ in dtype")
-    req(k_cache.dtype in (torch.bfloat16, torch.float16, torch.float32),
-        f"unsupported pool dtype {k_cache.dtype}")
+    if quant:
+        req(k_cache.dtype == torch.int8, "pools with scale pools must be int8")
+        for t in (vs_cache, new_ks, new_vs):
+            req(t is not None, "int8 KV needs both scale pools and both scale tiles")
+        kh = ks_cache.shape[1]
+        req(ks_cache.shape == (num_pages, kh, page_size) and vs_cache.shape == ks_cache.shape,
+            f"scale pools must be [{num_pages}, K, {page_size}]")
+        req(new_ks.shape == (n, kh, page_size) and new_vs.shape == new_ks.shape,
+            f"scale tiles must be [{n}, {kh}, {page_size}]")
+        for t in (ks_cache, vs_cache, new_ks, new_vs):
+            req(t.dtype == torch.float32, "scale pools and tiles must be float32")
+        tensors += [ks_cache, vs_cache, new_ks, new_vs]
+    else:
+        req(k_cache.dtype in (torch.bfloat16, torch.float16, torch.float32),
+            f"unsupported pool dtype {k_cache.dtype}")
+    for t in tensors:
+        req(t.device == dev, "all tensors must be on one device")
+        req(t.is_contiguous(), "tensors must be contiguous")
     req(page_table.dtype == torch.int32, "page_table must be int32")
     page_bytes = page_size * kw * k_cache.element_size()
     req(page_bytes % 16 == 0, "page bytes must be a multiple of 16")
     for t in (k_cache, v_cache, new_k, new_v):
         req(t.data_ptr() % 16 == 0, "tensors must be 16-byte aligned")
     lib = _launcher()
+    if quant:
+        err = lib.paged_kv_write_q_launch(
+            k_cache.data_ptr(), v_cache.data_ptr(), page_table.data_ptr(),
+            new_k.data_ptr(), new_v.data_ptr(), ks_cache.data_ptr(),
+            vs_cache.data_ptr(), new_ks.data_ptr(), new_vs.data_ptr(),
+            n, num_pages, page_bytes, kh * page_size, _cuda.stream_ptr(dev),
+        )
+        _cuda.check(err, "paged_kv_write (int8)")
+        paged_kv_write.launches_q += 1
+        return k_cache, v_cache, ks_cache, vs_cache
     err = lib.paged_kv_write_launch(
         k_cache.data_ptr(), v_cache.data_ptr(), page_table.data_ptr(),
         new_k.data_ptr(), new_v.data_ptr(),
-        n, num_slots // page_size, page_bytes, _cuda.stream_ptr(dev),
+        n, num_pages, page_bytes, _cuda.stream_ptr(dev),
     )
     _cuda.check(err, "paged_kv_write")
     paged_kv_write.launches += 1
     return k_cache, v_cache
 
 
-paged_kv_write.launches = 0
+paged_kv_write.launches = 0    # K1 (bf16 pools)
+paged_kv_write.launches_q = 0  # K7 (int8 pools + scale tiles)
 
 
 def _launcher():
@@ -87,4 +146,9 @@ def _launcher():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        fq = lib.paged_kv_write_q_launch
+        fq.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        )
+        fq.restype = ctypes.c_int
     return lib

@@ -1,11 +1,14 @@
-"""K2: causal chunked-prefill flash attention over the paged KV pool.
+"""K2 and K6: causal chunked-prefill flash attention over the paged KV pool.
 
-Port of `dynamo_tpu/ops/pallas_prefill.py::flash_prefill_attention` (bf16
-branch); the CUDA kernel is `csrc/prefill_attention.cu`. Row b's queries
-sit at positions `pos0[b] .. pos0[b] + t_valid[b] - 1` (pos0 need not be
-page-aligned) and attend keys with `k_pos <= q_pos` through the row's
-block table. Rows at or past `t_valid` are 0. q arrives with rope applied
-and unscaled; `hd**-0.5` is applied here.
+Port of `dynamo_tpu/ops/pallas_prefill.py::flash_prefill_attention`, its
+bf16 branch (K2) and its int8 branch (K6); both CUDA kernels are in
+`csrc/prefill_attention.cu`. Row b's queries sit at positions `pos0[b] ..
+pos0[b] + t_valid[b] - 1` (pos0 need not be page-aligned) and attend keys
+with `k_pos <= q_pos` through the row's block table. Rows at or past
+`t_valid` are 0. q arrives with rope applied and unscaled; `hd**-0.5` is
+applied here. With scale pools (int8 KV, ops/quant.py layout) the pools
+are int8: the K scale multiplies the scores and the V scale the
+probabilities, in f32, as in the reference.
 """
 
 from __future__ import annotations
@@ -16,25 +19,19 @@ import torch
 
 from dynamo_tpu_torch.ops import _cuda
 from dynamo_tpu_torch.ops.attention import slots_from_pages
+from dynamo_tpu_torch.ops.quant import dequantize_kv_rows, gather_kv_scales
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 64
 
 
-def flash_prefill_attention_plain(
-    q, k_cache, v_cache, block_tables, pos0, t_valid, *, page_size
-):
-    """Plain PyTorch version: gather the rows' slots, mask by absolute
-    position and by t_valid, softmax in f32."""
-    flash_prefill_attention_plain.calls += 1
+def _attend(q, k, v, pos0, t_valid):
+    """Causal attention of q [B, T, H, Hd] over gathered f32 KV
+    [B, C, K, Hd], masked by absolute position and by t_valid, softmax in
+    f32."""
     b, t, h, hd = q.shape
-    kh = k_cache.shape[1] // hd
-    g = h // kh
-    smat = slots_from_pages(block_tables, page_size).long()  # [B, C]
-    c = smat.shape[1]
-    k = k_cache[smat].reshape(b, c, kh, hd).float()
-    v = v_cache[smat].reshape(b, c, kh, hd).float()
-    qf = q.float().reshape(b, t, kh, g, hd) * hd ** -0.5
+    c, kh = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, t, kh, h // kh, hd) * hd ** -0.5
     s = torch.einsum("btkgd,bckd->bkgtc", qf, k)
     tt = torch.arange(t, device=q.device)
     q_pos = pos0.long()[:, None] + tt[None, :]                         # [B, T]
@@ -51,17 +48,57 @@ def flash_prefill_attention_plain(
     return out.reshape(b, t, h, hd).to(q.dtype)
 
 
+def flash_prefill_attention_plain(
+    q, k_cache, v_cache, block_tables, pos0, t_valid, *, page_size
+):
+    """Plain PyTorch version of K2: gather the rows' slots and attend."""
+    flash_prefill_attention_plain.calls += 1
+    b, _, _, hd = q.shape
+    kh = k_cache.shape[1] // hd
+    smat = slots_from_pages(block_tables, page_size).long()  # [B, C]
+    k = k_cache[smat].reshape(b, smat.shape[1], kh, hd).float()
+    v = v_cache[smat].reshape(b, smat.shape[1], kh, hd).float()
+    return _attend(q, k, v, pos0, t_valid)
+
+
 flash_prefill_attention_plain.calls = 0
 
 
+def flash_prefill_attention_q_plain(
+    q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales, v_scales, *,
+    page_size,
+):
+    """Plain PyTorch version of K6: gather the rows' slots, dequantize them
+    to f32 and attend as K2's plain version does."""
+    flash_prefill_attention_q_plain.calls += 1
+    b, _, _, hd = q.shape
+    kh = k_cache.shape[1] // hd
+    flat = slots_from_pages(block_tables, page_size).long().reshape(-1)
+    c = flat.shape[0] // b
+    k = dequantize_kv_rows(k_cache[flat], gather_kv_scales(k_scales, flat))
+    v = dequantize_kv_rows(v_cache[flat], gather_kv_scales(v_scales, flat))
+    return _attend(q, k.reshape(b, c, kh, hd), v.reshape(b, c, kh, hd), pos0, t_valid)
+
+
+flash_prefill_attention_q_plain.calls = 0
+
+
 def flash_prefill_attention(
-    q, k_cache, v_cache, block_tables, pos0, t_valid, *, page_size
+    q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales=None,
+    v_scales=None, *, page_size
 ):
     """q [B, T, H, Hd] (rope applied, unscaled); pools [num_slots, K*Hd];
-    block_tables [B, W], pos0 and t_valid [B] int32. Returns [B, T, H, Hd]
-    in q.dtype. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (bf16, head_dim in {32, 64, 128})."""
+    block_tables [B, W], pos0 and t_valid [B] int32; with scale pools
+    `k_scales`/`v_scales` [num_pages, K, page_size] f32 the pools are int8.
+    Returns [B, T, H, Hd] in q.dtype. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (bf16 q, head_dim in {32, 64, 128})."""
+    quant = k_scales is not None
     if q.device.type == "cpu":
+        if quant:
+            return flash_prefill_attention_q_plain(
+                q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales,
+                v_scales, page_size=page_size,
+            )
         return flash_prefill_attention_plain(
             q, k_cache, v_cache, block_tables, pos0, t_valid, page_size=page_size
         )
@@ -77,27 +114,47 @@ def flash_prefill_attention(
     req(v_cache.shape == k_cache.shape, "k/v pools differ in shape")
     req(block_tables.dim() == 2 and block_tables.shape[0] == b, "block_tables must be [B, W]")
     req(pos0.shape == (b,) and t_valid.shape == (b,), "pos0/t_valid must be [B]")
-    for x in (q, k_cache, v_cache):
-        req(x.dtype == torch.bfloat16, "q and pools must be bfloat16")
+    req(q.dtype == torch.bfloat16, "q must be bfloat16")
+    pool_dtype = torch.int8 if quant else torch.bfloat16
+    for x in (k_cache, v_cache):
+        req(x.dtype == pool_dtype, f"pools must be {pool_dtype}")
+    tensors = [q, k_cache, v_cache, block_tables, pos0, t_valid]
+    if quant:
+        req(v_scales is not None, "int8 KV needs both scale pools")
+        req(k_scales.shape == (num_slots // page_size, kh, page_size)
+            and v_scales.shape == k_scales.shape,
+            f"scale pools must be [{num_slots // page_size}, {kh}, {page_size}]")
+        for x in (k_scales, v_scales):
+            req(x.dtype == torch.float32, "scale pools must be float32")
+        tensors += [k_scales, v_scales]
     for x in (block_tables, pos0, t_valid):
         req(x.dtype == torch.int32, "tables and positions must be int32")
-    for x in (q, k_cache, v_cache, block_tables, pos0, t_valid):
+    for x in tensors:
         req(x.device == q.device, "all tensors must be on one device")
         req(x.is_contiguous(), "tensors must be contiguous")
     out = torch.empty_like(q)
     lib = _launcher()
+    tail = (block_tables.data_ptr(), pos0.data_ptr(), t_valid.data_ptr(),
+            out.data_ptr(), b, t, h, kh, hd, block_tables.shape[1], page_size,
+            hd ** -0.5, _cuda.stream_ptr(q.device))
+    if quant:
+        err = lib.flash_prefill_q_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(), *tail,
+        )
+        _cuda.check(err, "flash_prefill_attention (int8)")
+        flash_prefill_attention.launches_q += 1
+        return out
     err = lib.flash_prefill_launch(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        block_tables.data_ptr(), pos0.data_ptr(), t_valid.data_ptr(),
-        out.data_ptr(), b, t, h, kh, hd, block_tables.shape[1], page_size,
-        hd ** -0.5, _cuda.stream_ptr(q.device),
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *tail,
     )
     _cuda.check(err, "flash_prefill_attention")
     flash_prefill_attention.launches += 1
     return out
 
 
-flash_prefill_attention.launches = 0
+flash_prefill_attention.launches = 0    # K2 (bf16 pools)
+flash_prefill_attention.launches_q = 0  # K6 (int8 pools + scale pools)
 
 
 def _launcher():
@@ -109,4 +166,10 @@ def _launcher():
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+        fq = lib.flash_prefill_q_launch
+        fq.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fq.restype = ctypes.c_int
     return lib

@@ -146,7 +146,8 @@ def test_default_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize(
     "field,value",
-    [("spec_decode", True), ("kv_quantization", "int8"), ("step_pipeline", True)],
+    [("spec_decode", True), ("kv_quantization", "int4"), ("step_pipeline", True),
+     ("kv_quant_group", 32)],
 )
 def test_unported_config_refused(field, value):
     with pytest.raises(NotImplementedError, match=field):

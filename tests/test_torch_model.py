@@ -103,43 +103,39 @@ def test_prefill_then_decode_matches_jax(variant):
     # port: the engine's paths, page-scatter write + flash prefill (one
     # 32-token bucket), then the fused write + decode attention step
     kv = llama.init_kv_cache(tc, num_slots, dtype=torch.float32, device="cpu")
+    t_pre, t_dec = port_prefill_then_decode(params, tc, kv, toks, t, pages)
+    np.testing.assert_allclose(t_pre, j_pre, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(t_dec, j_dec, rtol=2e-4, atol=2e-4)
+
+
+def port_prefill_then_decode(params, tc, kv, toks, t, pages, prefill=True):
+    """The engine's two attention modes on one sequence: a page-write
+    prefill of toks[:, :t] padded to a 32-token bucket (skipped when the
+    cache already holds it), then one fused decode step of toks[:, t].
+    Returns the (prefill, decode) logits."""
+    t_pre = None
+    if prefill:
+        t_pre = _port_prefill(params, tc, kv, toks, t, pages)
+    attn = llama.AttnSpec.paged_decode(
+        torch.from_numpy(pages[None]), torch.tensor([t + 1], dtype=torch.int32), PAGE,
+        write_pos=torch.tensor([t], dtype=torch.int32),
+    )
+    h2, _ = llama.forward(params, tc, torch.from_numpy(toks[:, t:]), torch.tensor([[t]]), kv, attn)
+    return t_pre, llama.logits(params, tc, h2).numpy()
+
+
+def _port_prefill(params, tc, kv, toks, t, pages):
     bucket = 32
     tok_b = np.zeros((1, bucket), np.int32)
     tok_b[0, :t] = toks[0, :t]
     pos_b = np.zeros((1, bucket), np.int32)
     pos_b[0, :t] = np.arange(t)
-    attn = llama.AttnSpec.gather(
-        None, write_tables=torch.from_numpy(pages[:2]), page_size=PAGE,
-        block_tables=torch.from_numpy(pages[None]), q_pos0=torch.tensor([0], dtype=torch.int32),
-        lengths=torch.tensor([t], dtype=torch.int32),
+    attn = llama.AttnSpec.page_write(
+        torch.from_numpy(pages[:-(-bucket // PAGE)]), torch.from_numpy(pages[None]),
+        torch.tensor([0], dtype=torch.int32), torch.tensor([t], dtype=torch.int32), PAGE,
     )
-    h, _ = llama.forward(params, tc, torch.from_numpy(tok_b), torch.from_numpy(pos_b), kv, None, attn)
-    t_pre = llama.logits(params, tc, h)[:, :t].numpy()
-    np.testing.assert_allclose(t_pre, j_pre, rtol=2e-4, atol=2e-4)
-
-    attn = llama.AttnSpec.paged_decode(
-        torch.from_numpy(pages[None]), torch.tensor([t + 1], dtype=torch.int32), PAGE,
-        write_pos=torch.tensor([t], dtype=torch.int32),
-    )
-    h2, _ = llama.forward(
-        params, tc, torch.from_numpy(toks[:, t:]), torch.tensor([[t]]), kv, None, attn
-    )
-    t_dec = llama.logits(params, tc, h2).numpy()
-    np.testing.assert_allclose(t_dec, j_dec, rtol=2e-4, atol=2e-4)
-
-    # port: the gather-oracle mode, the JAX call's own shape
-    kv = llama.init_kv_cache(tc, num_slots, dtype=torch.float32, device="cpu")
-    smat_t = torch.from_numpy(smat)
-    h, _ = llama.forward(
-        params, tc, torch.from_numpy(toks[:, :t]), torch.arange(t)[None], kv,
-        torch.from_numpy(slots(t)), smat_t,
-    )
-    np.testing.assert_allclose(llama.logits(params, tc, h).numpy(), j_pre, rtol=2e-4, atol=2e-4)
-    h2, _ = llama.forward(
-        params, tc, torch.from_numpy(toks[:, t:]), torch.tensor([[t]]), kv,
-        torch.from_numpy(slots(t + 1)[t:]), smat_t,
-    )
-    np.testing.assert_allclose(llama.logits(params, tc, h2).numpy(), j_dec, rtol=2e-4, atol=2e-4)
+    h, _ = llama.forward(params, tc, torch.from_numpy(tok_b), torch.from_numpy(pos_b), kv, attn)
+    return llama.logits(params, tc, h)[:, :t].numpy()
 
 
 @pytest.mark.parametrize(
