@@ -6,25 +6,29 @@ Phases, each printed on its own line; any failure exits non-zero and the
 final result line is printed only when every phase passed:
 
 1. card and versions (nvidia-smi name and power limit, torch, CUDA);
-2. build: the three CUDA sources under dynamo_tpu_torch/csrc (six kernels:
-   K1-K3 for bf16 KV, K5-K7 their int8 forms), one nvcc each, all in
-   parallel;
+2. build: the three CUDA sources under dynamo_tpu_torch/csrc (nine kernels:
+   K1-K3 for bf16 KV, K5-K7 in their int8 and their int4 forms), one nvcc
+   each, all in parallel;
 3. each kernel against its plain PyTorch version on the same inputs, at
    Llama-3.1-8B per-layer shapes (K=8, Hd=128, H=32, B=8, chunk 512 over
    ~576 tokens, decode lengths 512-600; page 64, and page 128 for the int8
-   kernels) and on small ragged cases (Hd 32 and 64; 1, 2 and 8 query
-   heads per kv head): KV writes byte-exact (pools and scale pools),
+   and int4 kernels) and on small ragged cases (Hd 32 and 64; 1, 2 and 8
+   query heads per kv head): KV writes byte-exact (pools and scale pools),
    attention within one bf16 ulp per element (see ATOL_F32), with
    CUDA-event times (median of 20) for the kernel, the plain version and
    one PyTorch library call computing the same function (each call queued
    behind a device-side spin, so the events time the device's work, not
    the host's launch), and the least time the card could take (bytes over
-   memory rate or FLOPs over the bf16 peak). No PyTorch call takes int8 pages with scales, so the int8
-   kernels' library figure is SDPA over the gathered KV dequantized to
-   bf16 beforehand, outside the timing;
+   memory rate or FLOPs over the bf16 peak). No PyTorch call takes int8 or
+   int4 pages with scales, so the quantized kernels' library figure is
+   SDPA over the gathered KV dequantized to bf16 beforehand, outside the
+   timing. Each attention check shows on its own 8B inputs that plain
+   versions gone wrong miss it (a causal edge one key late, a dropped key,
+   a stale or bf16 new row, two heads' scales swapped, and for int4 a high
+   nibble read unsigned or nibbles taken as adjacent pairs);
 4. real weights: the vendored trained checkpoint tests/data/tiny-trained-llama
-   through the port's safetensors reader in bf16 on the GPU, with bf16 and
-   with int8 KV; the greedy continuation of "the capital of france is"
+   through the port's safetensors reader in bf16 on the GPU, with bf16,
+   int8 and int4 KV; the greedy continuation of "the capital of france is"
    must start with "paris" and agree with the same engine run on the CPU
    in float32;
 5. full width: llama-3.1-8b (32 layers, d 4096) in bf16 from seeded random
@@ -33,10 +37,13 @@ final result line is printed only when every phase passed:
    just after: each kernel of the path must have run, the expected number
    of times, and no other kernel and no plain version may have run;
 6. the same at full width with int8 KV (kv_quantization="int8"), on phase
-   5's weights: K5-K7 run, K1-K3 and every plain version do not. With
-   --pairs N, phases 5 and 6 run N times in turns, to show their spread.
+   5's weights: K5-K7 in their int8 forms run, no other kernel and no
+   plain version does;
+7. the same with int4 KV (kv_quantization="int4"): K5-K7 in their int4
+   forms only. With --pairs N, phases 5, 6 and 7 run N times in turns, to
+   show their spread.
 
-Then a `kernels` JSON line, the nvidia-smi line, and last
+Then a `kernels` JSON line (nine kernels), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
 
@@ -348,22 +355,47 @@ def check_decode(peaks, gen, dev):
 # ------------------------------------------------------- phase 3, int8 KV
 
 
-def _q_pools(num_pages, page, kh, hd, gen, dev):
-    """int8 pools and scale pools [P, K, page] quantized from random bf16
-    rows, as the engine fills them."""
-    from dynamo_tpu_torch.ops.quant import quantize_kv_rows, scales_to_page_tiles
+def _quantize(int4):
+    from dynamo_tpu_torch.ops.quant import quantize_kv_rows, quantize_kv_rows_int4
 
+    return quantize_kv_rows_int4 if int4 else quantize_kv_rows
+
+
+def _q_pools(num_pages, page, kh, hd, gen, dev, int4=False):
+    """int8 (or nibble-packed int4) pools and scale pools [P, K, page]
+    quantized from random bf16 rows, as the engine fills them."""
+    from dynamo_tpu_torch.ops.quant import scales_to_page_tiles
+
+    quantize = _quantize(int4)
     k, v = _pools(num_pages, page, kh * hd, gen, dev)
-    (kq, ks), (vq, vs) = quantize_kv_rows(k, kh), quantize_kv_rows(v, kh)
+    (kq, ks), (vq, vs) = quantize(k, kh), quantize(v, kh)
     return kq, vq, scales_to_page_tiles(ks, page), scales_to_page_tiles(vs, page)
 
 
-def _dequant_pool(pool, scales):
-    """A whole int8 pool dequantized through its scale pool, [N, K*Hd] f32."""
-    from dynamo_tpu_torch.ops.quant import dequantize_kv_rows
+def _unpack_wrong(packed, kh, mode):
+    """int4 codes [N, K*Hd] as f32, unpacked the wrong way: "unsigned" reads
+    the high nibble as 0..15, "interleaved" takes byte j as features 2j
+    (low nibble) and 2j + 1 (high), adjacent pairs instead of planes."""
+    b = packed.to(torch.int32).reshape(packed.shape[0], kh, -1)
+    lo = ((b & 15) ^ 8) - 8
+    hi = (b & 255) >> 4 if mode == "unsigned" else b >> 4
+    full = torch.stack((lo, hi), -1).flatten(2) if mode == "interleaved" else torch.cat((lo, hi), -1)
+    return full.reshape(packed.shape[0], -1).float()
+
+
+def _dequant_pool(pool, scales, int4=False, wrong=None):
+    """A whole int8 or int4 pool dequantized through its scale pool,
+    [N, K*Hd] f32 (`wrong`: an int4 unpack mode of `_unpack_wrong`)."""
+    from dynamo_tpu_torch.ops.quant import dequantize_kv_rows, dequantize_kv_rows_int4
 
     # [P, K, S] -> per-slot [P*S, K]
-    dense = scales.transpose(1, 2).reshape(-1, scales.shape[1])
+    kh = scales.shape[1]
+    dense = scales.transpose(1, 2).reshape(-1, kh)
+    if wrong:
+        codes = _unpack_wrong(pool, kh, wrong)
+        return (codes.reshape(len(codes), kh, -1) * dense[..., None]).reshape(len(codes), -1)
+    if int4:
+        return dequantize_kv_rows_int4(pool, dense, kh)
     return dequantize_kv_rows(pool, dense)
 
 
@@ -379,39 +411,43 @@ def _same_bytes(a, b):
     return torch.equal(a.view(torch.int8), b.view(torch.int8))
 
 
-def check_kv_write_q(peaks, gen, dev):
+def check_kv_write_q(peaks, gen, dev, int4=False):
     from dynamo_tpu_torch.ops import kv_write as m
 
+    name = "kv_write_q4" if int4 else "kv_write_q"
+    plain_fn = m.paged_kv_write_q4_plain if int4 else m.paged_kv_write_q_plain
     for label, (num_pages, page, kh, hd, n) in {
         "8b-p64": (200, 64, 8, 128, 64), "8b-p128": (100, 128, 8, 128, 32),
-        "small": (40, 16, 2, 32, 7),
+        "small": (40, 16, 2, 32, 7), "k1-hd32": (12, 16, 1, 32, 5),
     }.items():
-        kw = kh * hd
-        k, v, ks, vs = _q_pools(num_pages, page, kh, hd, gen, dev)
+        if label == "k1-hd32" and not int4:
+            continue  # an int4 row of 16 bytes: the narrowest the 16-byte copy takes
+        k, v, ks, vs = _q_pools(num_pages, page, kh, hd, gen, dev, int4)
+        kw = k.shape[1]
         table = torch.randperm(num_pages - 1, generator=gen, device=dev)[:n].to(torch.int32) + 1
         table[-1] = 0  # a padding page into the trash page
-        nk, nv, nks, nvs = _q_pools(n, page, kh, hd, gen, dev)
+        nk, nv, nks, nvs = _q_pools(n, page, kh, hd, gen, dev, int4)
         nk, nv = nk.view(n, page, kw), nv.view(n, page, kw)
         mine = [x.clone() for x in (k, v, ks, vs)]
         plain = [x.clone() for x in (k, v, ks, vs)]
         out = m.paged_kv_write(mine[0], mine[1], table, nk, nv, mine[2], mine[3], nks, nvs,
-                               page_size=page)
+                               page_size=page, int4=int4)
         assert all(a is b for a, b in zip(out, mine))
-        m.paged_kv_write_q_plain(plain[0], plain[1], table, nk, nv, plain[2], plain[3], nks, nvs,
-                                 page_size=page)
+        plain_fn(plain[0], plain[1], table, nk, nv, plain[2], plain[3], nks, nvs, page_size=page)
         torch.cuda.synchronize()
         # byte-exact, trash page aside (several writers race on it)
         for x, y, per_page in zip(mine, plain, (page, page, 1, 1)):
-            assert _same_bytes(x[per_page:], y[per_page:]), f"kv_write_q {label}: differs from plain"
+            assert _same_bytes(x[per_page:], y[per_page:]), f"{name} {label}: differs from plain"
         assert not torch.equal(mine[0], k) and not torch.equal(mine[2], ks), \
-            f"kv_write_q {label}: pools not updated in place"
+            f"{name} {label}: pools not updated in place"
         kernel = lambda: m.paged_kv_write(  # noqa: E731
-            mine[0], mine[1], table, nk, nv, mine[2], mine[3], nks, nvs, page_size=page)
+            mine[0], mine[1], table, nk, nv, mine[2], mine[3], nks, nvs, page_size=page,
+            int4=int4)
         if label == "8b-p128":
             p128_ms = time_ms(kernel)
         if label == "8b-p64":
             ms = time_ms(kernel)
-            plain_ms = time_ms(lambda: m.paged_kv_write_q_plain(
+            plain_ms = time_ms(lambda: plain_fn(
                 plain[0], plain[1], table, nk, nv, plain[2], plain[3], nks, nvs, page_size=page))
             idx = table.long()
             dst = [mine[0].view(num_pages, -1), mine[1].view(num_pages, -1),
@@ -425,16 +461,31 @@ def check_kv_write_q(peaks, gen, dev):
             lib_ms = time_ms(lib)
             nbytes = 2 * (2 * n * page * kw + 2 * n * kh * page * 4) + n * 4
             b_ms, by = bound_ms(nbytes, 0.0, peaks)
-    log(f"[kernel] kv_write_q: pools and scale pools byte-exact at 8B page 64/128 and small; "
-        f"{ms:.4f} ms at page 64 (page 128: {p128_ms:.4f}; plain {plain_ms:.4f}, index_copy_ "
-        f"{lib_ms:.4f}, bound {b_ms:.4f} by {by})")
+    log(f"[kernel] {name}: pools and scale pools byte-exact at 8B page 64/128 and small"
+        f"{' (and K=1, Hd=32: 16-byte rows)' if int4 else ''}; {ms:.4f} ms at page 64 "
+        f"(page 128: {p128_ms:.4f}; plain {plain_ms:.4f}, index_copy_ {lib_ms:.4f}, "
+        f"bound {b_ms:.4f} by {by})")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=by)
 
 
-def check_prefill_q(peaks, gen, dev):
+def _check_power(want, valid, what, variants):
+    """The check's power on these inputs: each variant of the plain version
+    (`variants`: label -> output) must miss the check. Returns the text."""
+    msg = ""
+    for label, got in variants.items():
+        c = compare_bf16(got[valid] if valid is not None else got,
+                         want[valid] if valid is not None else want)
+        msg += f"; {label}: {fmt(c)}"
+        assert not c["ok"], f"{what}: the check cannot see {label}"
+    return msg
+
+
+def check_prefill_q(peaks, gen, dev, int4=False):
     from dynamo_tpu_torch.ops import prefill_attention as m
 
+    name = "prefill_attention_q4" if int4 else "prefill_attention_q"
+    plain_fn = m.flash_prefill_attention_q4_plain if int4 else m.flash_prefill_attention_q_plain
     cases = {
         # B, T, H, K, Hd, page, W, pos0, t_valid
         "8b-p64": (8, 512, 32, 8, 128, 64, 9, [64] * 8, [512] * 8),
@@ -446,59 +497,66 @@ def check_prefill_q(peaks, gen, dev):
     errs = {}
     for label, (b, t, h, kh, hd, page, w, pos0, tlen) in cases.items():
         num_pages = b * w + 3
-        k, v, ks, vs = _q_pools(num_pages, page, kh, hd, gen, dev)
+        k, v, ks, vs = _q_pools(num_pages, page, kh, hd, gen, dev, int4)
         tables = _tables(b, w, num_pages, gen, dev)
         q = torch.randn((b, t, h, hd), generator=gen, device=dev).to(torch.bfloat16)
         p0 = torch.tensor(pos0, dtype=torch.int32, device=dev)
         tl = torch.tensor(tlen, dtype=torch.int32, device=dev)
-        got = m.flash_prefill_attention(q, k, v, tables, p0, tl, ks, vs, page_size=page)
-        want = m.flash_prefill_attention_q_plain(q, k, v, tables, p0, tl, ks, vs, page_size=page)
+        got = m.flash_prefill_attention(q, k, v, tables, p0, tl, ks, vs, page_size=page,
+                                        int4=int4)
+        want = plain_fn(q, k, v, tables, p0, tl, ks, vs, page_size=page)
         torch.cuda.synchronize()
         valid = torch.arange(t, device=dev)[None] < tl[:, None]  # [B, T]
-        assert torch.all(got[~valid] == 0), f"prefill_q {label}: rows past t_valid not 0"
+        assert torch.all(got[~valid] == 0), f"{name} {label}: rows past t_valid not 0"
         c = compare_bf16(got[valid], want[valid])
-        msg = f"[kernel] prefill_attention_q {label}: {fmt(c)}"
+        msg = f"[kernel] {name} {label}: {fmt(c)}"
         if label == "8b-p64":
-            # the check's power on these inputs: two heads' scales swapped
-            off = m.flash_prefill_attention_q_plain(
-                q, k, v, tables, p0, tl, _swap_heads(ks), _swap_heads(vs), page_size=page)
-            c_off = compare_bf16(off[valid], want[valid])
-            msg += f"; heads 0/1 scales swapped: {fmt(c_off)}"
-            assert not c_off["ok"], "prefill_q: the check cannot see swapped scales"
+            # the check's power on these inputs: two heads' scales swapped,
+            # and for int4 the codes unpacked with an unsigned high nibble
+            # or in adjacent pairs (the plain bf16 version over the pools so
+            # dequantized)
+            variants = {"heads 0/1 scales swapped": plain_fn(
+                q, k, v, tables, p0, tl, _swap_heads(ks), _swap_heads(vs), page_size=page)}
+            for mode in ("unsigned", "interleaved") if int4 else ():
+                variants[f"{mode} nibbles"] = m.flash_prefill_attention_plain(
+                    q, _dequant_pool(k, ks, wrong=mode), _dequant_pool(v, vs, wrong=mode),
+                    tables, p0, tl, page_size=page)
+            msg += _check_power(want, valid, name, variants)
         log(msg)
-        assert c["ok"], f"prefill_q {label}: outside one bf16 ulp + {ATOL_F32}"
+        assert c["ok"], f"{name} {label}: outside one bf16 ulp + {ATOL_F32}"
         errs[label] = c["max_abs_err"]
+        kernel = lambda: m.flash_prefill_attention(  # noqa: E731
+            q, k, v, tables, p0, tl, ks, vs, page_size=page, int4=int4)
         if label == "8b-p128":
-            p128_ms = time_ms(lambda: m.flash_prefill_attention(
-                q, k, v, tables, p0, tl, ks, vs, page_size=page))
+            p128_ms = time_ms(kernel)
         if label == "8b-p64":
-            ms = time_ms(lambda: m.flash_prefill_attention(
-                q, k, v, tables, p0, tl, ks, vs, page_size=page))
-            plain_ms = time_ms(lambda: m.flash_prefill_attention_q_plain(
-                q, k, v, tables, p0, tl, ks, vs, page_size=page))
-            kd = _dequant_pool(k, ks).to(torch.bfloat16)
-            vd = _dequant_pool(v, vs).to(torch.bfloat16)
+            ms = time_ms(kernel)
+            plain_ms = time_ms(lambda: plain_fn(q, k, v, tables, p0, tl, ks, vs, page_size=page))
+            kd = _dequant_pool(k, ks, int4).to(torch.bfloat16)
+            vd = _dequant_pool(v, vs, int4).to(torch.bfloat16)
             qq, kk, vv, mask = _sdpa_prefill_inputs(q, kd, vd, tables, p0, tl, page)
             lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qq, kk, vv, attn_mask=mask))
             kv_rows = sum(p + n for p, n in zip(pos0, tlen))
-            nbytes = (2 * q.numel() * 2 + 2 * kv_rows * kh * (hd + 4)
+            nbytes = (2 * q.numel() * 2 + 2 * kv_rows * kh * (k.shape[1] // kh + 4)
                       + (tables.numel() + 2 * b) * 4)
             flops = sum(
                 4 * h * hd * sum(p + j + 1 for j in range(n)) for p, n in zip(pos0, tlen)
             )
             b_ms, by = bound_ms(nbytes, flops, peaks)
-    log(f"[kernel] prefill_attention_q: every case within one bf16 ulp + 2**-16; {ms:.4f} ms "
+    log(f"[kernel] {name}: every case within one bf16 ulp + 2**-16; {ms:.4f} ms "
         f"at page 64 (page 128: {p128_ms:.4f}; plain {plain_ms:.4f}, sdpa over KV dequantized "
         f"to bf16 beforehand {lib_ms:.4f}, bound {b_ms:.4f} by {by})")
     return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=by)
 
 
-def check_decode_q(peaks, gen, dev):
+def check_decode_q(peaks, gen, dev, int4=False):
     from dynamo_tpu_torch.ops import decode_attention as m
-    from dynamo_tpu_torch.ops.quant import quantize_kv_rows
 
+    name = "decode_attention_q4" if int4 else "decode_attention_q"
+    plain_fn = (m.fused_paged_decode_attention_q4_plain if int4
+                else m.fused_paged_decode_attention_q_plain)
     cases = {
         # B, H, K, Hd, page, W, lengths (write_pos = length - 1; 0 = idle row)
         "8b-p64": (8, 32, 8, 128, 64, 10, [576, 570, 590, 600, 512, 577, 583, 560]),
@@ -510,75 +568,82 @@ def check_decode_q(peaks, gen, dev):
     errs = {}
     for label, (b, h, kh, hd, page, w, lengths) in cases.items():
         num_pages = b * w + 3
-        k, v, ks, vs = _q_pools(num_pages, page, kh, hd, gen, dev)
+        k, v, ks, vs = _q_pools(num_pages, page, kh, hd, gen, dev, int4)
         tables = _tables(b, w, num_pages, gen, dev)
         q = torch.randn((b, h, hd), generator=gen, device=dev).to(torch.bfloat16)
         nk_bf = torch.randn((b, kh * hd), generator=gen, device=dev).to(torch.bfloat16)
         nv_bf = torch.randn((b, kh * hd), generator=gen, device=dev).to(torch.bfloat16)
-        (nk, nks), (nv, nvs) = quantize_kv_rows(nk_bf, kh), quantize_kv_rows(nv_bf, kh)
+        quantize = _quantize(int4)
+        (nk, nks), (nv, nvs) = quantize(nk_bf, kh), quantize(nv_bf, kh)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         wpos = torch.tensor([n - 1 if n else -1 for n in lengths], dtype=torch.int32, device=dev)
         mine = [x.clone() for x in (k, v, ks, vs)]
         plain = [x.clone() for x in (k, v, ks, vs)]
         got, *rp = m.fused_paged_decode_attention(
             q, nk, nv, mine[0], mine[1], tables, lens, wpos, mine[2], mine[3], nks, nvs,
-            page_size=page)
+            page_size=page, int4=int4)
         assert all(a is b for a, b in zip(rp, mine))
-        want = m.fused_paged_decode_attention_q_plain(
-            q, nk, nv, plain[0], plain[1], tables, lens, wpos, plain[2], plain[3], nks, nvs,
-            page_size=page)[0]
+        want = plain_fn(q, nk, nv, plain[0], plain[1], tables, lens, wpos, plain[2], plain[3],
+                        nks, nvs, page_size=page)[0]
         ro = m.paged_decode_attention(q, mine[0], mine[1], tables, lens, mine[2], mine[3],
-                                      page_size=page)
+                                      page_size=page, int4=int4)
         torch.cuda.synchronize()
         for x, y in zip(mine, plain):
-            assert _same_bytes(x, y), f"decode_q {label}: pools differ after the write"
+            assert _same_bytes(x, y), f"{name} {label}: pools differ after the write"
         assert not torch.equal(mine[0], k) and not torch.equal(mine[2], ks), \
-            f"decode_q {label}: pools not updated in place"
+            f"{name} {label}: pools not updated in place"
         idle = lens == 0
-        assert torch.all(got[idle] == 0) and torch.all(ro[idle] == 0), f"decode_q {label}: idle rows not 0"
+        assert torch.all(got[idle] == 0) and torch.all(ro[idle] == 0), \
+            f"{name} {label}: idle rows not 0"
         c, c_ro = compare_bf16(got, want), compare_bf16(ro, want)
-        msg = f"[kernel] decode_attention_q {label}: {fmt(c)}; read-only: {fmt(c_ro)}"
+        msg = f"[kernel] {name} {label}: {fmt(c)}; read-only: {fmt(c_ro)}"
         if label in ("8b-p64", "small"):
             # the check's power on these inputs: the new token attended
-            # through its bf16 row instead of its quantized one (the
-            # plain bf16 version over the dequantized pools), and two
-            # heads' scales swapped
-            kd, vd = _dequant_pool(plain[0], plain[2]), _dequant_pool(plain[1], plain[3])
-            bf16_row = m.fused_paged_decode_attention_plain(
-                q, nk_bf.float(), nv_bf.float(), kd, vd, tables, lens, wpos, page_size=page)[0]
-            swapped = m.fused_paged_decode_attention_q_plain(
-                q, nk, nv, plain[0].clone(), plain[1].clone(), tables, lens,
-                wpos.new_full((b,), -1), _swap_heads(plain[2]), _swap_heads(plain[3]),
-                nks, nvs, page_size=page)[0]
-            c_row, c_swap = compare_bf16(bf16_row, want), compare_bf16(swapped, want)
-            msg += f"; new row in bf16: {fmt(c_row)}; heads 0/1 scales swapped: {fmt(c_swap)}"
-            assert not c_row["ok"], "decode_q: the check cannot see the bf16 new row"
-            assert not c_swap["ok"], "decode_q: the check cannot see swapped scales"
+            # through its bf16 row instead of its quantized one (the plain
+            # bf16 version over the dequantized pools), two heads' scales
+            # swapped, and for int4 (8B only) the written pools unpacked
+            # with an unsigned high nibble or in adjacent pairs
+            kd, vd = _dequant_pool(plain[0], plain[2], int4), _dequant_pool(plain[1], plain[3], int4)
+            no_write = wpos.new_full((b,), -1)
+            variants = {
+                "new row in bf16": m.fused_paged_decode_attention_plain(
+                    q, nk_bf.float(), nv_bf.float(), kd, vd, tables, lens, wpos,
+                    page_size=page)[0],
+                "heads 0/1 scales swapped": plain_fn(
+                    q, nk, nv, plain[0].clone(), plain[1].clone(), tables, lens, no_write,
+                    _swap_heads(plain[2]), _swap_heads(plain[3]), nks, nvs, page_size=page)[0],
+            }
+            for mode in ("unsigned", "interleaved") if int4 and label == "8b-p64" else ():
+                variants[f"{mode} nibbles"] = m.fused_paged_decode_attention_plain(
+                    q, nk_bf, nv_bf, _dequant_pool(plain[0], plain[2], wrong=mode),
+                    _dequant_pool(plain[1], plain[3], wrong=mode), tables, lens, no_write,
+                    page_size=page)[0]
+            msg += _check_power(want, None, name, variants)
         log(msg)
-        assert c["ok"] and c_ro["ok"], f"decode_q {label}: outside one bf16 ulp + {ATOL_F32}"
+        assert c["ok"] and c_ro["ok"], f"{name} {label}: outside one bf16 ulp + {ATOL_F32}"
         errs[label] = max(c["max_abs_err"], c_ro["max_abs_err"])
         fused = lambda: m.fused_paged_decode_attention(  # noqa: E731
             q, nk, nv, mine[0], mine[1], tables, lens, wpos, mine[2], mine[3], nks, nvs,
-            page_size=page)
+            page_size=page, int4=int4)
         if label == "8b-p128":
             p128_ms = time_ms(fused)
         if label == "8b-p64":
             ms = time_ms(fused)
-            plain_ms = time_ms(lambda: m.fused_paged_decode_attention_q_plain(
+            plain_ms = time_ms(lambda: plain_fn(
                 q, nk, nv, plain[0], plain[1], tables, lens, wpos, plain[2], plain[3], nks, nvs,
                 page_size=page))
-            kd = _dequant_pool(mine[0], mine[2]).to(torch.bfloat16)
-            vd = _dequant_pool(mine[1], mine[3]).to(torch.bfloat16)
+            kd = _dequant_pool(mine[0], mine[2], int4).to(torch.bfloat16)
+            vd = _dequant_pool(mine[1], mine[3], int4).to(torch.bfloat16)
             qq, kk, vv, _ = _sdpa_prefill_inputs(q[:, None], kd, vd, tables, lens - 1, lens, page)
             mask = (torch.arange(kk.shape[2], device=dev)[None] < lens[:, None].long())[:, None, None]
             lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qq, kk, vv, attn_mask=mask))
             total = sum(lengths)
             nbytes = (2 * q.numel() * 2 + 2 * 2 * nk.numel() + 2 * 2 * nks.numel() * 4
-                      + 2 * total * kh * (hd + 4) + (tables.numel() + 2 * b) * 4)
+                      + 2 * total * kh * (k.shape[1] // kh + 4) + (tables.numel() + 2 * b) * 4)
             flops = 4 * h * hd * total
             b_ms, by = bound_ms(nbytes, flops, peaks)
-    log(f"[kernel] decode_attention_q: every case within one bf16 ulp + 2**-16, pools and "
+    log(f"[kernel] {name}: every case within one bf16 ulp + 2**-16, pools and "
         f"scale pools equal after the write; {ms:.4f} ms at page 64 (page 128: {p128_ms:.4f}; "
         f"plain {plain_ms:.4f}, sdpa over KV dequantized to bf16 beforehand {lib_ms:.4f}, "
         f"bound {b_ms:.4f} by {by})")
@@ -586,11 +651,13 @@ def check_decode_q(peaks, gen, dev):
                 bound_ms=b_ms, bound_by=by)
 
 
-# ---------------------------------------------------------------- phases 4-6
+# ---------------------------------------------------------------- phases 4-7
 
 
 BF16_KERNELS = ("kv_write", "prefill_attention", "decode_attention")
 INT8_KERNELS = ("kv_write_q", "prefill_attention_q", "decode_attention_q")
+INT4_KERNELS = ("kv_write_q4", "prefill_attention_q4", "decode_attention_q4")
+PATH_KERNELS = {None: BF16_KERNELS, "int8": INT8_KERNELS, "int4": INT4_KERNELS}
 
 
 def counters():
@@ -610,6 +677,11 @@ def counters():
                                 p.flash_prefill_attention_q_plain),
         "decode_attention_q": (d.fused_paged_decode_attention, "launches_q",
                                d.fused_paged_decode_attention_q_plain),
+        "kv_write_q4": (w.paged_kv_write, "launches_q4", w.paged_kv_write_q4_plain),
+        "prefill_attention_q4": (p.flash_prefill_attention, "launches_q4",
+                                 p.flash_prefill_attention_q4_plain),
+        "decode_attention_q4": (d.fused_paged_decode_attention, "launches_q4",
+                                d.fused_paged_decode_attention_q4_plain),
     }
 
 
@@ -685,7 +757,7 @@ def phase_real_weights(dev):
 
         return asyncio.run(go())
 
-    for kv_quant, names in ((None, BF16_KERNELS), ("int8", INT8_KERNELS)):
+    for kv_quant, names in PATH_KERNELS.items():
         ref = run("cpu", "float32", kv_quant)
         reset_counts()
         got = run(dev, "bfloat16", kv_quant)
@@ -760,8 +832,9 @@ def phase_full_width(dev, kv_quant=None, params=None):
     t0 = time.perf_counter()
     eng = TorchEngine(cfg, params=params, device=dev)
     torch.cuda.synchronize()
+    kv = eng.kv
     kv_bytes = sum(x.numel() * x.element_size()
-                   for pools in eng.kv for x in (pools or ()))
+                   for pools in (kv.k, kv.v, kv.ks or (), kv.vs or ()) for x in pools)
     log(f"{tag} llama-3.1-8b random init (seed 0): {eng.param_count / 1e9:.3f} B params, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, KV pools {kv_bytes / 1e9:.3f} GB "
         f"({eng.num_pages} pages of {eng.page_size}), {time.perf_counter() - t0:.1f} s")
@@ -790,7 +863,7 @@ def phase_full_width(dev, kv_quant=None, params=None):
     for toks, _, reason, _ in res:
         assert len(toks) == osl and reason == "length", f"stream of {len(toks)} tokens ({reason})"
         assert all(0 <= t < vocab for t in toks)
-    names = INT8_KERNELS if kv_quant else BF16_KERNELS
+    names = PATH_KERNELS[kv_quant]
     want = dict(zip(names, (
         layers * d["prefill_dispatches"],
         layers * d["prefill_dispatches"],
@@ -829,7 +902,7 @@ def phase_full_width(dev, kv_quant=None, params=None):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1,
-                    help="full-width runs of phases 5 and 6, in turns (default 1)")
+                    help="full-width runs of phases 5, 6 and 7, in turns (default 1)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script needs one GPU", file=sys.stderr)
@@ -851,11 +924,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.build()
-    log(f"[build] {len(_cuda.SOURCES)} sources (six kernels) built in {time.perf_counter() - t0:.1f} s "
+    log(f"[build] {len(_cuda.SOURCES)} sources (nine kernels) built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_cuda.NVCC_FLAGS[:2])})")
     for n, text in _cuda.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"[ptxas] {n}: {line.strip()}")
 
     gen = torch.Generator(device=dev)
@@ -867,17 +940,21 @@ def main() -> int:
         "kv_write_q": check_kv_write_q(peaks, gen, dev),
         "prefill_attention_q": check_prefill_q(peaks, gen, dev),
         "decode_attention_q": check_decode_q(peaks, gen, dev),
+        "kv_write_q4": check_kv_write_q(peaks, gen, dev, int4=True),
+        "prefill_attention_q4": check_prefill_q(peaks, gen, dev, int4=True),
+        "decode_attention_q4": check_decode_q(peaks, gen, dev, int4=True),
     }
     phase_real_weights(dev)
-    launches, _, params = phase_full_width(dev)
-    torch.cuda.empty_cache()
-    launches_q, _, params = phase_full_width(dev, kv_quant="int8", params=params)
-    for _ in range(args.pairs - 1):  # more bf16/int8 pairs, for the spread
-        for kv_quant in (None, "int8"):
+    # phases 5, 6 and 7 (bf16, int8 and int4 KV) on one set of weights;
+    # --pairs repeats them in turns, for their spread
+    launches, params = {}, None
+    for i in range(args.pairs):
+        for kv_quant, names in PATH_KERNELS.items():
             torch.cuda.empty_cache()
-            _, _, params = phase_full_width(dev, kv_quant=kv_quant, params=params)
+            counts, _, params = phase_full_width(dev, kv_quant=kv_quant, params=params)
+            if i == 0:
+                launches.update({k: counts[k] for k in names})
     del params
-    launches.update({k: launches_q[k] for k in INT8_KERNELS})
 
     meta = {
         "kv_write": ("dynamo_tpu_torch/csrc/kv_write.cu", "dynamo_tpu/ops/pallas_kv_write.py:60"),
@@ -890,6 +967,11 @@ def main() -> int:
                                 "dynamo_tpu/ops/pallas_prefill.py:152"),
         "decode_attention_q": ("dynamo_tpu_torch/csrc/decode_attention.cu",
                                "dynamo_tpu/ops/pallas_attention.py:244"),
+        "kv_write_q4": ("dynamo_tpu_torch/csrc/kv_write.cu", "dynamo_tpu/ops/pallas_kv_write.py:45"),
+        "prefill_attention_q4": ("dynamo_tpu_torch/csrc/prefill_attention.cu",
+                                 "dynamo_tpu/ops/pallas_prefill.py:136"),
+        "decode_attention_q4": ("dynamo_tpu_torch/csrc/decode_attention.cu",
+                                "dynamo_tpu/ops/pallas_attention.py:333"),
     }
     kernels = []
     for k, r in results.items():

@@ -3,9 +3,10 @@
 The fields keep their names and meaning. The features this slice of the
 port does not run yet keep their fields with the "off" value, and setting
 one raises `NotImplementedError` at construction: a request for weight
-quantization, int4 KV, speculative or mixed steps, the step pipeline, host
-offload or TP overlap must never be served by a silent approximation.
-`kv_quantization="int8"` is ported.
+quantization, speculative or mixed steps, the step pipeline, host offload
+or TP overlap must never be served by a silent approximation.
+`kv_quantization="int8"` and `"int4"` are ported; int4 with one scale
+group per kv head (`kv_quant_group` None or head_dim) only.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ from dynamo_tpu_torch.models.config import ModelConfig, get_config
 # field -> the value that means "off"; anything else is not ported yet
 _UNPORTED = {
     "quantization": None,
-    "kv_quant_group": None,
     "host_kv_pages": 0,
     "spec_decode": False,
     "mixed_batching": False,
@@ -53,7 +53,10 @@ class EngineConfig:
     seed: int = 0
 
     quantization: Optional[str] = None
-    kv_quantization: Optional[str] = None  # None or "int8" (int4 not ported yet)
+    kv_quantization: Optional[str] = None  # None, "int8" or "int4"
+    # int4 scale-group size in features per kv head; None = head_dim (one
+    # scale per token and kv head, what the kernels take). Ignored unless
+    # kv_quantization == "int4", as in the JAX package.
     kv_quant_group: Optional[int] = None
     host_kv_pages: int = 0
     spec_decode: bool = False
@@ -68,11 +71,24 @@ class EngineConfig:
                     f"EngineConfig.{name}={getattr(self, name)!r}: not ported "
                     "to dynamo_tpu_torch yet (see ROADMAP.md)"
                 )
-        if self.kv_quantization not in (None, "int8"):
+        if self.kv_quantization not in (None, "int8", "int4"):
             raise NotImplementedError(
                 f"EngineConfig.kv_quantization={self.kv_quantization!r}: only "
-                "'int8' is ported to dynamo_tpu_torch yet (see ROADMAP.md)"
+                "'int8' and 'int4' are ported to dynamo_tpu_torch (see ROADMAP.md)"
             )
+        if self.kv_quantization == "int4" and self.kv_quant_group is not None:
+            hd = self.model_config().head_dim
+            grp = self.kv_quant_group
+            if grp <= 0 or hd % grp:
+                raise ValueError(f"kv_quant_group={grp} must divide head_dim={hd}")
+            if grp != hd:
+                # the JAX package serves finer groups on its gather backend
+                # only, which the port does not have
+                raise NotImplementedError(
+                    f"EngineConfig.kv_quant_group={grp} (< head_dim {hd}): the "
+                    "int4 kernels take one scale group per kv head; finer groups "
+                    "are not ported to dynamo_tpu_torch yet (see ROADMAP.md)"
+                )
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be bfloat16 or float32, got {self.dtype!r}")
         if self.prefill_chunk % self.page_size:

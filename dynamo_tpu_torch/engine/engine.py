@@ -12,8 +12,9 @@ Port of `dynamo_tpu/engine/engine.py::JaxEngine`, main path only:
   loop (sampled tokens feed the next step without a host sync); each
   layer runs the fused write + decode attention kernel;
 - KV pools in the model's dtype, or int8 with per-token-per-kv-head f32
-  scale pools (`kv_quantization="int8"`), which the int8 forms of the
-  three kernels read and write;
+  scale pools (`kv_quantization="int8"`), or nibble-packed int4 (two codes
+  a byte) with the same scale pools (`kv_quantization="int4"`), which the
+  int8 and int4 forms of the three kernels read and write;
 - on-device sampling: greedy, temperature, top-k, top-p;
 - streamed `EngineOutput` frames, finishing on max_tokens or EOS.
 
@@ -148,9 +149,9 @@ class TorchEngine:
 
     def _check_kernel_shapes(self) -> None:
         """Refuse at construction what the CUDA kernels do not take, rather
-        than failing the first request. The int8 kernels (K5-K7) take the
-        shapes their bf16 counterparts (K1-K3) take: bf16 activations,
-        these head dims and GQA groups, any page size."""
+        than failing the first request. The int8 and int4 kernels (K5-K7)
+        take the shapes their bf16 counterparts (K1-K3) take: bf16
+        activations, these head dims and GQA groups, any page size."""
         from dynamo_tpu_torch.ops import decode_attention
 
         m = self.model_cfg
@@ -171,6 +172,9 @@ class TorchEngine:
         if cfg.kv_quantization == "int8":
             # 1-byte K and V rows plus one f32 K and V scale per kv head
             token_bytes = 2 * m.num_kv_heads * (m.head_dim + 4)
+        elif cfg.kv_quantization == "int4":
+            # two codes a byte, plus the same scales
+            token_bytes = 2 * m.num_kv_heads * (m.head_dim // 2 + 4)
         else:
             token_bytes = (2 * m.num_kv_heads * m.head_dim
                            * torch.empty((), dtype=self._dtype).element_size())

@@ -9,9 +9,10 @@ per-layer [num_slots, K*Hd] tensors updated in place.
 Attention goes through one of the two `AttnSpec` modes below; both run the
 hand-written kernels on a GPU (page-scatter write + flash prefill for
 prefill chunks, fused write + decode attention for decode steps) and their
-plain versions on the CPU. With int8 KV (`init_kv_cache(kv_quant="int8")`)
-the fresh rows are quantized before they reach the pools, as in the
-reference, and the kernels' int8 forms read them with their scales.
+plain versions on the CPU. With int8 or int4 KV
+(`init_kv_cache(kv_quant="int8" | "int4")`) the fresh rows are quantized
+before they reach the pools, as in the reference, and the kernels' int8 or
+int4 forms read them with their scales.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from dynamo_tpu_torch.ops.prefill_attention import flash_prefill_attention
 from dynamo_tpu_torch.ops.quant import (
     init_kv_scale_pool,
     quantize_kv_rows,
+    quantize_kv_rows_int4,
     scales_to_page_tiles,
 )
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
@@ -42,9 +44,9 @@ class AttnSpec:
 
     - page-write prefill (`page_write`): `write_tables` [n_pages] page ids
       -> the chunk's whole pages go through the page-scatter kernel (K1,
-      or K7 for int8), then `block_tables` [B, W], `q_pos0` [B] and
-      `lengths` [B] (valid chunk rows) drive the flash prefill kernel (K2,
-      or K6) over them.
+      or K7 for int8 and int4), then `block_tables` [B, W], `q_pos0` [B]
+      and `lengths` [B] (valid chunk rows) drive the flash prefill kernel
+      (K2, or K6) over them.
     - paged decode (`paged_decode`, T == 1): `block_tables` + `lengths`
       (attended KV count) + `write_pos` [B] (-1 = skip) -> the fused
       write + decode attention kernel (K3, or K5).
@@ -79,12 +81,15 @@ class KVCache(NamedTuple):
     [page_size, K*Hd] contiguous rows, so the [num_pages, page_size, K*Hd]
     view the kernels take is free. With int8 KV, k/v hold int8 and ks/vs
     the per-token-per-kv-head f32 scale pools [num_pages, K, page_size]
-    (ops/quant.py); ks/vs are None with bf16/f32 pools."""
+    (ops/quant.py); with int4 KV (`int4` True) k/v are int8 pools of
+    nibble-packed rows [num_slots, K*Hd/2] beside the same scale pools;
+    ks/vs are None with bf16/f32 pools."""
 
     k: tuple
     v: tuple
     ks: Optional[tuple] = None
     vs: Optional[tuple] = None
+    int4: bool = False
 
     @property
     def quantized(self) -> bool:
@@ -95,7 +100,9 @@ def init_kv_cache(cfg: ModelConfig, num_slots: int, *, device,
                   dtype=torch.bfloat16, kv_quant: Optional[str] = None,
                   page_size: Optional[int] = None) -> KVCache:
     """Zeroed pools; `kv_quant="int8"` makes int8 pools plus scale pools of
-    1.0 (the scale pools are page-blocked, so `page_size` is required)."""
+    1.0 (the scale pools are page-blocked, so `page_size` is required),
+    `kv_quant="int4"` int8 pools of half the width (two codes a byte, one
+    scale group per kv head) plus the same scale pools."""
     shape = (num_slots, cfg.num_kv_heads * cfg.head_dim)
     n = cfg.num_layers
     if kv_quant is None:
@@ -103,10 +110,15 @@ def init_kv_cache(cfg: ModelConfig, num_slots: int, *, device,
             k=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(n)),
             v=tuple(torch.zeros(shape, dtype=dtype, device=device) for _ in range(n)),
         )
-    if kv_quant != "int8":
-        raise ValueError(f"unknown kv_quant {kv_quant!r}; the port has 'int8'")
+    if kv_quant not in ("int8", "int4"):
+        raise ValueError(f"unknown kv_quant {kv_quant!r}; expected 'int8' or 'int4'")
     if not page_size or num_slots % page_size:
-        raise ValueError("int8 KV needs a page_size that divides num_slots")
+        raise ValueError(f"{kv_quant} KV needs a page_size that divides num_slots")
+    int4 = kv_quant == "int4"
+    if int4:
+        if shape[1] % 2:
+            raise ValueError("int4 KV needs an even K*Hd")
+        shape = (num_slots, shape[1] // 2)
 
     def scales():
         return init_kv_scale_pool(num_slots // page_size, page_size, cfg.num_kv_heads,
@@ -117,14 +129,16 @@ def init_kv_cache(cfg: ModelConfig, num_slots: int, *, device,
         v=tuple(torch.zeros(shape, dtype=torch.int8, device=device) for _ in range(n)),
         ks=tuple(scales() for _ in range(n)),
         vs=tuple(scales() for _ in range(n)),
+        int4=int4,
     )
 
 
 def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
-                attn: AttnSpec, kv_ks=None, kv_vs=None):
+                attn: AttnSpec, kv_ks=None, kv_vs=None, int4=False):
     b, t, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     quant = kv_ks is not None
+    quantize = quantize_kv_rows_int4 if int4 else quantize_kv_rows
     q = x @ lp["wq"]
     k = x @ lp["wk"]
     v = x @ lp["wv"]
@@ -144,26 +158,27 @@ def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
             # the kernel stores the quantized rows and their scales and
             # attends the new token through them; K and V rows quantize in
             # one call (one set of eager launches on a host-bound step)
-            rows, sc = quantize_kv_rows(torch.stack((new_k, new_v)), kh)
+            rows, sc = quantize(torch.stack((new_k, new_v)), kh)
             new_k, new_v = rows
             scales = (kv_ks, kv_vs, sc[0], sc[1])
         out = fused_paged_decode_attention(
             q[:, 0].contiguous(), new_k, new_v,
             kv_k, kv_v, attn.block_tables, attn.lengths, attn.write_pos, *scales,
-            page_size=attn.page_size,
+            page_size=attn.page_size, int4=int4,
         )[0][:, None]
     else:
         # whole [page, K*Hd] blocks: rows pad up to whole pages; the tail
         # garbage lands in the sequence's own not-yet-valid positions
-        # (masked by position) or in the trash page. int8 rows are
-        # quantized first and padded after, with scale 1.0 (the pool's
-        # initial value), as in the reference.
+        # (masked by position) or in the trash page. int8 and int4 rows
+        # are quantized first and padded after (zero codes, packed byte 0
+        # for int4) with scale 1.0 (the pool's initial value), as in the
+        # reference.
         ps = attn.page_size
         t_pad = -(-t // ps) * ps
         k2 = k.reshape(b, t, kh * hd)
         v2 = v.reshape(b, t, kh * hd)
         if quant:
-            (k2, v2), (ks2, vs2) = quantize_kv_rows(torch.stack((k2, v2)), kh)
+            (k2, v2), (ks2, vs2) = quantize(torch.stack((k2, v2)), kh)
         if t_pad != t:
             k2 = F.pad(k2, (0, 0, 0, t_pad - t))
             v2 = F.pad(v2, (0, 0, 0, t_pad - t))
@@ -171,6 +186,7 @@ def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
                 ks2 = F.pad(ks2, (0, 0, 0, t_pad - t), value=1.0)
                 vs2 = F.pad(vs2, (0, 0, 0, t_pad - t), value=1.0)
         n_pg = b * (t_pad // ps)
+        row_w = k2.shape[-1]  # K*Hd, or K*Hd/2 for packed int4 rows
         scale_pages = pools = ()
         if quant:
             scale_pages = (scales_to_page_tiles(ks2.reshape(b * t_pad, kh), ps),
@@ -178,13 +194,13 @@ def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
             pools = (kv_ks, kv_vs)
         paged_kv_write(
             kv_k, kv_v, attn.write_tables,
-            k2.reshape(n_pg, ps, kh * hd).contiguous(),
-            v2.reshape(n_pg, ps, kh * hd).contiguous(),
-            *pools, *scale_pages, page_size=ps,
+            k2.reshape(n_pg, ps, row_w).contiguous(),
+            v2.reshape(n_pg, ps, row_w).contiguous(),
+            *pools, *scale_pages, page_size=ps, int4=int4,
         )
         out = flash_prefill_attention(
             q.contiguous(), kv_k, kv_v, attn.block_tables, attn.q_pos0,
-            attn.lengths, *pools, page_size=ps,
+            attn.lengths, *pools, page_size=ps, int4=int4,
         )
     return out.reshape(b, t, h * hd) @ lp["wo"]
 
@@ -201,12 +217,13 @@ def _mlp_block(lp: Params, x, act: str = "silu"):
     return (gate * (x @ lp["w_up"])) @ lp["w_down"]
 
 
-def layer_step(lp, cfg, x, cos, sin, kv_k, kv_v, attn, kv_ks=None, kv_vs=None):
+def layer_step(lp, cfg, x, cos, sin, kv_k, kv_v, attn, kv_ks=None, kv_vs=None,
+               int4=False):
     """One transformer layer (attention + FFN, pre-norm residuals); the
     layer's pools are updated in place."""
     w_off = cfg.norm_weight_offset
     attn_in = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps, weight_offset=w_off)
-    x = x + _attn_block(lp, cfg, attn_in, cos, sin, kv_k, kv_v, attn, kv_ks, kv_vs)
+    x = x + _attn_block(lp, cfg, attn_in, cos, sin, kv_k, kv_v, attn, kv_ks, kv_vs, int4)
     mlp_in = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps, weight_offset=w_off)
     return x + _mlp_block(lp, mlp_in, act=cfg.hidden_act)
 
@@ -236,7 +253,7 @@ def forward(
     cos, sin = rope_cos_sin(inv_freq, positions)  # [B, T, Hd]
     for l, lp in enumerate(params["layers"]):
         scales = (kv.ks[l], kv.vs[l]) if kv.quantized else ()
-        x = layer_step(lp, cfg, x, cos, sin, kv.k[l], kv.v[l], attn, *scales)
+        x = layer_step(lp, cfg, x, cos, sin, kv.k[l], kv.v[l], attn, *scales, int4=kv.int4)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps,
                  weight_offset=cfg.norm_weight_offset)
     return x, kv

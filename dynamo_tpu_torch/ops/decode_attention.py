@@ -1,8 +1,9 @@
 """K3 and K5: paged decode attention fused with the new token's KV write.
 
 Port of `dynamo_tpu/ops/pallas_attention.py::fused_paged_decode_attention`
-(K3 the bf16 branch `_decode_kernel`, K5 the int8 branch `_decode_kernel_q`)
-and its read-only use `paged_decode_attention`; both CUDA kernels are in
+(K3 the bf16 branch `_decode_kernel`, K5 the quantized branch
+`_decode_kernel_q` in its int8 and int4 forms) and its read-only use
+`paged_decode_attention`; the CUDA kernels are in
 `csrc/decode_attention.cu`. One query per sequence: when `write_pos[b] >= 0`
 the new K/V row is stored at that position (the caller keeps `write_pos <
 lengths`, as the engine does), then the query attends `lengths[b]` keys,
@@ -12,7 +13,9 @@ updated in place.
 With scale pools (int8 KV, ops/quant.py layout) the pools and the new rows
 are int8 and `new_ks`/`new_vs` [B, K] are the new rows' scales: they are
 stored beside the row, and the new token is attended through its
-quantized row, as in the reference.
+quantized row, as in the reference. With `int4=True` the pools and new rows
+are nibble-packed, K*Hd/2 bytes a row (ops/quant.py planar layout); the
+width then no longer tells the number of kv heads, hence the flag.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from dynamo_tpu_torch.ops import _cuda
 from dynamo_tpu_torch.ops.attention import slots_from_pages
 from dynamo_tpu_torch.ops.quant import (
     dequantize_kv_rows,
+    dequantize_kv_rows_int4,
     gather_kv_scales,
     scatter_kv_scales,
 )
@@ -85,42 +89,72 @@ def fused_paged_decode_attention_q_plain(
     q, new_k, new_v, k_cache, v_cache, block_tables, lengths, write_pos,
     k_scales, v_scales, new_ks, new_vs, *, page_size,
 ):
-    """Plain PyTorch version of K5: int8 row and scale write, then the
+    """Plain PyTorch version of K5 (int8): row and scale write, then the
     gathered rows dequantized to f32 and K3's attention over them."""
     fused_paged_decode_attention_q_plain.calls += 1
+    return _write_and_attend_quantized(
+        q, new_k, new_v, k_cache, v_cache, block_tables, lengths, write_pos,
+        k_scales, v_scales, new_ks, new_vs, page_size, dequantize_kv_rows,
+    )
+
+
+fused_paged_decode_attention_q_plain.calls = 0
+
+
+def fused_paged_decode_attention_q4_plain(
+    q, new_k, new_v, k_cache, v_cache, block_tables, lengths, write_pos,
+    k_scales, v_scales, new_ks, new_vs, *, page_size,
+):
+    """Plain PyTorch version of K5's int4 form: the same over nibble-packed
+    rows, unpacked and dequantized to f32."""
+    fused_paged_decode_attention_q4_plain.calls += 1
+    return _write_and_attend_quantized(
+        q, new_k, new_v, k_cache, v_cache, block_tables, lengths, write_pos,
+        k_scales, v_scales, new_ks, new_vs, page_size,
+        lambda x, s: dequantize_kv_rows_int4(x, s, s.shape[-1]),
+    )
+
+
+fused_paged_decode_attention_q4_plain.calls = 0
+
+
+def _write_and_attend_quantized(q, new_k, new_v, k_cache, v_cache, block_tables,
+                                lengths, write_pos, k_scales, v_scales, new_ks,
+                                new_vs, page_size, dequantize):
     b, _, hd = q.shape
-    kh = k_cache.shape[1] // hd
+    kh = k_scales.shape[1]
     rows, slots = _write_rows(
         k_cache, v_cache, block_tables, write_pos, new_k, new_v, page_size)
     scatter_kv_scales(k_scales, slots, new_ks[rows])
     scatter_kv_scales(v_scales, slots, new_vs[rows])
     flat = slots_from_pages(block_tables, page_size).long().reshape(-1)
     c = flat.shape[0] // b
-    k = dequantize_kv_rows(k_cache[flat], gather_kv_scales(k_scales, flat))
-    v = dequantize_kv_rows(v_cache[flat], gather_kv_scales(v_scales, flat))
+    k = dequantize(k_cache[flat], gather_kv_scales(k_scales, flat))
+    v = dequantize(v_cache[flat], gather_kv_scales(v_scales, flat))
     out = _attend(q, k.reshape(b, c, kh, hd), v.reshape(b, c, kh, hd), lengths)
     return out, k_cache, v_cache, k_scales, v_scales
-
-
-fused_paged_decode_attention_q_plain.calls = 0
 
 
 def fused_paged_decode_attention(
     q, new_k, new_v, k_cache, v_cache, block_tables, lengths, write_pos,
     k_scales=None, v_scales=None, new_ks=None, new_vs=None, *, page_size,
+    int4=False,
 ):
     """q [B, H, Hd] (rope applied, unscaled); new_k/new_v [B, K*Hd];
     pools [num_slots, K*Hd]; block_tables [B, W], lengths and write_pos [B]
     int32. With scale pools `k_scales`/`v_scales` [num_pages, K, page_size]
-    f32, the pools and new rows are int8 and `new_ks`/`new_vs` [B, K] f32.
-    Returns (out [B, H, Hd], k_cache, v_cache[, k_scales, v_scales]) with
-    the pools updated in place. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (bf16 q, head_dim in {32, 64, 128},
-    H/K <= 8)."""
+    f32, the pools and new rows are int8 (K*Hd/2 nibble-packed bytes a row
+    with `int4=True`) and `new_ks`/`new_vs` [B, K] f32. Returns
+    (out [B, H, Hd], k_cache, v_cache[, k_scales, v_scales]) with the pools
+    updated in place. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (bf16 q, head_dim in {32, 64, 128}, H/K <= 8)."""
     quant = k_scales is not None
+    _cuda.require(quant or not int4, "int4 KV needs scale pools")
     if q.device.type == "cpu":
         if quant:
-            return fused_paged_decode_attention_q_plain(
+            plain = (fused_paged_decode_attention_q4_plain if int4
+                     else fused_paged_decode_attention_q_plain)
+            return plain(
                 q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
                 write_pos, k_scales, v_scales, new_ks, new_vs, page_size=page_size,
             )
@@ -129,23 +163,26 @@ def fused_paged_decode_attention(
             write_pos, page_size=page_size,
         )
     out = _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
-                  write_pos, page_size, k_scales, v_scales, new_ks, new_vs)
+                  write_pos, page_size, k_scales, v_scales, new_ks, new_vs, int4)
     if quant:
         return out, k_cache, v_cache, k_scales, v_scales
     return out, k_cache, v_cache
 
 
 def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths,
-                           k_scales=None, v_scales=None, *, page_size):
+                           k_scales=None, v_scales=None, *, page_size, int4=False):
     """Read-only decode attention (KV already written): the same kernel
     with every write skipped. Returns [B, H, Hd]."""
     b = q.shape[0]
     no_write = torch.full((b,), -1, dtype=torch.int32, device=q.device)
+    _cuda.require(k_scales is not None or not int4, "int4 KV needs scale pools")
     if q.device.type == "cpu":
         zeros = torch.zeros((b, k_cache.shape[1]), dtype=k_cache.dtype)
         if k_scales is not None:
             ones = torch.ones((b, k_scales.shape[1]))
-            return fused_paged_decode_attention_q_plain(
+            plain = (fused_paged_decode_attention_q4_plain if int4
+                     else fused_paged_decode_attention_q_plain)
+            return plain(
                 q, zeros, zeros, k_cache, v_cache, block_tables, lengths,
                 no_write, k_scales, v_scales, ones, ones, page_size=page_size,
             )[0]
@@ -154,19 +191,20 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths,
             no_write, page_size=page_size,
         )[0]
     return _launch(q, None, None, k_cache, v_cache, block_tables, lengths,
-                   no_write, page_size, k_scales, v_scales, None, None)
+                   no_write, page_size, k_scales, v_scales, None, None, int4)
 
 
 def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
-            write_pos, page_size, k_scales, v_scales, new_ks, new_vs):
+            write_pos, page_size, k_scales, v_scales, new_ks, new_vs, int4):
     req = _cuda.require
     req(q.device.type == "cuda", f"unsupported device {q.device}")
     quant = k_scales is not None
     b, h, hd = q.shape
     num_slots, kw = k_cache.shape
     req(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
-    req(kw % hd == 0, "pool width must be K * head_dim")
-    kh = kw // hd
+    kwf = 2 * kw if int4 else kw  # the row's features
+    req(kwf % hd == 0, "pool width must be K * head_dim (K * head_dim / 2 for int4)")
+    kh = kwf // hd
     req(h % kh == 0 and h // kh <= MAX_GROUP, f"unsupported GQA group {h}/{kh}")
     req(num_slots % page_size == 0, "pool rows must be whole pages")
     req(v_cache.shape == k_cache.shape, "k/v pools differ in shape")
@@ -175,7 +213,8 @@ def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
     pool_dtype = torch.int8 if quant else torch.bfloat16
     tensors = [q, k_cache, v_cache, block_tables, lengths, write_pos]
     if new_k is not None:
-        req(new_k.shape == (b, kw) and new_v.shape == (b, kw), "new rows must be [B, K*Hd]")
+        req(new_k.shape == (b, kw) and new_v.shape == (b, kw),
+            f"new rows must be [B, {kw}], as wide as the pools")
         tensors += [new_k, new_v]
         for x in (new_k, new_v):
             req(x.dtype == pool_dtype, f"new rows must be {pool_dtype}")
@@ -183,14 +222,14 @@ def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
     for x in (k_cache, v_cache):
         req(x.dtype == pool_dtype, f"pools must be {pool_dtype}")
     if quant:
-        req(v_scales is not None, "int8 KV needs both scale pools")
+        req(v_scales is not None, "quantized KV needs both scale pools")
         req(k_scales.shape == (num_slots // page_size, kh, page_size)
             and v_scales.shape == k_scales.shape,
             f"scale pools must be [{num_slots // page_size}, {kh}, {page_size}]")
         tensors += [k_scales, v_scales]
         scales = [k_scales, v_scales]
         if new_k is not None:
-            req(new_ks is not None and new_vs is not None, "int8 rows need their scales")
+            req(new_ks is not None and new_vs is not None, "quantized rows need their scales")
             req(new_ks.shape == (b, kh) and new_vs.shape == (b, kh), "new scales must be [B, K]")
             tensors += [new_ks, new_vs]
             scales += [new_ks, new_vs]
@@ -211,12 +250,16 @@ def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
             b, h, kh, hd, block_tables.shape[1], page_size, hd ** -0.5,
             _cuda.stream_ptr(q.device))
     if quant:
-        err = lib.fused_decode_q_launch(
+        launch = lib.fused_decode_q4_launch if int4 else lib.fused_decode_q_launch
+        err = launch(
             ptr(q), ptr(new_k), ptr(new_v), ptr(k_cache), ptr(v_cache),
             ptr(new_ks), ptr(new_vs), ptr(k_scales), ptr(v_scales), *tail,
         )
-        _cuda.check(err, "fused_paged_decode_attention (int8)")
-        fused_paged_decode_attention.launches_q += 1
+        _cuda.check(err, f"fused_paged_decode_attention ({'int4' if int4 else 'int8'})")
+        if int4:
+            fused_paged_decode_attention.launches_q4 += 1
+        else:
+            fused_paged_decode_attention.launches_q += 1
         return out
     err = lib.fused_decode_launch(
         ptr(q), ptr(new_k), ptr(new_v), ptr(k_cache), ptr(v_cache), *tail,
@@ -228,6 +271,7 @@ def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
 
 fused_paged_decode_attention.launches = 0    # K3 (bf16 pools)
 fused_paged_decode_attention.launches_q = 0  # K5 (int8 pools + scale pools)
+fused_paged_decode_attention.launches_q4 = 0  # K5, int4 form (nibble-packed pools)
 
 
 def _launcher():
@@ -245,4 +289,7 @@ def _launcher():
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fq.restype = ctypes.c_int
+        f4 = lib.fused_decode_q4_launch
+        f4.argtypes = fq.argtypes
+        f4.restype = ctypes.c_int
     return lib

@@ -1,12 +1,15 @@
 """K1 and K7: page-scatter KV write, the prefill-side cache update.
 
 Port of `dynamo_tpu/ops/pallas_kv_write.py::paged_kv_write`: K1 is the
-bf16 branch (`_kernel`), K7 the int8 branch (`_kernel_q`); both CUDA
-kernels are in `csrc/kv_write.cu`. For each page i of a prefill chunk the
-source block `new_k[i]`/`new_v[i]` ([page_size, K*Hd]) is copied into pool
-page `page_table[i]`, in place. With scale pools (int8 KV) the page's
-scale tiles `new_ks[i]`/`new_vs[i]` ([K, page_size] f32, ops/quant.py
-layout) ride the same page-table routing. Page 0 is the trash page.
+bf16 branch (`_kernel`), K7 the quantized branch (`_kernel_q`) in its int8
+and int4 forms; the CUDA kernels are in `csrc/kv_write.cu`. For each page
+i of a prefill chunk the source block `new_k[i]`/`new_v[i]` ([page_size,
+row width]) is copied into pool page `page_table[i]`, in place. With scale
+pools (int8 or int4 KV) the page's scale tiles `new_ks[i]`/`new_vs[i]`
+([K, page_size] f32, ops/quant.py layout) ride the same page-table
+routing. int4 rows are nibble-packed, K*Hd/2 bytes; the copy is the same,
+but the wrapper takes `int4=True` so the launch is counted as K7's int4
+form. Page 0 is the trash page.
 
 Correct-use contract (the engine's chunking guarantees both):
 - chunk starts are page-aligned (prefill_chunk % page_size == 0);
@@ -38,17 +41,35 @@ paged_kv_write_plain.calls = 0
 
 def paged_kv_write_q_plain(k_cache, v_cache, page_table, new_k, new_v,
                            ks_cache, vs_cache, new_ks, new_vs, *, page_size):
-    """Plain PyTorch version of K7: K1's page copies plus the scale tiles,
-    page by page in the same order."""
+    """Plain PyTorch version of K7 (int8): K1's page copies plus the scale
+    tiles, page by page in the same order."""
     paged_kv_write_q_plain.calls += 1
+    return _copy_q_pages(k_cache, v_cache, page_table, new_k, new_v,
+                         ks_cache, vs_cache, new_ks, new_vs, page_size)
+
+
+paged_kv_write_q_plain.calls = 0
+
+
+def paged_kv_write_q4_plain(k_cache, v_cache, page_table, new_k, new_v,
+                            ks_cache, vs_cache, new_ks, new_vs, *, page_size):
+    """Plain PyTorch version of K7's int4 form: the same copies of packed
+    rows [page_size, K*Hd/2] and scale tiles."""
+    paged_kv_write_q4_plain.calls += 1
+    return _copy_q_pages(k_cache, v_cache, page_table, new_k, new_v,
+                         ks_cache, vs_cache, new_ks, new_vs, page_size)
+
+
+paged_kv_write_q4_plain.calls = 0
+
+
+def _copy_q_pages(k_cache, v_cache, page_table, new_k, new_v,
+                  ks_cache, vs_cache, new_ks, new_vs, page_size):
     _copy_pages(k_cache, v_cache, page_table, new_k, new_v, page_size)
     for i, page in enumerate(page_table.tolist()):
         ks_cache[page] = new_ks[i]
         vs_cache[page] = new_vs[i]
     return k_cache, v_cache, ks_cache, vs_cache
-
-
-paged_kv_write_q_plain.calls = 0
 
 
 def _copy_pages(k_cache, v_cache, page_table, new_k, new_v, page_size):
@@ -61,18 +82,22 @@ def _copy_pages(k_cache, v_cache, page_table, new_k, new_v, page_size):
 
 def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
                    ks_cache=None, vs_cache=None, new_ks=None, new_vs=None, *,
-                   page_size):
-    """Scatter whole pages into the slot pools [num_slots, K*Hd], in place.
-    `page_table` [n_pages] int32 destination page ids, `new_k`/`new_v`
-    [n_pages, page_size, K*Hd] source blocks. With scale pools
-    `ks_cache`/`vs_cache` [num_pages, K, page_size] f32 the pools are int8
-    and `new_ks`/`new_vs` [n_pages, K, page_size] are the pages' scale
-    tiles. Returns the (same) pools: (k, v), or (k, v, ks, vs) with scales.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+                   page_size, int4=False):
+    """Scatter whole pages into the slot pools [num_slots, row width], in
+    place. `page_table` [n_pages] int32 destination page ids,
+    `new_k`/`new_v` [n_pages, page_size, row width] source blocks. With
+    scale pools `ks_cache`/`vs_cache` [num_pages, K, page_size] f32 the
+    pools are int8 (rows K*Hd wide, or K*Hd/2 nibble-packed with
+    `int4=True`) and `new_ks`/`new_vs` [n_pages, K, page_size] are the
+    pages' scale tiles. Returns the (same) pools: (k, v), or (k, v, ks, vs)
+    with scales. CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
     quant = ks_cache is not None
+    _cuda.require(quant or not int4, "int4 KV needs scale pools")
     if k_cache.device.type == "cpu":
         if quant:
-            return paged_kv_write_q_plain(
+            plain = paged_kv_write_q4_plain if int4 else paged_kv_write_q_plain
+            return plain(
                 k_cache, v_cache, page_table, new_k, new_v, ks_cache, vs_cache,
                 new_ks, new_vs, page_size=page_size,
             )
@@ -95,8 +120,9 @@ def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
     if quant:
         req(k_cache.dtype == torch.int8, "pools with scale pools must be int8")
         for t in (vs_cache, new_ks, new_vs):
-            req(t is not None, "int8 KV needs both scale pools and both scale tiles")
+            req(t is not None, "quantized KV needs both scale pools and both scale tiles")
         kh = ks_cache.shape[1]
+        req(kw % kh == 0, "pool row width must be whole kv heads")
         req(ks_cache.shape == (num_pages, kh, page_size) and vs_cache.shape == ks_cache.shape,
             f"scale pools must be [{num_pages}, K, {page_size}]")
         req(new_ks.shape == (n, kh, page_size) and new_vs.shape == new_ks.shape,
@@ -117,14 +143,18 @@ def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
         req(t.data_ptr() % 16 == 0, "tensors must be 16-byte aligned")
     lib = _launcher()
     if quant:
-        err = lib.paged_kv_write_q_launch(
+        launch = lib.paged_kv_write_q4_launch if int4 else lib.paged_kv_write_q_launch
+        err = launch(
             k_cache.data_ptr(), v_cache.data_ptr(), page_table.data_ptr(),
             new_k.data_ptr(), new_v.data_ptr(), ks_cache.data_ptr(),
             vs_cache.data_ptr(), new_ks.data_ptr(), new_vs.data_ptr(),
             n, num_pages, page_bytes, kh * page_size, _cuda.stream_ptr(dev),
         )
-        _cuda.check(err, "paged_kv_write (int8)")
-        paged_kv_write.launches_q += 1
+        _cuda.check(err, f"paged_kv_write ({'int4' if int4 else 'int8'})")
+        if int4:
+            paged_kv_write.launches_q4 += 1
+        else:
+            paged_kv_write.launches_q += 1
         return k_cache, v_cache, ks_cache, vs_cache
     err = lib.paged_kv_write_launch(
         k_cache.data_ptr(), v_cache.data_ptr(), page_table.data_ptr(),
@@ -138,6 +168,7 @@ def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
 
 paged_kv_write.launches = 0    # K1 (bf16 pools)
 paged_kv_write.launches_q = 0  # K7 (int8 pools + scale tiles)
+paged_kv_write.launches_q4 = 0  # K7, int4 form (nibble-packed pools + scale tiles)
 
 
 def _launcher():
@@ -151,4 +182,7 @@ def _launcher():
             [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
         )
         fq.restype = ctypes.c_int
+        f4 = lib.paged_kv_write_q4_launch
+        f4.argtypes = fq.argtypes
+        f4.restype = ctypes.c_int
     return lib

@@ -1,14 +1,17 @@
 """K2 and K6: causal chunked-prefill flash attention over the paged KV pool.
 
 Port of `dynamo_tpu/ops/pallas_prefill.py::flash_prefill_attention`, its
-bf16 branch (K2) and its int8 branch (K6); both CUDA kernels are in
-`csrc/prefill_attention.cu`. Row b's queries sit at positions `pos0[b] ..
+bf16 branch (K2) and its int8 and int4 branches (K6); the CUDA kernels are
+in `csrc/prefill_attention.cu`. Row b's queries sit at positions `pos0[b] ..
 pos0[b] + t_valid[b] - 1` (pos0 need not be page-aligned) and attend keys
 with `k_pos <= q_pos` through the row's block table. Rows at or past
 `t_valid` are 0. q arrives with rope applied and unscaled; `hd**-0.5` is
 applied here. With scale pools (int8 KV, ops/quant.py layout) the pools
 are int8: the K scale multiplies the scores and the V scale the
-probabilities, in f32, as in the reference.
+probabilities, in f32, as in the reference. With `int4=True` the int8
+pools are nibble-packed (K*Hd/2 bytes a row, ops/quant.py planar layout):
+the pool's width no longer tells the number of kv heads, hence the flag,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -19,7 +22,11 @@ import torch
 
 from dynamo_tpu_torch.ops import _cuda
 from dynamo_tpu_torch.ops.attention import slots_from_pages
-from dynamo_tpu_torch.ops.quant import dequantize_kv_rows, gather_kv_scales
+from dynamo_tpu_torch.ops.quant import (
+    dequantize_kv_rows,
+    dequantize_kv_rows_int4,
+    gather_kv_scales,
+)
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 64
@@ -68,34 +75,59 @@ def flash_prefill_attention_q_plain(
     q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales, v_scales, *,
     page_size,
 ):
-    """Plain PyTorch version of K6: gather the rows' slots, dequantize them
-    to f32 and attend as K2's plain version does."""
+    """Plain PyTorch version of K6 (int8): gather the rows' slots,
+    dequantize them to f32 and attend as K2's plain version does."""
     flash_prefill_attention_q_plain.calls += 1
-    b, _, _, hd = q.shape
-    kh = k_cache.shape[1] // hd
-    flat = slots_from_pages(block_tables, page_size).long().reshape(-1)
-    c = flat.shape[0] // b
-    k = dequantize_kv_rows(k_cache[flat], gather_kv_scales(k_scales, flat))
-    v = dequantize_kv_rows(v_cache[flat], gather_kv_scales(v_scales, flat))
-    return _attend(q, k.reshape(b, c, kh, hd), v.reshape(b, c, kh, hd), pos0, t_valid)
+    return _attend_quantized(q, k_cache, v_cache, block_tables, pos0, t_valid,
+                             k_scales, v_scales, page_size, dequantize_kv_rows)
 
 
 flash_prefill_attention_q_plain.calls = 0
 
 
+def flash_prefill_attention_q4_plain(
+    q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales, v_scales, *,
+    page_size,
+):
+    """Plain PyTorch version of K6's int4 form: the same over nibble-packed
+    rows, unpacked and dequantized to f32."""
+    flash_prefill_attention_q4_plain.calls += 1
+    return _attend_quantized(
+        q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales, v_scales,
+        page_size, lambda x, s: dequantize_kv_rows_int4(x, s, s.shape[-1]),
+    )
+
+
+flash_prefill_attention_q4_plain.calls = 0
+
+
+def _attend_quantized(q, k_cache, v_cache, block_tables, pos0, t_valid,
+                      k_scales, v_scales, page_size, dequantize):
+    b, _, _, hd = q.shape
+    kh = k_scales.shape[1]
+    flat = slots_from_pages(block_tables, page_size).long().reshape(-1)
+    c = flat.shape[0] // b
+    k = dequantize(k_cache[flat], gather_kv_scales(k_scales, flat))
+    v = dequantize(v_cache[flat], gather_kv_scales(v_scales, flat))
+    return _attend(q, k.reshape(b, c, kh, hd), v.reshape(b, c, kh, hd), pos0, t_valid)
+
+
 def flash_prefill_attention(
     q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales=None,
-    v_scales=None, *, page_size
+    v_scales=None, *, page_size, int4=False
 ):
     """q [B, T, H, Hd] (rope applied, unscaled); pools [num_slots, K*Hd];
     block_tables [B, W], pos0 and t_valid [B] int32; with scale pools
-    `k_scales`/`v_scales` [num_pages, K, page_size] f32 the pools are int8.
-    Returns [B, T, H, Hd] in q.dtype. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (bf16 q, head_dim in {32, 64, 128})."""
+    `k_scales`/`v_scales` [num_pages, K, page_size] f32 the pools are int8,
+    [num_slots, K*Hd/2] nibble-packed with `int4=True`. Returns
+    [B, T, H, Hd] in q.dtype. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (bf16 q, head_dim in {32, 64, 128})."""
     quant = k_scales is not None
+    _cuda.require(quant or not int4, "int4 KV needs scale pools")
     if q.device.type == "cpu":
         if quant:
-            return flash_prefill_attention_q_plain(
+            plain = flash_prefill_attention_q4_plain if int4 else flash_prefill_attention_q_plain
+            return plain(
                 q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales,
                 v_scales, page_size=page_size,
             )
@@ -107,8 +139,9 @@ def flash_prefill_attention(
     b, t, h, hd = q.shape
     num_slots, kw = k_cache.shape
     req(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
-    req(kw % hd == 0, "pool width must be K * head_dim")
-    kh = kw // hd
+    kwf = 2 * kw if int4 else kw  # the row's features
+    req(kwf % hd == 0, "pool width must be K * head_dim (K * head_dim / 2 for int4)")
+    kh = kwf // hd
     req(h % kh == 0 and h // kh <= MAX_GROUP, f"unsupported GQA group {h}/{kh}")
     req(num_slots % page_size == 0, "pool rows must be whole pages")
     req(v_cache.shape == k_cache.shape, "k/v pools differ in shape")
@@ -120,7 +153,7 @@ def flash_prefill_attention(
         req(x.dtype == pool_dtype, f"pools must be {pool_dtype}")
     tensors = [q, k_cache, v_cache, block_tables, pos0, t_valid]
     if quant:
-        req(v_scales is not None, "int8 KV needs both scale pools")
+        req(v_scales is not None, "quantized KV needs both scale pools")
         req(k_scales.shape == (num_slots // page_size, kh, page_size)
             and v_scales.shape == k_scales.shape,
             f"scale pools must be [{num_slots // page_size}, {kh}, {page_size}]")
@@ -132,18 +165,24 @@ def flash_prefill_attention(
     for x in tensors:
         req(x.device == q.device, "all tensors must be on one device")
         req(x.is_contiguous(), "tensors must be contiguous")
+    for x in (k_cache, v_cache):
+        req(x.data_ptr() % 16 == 0, "pools must be 16-byte aligned")
     out = torch.empty_like(q)
     lib = _launcher()
     tail = (block_tables.data_ptr(), pos0.data_ptr(), t_valid.data_ptr(),
             out.data_ptr(), b, t, h, kh, hd, block_tables.shape[1], page_size,
             hd ** -0.5, _cuda.stream_ptr(q.device))
     if quant:
-        err = lib.flash_prefill_q_launch(
+        launch = lib.flash_prefill_q4_launch if int4 else lib.flash_prefill_q_launch
+        err = launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scales.data_ptr(), v_scales.data_ptr(), *tail,
         )
-        _cuda.check(err, "flash_prefill_attention (int8)")
-        flash_prefill_attention.launches_q += 1
+        _cuda.check(err, f"flash_prefill_attention ({'int4' if int4 else 'int8'})")
+        if int4:
+            flash_prefill_attention.launches_q4 += 1
+        else:
+            flash_prefill_attention.launches_q += 1
         return out
     err = lib.flash_prefill_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *tail,
@@ -155,6 +194,7 @@ def flash_prefill_attention(
 
 flash_prefill_attention.launches = 0    # K2 (bf16 pools)
 flash_prefill_attention.launches_q = 0  # K6 (int8 pools + scale pools)
+flash_prefill_attention.launches_q4 = 0  # K6, int4 form (nibble-packed pools)
 
 
 def _launcher():
@@ -172,4 +212,7 @@ def _launcher():
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fq.restype = ctypes.c_int
+        f4 = lib.flash_prefill_q4_launch
+        f4.argtypes = fq.argtypes
+        f4.restype = ctypes.c_int
     return lib

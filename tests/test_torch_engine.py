@@ -146,12 +146,20 @@ def test_default_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize(
     "field,value",
-    [("spec_decode", True), ("kv_quantization", "int4"), ("step_pipeline", True),
+    [("spec_decode", True), ("mixed_batching", True), ("step_pipeline", True),
      ("kv_quant_group", 32)],
 )
 def test_unported_config_refused(field, value):
+    # kv_quant_group's unported case: int4 scale groups finer than head_dim (32 < 128)
+    other = {"kv_quantization": "int4", "model": "llama-3.1-8b"} if field == "kv_quant_group" else {}
     with pytest.raises(NotImplementedError, match=field):
-        EngineConfig(model="tiny", **{field: value})
+        EngineConfig(**{"model": "tiny", **other, field: value})
+
+
+def test_int4_group_must_divide_head_dim():
+    with pytest.raises(ValueError, match="must divide head_dim=16"):
+        EngineConfig(model="tiny", kv_quantization="int4", kv_quant_group=6)
+    EngineConfig(model="tiny", kv_quantization="int4", kv_quant_group=16)  # served
 
 
 async def test_unported_request_refused():
