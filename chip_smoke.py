@@ -7,8 +7,9 @@ final result line is printed only when every phase passed:
 
 1. card and versions (nvidia-smi name and power limit, torch, CUDA);
 2. build: the three CUDA sources under dynamo_tpu_torch/csrc (nine kernels:
-   K1-K3 for bf16 KV, K5-K7 in their int8 and their int4 forms), one nvcc
-   each, all in parallel;
+   K1-K3 for bf16 KV, K5-K7 in their int8 and their int4 forms; K4, the
+   ragged read of mixed and verify steps, enters K2/K6 in each KV format),
+   one nvcc each, all in parallel;
 3. each kernel against its plain PyTorch version on the same inputs, at
    Llama-3.1-8B per-layer shapes (K=8, Hd=128, H=32, B=8, chunk 512 over
    ~576 tokens, decode lengths 512-600; page 64, and page 128 for the int8
@@ -25,12 +26,21 @@ final result line is printed only when every phase passed:
    timing. Each attention check shows on its own 8B inputs that plain
    versions gone wrong miss it (a causal edge one key late, a dropped key,
    a stale or bf16 new row, two heads' scales swapped, and for int4 a high
-   nibble read unsigned or nibbles taken as adjacent pairs);
+   nibble read unsigned or nibbles taken as adjacent pairs). K4, in all
+   three forms, on one mixed rectangle at 8B shapes (four decode rows and
+   two verify rows of 1 + 4 queries at mid-page positions, two chunk rows,
+   a q_len 0 row) and on small ragged cases; its power shown by a causal
+   edge one key late and by verify rows whose last query lacks its newest
+   key; timed beside K3/K5 on the same decode rows;
 4. real weights: the vendored trained checkpoint tests/data/tiny-trained-llama
    through the port's safetensors reader in bf16 on the GPU, with bf16,
    int8 and int4 KV; the greedy continuation of "the capital of france is"
    must start with "paris" and agree with the same engine run on the CPU
-   in float32;
+   in float32; then, in each KV format, three requests at once (one
+   prefilling in chunks beside the others' decode rows, repetitive text)
+   with mixed steps and speculative decoding on must stream what the
+   engine streams with both off, through K4 and the launches the engine's
+   dispatch counters imply;
 5. full width: llama-3.1-8b (32 layers, d 4096) in bf16 from seeded random
    weights, eight concurrent requests (ISL 512, OSL 64) through
    TorchEngine.generate. Launch counters are zeroed just before and read
@@ -40,11 +50,20 @@ final result line is printed only when every phase passed:
    5's weights: K5-K7 in their int8 forms run, no other kernel and no
    plain version does;
 7. the same with int4 KV (kv_quantization="int4"): K5-K7 in their int4
-   forms only. With --pairs N, phases 5, 6 and 7 run N times in turns, to
-   show their spread.
+   forms only;
+8. an admission wave at full width on phase 5's weights and engine
+   settings: four held requests (ISL 512, OSL 128) stream, and once each
+   has 8 tokens four more (ISL 512, OSL 64) arrive. bf16 KV with mixed
+   steps and speculative decoding off, then on; int8 and int4 KV with both
+   on. Each run asserts the launches its dispatch counters imply (K4 once a
+   layer per mixed step and verify dispatch) and no plain call, and prints
+   the wave's TTFT, the held streams' longest silence and tokens/s inside
+   the wave, and the mixed and spec counters.
+With --pairs N, phases 5, 6 and 7 and phase 8's bf16 off/on pair run N
+times in turns, to show their spread.
 
-Then a `kernels` JSON line (nine kernels), the nvidia-smi line, and last
-{"ok": true, "device": {...}}.
+Then a `kernels` JSON line (twelve kernels: K4 in three forms beside the
+nine), the nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -651,6 +670,118 @@ def check_decode_q(peaks, gen, dev, int4=False):
                 bound_ms=b_ms, bound_by=by)
 
 
+# ------------------------------------------------------- phase 3, K4
+
+
+# rows of one ragged rectangle: (q_pos0, q_len). The 8B case is a mixed
+# step at the main path's shapes: four decode rows at mid-page positions,
+# two verify rows of 1 + 4 queries (the second across the page boundary at
+# 576), two chunk rows at page-aligned pos0, and a q_len 0 row.
+RAGGED_CASES = {
+    # H, K, Hd, page, T, W, rows
+    "8b": (32, 8, 128, 64, 512, 16,
+           [(517, 1), (550, 1), (583, 1), (600, 1), (530, 5), (574, 5), (64, 512),
+            (128, 448), (0, 0)]),
+    "hd32-g2": (4, 2, 32, 16, 32, 6, [(37, 1), (14, 5), (32, 32), (0, 0), (60, 1), (45, 3)]),
+    "hd64-g1": (4, 4, 64, 16, 32, 6, [(14, 5), (37, 1), (0, 0), (16, 24), (47, 2)]),
+    "hd64-g8": (16, 2, 64, 16, 32, 6, [(30, 3), (0, 0), (37, 1), (9, 32), (62, 5)]),
+}
+RAGGED_NAMES = {"bf16": "ragged_attention", "int8": "ragged_attention_q",
+                "int4": "ragged_attention_q4"}
+
+
+def check_ragged(peaks, gen, dev, form="bf16"):
+    """K4 in one form against its plain version on ragged rectangles (each
+    element within one bf16 ulp plus ATOL_F32, rows past q_len exactly 0),
+    with the check's power shown on the 8B rectangle, and the times of the
+    kernel, its plain version, SDPA with the ragged causal mask, K3/K5 on
+    the rectangle's decode rows and K4 on those rows alone."""
+    from dynamo_tpu_torch.ops import decode_attention as m
+
+    int4, quant = form == "int4", form != "bf16"
+    name = RAGGED_NAMES[form]
+    plain_fn = {"bf16": m.ragged_paged_attention_plain, "int8": m.ragged_paged_attention_q_plain,
+                "int4": m.ragged_paged_attention_q4_plain}[form]
+    errs = {}
+    for label, (h, kh, hd, page, t, w, rows) in RAGGED_CASES.items():
+        b = len(rows)
+        num_pages = b * w + 3
+        if quant:
+            k, v, ks, vs = _q_pools(num_pages, page, kh, hd, gen, dev, int4)
+            scales = (ks, vs)
+        else:
+            k, v = _pools(num_pages, page, kh * hd, gen, dev)
+            scales = ()
+        tables = _tables(b, w, num_pages, gen, dev)
+        q = torch.randn((b, t, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+        p0 = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=dev)
+        ql = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+
+        def kernel(q=q, tables=tables, p0=p0, ql=ql):
+            return m.ragged_paged_attention(q, k, v, tables, p0, ql, *scales, page_size=page,
+                                            int4=int4)
+
+        def plain(p0=p0):
+            return plain_fn(q, k, v, tables, p0, ql, *scales, page_size=page)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        valid = torch.arange(t, device=dev)[None] < ql[:, None]  # [B, T]
+        assert torch.all(got[~valid] == 0), f"{name} {label}: rows past q_len not 0"
+        c = compare_bf16(got[valid], want[valid])
+        msg = f"[kernel] {name} {label}: {fmt(c)}"
+        if label == "8b":
+            # the check's power on these inputs: every row's causal edge one
+            # key late, and the verify rows' last query without its own
+            # newest key (its causal limit one key early, the rest intact)
+            late = plain(p0 + 1)
+            early = plain(p0 - 1)
+            dropped = want.clone()
+            for r, (_, n) in enumerate(rows):
+                if n == 5:
+                    dropped[r, n - 1] = early[r, n - 1]
+            msg += _check_power(want, valid, name, {
+                "causal edge one key late": late,
+                "verify row's last query without its newest key": dropped,
+            })
+        log(msg)
+        assert c["ok"], f"{name} {label}: outside one bf16 ulp + {ATOL_F32}"
+        errs[label] = c["max_abs_err"]
+        if label != "8b":
+            continue
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain)
+        kd, vd = k, v
+        if quant:
+            kd = _dequant_pool(k, ks, int4).to(torch.bfloat16)
+            vd = _dequant_pool(v, vs, int4).to(torch.bfloat16)
+        qq, kk, vv, mask = _sdpa_prefill_inputs(q, kd, vd, tables, p0, ql, page)
+        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask))
+        # what a decode row costs when read through K4 (its padded query
+        # tiles) against K3/K5 reading the same rows
+        dec = (ql == 1).nonzero().flatten()
+        k4_dec_ms = time_ms(lambda: kernel(q[dec].contiguous(), tables[dec].contiguous(),
+                                           p0[dec].contiguous(), ql[dec].contiguous()))
+        q1, t1, l1 = q[dec, 0].contiguous(), tables[dec].contiguous(), (p0[dec] + 1).contiguous()
+        k3_ms = time_ms(lambda: m.paged_decode_attention(q1, k, v, t1, l1, *scales,
+                                                         page_size=page, int4=int4))
+        row_bytes = k.shape[1] // kh + (8 if quant else 0)  # a kv head's row (+ its 2 scales)
+        kv_rows = sum(p + n for p, n in rows if n)
+        n_q = sum(n for _, n in rows)
+        nbytes = (n_q * h * hd * 2 + q.numel() * 2 + 2 * kv_rows * kh * row_bytes
+                  + (tables.numel() + 2 * b) * 4)
+        flops = sum(4 * h * hd * sum(p + j + 1 for j in range(n)) for p, n in rows)
+        b_ms, by = bound_ms(nbytes, flops, peaks)
+    log(f"[kernel] {name}: every case within one bf16 ulp + 2**-16, rows past q_len 0; "
+        f"{ms:.4f} ms on the 8B rectangle (plain {plain_ms:.4f}, sdpa{' over KV dequantized to '
+        'bf16 beforehand' if quant else ''} {lib_ms:.4f}, bound {b_ms:.4f} by {by}); its 4 "
+        f"decode rows alone: K4 {k4_dec_ms:.4f} ms, {'K5' if quant else 'K3'} {k3_ms:.4f} ms")
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=by, k4_decode_rows_ms=k4_dec_ms,
+                decode_kernel_ms=k3_ms)
+
+
 # ---------------------------------------------------------------- phases 4-7
 
 
@@ -658,6 +789,9 @@ BF16_KERNELS = ("kv_write", "prefill_attention", "decode_attention")
 INT8_KERNELS = ("kv_write_q", "prefill_attention_q", "decode_attention_q")
 INT4_KERNELS = ("kv_write_q4", "prefill_attention_q4", "decode_attention_q4")
 PATH_KERNELS = {None: BF16_KERNELS, "int8": INT8_KERNELS, "int4": INT4_KERNELS}
+# K4, the ragged read of mixed and verify steps, in each KV format
+RAGGED_KERNEL = {None: "ragged_attention", "int8": "ragged_attention_q",
+                 "int4": "ragged_attention_q4"}
 
 
 def counters():
@@ -682,6 +816,12 @@ def counters():
                                  p.flash_prefill_attention_q4_plain),
         "decode_attention_q4": (d.fused_paged_decode_attention, "launches_q4",
                                 d.fused_paged_decode_attention_q4_plain),
+        "ragged_attention": (d.ragged_paged_attention, "launches",
+                             d.ragged_paged_attention_plain),
+        "ragged_attention_q": (d.ragged_paged_attention, "launches_q",
+                               d.ragged_paged_attention_q_plain),
+        "ragged_attention_q4": (d.ragged_paged_attention, "launches_q4",
+                                d.ragged_paged_attention_q4_plain),
     }
 
 
@@ -693,6 +833,21 @@ def reset_counts():
 
 def read_counts():
     return {n: (getattr(k, attr), p.calls) for n, (k, attr, p) in counters().items()}
+
+
+def path_launches(stats, layers, decode_steps, kv_quant):
+    """The launches the engine's own dispatch counters (`phase_stats`
+    deltas) imply: K1/K2 (or their quantized forms) once a layer per
+    standalone prefill dispatch, K3/K5 once a layer per decode step, K4
+    once a layer per mixed step and per standalone verify dispatch."""
+    write, prefill, decode = PATH_KERNELS[kv_quant]
+    want = {
+        write: layers * stats["prefill_dispatches"],
+        prefill: layers * stats["prefill_dispatches"],
+        decode: layers * stats["decode_dispatches"] * decode_steps,
+        RAGGED_KERNEL[kv_quant]: layers * (stats["mixed_steps"] + stats["spec_dispatches"]),
+    }
+    return {k: n for k, n in want.items() if n}
 
 
 def check_counts(counts, want, what):
@@ -739,16 +894,22 @@ def phase_real_weights(dev):
     vocab = tok["model"]["vocab"]
     inv = {i: w for w, i in vocab.items()}
     special = {t["id"] for t in tok["added_tokens"] if t.get("special")}
+    def encode(text):
+        return [vocab.get(w, vocab["<unk>"]) for w in re.findall(r"\w+|[^\w\s]+", text.lower())]
+
     prompt = "the capital of france is"
-    ids = [vocab.get(w, vocab["<unk>"]) for w in re.findall(r"\w+|[^\w\s]+", prompt.lower())]
+    ids = encode(prompt)
     n = 16
 
-    def run(device, dtype, kv_quant):
-        eng = TorchEngine(EngineConfig(
+    def engine(device, dtype, kv_quant, **kw):
+        return TorchEngine(EngineConfig(
             model=load_config(CKPT), checkpoint_dir=CKPT, dtype=dtype, page_size=16,
             num_pages=64, max_batch_size=4, max_model_len=256, prefill_chunk=32,
-            decode_steps=4, kv_quantization=kv_quant,
+            decode_steps=4, kv_quantization=kv_quant, **kw,
         ), device=device)
+
+    def run(device, dtype, kv_quant):
+        eng = engine(device, dtype, kv_quant)
 
         async def go():
             (res,), _ = await run_requests(eng, [ids], n)
@@ -772,6 +933,45 @@ def phase_real_weights(dev):
         for name, (launches, plain) in counts.items():
             assert (launches > 0) == (name in names) and plain == 0, \
                 f"real-weights path, {kv} KV: {name} launches {launches}, plain {plain}"
+
+    # mixed steps and speculative decoding on the same checkpoint: three
+    # requests at once, a 144-token prompt prefilling in chunks beside the
+    # others' decode rows; the text repeats, so the proposer drafts
+    line = encode(" ".join(["the capital of germany is berlin . berlin is the capital "
+                            "of germany ."] * 6))
+    traffic = [(line[:30], 24), (line + line[:60], 12), (ids, 12)]
+
+    def serve(kv_quant, **kw):
+        eng = engine(dev, "bfloat16", kv_quant, **kw)
+
+        async def go():
+            outs = await asyncio.gather(*[run_requests(eng, [p], n) for p, n in traffic])
+            await eng.close()
+            return [r[0][0][0] for r in outs]
+
+        return asyncio.run(go()), eng
+
+    for kv_quant in PATH_KERNELS:
+        kv = kv_quant or "bf16"
+        want, _ = serve(kv_quant)
+        reset_counts()
+        got, eng = serve(kv_quant, mixed_batching=True, mixed_step_tokens=64, spec_decode=True)
+        counts = read_counts()
+        st = eng.phase_stats
+        log(f"[real] mixed + spec, {kv} KV, 3 requests at once: streams equal to both off: "
+            f"{got == want}; " + json.dumps({k: st[k] for k in MIXED_STATS})
+            + f"; launches {json.dumps({k: v[0] for k, v in counts.items() if v[0]})}")
+        assert got == want, f"mixed + spec streams differ from both off ({kv} KV): {got} vs {want}"
+        assert st["mixed_steps"] > 0 and st["spec_rows"] > 0, f"no mixed or verify rows ({kv} KV)"
+        check_counts(counts, path_launches(st, eng.model_cfg.num_layers, 4, kv_quant),
+                     f"real weights, mixed + spec, {kv} KV")
+        assert counts[RAGGED_KERNEL[kv_quant]][0] > 0
+
+
+MIXED_STATS = ("mixed_steps", "mixed_decode_rows", "mixed_prefill_tokens",
+               "mixed_step_tokens_max", "mixed_spec_rows", "spec_dispatches", "spec_rows",
+               "spec_drafted", "spec_accepted", "spec_emitted", "prefill_dispatches",
+               "decode_dispatches")
 
 
 async def profile_round(engine, prompts):
@@ -899,10 +1099,136 @@ def phase_full_width(dev, kv_quant=None, params=None):
     return {k: v[0] for k, v in counts.items()}, m, params
 
 
+# ---------------------------------------------------------------- phase 8
+
+# phase 5's engine, with mixed steps and speculative decoding switched by
+# the run; `phase_wave(cfg=...)` swaps in a small model for a CPU rehearsal
+WAVE_CFG = dict(model="llama-3.1-8b", dtype="bfloat16", page_size=64, num_pages=256,
+                max_batch_size=8, max_model_len=2048, prefill_chunk=512, decode_steps=8,
+                seed=0, mixed_step_tokens=1024)
+WAVE_TRAFFIC = dict(held=4, held_isl=512, held_osl=128, wave=4, wave_isl=512, wave_osl=64,
+                    held_before=8)
+
+
+async def wave_requests(engine, held, wave, held_osl, wave_osl, held_before):
+    """Start the held requests; once each has streamed `held_before`
+    tokens, start the wave. Returns each request's (tokens, arrival times)
+    and the wave's start."""
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+    from dynamo_tpu_torch.runtime.pipeline.context import Context
+
+    ready = asyncio.Event()
+    n_ready = [0]
+
+    async def one(ids, osl, signal):
+        pre = PreprocessedRequest(
+            token_ids=list(ids), stop_conditions=StopConditions(max_tokens=osl, ignore_eos=True),
+            sampling_options=SamplingOptions(greedy=True))
+        t0 = time.perf_counter()
+        toks, times = [], []
+        async for f in await engine.generate(Context(pre.to_dict())):
+            for tk in f.get("token_ids") or []:
+                toks.append(tk)
+                times.append(time.perf_counter())
+                if signal and len(toks) == held_before:
+                    n_ready[0] += 1
+                    if n_ready[0] == len(held):
+                        ready.set()
+        assert len(toks) == osl and f.get("finish_reason") == "length", \
+            f"stream of {len(toks)} tokens ({f.get('finish_reason')})"
+        return toks, times, t0
+
+    t_start = time.perf_counter()
+    held_tasks = [asyncio.create_task(one(p, held_osl, True)) for p in held]
+    await ready.wait()
+    t_wave = time.perf_counter()
+    wave_res = await asyncio.gather(*[one(p, wave_osl, False) for p in wave])
+    held_res = await asyncio.gather(*held_tasks)
+    return held_res, wave_res, t_start, t_wave
+
+
+def phase_wave(dev, params, kv_quant=None, on=True, cfg=None, traffic=None, ref_held=None):
+    """Phase 8: an admission wave arriving while held streams decode, with
+    mixed steps and speculative decoding on or off. Asserts the launches
+    the engine's dispatch counters imply, and no plain call. Returns the
+    launches, the metrics, the held streams' tokens and the weights."""
+    from dynamo_tpu_torch import EngineConfig, TorchEngine
+
+    tr = dict(WAVE_TRAFFIC, **(traffic or {}))
+    conf = EngineConfig(**dict(WAVE_CFG, **(cfg or {})), kv_quantization=kv_quant,
+                        mixed_batching=on, spec_decode=on)
+    tag = f"[wave {conf.model} {kv_quant or 'bf16'} KV, mixed + spec {'on' if on else 'off'}]"
+    eng = TorchEngine(conf, params=params, device=dev)
+    rng = np.random.RandomState(1)
+    vocab = eng.model_cfg.vocab_size
+    held = [rng.randint(0, vocab, size=tr["held_isl"]).tolist() for _ in range(tr["held"])]
+    wave = [rng.randint(0, vocab, size=tr["wave_isl"]).tolist() for _ in range(tr["wave"])]
+    warm = [rng.randint(0, vocab, size=tr["wave_isl"]).tolist() for _ in range(tr["wave"])]
+
+    async def go():
+        # warm-up (cuBLAS handles, the allocator): a smaller wave behind
+        # held streams of a few tokens, so the mixed path warms too
+        await wave_requests(eng, warm, warm, 16, 8, 4)
+        torch.cuda.synchronize()
+        s0 = eng.phase_stats
+        reset_counts()
+        res = await wave_requests(eng, held, wave, tr["held_osl"], tr["wave_osl"],
+                                  tr["held_before"])
+        counts = read_counts()
+        s1 = eng.phase_stats
+        await eng.close()
+        return res, counts, s0, s1
+
+    (held_res, wave_res, t_start, t_wave), counts, s0, s1 = asyncio.run(go())
+    d = {k: s1[k] - s0[k] for k in s1}
+    d["mixed_step_tokens_max"] = s1["mixed_step_tokens_max"]
+    layers = eng.model_cfg.num_layers
+    check_counts(counts, path_launches(d, layers, conf.decode_steps, kv_quant), tag)
+    if on:
+        assert d["mixed_steps"] > 0, f"{tag}: no mixed step ran"
+    t_end = max(times[-1] for _, times, _ in wave_res)
+    ttft = sorted(times[0] - t0 for _, times, t0 in wave_res)
+    gaps, n_win = [], 0
+    for _, times, _ in held_res:
+        before = [x for x in times if x <= t_wave]
+        inside = [x for x in times if t_wave < x <= t_end]
+        n_win += len(inside)
+        marks = before[-1:] + inside
+        gaps += [b - a for a, b in zip(marks, marks[1:])]
+    held_toks = [toks for toks, _, _ in held_res]
+    m = {
+        "wave_ttft_p50_s": statistics.median(ttft),
+        "wave_ttft_max_s": ttft[-1],
+        "held_max_gap_in_wave_s": max(gaps) if gaps else None,
+        "held_tok_s_in_wave": n_win / (t_end - t_wave),
+        "wave_window_s": t_end - t_wave,
+        "wall_s": max(times[-1] for _, times, _ in held_res + wave_res) - t_start,
+        **{k: d[k] for k in MIXED_STATS},
+        "mixed_dispatch_ms": 1e3 * d["mixed_dispatch_s"] / max(d["mixed_steps"], 1),
+        "prefill_dispatch_ms": 1e3 * d["prefill_dispatch_s"] / max(d["prefill_dispatches"], 1),
+        "decode_step_ms": 1e3 * d["decode_dispatch_s"] / max(
+            d["decode_dispatches"] * conf.decode_steps, 1),
+        "spec_dispatch_ms": 1e3 * d["spec_dispatch_s"] / max(d["spec_dispatches"], 1),
+    }
+    if ref_held is not None:
+        same = sum(a == b for x, y in zip(held_toks, ref_held) for a, b in zip(x, y))
+        m["held_tokens_equal_to_off_share"] = same / sum(len(x) for x in ref_held)
+    log(f"{tag} {tr['held']} held (ISL {tr['held_isl']}, OSL {tr['held_osl']}) + a wave of "
+        f"{tr['wave']} (ISL {tr['wave_isl']}, OSL {tr['wave_osl']}) after {tr['held_before']} "
+        f"held tokens each: " + json.dumps(m))
+    log(f"{tag} launches: {json.dumps({k: v[0] for k, v in counts.items() if v[0]})}; "
+        f"plain calls: {sum(v[1] for v in counts.values())}")
+    params = eng.params
+    del eng
+    return {k: v[0] for k, v in counts.items()}, m, held_toks, params
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1,
-                    help="full-width runs of phases 5, 6 and 7, in turns (default 1)")
+                    help="full-width runs of phases 5, 6 and 7, and of phase 8's bf16 "
+                         "off/on pair, in turns (default 1)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script needs one GPU", file=sys.stderr)
@@ -924,7 +1250,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.build()
-    log(f"[build] {len(_cuda.SOURCES)} sources (nine kernels) built in {time.perf_counter() - t0:.1f} s "
+    log(f"[build] {len(_cuda.SOURCES)} sources (nine kernels; K4 enters K2/K6) built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_cuda.NVCC_FLAGS[:2])})")
     for n, text in _cuda.build_logs.items():
         for line in text.splitlines():
@@ -943,6 +1269,9 @@ def main() -> int:
         "kv_write_q4": check_kv_write_q(peaks, gen, dev, int4=True),
         "prefill_attention_q4": check_prefill_q(peaks, gen, dev, int4=True),
         "decode_attention_q4": check_decode_q(peaks, gen, dev, int4=True),
+        "ragged_attention": check_ragged(peaks, gen, dev, "bf16"),
+        "ragged_attention_q": check_ragged(peaks, gen, dev, "int8"),
+        "ragged_attention_q4": check_ragged(peaks, gen, dev, "int4"),
     }
     phase_real_weights(dev)
     # phases 5, 6 and 7 (bf16, int8 and int4 KV) on one set of weights;
@@ -954,6 +1283,19 @@ def main() -> int:
             counts, _, params = phase_full_width(dev, kv_quant=kv_quant, params=params)
             if i == 0:
                 launches.update({k: counts[k] for k in names})
+    # phase 8: the admission wave, bf16 KV off then on (--pairs times, in
+    # turns), then int8 and int4 KV with mixed steps and spec on
+    for i in range(args.pairs):
+        torch.cuda.empty_cache()
+        _, _, ref_held, params = phase_wave(dev, params, on=False)
+        torch.cuda.empty_cache()
+        counts, _, _, params = phase_wave(dev, params, on=True, ref_held=ref_held)
+        if i == 0:
+            launches["ragged_attention"] = counts["ragged_attention"]
+    for kv_quant in ("int8", "int4"):
+        torch.cuda.empty_cache()
+        counts, _, _, params = phase_wave(dev, params, kv_quant=kv_quant, on=True)
+        launches[RAGGED_KERNEL[kv_quant]] = counts[RAGGED_KERNEL[kv_quant]]
     del params
 
     meta = {
@@ -972,6 +1314,12 @@ def main() -> int:
                                  "dynamo_tpu/ops/pallas_prefill.py:136"),
         "decode_attention_q4": ("dynamo_tpu_torch/csrc/decode_attention.cu",
                                 "dynamo_tpu/ops/pallas_attention.py:333"),
+        "ragged_attention": ("dynamo_tpu_torch/csrc/prefill_attention.cu",
+                             "dynamo_tpu/ops/pallas_attention.py:951"),
+        "ragged_attention_q": ("dynamo_tpu_torch/csrc/prefill_attention.cu",
+                               "dynamo_tpu/ops/pallas_attention.py:951"),
+        "ragged_attention_q4": ("dynamo_tpu_torch/csrc/prefill_attention.cu",
+                                "dynamo_tpu/ops/pallas_attention.py:951"),
     }
     kernels = []
     for k, r in results.items():

@@ -1,12 +1,14 @@
 """Engine configuration (the JAX package's `EngineConfig`, without the mesh).
 
-The fields keep their names and meaning. The features this slice of the
-port does not run yet keep their fields with the "off" value, and setting
-one raises `NotImplementedError` at construction: a request for weight
-quantization, speculative or mixed steps, the step pipeline, host offload
-or TP overlap must never be served by a silent approximation.
-`kv_quantization="int8"` and `"int4"` are ported; int4 with one scale
-group per kv head (`kv_quant_group` None or head_dim) only.
+The fields keep their names and meaning. The features the port does not
+run yet keep their fields with the "off" value, and setting one raises
+`NotImplementedError` at construction: a request for weight quantization,
+the step pipeline, host offload or TP overlap must never be served by a
+silent approximation. `kv_quantization="int8"` and `"int4"` are ported;
+int4 with one scale group per kv head (`kv_quant_group` None or head_dim)
+only. Speculative decoding (`spec_decode`) and stall-free mixed
+prefill+decode steps (`mixed_batching`) are ported, alone and together,
+on the serialized engine.
 """
 
 from __future__ import annotations
@@ -20,8 +22,6 @@ from dynamo_tpu_torch.models.config import ModelConfig, get_config
 _UNPORTED = {
     "quantization": None,
     "host_kv_pages": 0,
-    "spec_decode": False,
-    "mixed_batching": False,
     "step_pipeline": False,
     "tp_overlap": False,
 }
@@ -59,8 +59,29 @@ class EngineConfig:
     # kv_quantization == "int4", as in the JAX package.
     kv_quant_group: Optional[int] = None
     host_kv_pages: int = 0
+    # self-speculative decoding (engine/spec.py): n-gram drafts from the
+    # sequence's own history, verified in one multi-query step (greedy
+    # acceptance is exact match; sampled rows keep the sampler's
+    # distribution by rejection sampling)
     spec_decode: bool = False
+    spec_k_max: int = 4       # max drafted tokens per verify step
+    spec_ngram_max: int = 3   # longest suffix n-gram the proposer matches
+    # sliding window (positions) of the per-sequence n-gram index
+    spec_index_window: int = 8192
+    # stall-free mixed batching: while decode-ready rows and prefill chunks
+    # coexist, one token-budgeted step carries both (decode rows at q_len
+    # 1, chunks shrunk to the budget's leftover), read through the ragged
+    # paged attention (K4)
     mixed_batching: bool = False
+    # with spec_decode too: decode rows inside mixed steps carry their
+    # drafts as q_len 1 + k verify rows (the budget counts 1 + k)
+    mixed_spec: bool = True
+    # token budget of one mixed step; non-final chunks round down to a
+    # page multiple
+    mixed_step_tokens: int = 1024
+    # True: every decode row joins and prefill shrinks around them; False:
+    # chunks keep their size and decode rows join only if all fit
+    mixed_decode_priority: bool = True
     step_pipeline: bool = False
     tp_overlap: bool = False
 
@@ -89,6 +110,10 @@ class EngineConfig:
                     "int4 kernels take one scale group per kv head; finer groups "
                     "are not ported to dynamo_tpu_torch yet (see ROADMAP.md)"
                 )
+        if self.spec_decode and self.spec_k_max < 1:
+            raise ValueError("spec_k_max must be >= 1")
+        if self.mixed_batching and self.mixed_step_tokens < 1:
+            raise ValueError("mixed_step_tokens must be >= 1")
         if self.dtype not in ("bfloat16", "float32"):
             raise ValueError(f"dtype must be bfloat16 or float32, got {self.dtype!r}")
         if self.prefill_chunk % self.page_size:

@@ -16,6 +16,14 @@ Port of `dynamo_tpu/engine/engine.py::JaxEngine`, main path only:
   a byte) with the same scale pools (`kv_quantization="int4"`), which the
   int8 and int4 forms of the three kernels read and write;
 - on-device sampling: greedy, temperature, top-k, top-p;
+- stall-free mixed steps (`mixed_batching`): while decode-ready rows and
+  prefill chunks coexist, ONE token-budgeted step carries decode rows at
+  q_len 1 beside the chunks; its KV lands through the row write and its
+  attention through the ragged paged-attention read (K4);
+- speculative decoding (`spec_decode`): n-gram drafts from each sequence's
+  own history, verified in one multi-query step through the same row write
+  and K4 (standalone verify dispatches, or, with `mixed_spec`, verify rows
+  of q_len 1 + k inside mixed steps);
 - streamed `EngineOutput` frames, finishing on max_tokens or EOS.
 
 The engine runs on a CUDA device unless the caller asks for the CPU, where
@@ -48,6 +56,7 @@ from dynamo_tpu_torch.engine.scheduler import (
     pick_admission_index,
     pick_preemption_victim,
 )
+from dynamo_tpu_torch.engine.spec import NgramProposer
 from dynamo_tpu_torch.llm.protocols.common import (
     FINISH_REASON_CANCELLED,
     FINISH_REASON_ERROR,
@@ -57,7 +66,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
 )
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.ops.rope import rope_inv_freq
-from dynamo_tpu_torch.ops.sampling import sample_tokens
+from dynamo_tpu_torch.ops.sampling import sample_tokens, verify_draft_tokens
 from dynamo_tpu_torch.runtime.pipeline.context import Context
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
@@ -145,6 +154,23 @@ class TorchEngine:
             "decode_tokens": 0,
             "decode_dispatches": 0,
             "preemptions": 0,
+            # mixed prefill+decode steps: dispatches, decode rows carried,
+            # prefill tokens carried, the largest step's budget tokens
+            # (decode rows count 1 + drafts) and its verify rows
+            "mixed_dispatch_s": 0.0,
+            "mixed_steps": 0,
+            "mixed_decode_rows": 0,
+            "mixed_prefill_tokens": 0,
+            "mixed_step_tokens_max": 0,
+            "mixed_spec_rows": 0,
+            # speculative verify: standalone dispatches, and rows, drafted,
+            # accepted and emitted tokens over standalone and mixed verify
+            "spec_dispatch_s": 0.0,
+            "spec_dispatches": 0,
+            "spec_rows": 0,
+            "spec_drafted": 0,
+            "spec_accepted": 0,
+            "spec_emitted": 0,
         }
 
     def _check_kernel_shapes(self) -> None:
@@ -273,11 +299,18 @@ class TorchEngine:
         try:
             while not self._closed:
                 progressed = self._admit_new()
-                progressed |= await self._prefill_tick()
-                bld = self._maybe_dispatch_decode()
-                if bld is not None:
-                    self._run_decode(*bld)
+                # stall-free mixed step first: when it runs, the normal
+                # prefill and decode ticks stand down this tick
+                mixed = self.config.mixed_batching and self._mixed_tick()
+                if mixed:
                     progressed = True
+                else:
+                    progressed |= await self._prefill_tick()
+                    bld = self._maybe_dispatch_decode()
+                    if bld is not None:
+                        run, args = bld
+                        run(*args)
+                        progressed = True
                 if progressed:
                     await asyncio.sleep(0)
                     continue
@@ -332,6 +365,12 @@ class TorchEngine:
             seq.prefilling = True
             self.slots[slot] = seq
             self._mark_slot_tables(seq)
+            if self.config.spec_decode and seq.spec is None:
+                # seed the n-gram index with the prompt once; it survives
+                # preemption (the history it covers does not change)
+                seq.spec = NgramProposer(
+                    self.config.spec_ngram_max, self.config.spec_index_window)
+                seq.spec.extend(seq.tokens)
             self._prefilling.append(seq)
             progressed = True
         return progressed
@@ -473,13 +512,279 @@ class TorchEngine:
         st["prefill_tokens"] += int(t_valid.sum())
         return toks
 
+    # ---- mixed prefill+decode steps (stall-free batching) -------------
+
+    def _select_mixed_prefill(self, leftover: int) -> list:
+        """Strict FIFO prefix of the prefill queue fitting `leftover` budget
+        tokens, as (seq, chunk) picks; a non-final chunk rounds down to a
+        page multiple (the next chunk must start page-aligned). Scanning
+        stops at the first sequence that cannot join: skipping it would
+        let later arrivals jump the queue."""
+        picks = []
+        for seq in self._prefilling:
+            if leftover < 1 or seq.ctx.is_stopped():
+                break  # the normal tick's sweep owns cancellation
+            need = seq.total_tokens - seq.num_computed
+            chunk = min(need, self.config.prefill_chunk, leftover)
+            if chunk < need:
+                chunk -= chunk % self.page_size
+            if chunk < 1:
+                break
+            picks.append((seq, chunk))
+            leftover -= chunk
+        return picks
+
+    def _mixed_tick(self) -> bool:
+        """One stall-free mixed step when decode-ready rows and pending
+        prefill chunks coexist: both advance in one token-budgeted step, so
+        an admission wave never parks running streams for longer than one
+        step. Decode rows cost 1 budget token each (1 + k with drafts) and
+        prefill chunks shrink into the leftover. Returns True when a step
+        ran (the normal prefill and decode ticks then stand down), False
+        when the normal paths should run. A failed step raises: the loop's
+        crash path fails the requests, and no quiet retreat to the normal
+        paths hides a broken kernel."""
+        if self._closed or not self._prefilling:
+            return False
+        cfg = self.config
+        rows = self._decode_ready_rows()
+        if not rows:
+            return False
+        # spec x mixed: decode rows carry their n-gram drafts as verify
+        # rows of q_len 1 + k; drafts trade off against the chunks
+        drafts: dict[int, list[int]] = {}
+        if cfg.spec_decode and cfg.mixed_spec:
+            k_cap = min(cfg.spec_k_max, cfg.prefill_chunk - 1)
+            for i, seq in rows:
+                d = seq.spec.maybe_draft(self._draft_room(seq, k_cap))
+                if d:
+                    drafts[i] = d
+        budget = cfg.mixed_step_tokens
+        dec_cost = sum(1 + len(drafts.get(i, ())) for i, _ in rows)
+
+        def shed_drafts_to(room: int) -> int:
+            # drafts never abort the step: a decode row is always valid at
+            # q_len 1, so shed drafts until both planes fit (a discarded
+            # draft never strands a probe: only observe() re-arms it)
+            cost = dec_cost
+            while cost > room and drafts:
+                _, d = drafts.popitem()
+                cost -= len(d)
+            return cost
+
+        if cfg.mixed_decode_priority:
+            # every decode row joins; prefill shrinks into what is left
+            dec_cost = shed_drafts_to(budget - 1)
+            leftover = budget - dec_cost
+            if leftover < 1:
+                return False  # the budget cannot fit both planes
+            picks = self._select_mixed_prefill(leftover)
+        else:
+            # chunks keep their size; decode rows join only if all fit
+            picks = self._select_mixed_prefill(budget)
+            dec_cost = shed_drafts_to(budget - sum(c for _, c in picks))
+            if budget - sum(c for _, c in picks) < dec_cost:
+                return False
+        if not picks:
+            return False
+        # grow decode rows' pages through the positions this step writes;
+        # growth may preempt (a participant too): re-filter both sides
+        prep = self._grow_and_collect(
+            rows, lambda seq: seq.device_pos + len(drafts.get(seq.slot, ())))
+        if prep is None:
+            return False
+        rows = prep[0]
+        picks = [(s, c) for s, c in picks if s.slot >= 0 and self.slots[s.slot] is s]
+        if not picks:
+            return False
+        bld = self._build_mixed(rows, picks, drafts)
+        for seq, _ in picks:
+            self._prefilling.remove(seq)
+        self._sync_mixed(bld, self._run_mixed_dispatch(bld))
+        return True
+
+    def _draft_room(self, seq: Sequence, k_cap: int) -> int:
+        """Drafts a row may take: never past its emit budget (a verify
+        step emits at most drafts + 1 tokens) or the last writable
+        position."""
+        remaining = seq.max_new_tokens - seq.generated
+        room = self.config.max_model_len - 1 - seq.device_pos
+        return min(k_cap, remaining - 1, room)
+
+    def _build_mixed(self, rows: list, picks: list, drafts: dict) -> dict:
+        """Host-side inputs of one mixed step: decode rows first (q_len 1,
+        their last token, or a verify window [last, d_1..d_k] when spec
+        composes), then one chunk per prefill pick. Rows pad to a power of
+        two and columns to the chunk's prefill bucket; padding rows have
+        q_len 0 and write the trash page, as do padding columns. Block
+        tables are cut to the power-of-two bucket of the pages attended."""
+        ps = self.page_size
+        use_spec = bool(drafts)
+        k_max = self.config.spec_k_max if use_spec else 0
+        max_len = self.config.max_model_len
+        n = _pow2(len(rows) + len(picks))
+        t_b = self._bucket_for(max(max(c for _, c in picks), k_max + 1))
+        tok_arr = np.zeros((n, t_b), np.int32)
+        pos_arr = np.zeros((n, t_b), np.int32)
+        wslots = np.zeros((n, t_b), np.int32)
+        last_idx = np.zeros(n, np.int64)
+        q_lens = np.zeros(n, np.int32)
+        temp = np.zeros(n, np.float32)
+        topk = np.zeros(n, np.int32)
+        topp = np.ones(n, np.float32)
+        draft_arr = np.zeros((n, k_max), np.int32)
+        dlen_arr = np.zeros(n, np.int32)
+        entries = []  # (kind, slot, seq, tokens) per built row
+        w_need = 1
+        j = 0
+        for slot, seq in rows:
+            d = drafts.get(slot, [])
+            kd = len(d)
+            pages = np.asarray(seq.page_ids, np.int32)
+            idx = seq.device_pos + np.arange(kd + 1)
+            tok_arr[j, 0] = seq.last_token
+            tok_arr[j, 1:kd + 1] = d
+            draft_arr[j, :kd] = d
+            dlen_arr[j] = kd
+            pos_arr[j, :kd + 1] = idx
+            # past-budget positions write the trash page
+            wslots[j, :kd + 1] = np.where(
+                idx < max_len, pages[np.minimum(idx, max_len - 1) // ps] * ps + idx % ps, 0)
+            last_idx[j] = kd
+            w_need = max(w_need, (seq.device_pos + kd) // ps + 1)
+            entries.append(("dec", slot, seq, 1 + kd))
+            j += 1
+        for seq, chunk in picks:
+            start = seq.num_computed
+            idx = np.arange(start, start + chunk)
+            tok_arr[j, :chunk] = seq.tokens[start:start + chunk]
+            pos_arr[j, :chunk] = idx
+            pages = np.asarray(seq.page_ids, np.int32)
+            wslots[j, :chunk] = pages[idx // ps] * ps + idx % ps
+            last_idx[j] = chunk - 1
+            w_need = max(w_need, -(-(start + chunk) // ps))
+            entries.append(("pf", seq.slot, seq, chunk))
+            j += 1
+        w_b = min(_pow2(w_need), self.config.max_pages_per_seq)
+        tables = np.zeros((n, w_b), np.int32)
+        for j, (_, _, seq, _) in enumerate(entries):
+            npg = min(len(seq.page_ids), w_b)
+            tables[j, :npg] = seq.page_ids[:npg]
+            q_lens[j] = last_idx[j] + 1
+            temp[j], topk[j], topp[j] = seq.temperature, seq.top_k, seq.top_p
+        return dict(
+            tokens=tok_arr, positions=pos_arr, wslots=wslots, tables=tables,
+            last_idx=last_idx, q_lens=q_lens, temp=temp, topk=topk, topp=topp,
+            spec=use_spec, draft=draft_arr, dlen=dlen_arr, entries=entries,
+            all_greedy=bool(all(e[2].temperature <= 0.0 for e in entries)),
+        )
+
+    @torch.inference_mode()
+    def _run_mixed_dispatch(self, bld: dict):
+        """Device half of a mixed step (`_mixed_model_step` of the
+        reference, without the step pipeline's device carry): every row
+        writes its KV through the row write, reads through K4 and samples
+        at its last valid column. Returns the sampled tokens [n] on the
+        host, or (out [n, k+1], n_emit [n]) when verify rows composed in:
+        each row's logits over a (k+1)-wide window ending at its last
+        column go through `verify_draft_tokens` (prefill rows have no
+        drafts, so window column 0 is their plain sample and n_emit 1)."""
+        t0 = time.perf_counter()
+        dev = self.device
+        n = bld["tokens"].shape[0]
+        tokens = torch.from_numpy(bld["tokens"]).to(dev)
+        positions = torch.from_numpy(bld["positions"]).to(dev)
+        last_idx = torch.from_numpy(bld["last_idx"]).to(dev)
+        temp = torch.from_numpy(bld["temp"]).to(dev)
+        topk = torch.from_numpy(bld["topk"]).to(dev)
+        topp = torch.from_numpy(bld["topp"]).to(dev)
+        attn = llama.AttnSpec.ragged(
+            torch.from_numpy(bld["tables"]).to(dev), positions[:, 0].contiguous(),
+            torch.from_numpy(bld["q_lens"]).to(dev),
+            torch.from_numpy(bld["wslots"].reshape(-1)).to(dev), self.page_size,
+        )
+        hidden, _ = llama.forward(self.params, self.model_cfg, tokens, positions,
+                                  self.kv, attn, inv_freq=self._inv_freq)
+        if bld["spec"]:
+            dlen = torch.from_numpy(bld["dlen"]).to(dev)
+            win = bld["draft"].shape[1] + 1
+            offs = torch.clamp(
+                (last_idx - dlen)[:, None] + torch.arange(win, device=dev),
+                max=hidden.shape[1] - 1)
+            win_h = torch.gather(
+                hidden, 1, offs[:, :, None].expand(-1, -1, hidden.shape[-1]))
+            out, n_emit = verify_draft_tokens(
+                llama.logits(self.params, self.model_cfg, win_h),
+                torch.from_numpy(bld["draft"]).to(dev), dlen, self._gen, temp, topk,
+                topp, all_greedy=bld["all_greedy"])
+            res = (out.cpu().numpy(), n_emit.cpu().numpy())
+        else:
+            last_h = hidden[torch.arange(n, device=dev), last_idx]
+            res = sample_tokens(
+                llama.logits(self.params, self.model_cfg, last_h), self._gen, temp,
+                topk, topp, all_greedy=bld["all_greedy"]).cpu().numpy()
+        self._phase_stats["mixed_dispatch_s"] += time.perf_counter() - t0
+        return res
+
+    def _sync_mixed(self, bld: dict, toks) -> None:
+        """Land a mixed step: decode rows emit their next token (verify
+        rows their accepted prefix plus one, rewinding like a standalone
+        verify), final chunks their first token; non-final chunks go back
+        to the end of the prefill queue."""
+        spec_mode = bld["spec"]
+        if spec_mode:
+            out, n_emit = toks
+        n_dec = n_dec_tokens = n_pf_tokens = 0
+        spec_rows = drafted_total = accepted_total = emitted_total = 0
+        for j, (kind, slot, seq, chunk) in enumerate(bld["entries"]):
+            if kind == "dec":
+                n_dec += 1
+                n_dec_tokens += chunk
+            else:
+                n_pf_tokens += chunk
+            if slot < 0 or seq.slot != slot or self.slots[slot] is not seq:
+                continue  # finished or preempted while the step was built
+            tok = int(out[j, 0]) if spec_mode else int(toks[j])
+            if kind == "dec":
+                if spec_mode:
+                    drafted = int(bld["dlen"][j])
+                    emitted, accepted = self._emit_verify_row(
+                        slot, seq, out[j], int(n_emit[j]), drafted)
+                    spec_rows += 1
+                    drafted_total += drafted
+                    accepted_total += accepted
+                    emitted_total += emitted
+                    continue
+                seq.device_pos += 1
+                seq.num_computed += 1
+                self._append_token(seq, tok)
+                continue
+            seq.num_computed += chunk
+            if seq.num_computed >= seq.total_tokens:
+                # final chunk: the in-step sample is the first token
+                seq.prefilling = False
+                seq.device_pos = seq.num_computed
+                self._append_token(seq, tok)
+            else:
+                self._prefilling.append(seq)
+        st = self._phase_stats
+        st["mixed_steps"] += 1
+        st["mixed_decode_rows"] += n_dec
+        st["mixed_prefill_tokens"] += n_pf_tokens
+        st["mixed_step_tokens_max"] = max(
+            st["mixed_step_tokens_max"], n_dec_tokens + n_pf_tokens)
+        if spec_mode:
+            st["mixed_spec_rows"] += spec_rows
+            st["spec_rows"] += spec_rows
+            st["spec_drafted"] += drafted_total
+            st["spec_accepted"] += accepted_total
+            st["spec_emitted"] += emitted_total
+
     # ---- decode -------------------------------------------------------
 
-    def _maybe_dispatch_decode(self):
-        """Host-side build of the next decode dispatch (cancellation sweep,
-        page growth, input arrays); None when nothing is decode-ready."""
-        if self._closed:
-            return None
+    def _decode_ready_rows(self) -> list:
+        """Decode-ready (slot, seq) rows after the cancellation sweep; one
+        collection for the decode build and the mixed tick."""
         ready = [
             (i, s) for i, s in enumerate(self.slots)
             if s is not None and not s.prefilling
@@ -487,7 +792,16 @@ class TorchEngine:
         for _, s in ready:
             if s.ctx.is_stopped():
                 self._finish(s, FINISH_REASON_CANCELLED)
-        ready = [(i, s) for i, s in ready if self.slots[i] is s]
+        return [(i, s) for i, s in ready if self.slots[i] is s]
+
+    def _maybe_dispatch_decode(self):
+        """Host-side build of the next decode dispatch (cancellation sweep,
+        page growth, input arrays): (runner, args) of a speculative verify
+        dispatch when drafts are worthwhile, else of a multi-step decode
+        dispatch; None when nothing is decode-ready."""
+        if self._closed:
+            return None
+        ready = self._decode_ready_rows()
         if not ready:
             return None
         if (
@@ -498,17 +812,15 @@ class TorchEngine:
             # pure admission wave: hold for a fuller batch (never once a
             # stream is mid-decode)
             return None
+        if self.config.spec_decode:
+            bld = self._maybe_build_spec(ready)
+            if bld is not None:
+                return self._run_spec, (bld,)
         steps = self.config.decode_steps
-        max_pos = self.config.max_model_len - 1
-        for _, seq in ready:
-            if seq.slot < 0 or self.slots[seq.slot] is not seq:
-                continue  # preempted by an earlier growth this pass
-            if not self._ensure_pages_through(seq, min(seq.device_pos + steps - 1, max_pos)):
-                return None
-        active = [(i, s) for i, s in ready if self.slots[i] is s and not s.prefilling]
-        if not active:
+        prep = self._grow_and_collect(ready, lambda seq: seq.device_pos + steps - 1)
+        if prep is None:
             return None
-        width = min(max(8, _pow2(1 + max(i for i, _ in active))), len(self.slots))
+        active, width = prep
         tokens = np.zeros(width, np.int32)
         pos_act = np.zeros((width, 2), np.int32)
         temp = np.zeros(width, np.float32)
@@ -519,7 +831,25 @@ class TorchEngine:
             pos_act[i] = (seq.device_pos, 1)
             temp[i], topk[i], topp[i] = seq.temperature, seq.top_k, seq.top_p
             seq.device_pos += steps
-        return active, steps, tokens, pos_act, temp, topk, topp
+        return self._run_decode, (active, steps, tokens, pos_act, temp, topk, topp)
+
+    def _grow_and_collect(self, ready, upto):
+        """Grow each row's pages through `upto(seq)` (clamped to the last
+        writable position; may preempt), re-filter the rows that survived
+        and bucket the dispatch width to the power-of-two prefix covering
+        the highest active slot (at least 8). Returns (active, width), or
+        None when a growth preempted its own sequence or nothing stayed
+        decode-ready."""
+        max_pos = self.config.max_model_len - 1
+        for _, seq in ready:
+            if seq.slot < 0 or self.slots[seq.slot] is not seq:
+                continue  # preempted by an earlier growth this pass
+            if not self._ensure_pages_through(seq, min(upto(seq), max_pos)):
+                return None
+        active = [(i, s) for i, s in ready if self.slots[i] is s and not s.prefilling]
+        if not active:
+            return None
+        return active, min(max(8, _pow2(1 + max(i for i, _ in active))), len(self.slots))
 
     def _ensure_pages_through(self, seq: Sequence, upto_pos: int) -> bool:
         grew = False
@@ -611,10 +941,142 @@ class TorchEngine:
             positions = positions + 1
         return torch.stack(outs)
 
+    # ---- speculative verify --------------------------------------------
+
+    def _maybe_build_spec(self, ready):
+        """Host side of a standalone verify dispatch: n-gram drafts for
+        every decode-ready row and the [B, k_max + 1] window of each
+        (its last token, then its drafts). None when drafts are not
+        worthwhile: the batch must average at least one drafted token a
+        row, since a verify dispatch is ONE model step for every row and
+        rows without drafts fall from decode_steps tokens to one."""
+        k_max = self.config.spec_k_max
+        drafts: dict[int, list[int]] = {}
+        for i, seq in ready:
+            drafts[i] = seq.spec.maybe_draft(self._draft_room(seq, k_max))
+        if sum(len(d) for d in drafts.values()) < max(1, len(ready)):
+            return None
+        prep = self._grow_and_collect(
+            ready, lambda seq: seq.device_pos + len(drafts.get(seq.slot, ())))
+        if prep is None:
+            return None
+        active, b = prep
+        t = k_max + 1
+        ps = self.page_size
+        # attended pages bucket to a power of two, as for prefill: every
+        # attended position <= device_pos + draft_len lies inside w_need
+        w_need = max((s.device_pos + len(drafts[i])) // ps + 1 for i, s in active)
+        w = min(_pow2(w_need), self.config.max_pages_per_seq)
+        tokens = np.zeros((b, t), np.int32)
+        positions = np.zeros((b, t), np.int32)
+        tables = np.zeros((b, w), np.int32)
+        draft = np.zeros((b, k_max), np.int32)
+        dlen = np.zeros(b, np.int32)
+        act = np.zeros(b, bool)
+        temp = np.zeros(b, np.float32)
+        topk = np.zeros(b, np.int32)
+        topp = np.ones(b, np.float32)
+        for i, seq in active:
+            d = drafts[i]
+            act[i] = True
+            tokens[i, 0] = seq.last_token
+            tokens[i, 1:1 + len(d)] = d
+            draft[i, :len(d)] = d
+            dlen[i] = len(d)
+            positions[i] = seq.device_pos + np.arange(t, dtype=np.int32)
+            npg = min(len(seq.page_ids), w)
+            tables[i, :npg] = seq.page_ids[:npg]
+            temp[i], topk[i], topp[i] = seq.temperature, seq.top_k, seq.top_p
+        return dict(tokens=tokens, positions=positions, tables=tables, draft=draft,
+                    dlen=dlen, act=act, temp=temp, topk=topk, topp=topp, active=active,
+                    all_greedy=bool((temp[act] <= 0.0).all()))
+
+    @torch.inference_mode()
+    def _spec_verify_step(self, bld: dict):
+        """One verify step: every row carries 1 + draft_len tokens through
+        the model in ONE forward (KV written first through the row write,
+        so each draft attends its prefix; the read is K4 with q_len =
+        draft_len + 1 from a mid-page q_pos0), then `verify_draft_tokens`
+        emits the accepted prefix plus one. Rejected drafts leave garbage
+        KV in slots past the accepted length: the causal mask hides it and
+        the next step rewrites those slots before any query reaches them.
+        Returns (out [B, T], n_emit [B]) on the host."""
+        s = self.page_size
+        dev = self.device
+        tables = torch.from_numpy(bld["tables"]).to(dev)
+        positions = torch.from_numpy(bld["positions"]).to(dev)
+        dlen = torch.from_numpy(bld["dlen"]).to(dev)
+        act = torch.from_numpy(bld["act"]).to(dev)
+        w, t = tables.shape[1], positions.shape[1]
+        page_idx = torch.clamp(positions // s, max=w - 1).long()
+        wslots = torch.gather(tables, 1, page_idx) * s + positions % s
+        # rows write [pos0, pos0 + draft_len]; padding columns, idle rows
+        # and past-budget positions write the trash page
+        col_ok = torch.arange(t, device=dev)[None, :] <= dlen[:, None]
+        keep = act[:, None] & col_ok & (positions < self.config.max_model_len)
+        wslots = torch.where(keep, wslots, torch.zeros_like(wslots)).to(torch.int32)
+        attn = llama.AttnSpec.ragged(
+            tables, positions[:, 0].contiguous(),
+            torch.where(act, dlen + 1, torch.zeros_like(dlen)).to(torch.int32),
+            wslots.reshape(-1), s,
+        )
+        hidden, _ = llama.forward(
+            self.params, self.model_cfg, torch.from_numpy(bld["tokens"]).to(dev),
+            positions, self.kv, attn, inv_freq=self._inv_freq)
+        out, n_emit = verify_draft_tokens(
+            llama.logits(self.params, self.model_cfg, hidden),
+            torch.from_numpy(bld["draft"]).to(dev), dlen, self._gen,
+            torch.from_numpy(bld["temp"]).to(dev), torch.from_numpy(bld["topk"]).to(dev),
+            torch.from_numpy(bld["topp"]).to(dev), all_greedy=bld["all_greedy"])
+        return out.cpu().numpy(), n_emit.cpu().numpy()
+
+    def _run_spec(self, bld: dict) -> None:
+        """Dispatch a verify step and land it (`_sync_spec` of the
+        reference): one `_emit_verify_row` per surviving row."""
+        t0 = time.perf_counter()
+        out, n_emit = self._spec_verify_step(bld)
+        st = self._phase_stats
+        st["spec_dispatch_s"] += time.perf_counter() - t0
+        st["spec_dispatches"] += 1
+        for i, seq in bld["active"]:
+            if self.slots[i] is not seq:
+                continue
+            drafted = int(bld["dlen"][i])
+            emitted, accepted = self._emit_verify_row(i, seq, out[i], int(n_emit[i]), drafted)
+            st["spec_rows"] += 1
+            st["spec_drafted"] += drafted
+            st["spec_accepted"] += accepted
+            st["spec_emitted"] += emitted
+
+    def _emit_verify_row(self, slot: int, seq: Sequence, out_row, n: int,
+                         drafted: int) -> tuple:
+        """Land one verify row (standalone or inside a mixed step): emit
+        the accepted prefix plus the corrected or bonus token, advancing
+        num_computed and device_pos only past emitted tokens, so the KV a
+        rejected tail left stays beyond the sequence's length and is
+        rewritten before any query attends it. Returns (emitted,
+        accepted)."""
+        emitted = 0
+        for j in range(n):
+            if self.slots[slot] is not seq:
+                break  # EOS or length mid-window: the tail is discarded
+            seq.num_computed += 1
+            seq.device_pos += 1
+            self._append_token(seq, int(out_row[j]))
+            emitted += 1
+        # what landed: a draft that finished the stream discards the tail
+        # and the bonus token, which must not count as accepted
+        accepted = n - 1 if emitted == n else emitted
+        if drafted:
+            seq.spec.observe(drafted, accepted)
+        return emitted, accepted
+
     # ---- bookkeeping --------------------------------------------------
 
     def _append_token(self, seq: Sequence, token: int) -> None:
         seq.tokens.append(token)
+        if seq.spec is not None:
+            seq.spec.extend([token])
         seq.generated += 1
         seq.out_queue.put_nowait(EngineOutput(token_ids=[token]).to_dict())
         reason = seq.check_finish(token)

@@ -22,6 +22,7 @@ import itertools
 from dataclasses import dataclass, field
 from typing import Optional
 
+from dynamo_tpu_torch.engine.spec import NgramProposer
 from dynamo_tpu_torch.llm.protocols.common import (
     FINISH_REASON_CANCELLED,
     FINISH_REASON_EOS,
@@ -49,6 +50,11 @@ class Sequence:
     # tenant priority class (Context metadata "priority"; higher = more
     # important): orders admission picks and preemption-victim selection
     priority: int = 0
+    # self-speculative decoding: the n-gram proposer (engine/spec.py),
+    # created at admission when the engine runs spec_decode; it survives
+    # preemption (the token history it indexes does not change across a
+    # re-prefill)
+    spec: Optional[NgramProposer] = None
 
     # per-request sampling (resolved once at admission)
     temperature: float = 0.0

@@ -6,10 +6,11 @@ per-layer list under "layers") at the JAX package's layout: linear weights
 are [in_features, out_features] so matmuls are `x @ w`, and KV pools are
 per-layer [num_slots, K*Hd] tensors updated in place.
 
-Attention goes through one of the two `AttnSpec` modes below; both run the
-hand-written kernels on a GPU (page-scatter write + flash prefill for
-prefill chunks, fused write + decode attention for decode steps) and their
-plain versions on the CPU. With int8 or int4 KV
+Attention goes through one of the three `AttnSpec` modes below; each runs
+the hand-written kernels on a GPU (page-scatter write + flash prefill for
+prefill chunks, fused write + decode attention for decode steps, row write
++ the ragged read for mixed and verify steps) and their plain versions on
+the CPU. With int8 or int4 KV
 (`init_kv_cache(kv_quant="int8" | "int4")`) the fresh rows are quantized
 before they reach the pools, as in the reference, and the kernels' int8 or
 int4 forms read them with their scales.
@@ -24,7 +25,11 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.ops.decode_attention import fused_paged_decode_attention
+from dynamo_tpu_torch.ops.attention import write_kv_rows
+from dynamo_tpu_torch.ops.decode_attention import (
+    fused_paged_decode_attention,
+    ragged_paged_attention,
+)
 from dynamo_tpu_torch.ops.kv_write import paged_kv_write
 from dynamo_tpu_torch.ops.norm import rms_norm
 from dynamo_tpu_torch.ops.prefill_attention import flash_prefill_attention
@@ -50,16 +55,23 @@ class AttnSpec:
     - paged decode (`paged_decode`, T == 1): `block_tables` + `lengths`
       (attended KV count) + `write_pos` [B] (-1 = skip) -> the fused
       write + decode attention kernel (K3, or K5).
+    - ragged (`ragged`, mixed prefill+decode and speculative verify
+      steps): `write_slots` [B*T] flat slot per (row, column) (0 = the
+      trash page) -> the row write (ops/attention.write_kv_rows; decode
+      and verify rows land mid-page), then `block_tables` [B, W],
+      `q_pos0` [B] and `lengths` [B] (each row's query count) drive the
+      ragged paged-attention read (K4).
     """
 
     def __init__(self, block_tables, lengths, page_size: int, write_pos=None,
-                 write_tables=None, q_pos0=None):
+                 write_tables=None, q_pos0=None, write_slots=None):
         self.block_tables = block_tables
         self.lengths = lengths
         self.page_size = page_size
         self.write_pos = write_pos
         self.write_tables = write_tables
         self.q_pos0 = q_pos0
+        self.write_slots = write_slots
 
     @classmethod
     def page_write(cls, write_tables, block_tables, q_pos0, lengths, page_size):
@@ -73,6 +85,14 @@ class AttnSpec:
         """Counterpart of the JAX package's `AttnSpec.pallas_decode`."""
         return cls(block_tables=block_tables, lengths=lengths,
                    page_size=page_size, write_pos=write_pos)
+
+    @classmethod
+    def ragged(cls, block_tables, q_pos0, q_lens, write_slots, page_size):
+        """Counterpart of the JAX package's `AttnSpec.gather(None,
+        block_tables=..., q_pos0=..., lengths=...)` with row-scattered
+        write slots (its mixed and spec-verify steps)."""
+        return cls(block_tables=block_tables, lengths=q_lens, page_size=page_size,
+                   q_pos0=q_pos0, write_slots=write_slots)
 
 
 class KVCache(NamedTuple):
@@ -150,7 +170,15 @@ def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
     k = apply_rope(k.reshape(b, t, kh, hd), cos, sin)
     v = v.reshape(b, t, kh, hd)
 
-    if attn.write_pos is not None:
+    if attn.write_slots is not None:
+        pools = (kv_ks, kv_vs) if quant else ()
+        write_kv_rows(kv_k, kv_v, attn.write_slots, k.reshape(b * t, kh * hd),
+                      v.reshape(b * t, kh * hd), *pools, int4=int4)
+        out = ragged_paged_attention(
+            q.contiguous(), kv_k, kv_v, attn.block_tables, attn.q_pos0,
+            attn.lengths, *pools, page_size=attn.page_size, int4=int4,
+        )
+    elif attn.write_pos is not None:
         new_k = k[:, 0].reshape(b, kh * hd).contiguous()
         new_v = v[:, 0].reshape(b, kh * hd).contiguous()
         scales = ()

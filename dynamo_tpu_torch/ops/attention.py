@@ -10,11 +10,22 @@ view [num_pages, page_size, K*Hd] of a pool is free (no copy), which is
 what the page-granular kernels (kv_write, prefill_attention,
 decode_attention) read and write in place. With int8 KV the pools are
 int8 and each has a scale pool beside it (ops/quant.py).
+
+`write_kv_rows` is the row-granular write that mixed and verify steps
+need: their decode and verify rows land mid-page, which the page-scatter
+kernel (whole pages) cannot express. As in the reference (an XLA scatter
+outside Pallas), it is plain tensor ops.
 """
 
 from __future__ import annotations
 
 import torch
+
+from dynamo_tpu_torch.ops.quant import (
+    quantize_kv_rows,
+    quantize_kv_rows_int4,
+    scatter_kv_scales,
+)
 
 
 def slots_from_pages(block_tables: torch.Tensor, page_size: int) -> torch.Tensor:
@@ -22,3 +33,27 @@ def slots_from_pages(block_tables: torch.Tensor, page_size: int) -> torch.Tensor
     offs = torch.arange(page_size, dtype=block_tables.dtype, device=block_tables.device)
     s = block_tables[..., :, None] * page_size + offs
     return s.reshape(*block_tables.shape[:-1], -1)
+
+
+def write_kv_rows(k_cache, v_cache, slots, new_k, new_v, k_scales=None,
+                  v_scales=None, *, int4=False):
+    """Scatter per-token KV rows into the slot pools, in place (the JAX
+    package's `write_kv_slots` and the row write of its `_write_rows`).
+
+    `slots` [M] flat slot ids (0, the trash page, for padding columns);
+    `new_k`/`new_v` [M, K*Hd] in the activations' dtype. With scale pools
+    [num_pages, K, page_size] the pools are int8: the rows are quantized
+    (K and V in one call; nibble-packed with `int4=True`) and their scales
+    land beside them. Several padding columns may write slot 0; which one
+    wins there is unspecified, as in the reference."""
+    idx = slots.long()
+    if k_scales is None:
+        k_cache.index_copy_(0, idx, new_k.to(k_cache.dtype))
+        v_cache.index_copy_(0, idx, new_v.to(v_cache.dtype))
+        return
+    quantize = quantize_kv_rows_int4 if int4 else quantize_kv_rows
+    (qk, qv), (sk, sv) = quantize(torch.stack((new_k, new_v)), k_scales.shape[1])
+    k_cache.index_copy_(0, idx, qk)
+    v_cache.index_copy_(0, idx, qv)
+    scatter_kv_scales(k_scales, idx, sk)
+    scatter_kv_scales(v_scales, idx, sv)

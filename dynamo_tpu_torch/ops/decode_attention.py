@@ -1,4 +1,5 @@
-"""K3 and K5: paged decode attention fused with the new token's KV write.
+"""K3 and K5: paged decode attention fused with the new token's KV write;
+K4: the ragged paged-attention read of mixed and verify steps.
 
 Port of `dynamo_tpu/ops/pallas_attention.py::fused_paged_decode_attention`
 (K3 the bf16 branch `_decode_kernel`, K5 the quantized branch
@@ -16,6 +17,16 @@ stored beside the row, and the new token is attended through its
 quantized row, as in the reference. With `int4=True` the pools and new rows
 are nibble-packed, K*Hd/2 bytes a row (ops/quant.py planar layout); the
 width then no longer tells the number of kv heads, hence the flag.
+
+K4, `ragged_paged_attention`, is the port of
+`pallas_attention.py::ragged_paged_attention`: read-only attention with
+per-row query lengths over KV already written (row-scattered by the
+caller, ops/attention.write_kv_rows). Decode rows have q_len 1 at any
+(mid-page) position, verify rows 1 + k, chunk rows are causal inside the
+chunk, q_len 0 rows are 0. As in the reference it has no kernel body of
+its own: it enters the flash prefill kernels (K2, K6 and K6's int4 form,
+`csrc/prefill_attention.cu`), whose rows already take any pos0 and any
+t_valid, and counts its launches apart from theirs.
 """
 
 from __future__ import annotations
@@ -24,7 +35,7 @@ import ctypes
 
 import torch
 
-from dynamo_tpu_torch.ops import _cuda
+from dynamo_tpu_torch.ops import _cuda, prefill_attention
 from dynamo_tpu_torch.ops.attention import slots_from_pages
 from dynamo_tpu_torch.ops.quant import (
     dequantize_kv_rows,
@@ -192,6 +203,77 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths,
         )[0]
     return _launch(q, None, None, k_cache, v_cache, block_tables, lengths,
                    no_write, page_size, k_scales, v_scales, None, None, int4)
+
+
+def ragged_paged_attention_plain(q, k_cache, v_cache, block_tables, q_pos0,
+                                 q_lens, *, page_size):
+    """Plain PyTorch version of K4 (bf16 pools): gather the rows' slots and
+    attend, causal by absolute position, rows past q_len 0."""
+    ragged_paged_attention_plain.calls += 1
+    return prefill_attention.attend_paged(
+        q, k_cache, v_cache, block_tables, q_pos0, q_lens, page_size=page_size)
+
+
+ragged_paged_attention_plain.calls = 0
+
+
+def ragged_paged_attention_q_plain(q, k_cache, v_cache, block_tables, q_pos0,
+                                   q_lens, k_scales, v_scales, *, page_size):
+    """Plain PyTorch version of K4 over int8 pools: the gathered rows
+    dequantized to f32, then the same attention."""
+    ragged_paged_attention_q_plain.calls += 1
+    return prefill_attention.attend_paged(
+        q, k_cache, v_cache, block_tables, q_pos0, q_lens, k_scales, v_scales,
+        page_size=page_size)
+
+
+ragged_paged_attention_q_plain.calls = 0
+
+
+def ragged_paged_attention_q4_plain(q, k_cache, v_cache, block_tables, q_pos0,
+                                    q_lens, k_scales, v_scales, *, page_size):
+    """Plain PyTorch version of K4 over nibble-packed int4 pools."""
+    ragged_paged_attention_q4_plain.calls += 1
+    return prefill_attention.attend_paged(
+        q, k_cache, v_cache, block_tables, q_pos0, q_lens, k_scales, v_scales,
+        page_size=page_size, int4=True)
+
+
+ragged_paged_attention_q4_plain.calls = 0
+
+
+def ragged_paged_attention(q, k_cache, v_cache, block_tables, q_pos0, q_lens,
+                           k_scales=None, v_scales=None, *, page_size, int4=False):
+    """q [n, T, H, Hd] (rope applied, unscaled); pools [num_slots, K*Hd]
+    (int8 with scale pools [num_pages, K, page_size] f32, nibble-packed
+    with `int4=True`); block_tables [n, W], q_pos0 and q_lens [n] int32.
+    Row r's queries sit at q_pos0[r] .. q_pos0[r] + q_lens[r] - 1 and
+    attend keys at k_pos <= q_pos. Returns [n, T, H, Hd] in q.dtype. CPU
+    tensors take the plain version; CUDA tensors launch the kernel, or
+    raise for what it does not take."""
+    quant = k_scales is not None
+    _cuda.require(quant or not int4, "int4 KV needs scale pools")
+    if q.device.type == "cpu":
+        if quant:
+            plain = ragged_paged_attention_q4_plain if int4 else ragged_paged_attention_q_plain
+            return plain(q, k_cache, v_cache, block_tables, q_pos0, q_lens, k_scales,
+                         v_scales, page_size=page_size)
+        return ragged_paged_attention_plain(q, k_cache, v_cache, block_tables, q_pos0,
+                                            q_lens, page_size=page_size)
+    out = prefill_attention.launch(q, k_cache, v_cache, block_tables, q_pos0, q_lens,
+                                   k_scales, v_scales, page_size=page_size, int4=int4)
+    if not quant:
+        ragged_paged_attention.launches += 1
+    elif int4:
+        ragged_paged_attention.launches_q4 += 1
+    else:
+        ragged_paged_attention.launches_q += 1
+    return out
+
+
+ragged_paged_attention.launches = 0     # K4 over bf16 pools (K2's kernel)
+ragged_paged_attention.launches_q = 0   # K4 over int8 pools (K6's kernel)
+ragged_paged_attention.launches_q4 = 0  # K4 over int4 pools (K6's int4 form)
 
 
 def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,

@@ -55,17 +55,35 @@ def _attend(q, k, v, pos0, t_valid):
     return out.reshape(b, t, h, hd).to(q.dtype)
 
 
+def attend_paged(q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales=None,
+                 v_scales=None, *, page_size, int4=False):
+    """The plain computation behind K2/K6 (and the ragged read K4): gather
+    the rows' slots (dequantized to f32 with scale pools) and attend."""
+    b, _, _, hd = q.shape
+    flat = slots_from_pages(block_tables, page_size).long().reshape(-1)
+    c = flat.shape[0] // b
+    if k_scales is None:
+        kh = k_cache.shape[1] // hd
+        k, v = k_cache[flat].float(), v_cache[flat].float()
+    else:
+        kh = k_scales.shape[1]
+        if int4:
+            def dequantize(x, s):
+                return dequantize_kv_rows_int4(x, s, s.shape[-1])
+        else:
+            dequantize = dequantize_kv_rows
+        k = dequantize(k_cache[flat], gather_kv_scales(k_scales, flat))
+        v = dequantize(v_cache[flat], gather_kv_scales(v_scales, flat))
+    return _attend(q, k.reshape(b, c, kh, hd), v.reshape(b, c, kh, hd), pos0, t_valid)
+
+
 def flash_prefill_attention_plain(
     q, k_cache, v_cache, block_tables, pos0, t_valid, *, page_size
 ):
     """Plain PyTorch version of K2: gather the rows' slots and attend."""
     flash_prefill_attention_plain.calls += 1
-    b, _, _, hd = q.shape
-    kh = k_cache.shape[1] // hd
-    smat = slots_from_pages(block_tables, page_size).long()  # [B, C]
-    k = k_cache[smat].reshape(b, smat.shape[1], kh, hd).float()
-    v = v_cache[smat].reshape(b, smat.shape[1], kh, hd).float()
-    return _attend(q, k, v, pos0, t_valid)
+    return attend_paged(q, k_cache, v_cache, block_tables, pos0, t_valid,
+                        page_size=page_size)
 
 
 flash_prefill_attention_plain.calls = 0
@@ -78,8 +96,8 @@ def flash_prefill_attention_q_plain(
     """Plain PyTorch version of K6 (int8): gather the rows' slots,
     dequantize them to f32 and attend as K2's plain version does."""
     flash_prefill_attention_q_plain.calls += 1
-    return _attend_quantized(q, k_cache, v_cache, block_tables, pos0, t_valid,
-                             k_scales, v_scales, page_size, dequantize_kv_rows)
+    return attend_paged(q, k_cache, v_cache, block_tables, pos0, t_valid,
+                        k_scales, v_scales, page_size=page_size)
 
 
 flash_prefill_attention_q_plain.calls = 0
@@ -92,24 +110,11 @@ def flash_prefill_attention_q4_plain(
     """Plain PyTorch version of K6's int4 form: the same over nibble-packed
     rows, unpacked and dequantized to f32."""
     flash_prefill_attention_q4_plain.calls += 1
-    return _attend_quantized(
-        q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales, v_scales,
-        page_size, lambda x, s: dequantize_kv_rows_int4(x, s, s.shape[-1]),
-    )
+    return attend_paged(q, k_cache, v_cache, block_tables, pos0, t_valid,
+                        k_scales, v_scales, page_size=page_size, int4=True)
 
 
 flash_prefill_attention_q4_plain.calls = 0
-
-
-def _attend_quantized(q, k_cache, v_cache, block_tables, pos0, t_valid,
-                      k_scales, v_scales, page_size, dequantize):
-    b, _, _, hd = q.shape
-    kh = k_scales.shape[1]
-    flat = slots_from_pages(block_tables, page_size).long().reshape(-1)
-    c = flat.shape[0] // b
-    k = dequantize(k_cache[flat], gather_kv_scales(k_scales, flat))
-    v = dequantize(v_cache[flat], gather_kv_scales(v_scales, flat))
-    return _attend(q, k.reshape(b, c, kh, hd), v.reshape(b, c, kh, hd), pos0, t_valid)
 
 
 def flash_prefill_attention(
@@ -134,6 +139,28 @@ def flash_prefill_attention(
         return flash_prefill_attention_plain(
             q, k_cache, v_cache, block_tables, pos0, t_valid, page_size=page_size
         )
+    out = launch(q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales,
+                 v_scales, page_size=page_size, int4=int4)
+    if not quant:
+        flash_prefill_attention.launches += 1
+    elif int4:
+        flash_prefill_attention.launches_q4 += 1
+    else:
+        flash_prefill_attention.launches_q += 1
+    return out
+
+
+flash_prefill_attention.launches = 0    # K2 (bf16 pools)
+flash_prefill_attention.launches_q = 0  # K6 (int8 pools + scale pools)
+flash_prefill_attention.launches_q4 = 0  # K6, int4 form (nibble-packed pools)
+
+
+def launch(q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales=None,
+           v_scales=None, *, page_size, int4=False):
+    """Check the shapes and launch the CUDA kernel (K2, or K6 with scale
+    pools); counts nothing: each wrapper that launches it counts its own
+    launches. Raises for anything the kernel does not take."""
+    quant = k_scales is not None
     req = _cuda.require
     req(q.device.type == "cuda", f"unsupported device {q.device}")
     b, t, h, hd = q.shape
@@ -173,28 +200,18 @@ def flash_prefill_attention(
             out.data_ptr(), b, t, h, kh, hd, block_tables.shape[1], page_size,
             hd ** -0.5, _cuda.stream_ptr(q.device))
     if quant:
-        launch = lib.flash_prefill_q4_launch if int4 else lib.flash_prefill_q_launch
-        err = launch(
+        fn = lib.flash_prefill_q4_launch if int4 else lib.flash_prefill_q_launch
+        err = fn(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             k_scales.data_ptr(), v_scales.data_ptr(), *tail,
         )
         _cuda.check(err, f"flash_prefill_attention ({'int4' if int4 else 'int8'})")
-        if int4:
-            flash_prefill_attention.launches_q4 += 1
-        else:
-            flash_prefill_attention.launches_q += 1
         return out
     err = lib.flash_prefill_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *tail,
     )
     _cuda.check(err, "flash_prefill_attention")
-    flash_prefill_attention.launches += 1
     return out
-
-
-flash_prefill_attention.launches = 0    # K2 (bf16 pools)
-flash_prefill_attention.launches_q = 0  # K6 (int8 pools + scale pools)
-flash_prefill_attention.launches_q4 = 0  # K6, int4 form (nibble-packed pools)
 
 
 def _launcher():

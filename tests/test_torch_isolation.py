@@ -1,6 +1,7 @@
 """The port stands alone: no module of dynamo_tpu_torch, and not
 chip_smoke.py, imports jax, jaxlib or the JAX package dynamo_tpu, and
-building a CPU TorchEngine loads none of them. The test process itself has
+building a CPU TorchEngine (with speculative decoding and mixed steps, so
+the copied n-gram proposer loads too) loads none of them. The test process itself has
 jax loaded (tests/conftest.py), so the import check runs in a fresh
 interpreter."""
 
@@ -52,12 +53,14 @@ sys.path.insert(0, {ROOT!r})
 before = set(sys.modules)
 import dynamo_tpu_torch
 from dynamo_tpu_torch import EngineConfig, TorchEngine
-eng = TorchEngine(EngineConfig(model="tiny", dtype="float32", num_pages=16), device="cpu")
+eng = TorchEngine(EngineConfig(model="tiny", dtype="float32", num_pages=16, spec_decode=True,
+                               mixed_batching=True), device="cpu")
 new = set(sys.modules) - before
 print(json.dumps({{
     "dynamo_tpu": sorted(m for m in sys.modules if m.split(".")[0] == "dynamo_tpu"),
     "jax": sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib")),
     "port": "dynamo_tpu_torch.engine.engine" in new,
+    "spec": "dynamo_tpu_torch.engine.spec" in new,
 }}))
 """
     out = subprocess.run(
@@ -66,4 +69,4 @@ print(json.dumps({{
     )
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {"dynamo_tpu": [], "jax": [], "port": True}
+    assert got == {"dynamo_tpu": [], "jax": [], "port": True, "spec": True}
