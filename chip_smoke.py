@@ -27,11 +27,14 @@ final result line is printed only when every phase passed:
    versions gone wrong miss it (a causal edge one key late, a dropped key,
    a stale or bf16 new row, two heads' scales swapped, and for int4 a high
    nibble read unsigned or nibbles taken as adjacent pairs). K4, in all
-   three forms, on one mixed rectangle at 8B shapes (four decode rows and
-   two verify rows of 1 + 4 queries at mid-page positions, two chunk rows,
-   a q_len 0 row) and on small ragged cases; its power shown by a causal
+   three forms, on three rectangles at 8B shapes, those the main path
+   launches it at: a [9, 512] mixed step (four decode rows and two verify
+   rows of 1 + 4 queries at mid-page positions, two chunk rows, a q_len 0
+   row), a standalone verify dispatch [8, 5] (rows of 1 + k queries
+   across page boundaries, idle rows) and a [8, 128] mixed step; and on
+   small ragged cases. Its power is shown on the first two by a causal
    edge one key late and by verify rows whose last query lacks its newest
-   key; timed beside K3/K5 on the same decode rows;
+   key; it is timed on the first, beside K3/K5 on the same decode rows;
 4. real weights: the vendored trained checkpoint tests/data/tiny-trained-llama
    through the port's safetensors reader in bf16 on the GPU, with bf16,
    int8 and int4 KV; the greedy continuation of "the capital of france is"
@@ -673,15 +676,25 @@ def check_decode_q(peaks, gen, dev, int4=False):
 # ------------------------------------------------------- phase 3, K4
 
 
-# rows of one ragged rectangle: (q_pos0, q_len). The 8B case is a mixed
-# step at the main path's shapes: four decode rows at mid-page positions,
-# two verify rows of 1 + 4 queries (the second across the page boundary at
-# 576), two chunk rows at page-aligned pos0, and a q_len 0 row.
+# rows of one ragged rectangle: (q_pos0, q_len). The 8B cases are the main
+# path's shapes. "8b" is a mixed step: four decode rows at mid-page
+# positions, two verify rows of 1 + 4 queries (the second across the page
+# boundary at 576), two chunk rows at page-aligned pos0, and a q_len 0 row.
+# "8b-verify" is a standalone verify dispatch ([8, spec_k_max + 1]: T = 5,
+# below one query tile): rows of 1 + k queries, mid-page and across page
+# boundaries (574, 638, 511), and idle q_len 0 rows. "8b-mixed128" is a
+# [8, 128] mixed step: decode and verify rows beside chunk rows, the last a
+# final chunk of 77 tokens.
 RAGGED_CASES = {
     # H, K, Hd, page, T, W, rows
     "8b": (32, 8, 128, 64, 512, 16,
            [(517, 1), (550, 1), (583, 1), (600, 1), (530, 5), (574, 5), (64, 512),
             (128, 448), (0, 0)]),
+    "8b-verify": (32, 8, 128, 64, 5, 16,
+                  [(517, 5), (550, 1), (574, 5), (0, 0), (600, 3), (638, 5), (0, 0), (511, 2)]),
+    "8b-mixed128": (32, 8, 128, 64, 128, 16,
+                    [(521, 5), (566, 1), (590, 3), (603, 1), (384, 128), (448, 128), (512, 77),
+                     (0, 0)]),
     "hd32-g2": (4, 2, 32, 16, 32, 6, [(37, 1), (14, 5), (32, 32), (0, 0), (60, 1), (45, 3)]),
     "hd64-g1": (4, 4, 64, 16, 32, 6, [(14, 5), (37, 1), (0, 0), (16, 24), (47, 2)]),
     "hd64-g8": (16, 2, 64, 16, 32, 6, [(30, 3), (0, 0), (37, 1), (9, 32), (62, 5)]),
@@ -693,9 +706,10 @@ RAGGED_NAMES = {"bf16": "ragged_attention", "int8": "ragged_attention_q",
 def check_ragged(peaks, gen, dev, form="bf16"):
     """K4 in one form against its plain version on ragged rectangles (each
     element within one bf16 ulp plus ATOL_F32, rows past q_len exactly 0),
-    with the check's power shown on the 8B rectangle, and the times of the
-    kernel, its plain version, SDPA with the ragged causal mask, K3/K5 on
-    the rectangle's decode rows and K4 on those rows alone."""
+    with the check's power shown on the 8B mixed and verify rectangles, and
+    the times on the 8B mixed rectangle of the kernel, its plain version,
+    SDPA with the ragged causal mask, K3/K5 on the rectangle's decode rows
+    and K4 on those rows alone."""
     from dynamo_tpu_torch.ops import decode_attention as m
 
     int4, quant = form == "int4", form != "bf16"
@@ -730,7 +744,7 @@ def check_ragged(peaks, gen, dev, form="bf16"):
         assert torch.all(got[~valid] == 0), f"{name} {label}: rows past q_len not 0"
         c = compare_bf16(got[valid], want[valid])
         msg = f"[kernel] {name} {label}: {fmt(c)}"
-        if label == "8b":
+        if label in ("8b", "8b-verify"):
             # the check's power on these inputs: every row's causal edge one
             # key late, and the verify rows' last query without its own
             # newest key (its causal limit one key early, the rest intact)
@@ -759,14 +773,16 @@ def check_ragged(peaks, gen, dev, form="bf16"):
         lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qq, kk, vv, attn_mask=mask))
         # what a decode row costs when read through K4 (its padded query
-        # tiles) against K3/K5 reading the same rows
+        # tiles) against K3/K5 reading the same rows, each on inputs
+        # gathered beforehand
         dec = (ql == 1).nonzero().flatten()
-        k4_dec_ms = time_ms(lambda: kernel(q[dec].contiguous(), tables[dec].contiguous(),
-                                           p0[dec].contiguous(), ql[dec].contiguous()))
-        q1, t1, l1 = q[dec, 0].contiguous(), tables[dec].contiguous(), (p0[dec] + 1).contiguous()
-        k3_ms = time_ms(lambda: m.paged_decode_attention(q1, k, v, t1, l1, *scales,
+        qd, td, pd, ld = (x[dec].contiguous() for x in (q, tables, p0, ql))
+        k4_dec_ms = time_ms(lambda: kernel(qd, td, pd, ld))
+        q1, l1 = qd[:, 0].contiguous(), (pd + 1).contiguous()
+        k3_ms = time_ms(lambda: m.paged_decode_attention(q1, k, v, td, l1, *scales,
                                                          page_size=page, int4=int4))
-        row_bytes = k.shape[1] // kh + (8 if quant else 0)  # a kv head's row (+ its 2 scales)
+        # a kv head's row in bytes, plus its one f32 scale when quantized
+        row_bytes = k.shape[1] * k.element_size() // kh + (4 if quant else 0)
         kv_rows = sum(p + n for p, n in rows if n)
         n_q = sum(n for _, n in rows)
         nbytes = (n_q * h * hd * 2 + q.numel() * 2 + 2 * kv_rows * kh * row_bytes
