@@ -6,10 +6,12 @@ Phases, each printed on its own line; any failure exits non-zero and the
 final result line is printed only when every phase passed:
 
 1. card and versions (nvidia-smi name and power limit, torch, CUDA);
-2. build: the three CUDA sources under dynamo_tpu_torch/csrc (nine kernels:
-   K1-K3 for bf16 KV, K5-K7 in their int8 and their int4 forms; K4, the
-   ragged read of mixed and verify steps, enters K2/K6 in each KV format),
-   one nvcc each, all in parallel;
+2. build: the four CUDA sources under dynamo_tpu_torch/csrc (fourteen
+   kernels: K1-K3 for bf16 KV, K5-K7 in their int8 and their int4 forms;
+   K4, the ragged read of mixed and verify steps, enters K2/K6 in each KV
+   format; and in probes.cu the probe kernels K8 page_copy, K9's
+   unpack/pack/inject bitcasts and K10 page_gather), one nvcc each, all in
+   parallel;
 3. each kernel against its plain PyTorch version on the same inputs, at
    Llama-3.1-8B per-layer shapes (K=8, Hd=128, H=32, B=8, chunk 512 over
    ~576 tokens, decode lengths 512-600; page 64, and page 128 for the int8
@@ -34,7 +36,17 @@ final result line is printed only when every phase passed:
    across page boundaries, idle rows) and a [8, 128] mixed step; and on
    small ragged cases. Its power is shown on the first two by a causal
    edge one key late and by verify rows whose last query lacks its newest
-   key; it is timed on the first, beside K3/K5 on the same decode rows;
+   key; it is timed on the first, beside K3/K5 on the same decode rows.
+   The probe kernels, at the probe scripts' shapes (K10 also at
+   profile_dma's sweep shapes) and at the 8B shape ([256 pages, 64,
+   1024]; for K9 an int8 pool of 16384 x 1024): K8 and
+   K9 byte-exact (K8 never writing page 0; K9's inject at byte lanes 0-3
+   and the last row), K10 0.0 bit for bit on finite pools at every ring
+   depth, NaN when a named page's row 0 holds a NaN or an infinity and
+   0.0 when only another row or an unnamed page does; each timed beside
+   its bound and one PyTorch call (index_copy_, the view/permute bitcast,
+   index_select), and K10's scattered-page rate held under 1.05x the
+   card's memory rate;
 4. real weights: the vendored trained checkpoint tests/data/tiny-trained-llama
    through the port's safetensors reader in bf16 on the GPU, with bf16,
    int8 and int4 KV; the greedy continuation of "the capital of france is"
@@ -62,11 +74,17 @@ final result line is printed only when every phase passed:
    layer per mixed step and verify dispatch) and no plain call, and prints
    the wave's TTFT, the held streams' longest silence and tokens/s inside
    the wave, and the mixed and spec counters.
+9. the probe path: the three probe scripts (dynamo_tpu_torch/scripts/
+   proto_page_write, probe_bitcast, profile_dma) run in process what their
+   main() runs on a GPU, with the launch counters zeroed just before and
+   read just after; every probe kernel must have launched, and K10's
+   rates there stay under 1.05x the card's memory rate.
 With --pairs N, phases 5, 6 and 7 and phase 8's bf16 off/on pair run N
 times in turns, to show their spread.
 
-Then a `kernels` JSON line (twelve kernels: K4 in three forms beside the
-nine), the nvidia-smi line, and last {"ok": true, "device": {...}}.
+Then a `kernels` JSON line (seventeen kernels: the nine, K4 in three
+forms, and the five probe kernels), the nvidia-smi line, and last
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -109,30 +127,10 @@ def card_peaks(name: str):
     return "SXM", PEAKS["SXM"]
 
 
-# ~1 ms of device-side spin (at the H100's ~2 GHz) queued before each timed
-# call, so the host has launched the call before the device reaches it
-SPIN_CYCLES = 2_000_000
-
-
-def time_ms(fn, iters=20, warmup=3) -> float:
-    """Median CUDA-event time of one call of fn. Each call is queued behind
-    a device-side spin, so the events bracket the device's work and not the
-    host time a wrapper takes to launch it (a call that syncs with the host,
-    as some plain versions do, still includes its host time)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+# the timing helper of the probe scripts, dynamo_tpu_torch.scripts.time_ms
+# (median CUDA-event time of 20 calls, each behind a device-side spin),
+# bound by main() once the package is importable
+time_ms = None
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -798,6 +796,226 @@ def check_ragged(peaks, gen, dev, form="bf16"):
                 decode_kernel_ms=k3_ms)
 
 
+# ---------------------------------------------------------------- phase 3: the probe kernels
+
+
+def check_page_copy(peaks, gen, dev):
+    """K8 against its plain version, byte-exact: at the probe's shapes (512
+    pages [64, 512] bf16 into 657, both pools) and at the 8B shape (64 of
+    256 pages [64, 1024], one id 0 that must be skipped: page 0 is never
+    written); timed at the probe's shapes, its main path, against two
+    `index_copy_` calls."""
+    from dynamo_tpu_torch.scripts import proto_page_write as m
+
+    for label in ("probe", "8b"):
+        if label == "probe":
+            num_pages, page, kw = m.NUM_PAGES, m.PAGE, m.KW
+            tables = m.probe_tables(dev)
+        else:
+            num_pages, page, kw = 256, 64, 1024
+            tables = (torch.randperm(num_pages - 1, generator=gen, device=dev)[:64] + 1).to(
+                torch.int32)
+            tables[7] = 0
+        n = tables.numel()
+        k, v = _pools(num_pages, page, kw, gen, dev)
+        nk = torch.randn((n, page, kw), generator=gen, device=dev).to(torch.bfloat16)
+        nv = torch.randn((n, page, kw), generator=gen, device=dev).to(torch.bfloat16)
+        k1, v1, k2, v2 = k.clone(), v.clone(), k.clone(), v.clone()
+        rk, rv = m.page_copy(k1, v1, tables, nk, nv)
+        assert rk is k1 and rv is v1, "page_copy: pools not returned in place"
+        m.page_copy_plain(k2, v2, tables, nk, nv)
+        torch.cuda.synchronize()
+        assert _same_bytes(k1, k2) and _same_bytes(v1, v2), \
+            f"page_copy {label}: pools differ from the plain version"
+        assert _same_bytes(k1[:page], k[:page]) and _same_bytes(v1[:page], v[:page]), \
+            f"page_copy {label}: page 0 written"
+        assert not _same_bytes(k1, k), f"page_copy {label}: pool not updated in place"
+        if label != "probe":
+            continue
+        ms = time_ms(lambda: m.page_copy(k1, v1, tables, nk, nv))
+        plain_ms = time_ms(lambda: m.page_copy_plain(k2, v2, tables, nk, nv))
+        kp, vp, idx = k1.view(num_pages, -1), v1.view(num_pages, -1), tables.long()
+        fk, fv = nk.view(n, -1), nv.view(n, -1)
+
+        def lib():
+            kp.index_copy_(0, idx, fk)
+            vp.index_copy_(0, idx, fv)
+
+        lib_ms = time_ms(lib)
+        nbytes = 2 * 2 * n * page * kw * 2 + n * 4
+        b_ms, by = bound_ms(nbytes, 0.0, peaks)
+        n_probe = n
+    log(f"[kernel] page_copy: byte-exact at the probe's and the 8B shapes, page 0 never "
+        f"written; {ms:.4f} ms for {n_probe} pages x 2 pools at the probe's shapes (plain "
+        f"{plain_ms:.4f}, index_copy_ x2 {lib_ms:.4f}, bound {b_ms:.4f} by {by}; "
+        f"{nbytes / ms / 1e6:.0f} GB/s moved)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=by)
+
+
+def check_bitcast(peaks, gen, dev):
+    """K9's three kernels against their plain versions, byte-exact, at the
+    probe's shape (int8 [32, 128], packed [8, 128]) and the 8B shape (an
+    int8 pool of 16384 rows x 1024, packed [4096, 1024]); pack and unpack
+    also against the view/permute bitcast, and each other's inverse; the
+    inject at byte lanes 0-3 and the last row, leaving every other int8 row
+    as it was. Timed at the 8B shape, each against one PyTorch call: the
+    view/permute bitcast, and a byte-view slice assignment for the inject."""
+    from dynamo_tpu_torch.scripts import probe_bitcast as m
+
+    def lib_unpack(p):
+        t, c = p.shape
+        return p.view(torch.int8).view(t, c, 4).permute(0, 2, 1).reshape(4 * t, c)
+
+    def lib_pack(r):
+        t4, c = r.shape
+        return r.view(t4 // 4, 4, c).permute(0, 2, 1).contiguous().view(torch.int32).view(
+            t4 // 4, c)
+
+    def lib_inject(p, row, off):
+        t, c = p.shape
+        p.view(torch.int8).view(t, c, 4)[off // 4, :, off % 4] = row
+        return p
+
+    for label, t4, c in (("probe", 32, 128), ("8b", 16384, 1024)):
+        rows = torch.randint(-128, 128, (t4, c), generator=gen, device=dev, dtype=torch.int8)
+        packed = m.pack_int8_rows(rows)
+        want = m.pack_int8_rows_plain(rows)
+        torch.cuda.synchronize()
+        assert torch.equal(packed, want) and torch.equal(packed, lib_pack(rows)), \
+            f"bitcast pack {label}: differs from the plain version"
+        back = m.unpack_int8_rows(packed)
+        assert torch.equal(back, m.unpack_int8_rows_plain(packed)) and torch.equal(back, rows) \
+            and torch.equal(back, lib_unpack(packed)), f"bitcast unpack {label}: differs"
+        row = torch.randint(-128, 128, (c,), generator=gen, device=dev, dtype=torch.int8)
+        base = 4 * (t4 // 8)
+        for off in (base, base + 1, base + 2, base + 3, t4 - 1):
+            got = m.inject_int8_row(packed.clone(), row, off)
+            want = m.inject_int8_row_plain(packed.clone(), row, off)
+            rows_want = rows.clone()
+            rows_want[off] = row
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"bitcast inject {label} at row {off}: differs"
+            assert torch.equal(m.unpack_int8_rows_plain(got), rows_want), \
+                f"bitcast inject {label} at row {off}: other rows changed"
+    # times at the 8B shape
+    t = packed.shape[0]
+    res = {}
+    for name, kern, plain, libf, nbytes in (
+        ("bitcast_unpack", lambda: m.unpack_int8_rows(packed),
+         lambda: m.unpack_int8_rows_plain(packed), lambda: lib_unpack(packed), 2 * packed.numel() * 4),
+        ("bitcast_pack", lambda: m.pack_int8_rows(rows), lambda: m.pack_int8_rows_plain(rows),
+         lambda: lib_pack(rows), 2 * rows.numel()),
+        ("bitcast_inject", lambda: m.inject_int8_row(packed, row, t4 - 1),
+         lambda: m.inject_int8_row_plain(packed, row, t4 - 1),
+         lambda: lib_inject(packed, row, t4 - 1), 2 * c * 4 + c),
+    ):
+        ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(libf)
+        b_ms, by = bound_ms(nbytes, 0.0, peaks)
+        log(f"[kernel] {name}: byte-exact at the probe's and the 8B shapes; {ms:.4f} ms at the "
+            f"8B shape (packed [{t}, {c}]) (plain {plain_ms:.4f}, view/permute {lib_ms:.4f}, "
+            f"bound {b_ms:.4f} by {by})")
+        res[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=by)
+    return res
+
+
+# label: (dtype, pages in the pool, page rows, row width, pages named, nbufs)
+GATHER_CASES = {
+    # the probe's three page types; only int8 at the probe's pool size
+    # (phase 9's probe_bitcast times all three there)
+    "probe-int8": (torch.int8, 16384, 128, 1024, 8192, (8,)),
+    "probe-int32": (torch.int32, 1024, 32, 1024, 512, (8,)),
+    "probe-bf16": (torch.bfloat16, 1024, 64, 1024, 512, (8,)),
+    # 16 KB pages: the bytes of one kv head's share of a 64-row decode page
+    # at the 8B shape
+    "16KB-pages": (torch.bfloat16, 65536, 16, 512, 32768, (2, 8)),
+    "8b": (torch.bfloat16, 256, 64, 1024, 128, (2, 4, 8, 16)),
+    # profile_dma's sweep: 64-row pages, and 256-row pages (256 KB, more
+    # than one ring stage at every depth)
+    "sweep-64": (torch.bfloat16, 4096, 64, 512, 1024, (2, 4, 8, 16)),
+    "sweep-256": (torch.bfloat16, 4096, 256, 512, 256, (2, 16)),
+    "few-pages": (torch.bfloat16, 64, 16, 512, 5, (2, 16)),
+}
+
+
+def _bits(x):
+    return x.view(torch.int32).item()
+
+
+def check_page_gather(peaks, gen, dev):
+    """K10 against its plain version: 0.0 (bit for bit) on finite pools at
+    the probe's three page types, the 8B shape and profile_dma's sweep
+    shapes at their ring depths, and fewer pages than SMs; on bf16 pools
+    NaN when row 0 of a named page holds a NaN or an infinity, 0.0 when
+    only row 1 of a named page or row 0 of an unnamed one does. Timed on
+    the probe's int8 pages (1.07 GB of a 2.1 GB pool, past the 50 MB L2)
+    against `index_select` of the same pages; its rate there and on 16 KB
+    pages (512 MB of a 1 GB pool) must stay under 1.05x the card's memory
+    rate."""
+    from dynamo_tpu_torch.scripts import profile_dma as m
+
+    rates = {}
+    for label, (dtype, total, page, kw, n, nbufs) in GATHER_CASES.items():
+        if dtype == torch.bfloat16:
+            pool = torch.randn((total, page, kw), generator=gen, device=dev, dtype=dtype)
+        else:
+            info = torch.iinfo(dtype)
+            pool = torch.randint(info.min, info.max, (total, page, kw), generator=gen,
+                                 device=dev, dtype=dtype)
+        tables = torch.randperm(total, generator=gen, device=dev)[:n].to(torch.int32)
+        for nbuf in nbufs:
+            got, want = m.page_gather(pool, tables, nbuf), m.page_gather_plain(pool, tables)
+            assert _bits(got) == _bits(want) == 0, \
+                f"page_gather {label} nbuf {nbuf}: {got.item()} (plain {want.item()})"
+        if dtype == torch.bfloat16:
+            listed = set(tables.tolist())
+            named = int(tables[n // 2])
+            unnamed = next(i for i in range(total) if i not in listed)
+            for what, pg, r, val, poisoned in (
+                ("named row 0 NaN", named, 0, float("nan"), True),
+                ("named row 0 inf", named, 0, float("inf"), True),
+                ("named row 1 NaN", named, 1, float("nan"), False),
+                ("unnamed row 0 NaN", unnamed, 0, float("nan"), False),
+            ):
+                keep = pool[pg, r, 5].clone()
+                pool[pg, r, 5] = val
+                for nbuf in nbufs:
+                    got = m.page_gather(pool, tables, nbuf)
+                    want = m.page_gather_plain(pool, tables)
+                    if poisoned:
+                        assert got.isnan().item() and want.isnan().item(), \
+                            f"page_gather {label} {what} nbuf {nbuf}: {got.item()}"
+                    else:
+                        assert _bits(got) == _bits(want) == 0, \
+                            f"page_gather {label} {what} nbuf {nbuf}: {got.item()}"
+                pool[pg, r, 5] = keep
+        if label in ("probe-int8", "16KB-pages"):
+            page_bytes = page * kw * pool.element_size()
+            nbytes = n * page_bytes + n * 4 + 4
+            ms = time_ms(lambda: m.page_gather(pool, tables, 8))
+            rates[label] = n * page_bytes / ms / 1e6  # GB/s
+            if label == "probe-int8":
+                plain_ms = time_ms(lambda: m.page_gather_plain(pool, tables))
+                idx = tables.long()
+                lib_ms = time_ms(lambda: torch.index_select(pool, 0, idx))
+                b_ms, by = bound_ms(nbytes, 0.0, peaks)
+                k10 = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=by)
+        del pool
+    peak_tb = peaks[0] / 1e12
+    log(f"[kernel] page_gather: 0.0 bit for bit on finite pools, NaN exactly when a named "
+        f"page's row 0 holds one; {k10['ms']:.4f} ms for 8192 int8 pages [128, 1024] (plain "
+        f"{k10['plain_ms']:.4f}, index_select {k10['library_ms']:.4f}, bound "
+        f"{k10['bound_ms']:.4f} by {k10['bound_by']}); scattered-page rate at nbuf 8: "
+        + ", ".join(f"{k} {r / 1e3:.3f} TB/s" for k, r in rates.items())
+        + f" (data sheet {peak_tb:.2f} TB/s)")
+    for k, r in rates.items():
+        assert r < 1.05 * peaks[0] / 1e9, \
+            f"page_gather {k}: {r / 1e3:.3f} TB/s is above 1.05x the card's memory rate"
+    return k10
+
+
 # ---------------------------------------------------------------- phases 4-7
 
 
@@ -815,6 +1033,9 @@ def counters():
     from dynamo_tpu_torch.ops import decode_attention as d
     from dynamo_tpu_torch.ops import kv_write as w
     from dynamo_tpu_torch.ops import prefill_attention as p
+    from dynamo_tpu_torch.scripts import probe_bitcast as pb
+    from dynamo_tpu_torch.scripts import profile_dma as pd
+    from dynamo_tpu_torch.scripts import proto_page_write as pw
 
     return {
         "kv_write": (w.paged_kv_write, "launches", w.paged_kv_write_plain),
@@ -838,6 +1059,11 @@ def counters():
                                d.ragged_paged_attention_q_plain),
         "ragged_attention_q4": (d.ragged_paged_attention, "launches_q4",
                                 d.ragged_paged_attention_q4_plain),
+        "page_copy": (pw.page_copy, "launches", pw.page_copy_plain),
+        "bitcast_unpack": (pb.unpack_int8_rows, "launches", pb.unpack_int8_rows_plain),
+        "bitcast_pack": (pb.pack_int8_rows, "launches", pb.pack_int8_rows_plain),
+        "bitcast_inject": (pb.inject_int8_row, "launches", pb.inject_int8_row_plain),
+        "page_gather": (pd.page_gather, "launches", pd.page_gather_plain),
     }
 
 
@@ -1240,6 +1466,42 @@ def phase_wave(dev, params, kv_quant=None, on=True, cfg=None, traffic=None, ref_
     return {k: v[0] for k, v in counts.items()}, m, held_toks, params
 
 
+# ---------------------------------------------------------------- phase 9
+
+PROBE_KERNELS = ("page_copy", "bitcast_unpack", "bitcast_pack", "bitcast_inject", "page_gather")
+
+
+def phase_probes(peaks, dev):
+    """Phase 9, the probe path: the three probe scripts' run(dev), what
+    `python -m dynamo_tpu_torch.scripts.<name>` runs once main() has found
+    the GPU, in process. The launch counters are zeroed just before and
+    read just after: every probe kernel must have launched. Each run checks
+    its kernels against their plain versions on the card (so plain calls
+    are expected here) and times K1 beside K8. K10's rates there, on the
+    probe's three page types and over profile_dma's sweep, must stay under
+    1.05x the card's memory rate."""
+    from dynamo_tpu_torch.scripts import probe_bitcast, profile_dma, proto_page_write
+
+    reset_counts()
+    out = {}
+    for mod in (proto_page_write, probe_bitcast, profile_dma):
+        log(f"[probe] {mod.__name__}.run")
+        out[mod] = mod.run(dev)
+    counts = read_counts()
+    for name in PROBE_KERNELS:
+        assert counts[name][0] > 0, f"probe path: {name} never launched"
+    log(f"[probe] launches on the probe path: "
+        f"{json.dumps({k: v[0] for k, v in counts.items() if v[0]})}; plain calls: "
+        f"{json.dumps({k: v[1] for k, v in counts.items() if v[1]})}")
+    rates = {f"probe_bitcast {k}": gbs for k, gbs in out[probe_bitcast].items()}
+    rates.update({f"profile_dma page {r['page']} nbuf {r['nbuf']}": r["bytes"] / r["ms"] / 1e6
+                  for r in out[profile_dma]})
+    for k, r in rates.items():
+        assert r < 1.05 * peaks[0] / 1e9, \
+            f"page_gather {k}: {r / 1e3:.3f} TB/s is above 1.05x the card's memory rate"
+    return {name: counts[name][0] for name in PROBE_KERNELS}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1,
@@ -1252,6 +1514,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import dynamo_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
     from dynamo_tpu_torch.ops import _cuda
+
+    global time_ms
+    from dynamo_tpu_torch.scripts import time_ms
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -1266,7 +1531,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.build()
-    log(f"[build] {len(_cuda.SOURCES)} sources (nine kernels; K4 enters K2/K6) built in {time.perf_counter() - t0:.1f} s "
+    log(f"[build] {len(_cuda.SOURCES)} sources (fourteen kernels: nine on the serving path, "
+        f"K4 entering K2/K6, and the five probe kernels K8-K10) built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_cuda.NVCC_FLAGS[:2])})")
     for n, text in _cuda.build_logs.items():
         for line in text.splitlines():
@@ -1288,6 +1554,9 @@ def main() -> int:
         "ragged_attention": check_ragged(peaks, gen, dev, "bf16"),
         "ragged_attention_q": check_ragged(peaks, gen, dev, "int8"),
         "ragged_attention_q4": check_ragged(peaks, gen, dev, "int4"),
+        "page_copy": check_page_copy(peaks, gen, dev),
+        **check_bitcast(peaks, gen, dev),
+        "page_gather": check_page_gather(peaks, gen, dev),
     }
     phase_real_weights(dev)
     # phases 5, 6 and 7 (bf16, int8 and int4 KV) on one set of weights;
@@ -1313,6 +1582,9 @@ def main() -> int:
         counts, _, _, params = phase_wave(dev, params, kv_quant=kv_quant, on=True)
         launches[RAGGED_KERNEL[kv_quant]] = counts[RAGGED_KERNEL[kv_quant]]
     del params
+    # phase 9: the probe path
+    torch.cuda.empty_cache()
+    launches.update(phase_probes(peaks, dev))
 
     meta = {
         "kv_write": ("dynamo_tpu_torch/csrc/kv_write.cu", "dynamo_tpu/ops/pallas_kv_write.py:60"),
@@ -1336,6 +1608,11 @@ def main() -> int:
                                "dynamo_tpu/ops/pallas_attention.py:951"),
         "ragged_attention_q4": ("dynamo_tpu_torch/csrc/prefill_attention.cu",
                                 "dynamo_tpu/ops/pallas_attention.py:951"),
+        "page_copy": ("dynamo_tpu_torch/csrc/probes.cu", "scripts/proto_page_write.py:38"),
+        "bitcast_unpack": ("dynamo_tpu_torch/csrc/probes.cu", "scripts/probe_bitcast.py:28"),
+        "bitcast_pack": ("dynamo_tpu_torch/csrc/probes.cu", "scripts/probe_bitcast.py:60"),
+        "bitcast_inject": ("dynamo_tpu_torch/csrc/probes.cu", "scripts/probe_bitcast.py:83"),
+        "page_gather": ("dynamo_tpu_torch/csrc/probes.cu", "scripts/profile_dma.py:19"),
     }
     kernels = []
     for k, r in results.items():

@@ -84,6 +84,10 @@ class EngineConfig:
     mixed_decode_priority: bool = True
     step_pipeline: bool = False
     tp_overlap: bool = False
+    # default end-to-end deadline per request, seconds (0 = none); a
+    # request's own metadata "deadline" takes precedence. Expired requests
+    # are shed from the queue or finished mid-flight with "timeout".
+    request_timeout_s: float = 0.0
 
     def __post_init__(self) -> None:
         for name, off in _UNPORTED.items():

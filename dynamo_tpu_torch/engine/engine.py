@@ -24,6 +24,10 @@ Port of `dynamo_tpu/engine/engine.py::JaxEngine`, main path only:
   own history, verified in one multi-query step through the same row write
   and K4 (standalone verify dispatches, or, with `mixed_spec`, verify rows
   of q_len 1 + k inside mixed steps);
+- request deadlines (Context metadata "deadline", or the default
+  `request_timeout_s`): a request already past its deadline raises
+  `DeadlineExceededError` before any device work, a queued one is shed
+  and a running one finished, both with finish reason "timeout";
 - streamed `EngineOutput` frames, finishing on max_tokens or EOS.
 
 The engine runs on a CUDA device unless the caller asks for the CPU, where
@@ -61,6 +65,8 @@ from dynamo_tpu_torch.llm.protocols.common import (
     FINISH_REASON_CANCELLED,
     FINISH_REASON_ERROR,
     FINISH_REASON_LENGTH,
+    FINISH_REASON_TIMEOUT,
+    DeadlineExceededError,
     EngineOutput,
     PreprocessedRequest,
 )
@@ -144,6 +150,9 @@ class TorchEngine:
         self._closed = False
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(config.seed ^ 0x5EED)
+        # set once a request carries a deadline: until then no tick reads
+        # the clock for the deadline sweeps
+        self._has_deadlines = False
         # engine-side phase accounting (host walls around dispatch calls
         # that end in a device->host fetch, so they include device time)
         self._phase_stats = {
@@ -171,6 +180,10 @@ class TorchEngine:
             "spec_drafted": 0,
             "spec_accepted": 0,
             "spec_emitted": 0,
+            # requests shed past their deadline before admission (at
+            # generate or from the queue), and running ones finished by it
+            "deadline_shed": 0,
+            "deadline_timeouts": 0,
         }
 
     def _check_kernel_shapes(self) -> None:
@@ -242,6 +255,17 @@ class TorchEngine:
                 f"({self.num_pages - 1} pages x {self.page_size} tokens)"
             )
         seq = Sequence.from_request(request, pre, self.config.max_model_len)
+        if not seq.deadline and self.config.request_timeout_s > 0:
+            seq.deadline = time.time() + self.config.request_timeout_s
+        if seq.deadline:
+            self._has_deadlines = True
+            if seq.past_deadline():
+                # shed before any device work: the caller stopped waiting
+                self._phase_stats["deadline_shed"] += 1
+                raise DeadlineExceededError(
+                    "request deadline expired before admission "
+                    f"(deadline={seq.deadline:.3f})"
+                )
         self.waiting.append(seq)
         self._ensure_loop()
         self._wake.set()
@@ -298,7 +322,10 @@ class TorchEngine:
     async def _loop(self) -> None:
         try:
             while not self._closed:
-                progressed = self._admit_new()
+                # queue members past their deadline leave before they can
+                # claim a slot or pages
+                progressed = self._shed_expired_waiting()
+                progressed |= self._admit_new()
                 # stall-free mixed step first: when it runs, the normal
                 # prefill and decode ticks stand down this tick
                 mixed = self.config.mixed_batching and self._mixed_tick()
@@ -326,6 +353,29 @@ class TorchEngine:
             self.slots = [None] * len(self.slots)
             self._prefilling.clear()
             raise
+
+    # ---- deadlines ----------------------------------------------------
+
+    def _shed_expired_waiting(self) -> bool:
+        """Finish queued requests whose deadline has passed, before they
+        touch the device: a zero-token "timeout" finish."""
+        if not self._has_deadlines or not self.waiting:
+            return False
+        now = time.time()
+        expired = [s for s in self.waiting if s.past_deadline(now)]
+        for seq in expired:
+            self.waiting.remove(seq)
+            self._phase_stats["deadline_shed"] += 1
+            seq.out_queue.put_nowait(EngineOutput.final(FINISH_REASON_TIMEOUT).to_dict())
+        return bool(expired)
+
+    def _sweep_expired(self, seq: Sequence, now: float) -> bool:
+        """Finish an admitted sequence whose deadline has passed."""
+        if not seq.past_deadline(now):
+            return False
+        self._phase_stats["deadline_timeouts"] += 1
+        self._finish(seq, FINISH_REASON_TIMEOUT)
+        return True
 
     # ---- admission ----------------------------------------------------
 
@@ -419,6 +469,9 @@ class TorchEngine:
             if seq.ctx.is_stopped():
                 self._finish(seq, FINISH_REASON_CANCELLED)
                 progressed = True
+                continue
+            if self._has_deadlines and self._sweep_expired(seq, time.time()):
+                progressed = True  # expired mid-prefill: no more chunks
                 continue
             chunk = min(seq.total_tokens - seq.num_computed, self.config.prefill_chunk)
             bucket = self._bucket_for(chunk)
@@ -783,15 +836,19 @@ class TorchEngine:
     # ---- decode -------------------------------------------------------
 
     def _decode_ready_rows(self) -> list:
-        """Decode-ready (slot, seq) rows after the cancellation sweep; one
-        collection for the decode build and the mixed tick."""
+        """Decode-ready (slot, seq) rows after the cancellation and
+        deadline sweep; one collection for the decode build and the mixed
+        tick."""
         ready = [
             (i, s) for i, s in enumerate(self.slots)
             if s is not None and not s.prefilling
         ]
+        now = time.time() if self._has_deadlines else 0.0
         for _, s in ready:
             if s.ctx.is_stopped():
                 self._finish(s, FINISH_REASON_CANCELLED)
+            elif now:
+                self._sweep_expired(s, now)
         return [(i, s) for i, s in ready if self.slots[i] is s]
 
     def _maybe_dispatch_decode(self):

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import asyncio
 import itertools
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -55,6 +56,11 @@ class Sequence:
     # preemption (the token history it indexes does not change across a
     # re-prefill)
     spec: Optional[NgramProposer] = None
+    # end-to-end deadline, epoch seconds (time.time(), so it survives
+    # process hops); 0.0 = none. Read from Context metadata "deadline" or
+    # set from the engine's request_timeout_s; checked by the admission
+    # shed and the sweep of running sequences.
+    deadline: float = 0.0
 
     # per-request sampling (resolved once at admission)
     temperature: float = 0.0
@@ -84,7 +90,16 @@ class Sequence:
             seq.priority = int(ctx.metadata.get("priority") or 0)
         except (TypeError, ValueError):
             seq.priority = 0
+        try:
+            seq.deadline = float(ctx.metadata.get("deadline") or 0.0)
+        except (TypeError, ValueError):
+            seq.deadline = 0.0
         return seq
+
+    def past_deadline(self, now: Optional[float] = None) -> bool:
+        if not self.deadline:
+            return False
+        return (now if now is not None else time.time()) > self.deadline
 
     @property
     def total_tokens(self) -> int:
