@@ -27,8 +27,13 @@ final result line is printed only when every phase passed:
    SDPA over the gathered KV dequantized to bf16 beforehand, outside the
    timing. Each attention check shows on its own 8B inputs that plain
    versions gone wrong miss it (a causal edge one key late, a dropped key,
-   a stale or bf16 new row, two heads' scales swapped, and for int4 a high
-   nibble read unsigned or nibbles taken as adjacent pairs). K4, in all
+   a stale or bf16 new row, two heads' scales swapped, for int4 a high
+   nibble read unsigned or nibbles taken as adjacent pairs, and for K2, K6
+   and K4 at every 8B shape the probabilities rounded once to bf16, which
+   the tensor-core kernel avoids by splitting them in two bf16 terms).
+   K2, K6 and K4 also report their achieved TFLOP/s over the causal FLOPs
+   the bound counts, their time over SDPA's, and the registers and spills
+   ptxas gave their instantiation. K4, in all
    three forms, on three rectangles at 8B shapes, those the main path
    launches it at: a [9, 512] mixed step (four decode rows and two verify
    rows of 1 + 4 queries at mid-page positions, two chunk rows, a q_len 0
@@ -104,11 +109,17 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "tests", "data", "tiny-trained-llama")
-# Attention tolerance. The kernel and its plain version both compute in f32
-# and round each output once to bf16, so an element may differ by one bf16
-# ulp of itself where the two f32 results straddle a rounding boundary, plus
-# what their different summation orders leave in f32 (well under 2**-16 at
-# these widths). A kernel that drops, adds or misplaces one key moves some
+# Attention tolerance. The plain versions compute in f32 and round each
+# output once to bf16. The decode kernels (K3/K5) do the same on the CUDA
+# cores. The prefill kernel (K2/K6, and K4 through it) runs both products
+# on the tensor cores with bf16 operands that are exact for what they carry
+# (q, bf16 K and V rows, int8 and int4 codes), accumulates in f32, and
+# feeds the probabilities (times the V scale) to P.V as two bf16 terms, hi
+# and lo, which carry each to ~2**-17 of itself. So an element may differ
+# by one bf16 ulp of itself where the two f32 results straddle a rounding
+# boundary, plus what the summation orders and the split leave in f32
+# (well under 2**-16 at these widths). A kernel that drops, adds or
+# misplaces one key, or rounds the probabilities once to bf16, moves some
 # output by far more; each attention check shows that on its own inputs.
 ATOL_F32 = 2.0 ** -16
 
@@ -246,6 +257,79 @@ def _sdpa_prefill_inputs(q, k_cache, v_cache, tables, pos0, tlen, page):
     return qq, kk, vv, mask[:, None]
 
 
+def _p_bf16_once(q, k_cache, v_cache, tables, pos0, tlen, ks=None, vs=None, *, page,
+                 int4=False):
+    """The plain computation of K2/K6/K4 with one change: the probabilities
+    (times the V scale, for int8/int4 pools) rounded once to bf16 before
+    the P.V product over the bf16 rows or the codes, as a tensor-core kernel
+    without the hi/lo split would feed them. Rows past tlen are 0."""
+    from dynamo_tpu_torch.ops.attention import slots_from_pages
+    from dynamo_tpu_torch.ops.quant import gather_kv_scales, unpack_int4_kv
+
+    b, t, h, hd = q.shape
+    flat = slots_from_pages(tables, page).long().reshape(-1)
+    c = flat.shape[0] // b
+    if ks is None:
+        kh = k_cache.shape[1] // hd
+        k, vc = k_cache[flat].float(), v_cache[flat].float()
+        vsc = torch.ones((flat.shape[0], kh), device=q.device)
+    else:
+        kh = ks.shape[1]
+
+        def codes(x):
+            return (unpack_int4_kv(x, kh) if int4 else x).float().reshape(-1, kh, hd)
+
+        k = codes(k_cache[flat]) * gather_kv_scales(ks, flat)[..., None]
+        vc, vsc = codes(v_cache[flat]), gather_kv_scales(vs, flat)
+    k, vc = k.reshape(b, c, kh, hd), vc.reshape(b, c, kh, hd)
+    qf = q.float().reshape(b, t, kh, h // kh, hd) * hd ** -0.5
+    s = torch.einsum("btkgd,bckd->bkgtc", qf, k)
+    tt = torch.arange(t, device=q.device)
+    q_pos = pos0.long()[:, None] + tt[None, :]
+    valid = (torch.arange(c, device=q.device)[None, None, :] <= q_pos[:, :, None]) & (
+        tt[None, :, None] < tlen.long()[:, None, None])
+    valid = valid[:, None, None]
+    s = torch.where(valid, s, torch.full_like(s, -0.7 * torch.finfo(torch.float32).max))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * valid
+    denom = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    x = (p * vsc.reshape(b, c, kh).transpose(1, 2)[:, :, None, None, :]).to(torch.bfloat16)
+    out = torch.einsum("bkgtc,bckd->btkgd", x.float(), vc) / denom.permute(0, 3, 1, 2, 4)
+    return out.reshape(b, t, h, hd).to(q.dtype)
+
+
+def ptxas_report(hd, fmt_index):
+    """Registers and spills of flash_prefill_kernel<hd, fmt> (KvFmt 0 bf16,
+    1 int8, 2 int4) from this run's ptxas log of prefill_attention.cu."""
+    from dynamo_tpu_torch.ops import _cuda
+
+    want = re.compile(rf"flash_prefill_kernelILi{hd}E.*KvFmtE{fmt_index}E")
+    cur, regs, spill = None, None, None
+    for line in _cuda.build_logs.get("prefill_attention", "").splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur is None or not want.search(cur):
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = f"{m.group(1)} registers"
+    if regs is None:
+        return "ptxas: not in this run's build log"
+    return f"ptxas: {regs}, {spill or 'spills not reported'}"
+
+
+def prefill_rates(ms, lib_ms, flops, hd, fmt_index):
+    """The achieved rate over the causal FLOPs the bound counts, the time
+    over SDPA's, and the instantiation's ptxas report, for a [kernel] line."""
+    return (f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s achieved, {ms / lib_ms:.2f}x sdpa's "
+            f"time; {ptxas_report(hd, fmt_index)}")
+
+
 def check_prefill(peaks, gen, dev):
     from dynamo_tpu_torch.ops import prefill_attention as m
 
@@ -272,11 +356,14 @@ def check_prefill(peaks, gen, dev):
         c = compare_bf16(got[valid], want[valid])
         msg = f"[kernel] prefill_attention {label}: {fmt(c)}"
         if label == "8b":
-            # the check's power on these inputs: the causal edge one key late
-            off = m.flash_prefill_attention_plain(q, k, v, tables, p0 + 1, tl, page_size=page)
-            c_off = compare_bf16(off[valid], want[valid])
-            msg += f"; causal edge off by one key: {fmt(c_off)}"
-            assert not c_off["ok"], "prefill: the check cannot see an off-by-one causal mask"
+            # the check's power on these inputs: the causal edge one key
+            # late, and the probabilities rounded once to bf16
+            msg += _check_power(want, valid, "prefill", {
+                "causal edge off by one key": m.flash_prefill_attention_plain(
+                    q, k, v, tables, p0 + 1, tl, page_size=page),
+                "probabilities rounded once to bf16": _p_bf16_once(
+                    q, k, v, tables, p0, tl, page=page),
+            })
         log(msg)
         assert c["ok"], f"prefill {label}: outside one bf16 ulp + {ATOL_F32}"
         errs[label] = c["max_abs_err"]
@@ -294,7 +381,8 @@ def check_prefill(peaks, gen, dev):
             )
             b_ms, by = bound_ms(nbytes, flops, peaks)
     log(f"[kernel] prefill_attention: every case within one bf16 ulp + 2**-16; {ms:.4f} ms "
-        f"(plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, bound {b_ms:.4f} by {by})")
+        f"(plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, bound {b_ms:.4f} by {by}); "
+        + prefill_rates(ms, lib_ms, flops, 128, 0))
     return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=by)
 
@@ -530,11 +618,16 @@ def check_prefill_q(peaks, gen, dev, int4=False):
         assert torch.all(got[~valid] == 0), f"{name} {label}: rows past t_valid not 0"
         c = compare_bf16(got[valid], want[valid])
         msg = f"[kernel] {name} {label}: {fmt(c)}"
+        if label.startswith("8b"):
+            # the check's power on these inputs: the probabilities (times
+            # the V scale) rounded once to bf16
+            msg += _check_power(want, valid, name, {
+                "probabilities rounded once to bf16": _p_bf16_once(
+                    q, k, v, tables, p0, tl, ks, vs, page=page, int4=int4)})
         if label == "8b-p64":
-            # the check's power on these inputs: two heads' scales swapped,
-            # and for int4 the codes unpacked with an unsigned high nibble
-            # or in adjacent pairs (the plain bf16 version over the pools so
-            # dequantized)
+            # two heads' scales swapped, and for int4 the codes unpacked
+            # with an unsigned high nibble or in adjacent pairs (the plain
+            # bf16 version over the pools so dequantized)
             variants = {"heads 0/1 scales swapped": plain_fn(
                 q, k, v, tables, p0, tl, _swap_heads(ks), _swap_heads(vs), page_size=page)}
             for mode in ("unsigned", "interleaved") if int4 else ():
@@ -566,7 +659,8 @@ def check_prefill_q(peaks, gen, dev, int4=False):
             b_ms, by = bound_ms(nbytes, flops, peaks)
     log(f"[kernel] {name}: every case within one bf16 ulp + 2**-16; {ms:.4f} ms "
         f"at page 64 (page 128: {p128_ms:.4f}; plain {plain_ms:.4f}, sdpa over KV dequantized "
-        f"to bf16 beforehand {lib_ms:.4f}, bound {b_ms:.4f} by {by})")
+        f"to bf16 beforehand {lib_ms:.4f}, bound {b_ms:.4f} by {by}); "
+        + prefill_rates(ms, lib_ms, flops, 128, 2 if int4 else 1))
     return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=by)
 
@@ -756,6 +850,10 @@ def check_ragged(peaks, gen, dev, form="bf16"):
                 "causal edge one key late": late,
                 "verify row's last query without its newest key": dropped,
             })
+        if label.startswith("8b"):
+            msg += _check_power(want, valid, name, {
+                "probabilities rounded once to bf16": _p_bf16_once(
+                    q, k, v, tables, p0, ql, *scales, page=page, int4=int4)})
         log(msg)
         assert c["ok"], f"{name} {label}: outside one bf16 ulp + {ATOL_F32}"
         errs[label] = c["max_abs_err"]
@@ -790,7 +888,8 @@ def check_ragged(peaks, gen, dev, form="bf16"):
     log(f"[kernel] {name}: every case within one bf16 ulp + 2**-16, rows past q_len 0; "
         f"{ms:.4f} ms on the 8B rectangle (plain {plain_ms:.4f}, sdpa{' over KV dequantized to '
         'bf16 beforehand' if quant else ''} {lib_ms:.4f}, bound {b_ms:.4f} by {by}); its 4 "
-        f"decode rows alone: K4 {k4_dec_ms:.4f} ms, {'K5' if quant else 'K3'} {k3_ms:.4f} ms")
+        f"decode rows alone: K4 {k4_dec_ms:.4f} ms, {'K5' if quant else 'K3'} {k3_ms:.4f} ms; "
+        + prefill_rates(ms, lib_ms, flops, 128, {"bf16": 0, "int8": 1, "int4": 2}[form]))
     return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=by, k4_decode_rows_ms=k4_dec_ms,
                 decode_kernel_ms=k3_ms)

@@ -12,6 +12,13 @@ probabilities, in f32, as in the reference. With `int4=True` the int8
 pools are nibble-packed (K*Hd/2 bytes a row, ops/quant.py planar layout):
 the pool's width no longer tells the number of kv heads, hence the flag,
 as in the reference.
+
+The plain versions compute in f32 throughout. The kernel runs both
+products on the tensor cores: bf16 operands that are exact for q, bf16 K
+and V rows and the int8/int4 codes, f32 sums, the scales applied in f32,
+and the probabilities (times the V scale) fed to P.V as two bf16 terms,
+so it stays within one bf16 ulp of the plain version per element
+(tests/test_torch_prefill_attention.py pins that arithmetic on the CPU).
 """
 
 from __future__ import annotations

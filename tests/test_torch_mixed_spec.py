@@ -155,8 +155,12 @@ def test_ragged_attention_matches_jax_kernel(fmt, h, kh):
     assert got.shape == (b, t, h, hd)
     for i in range(b):
         n = int(q_lens[i])
-        np.testing.assert_allclose(got[i, :n], want[i, :n], rtol=tol, atol=tol)
-        assert np.all(got[i, n:] == 0.0) and np.all(want[i, n:] == 0.0)
+        np.testing.assert_allclose(got[i, :n], want[i, :n], rtol=tol, atol=tol,
+                                   err_msg=f"{fmt}: row {i} (q_pos0 {pos0[i]}, q_len {n})")
+        tail_port = np.abs(got[i, n:]).max(initial=0.0)
+        assert tail_port == 0.0, f"port: row {i} has |value| up to {tail_port} past q_len {n}"
+        tail_jax = np.abs(want[i, n:]).max(initial=0.0)
+        assert tail_jax == 0.0, f"JAX: row {i} has |value| up to {tail_jax} past q_len {n}"
 
 
 def test_ragged_attention_counts_apart_from_prefill():
