@@ -33,7 +33,13 @@ final result line is printed only when every phase passed:
    the tensor-core kernel avoids by splitting them in two bf16 terms).
    K2, K6 and K4 also report their achieved TFLOP/s over the causal FLOPs
    the bound counts, their time over SDPA's, and the registers and spills
-   ptxas gave their instantiation. K4, in all
+   ptxas gave their instantiation. K3 and K5, which split each row's keys
+   over blocks and merge the splits inside the launch, are also held at
+   the engine's own table width (W 32, most splits past the lengths), on
+   one row of 2,000 keys, on rows ending at a split's edge and one past
+   it, and at page size 24 (tiles across pages; with time and ptxas report
+   beside), and each of their cases is
+   launched twice on the same inputs and must give the same bits. K4, in all
    three forms, on three rectangles at 8B shapes, those the main path
    launches it at: a [9, 512] mixed step (four decode rows and two verify
    rows of 1 + 4 queries at mid-page positions, two chunk rows, a q_len 0
@@ -298,14 +304,19 @@ def _p_bf16_once(q, k_cache, v_cache, tables, pos0, tlen, ks=None, vs=None, *, p
     return out.reshape(b, t, h, hd).to(q.dtype)
 
 
-def ptxas_report(hd, fmt_index):
-    """Registers and spills of flash_prefill_kernel<hd, fmt> (KvFmt 0 bf16,
-    1 int8, 2 int4) from this run's ptxas log of prefill_attention.cu."""
+def ptxas_report(hd, fmt_index, source="prefill_attention", gp=None):
+    """Registers and spills of one instantiation, from this run's ptxas log
+    of `source`: flash_prefill_kernel<hd, fmt> of prefill_attention.cu, or
+    fused_decode_kernel<hd, fmt, gp> of decode_attention.cu (KvFmt 0 bf16,
+    1 int8, 2 int4; gp the head group the kernel is built for, 4 or 8)."""
     from dynamo_tpu_torch.ops import _cuda
 
-    want = re.compile(rf"flash_prefill_kernelILi{hd}E.*KvFmtE{fmt_index}E")
+    if source == "decode_attention":
+        want = re.compile(rf"fused_decode_kernelILi{hd}ELNS_5KvFmtE{fmt_index}ELi{gp}E")
+    else:
+        want = re.compile(rf"flash_prefill_kernelILi{hd}E.*KvFmtE{fmt_index}E")
     cur, regs, spill = None, None, None
-    for line in _cuda.build_logs.get("prefill_attention", "").splitlines():
+    for line in _cuda.build_logs.get(source, "").splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
         if m:
             cur = m.group(1)
@@ -387,6 +398,35 @@ def check_prefill(peaks, gen, dev):
                 bound_ms=b_ms, bound_by=by)
 
 
+# the decode kernel's extra cases (phase 3), beside each check's own. The
+# kernel splits each row's keys over blocks (ops/decode_attention
+# split_plan): "8b-w32" is the 8B decode at the engine's own table width
+# (max_model_len 2048 at page 64), where most splits of each row are past
+# its length; "b1-2000" one long row; "edges" (two splits of 128 keys) rows
+# ending at the split's edge and one past it (write_pos 128 then the first
+# key of a split), at the edge of a warp's first ring stage (64) and one
+# past it, one key, an idle row and a full table; "page24" a page size that
+# is neither a power of two nor a multiple of the kernel's 16-key tile, so
+# a tile's keys span two pages.
+DECODE_SPLIT_CASES = {
+    # B, H, K, Hd, page, W, lengths (write_pos = length - 1; 0 = idle row)
+    "8b-w32": (8, 32, 8, 128, 64, 32, [576, 570, 590, 600, 512, 577, 583, 560]),
+    "b1-2000": (1, 32, 8, 128, 64, 32, [2000]),
+    "edges": (7, 8, 2, 64, 16, 12, [64, 65, 128, 129, 1, 0, 192]),
+    "page24": (3, 8, 2, 64, 24, 8, [25, 129, 192]),
+}
+
+
+def decode_extra(times, m, dev):
+    """The [kernel] line's tail for K3/K5: the extra cases' times, the
+    split the 8B shape takes, and the repeat check."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+    chunk, splits = m.split_plan(8, 8, 10, 64, sms)
+    return (f"; W 32 {times['8b-w32']:.4f} ms, B 1 at 2,000 keys {times['b1-2000']:.4f} ms; "
+            f"the 8B shape in {splits} splits of {chunk} keys on {sms} SMs; two launches "
+            "bit-equal in every case")
+
+
 def check_decode(peaks, gen, dev):
     from dynamo_tpu_torch.ops import decode_attention as m
 
@@ -396,8 +436,9 @@ def check_decode(peaks, gen, dev):
         "small": (4, 4, 2, 32, 16, 6, [37, 0, 1, 80]),
         "g1": (3, 4, 4, 64, 16, 6, [1, 95, 0]),
         "g8": (2, 16, 2, 64, 16, 6, [50, 96]),
+        **DECODE_SPLIT_CASES,
     }
-    errs = {}
+    errs, times = {}, {}
     for label, (b, h, kh, hd, page, w, lengths) in cases.items():
         num_pages = b * w + 3
         k, v = _pools(num_pages, page, kh * hd, gen, dev)
@@ -417,6 +458,11 @@ def check_decode(peaks, gen, dev):
         torch.cuda.synchronize()
         assert torch.equal(k1.view(torch.int16), k2.view(torch.int16)) and torch.equal(
             v1.view(torch.int16), v2.view(torch.int16)), f"decode {label}: pools differ after write"
+        # a second launch on the same inputs (the row is rewritten in place)
+        again = m.fused_paged_decode_attention(
+            q, nk, nv, k1, v1, tables, lens, wpos, page_size=page)[0]
+        ro2 = m.paged_decode_attention(q, k1, v1, tables, lens, page_size=page)
+        assert _same_bytes(again, got) and _same_bytes(ro2, ro), f"decode {label}: launches differ"
         assert not torch.equal(k1, k), f"decode {label}: pool not updated in place"
         idle = lens == 0
         assert torch.all(got[idle] == 0) and torch.all(ro[idle] == 0), f"decode {label}: idle rows not 0"
@@ -438,6 +484,9 @@ def check_decode(peaks, gen, dev):
         log(msg)
         assert c["ok"] and c_ro["ok"], f"decode {label}: outside one bf16 ulp + {ATOL_F32}"
         errs[label] = max(c["max_abs_err"], c_ro["max_abs_err"])
+        if label in ("8b-w32", "b1-2000"):
+            times[label] = time_ms(lambda: m.fused_paged_decode_attention(
+                q, nk, nv, k1, v1, tables, lens, wpos, page_size=page))
         if label == "8b":
             ms = time_ms(lambda: m.fused_paged_decode_attention(
                 q, nk, nv, k1, v1, tables, lens, wpos, page_size=page))
@@ -455,7 +504,9 @@ def check_decode(peaks, gen, dev):
             b_ms, by = bound_ms(nbytes, flops, peaks)
     log(f"[kernel] decode_attention: every case within one bf16 ulp + 2**-16, pools equal "
         f"after the write; {ms:.4f} ms (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, "
-        f"bound {b_ms:.4f} by {by})")
+        f"bound {b_ms:.4f} by {by}; {ms / lib_ms:.2f}x sdpa's time, {b_ms / ms:.1%} of the "
+        f"bound)" + decode_extra(times, m, dev)
+        + f"; {ptxas_report(128, 0, 'decode_attention', 4)}")
     return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=by)
 
@@ -678,8 +729,9 @@ def check_decode_q(peaks, gen, dev, int4=False):
         "small": (4, 4, 2, 32, 16, 6, [37, 0, 1, 80]),
         "g1": (3, 4, 4, 64, 16, 6, [1, 95, 0]),
         "g8": (2, 16, 2, 64, 16, 6, [50, 96]),
+        **DECODE_SPLIT_CASES,
     }
-    errs = {}
+    errs, times = {}, {}
     for label, (b, h, kh, hd, page, w, lengths) in cases.items():
         num_pages = b * w + 3
         k, v, ks, vs = _q_pools(num_pages, page, kh, hd, gen, dev, int4)
@@ -704,6 +756,13 @@ def check_decode_q(peaks, gen, dev, int4=False):
         torch.cuda.synchronize()
         for x, y in zip(mine, plain):
             assert _same_bytes(x, y), f"{name} {label}: pools differ after the write"
+        # a second launch on the same inputs (the row is rewritten in place)
+        again = m.fused_paged_decode_attention(
+            q, nk, nv, mine[0], mine[1], tables, lens, wpos, mine[2], mine[3], nks, nvs,
+            page_size=page, int4=int4)[0]
+        ro2 = m.paged_decode_attention(q, mine[0], mine[1], tables, lens, mine[2], mine[3],
+                                       page_size=page, int4=int4)
+        assert _same_bytes(again, got) and _same_bytes(ro2, ro), f"{name} {label}: launches differ"
         assert not torch.equal(mine[0], k) and not torch.equal(mine[2], ks), \
             f"{name} {label}: pools not updated in place"
         idle = lens == 0
@@ -741,6 +800,8 @@ def check_decode_q(peaks, gen, dev, int4=False):
             page_size=page, int4=int4)
         if label == "8b-p128":
             p128_ms = time_ms(fused)
+        if label in ("8b-w32", "b1-2000"):
+            times[label] = time_ms(fused)
         if label == "8b-p64":
             ms = time_ms(fused)
             plain_ms = time_ms(lambda: plain_fn(
@@ -760,7 +821,9 @@ def check_decode_q(peaks, gen, dev, int4=False):
     log(f"[kernel] {name}: every case within one bf16 ulp + 2**-16, pools and "
         f"scale pools equal after the write; {ms:.4f} ms at page 64 (page 128: {p128_ms:.4f}; "
         f"plain {plain_ms:.4f}, sdpa over KV dequantized to bf16 beforehand {lib_ms:.4f}, "
-        f"bound {b_ms:.4f} by {by})")
+        f"bound {b_ms:.4f} by {by}; {ms / lib_ms:.2f}x sdpa's time, {b_ms / ms:.1%} of the "
+        f"bound)" + decode_extra(times, m, dev)
+        + f"; {ptxas_report(128, 2 if int4 else 1, 'decode_attention', 4)}")
     return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=by)
 

@@ -5,7 +5,9 @@ Port of `dynamo_tpu/ops/pallas_attention.py::fused_paged_decode_attention`
 (K3 the bf16 branch `_decode_kernel`, K5 the quantized branch
 `_decode_kernel_q` in its int8 and int4 forms) and its read-only use
 `paged_decode_attention`; the CUDA kernels are in
-`csrc/decode_attention.cu`. One query per sequence: when `write_pos[b] >= 0`
+`csrc/decode_attention.cu` (flash-decoding: each row's keys split over
+several blocks, planned by `split_plan`, merged inside the one launch).
+One query per sequence: when `write_pos[b] >= 0`
 the new K/V row is stored at that position (the caller keeps `write_pos <
 lengths`, as the engine does), then the query attends `lengths[b]` keys,
 the new one included. Rows with `lengths == 0` output 0. The pools are
@@ -46,6 +48,54 @@ from dynamo_tpu_torch.ops.quant import (
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8
+# the decode kernel's split quantum (csrc/decode_attention.cu kSplitKeys)
+SPLIT_KEYS = 128
+# the planner's bound on the decode grid, in blocks an SM; a split past its
+# row's length exits at once, so the bound is loose
+BLOCKS_PER_SM = 16
+
+
+def split_plan(b, kh, w, page_size, sm_count):
+    """The decode kernel's split of each row's keys: (chunk, splits).
+    Split s covers key positions [s * chunk, (s + 1) * chunk), and the
+    splits cover the table's `w * page_size` positions. `chunk` is the
+    least of 128, 256, ... that keeps the grid (`b * kh * splits` blocks)
+    within BLOCKS_PER_SM blocks an SM. The plan reads no lengths: on the
+    host they would cost a device-to-host sync per layer, and a split that
+    starts past its row's length exits at once."""
+    span = max(1, w * page_size)
+    chunk = SPLIT_KEYS
+    while True:
+        splits = -(-span // chunk)
+        if splits == 1 or b * kh * splits <= BLOCKS_PER_SM * sm_count:
+            return chunk, splits
+        chunk *= 2
+
+
+_sm_counts: dict = {}
+_scratch_bufs: dict = {}
+
+
+def _sm_count(device):
+    n = _sm_counts.get(device)
+    if n is None:
+        n = _sm_counts[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def _scratch(device, n_part, n_tickets):
+    """The splits' f32 partials and the (sequence, kv head) tickets: one
+    pair of buffers a device, allocated when a call first needs more, so a
+    call launches nothing but the kernel. Tickets start at 0 and each launch
+    leaves them 0. Launches that share a device run on one stream (the
+    engine's), so they never use the buffers at once."""
+    part, tickets = _scratch_bufs.get(device, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
+    _scratch_bufs[device] = (part, tickets)
+    return part, tickets
 
 
 def _write_rows(k_cache, v_cache, block_tables, write_pos, new_k, new_v, page_size):
@@ -328,9 +378,15 @@ def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
 
     out = torch.empty_like(q)
     lib = _launcher()
+    w = block_tables.shape[1]
+    chunk, splits = split_plan(b, kh, w, page_size, _sm_count(q.device))
+    part = tickets = None
+    if splits > 1:
+        part, tickets = _scratch(
+            q.device, b * kh * splits * (2 * MAX_GROUP + (h // kh) * hd), b * kh)
     tail = (ptr(block_tables), ptr(lengths), ptr(write_pos), ptr(out),
-            b, h, kh, hd, block_tables.shape[1], page_size, hd ** -0.5,
-            _cuda.stream_ptr(q.device))
+            b, h, kh, hd, w, page_size, hd ** -0.5,
+            _cuda.stream_ptr(q.device), ptr(part), ptr(tickets), chunk)
     if quant:
         launch = lib.fused_decode_q4_launch if int4 else lib.fused_decode_q_launch
         err = launch(
@@ -360,15 +416,16 @@ def _launcher():
     lib = _cuda.load("decode_attention")
     fn = lib.fused_decode_launch
     if fn.argtypes is None:
+        split = [ctypes.c_void_p] * 2 + [ctypes.c_int]  # scratch, tickets, chunk
         fn.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_void_p] + split
         )
         fn.restype = ctypes.c_int
         fq = lib.fused_decode_q_launch
         fq.argtypes = (
             [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_void_p] + split
         )
         fq.restype = ctypes.c_int
         f4 = lib.fused_decode_q4_launch
