@@ -10,8 +10,8 @@ final result line is printed only when every phase passed:
    kernels: K1-K3 for bf16 KV, K5-K7 in their int8 and their int4 forms;
    K4, the ragged read of mixed and verify steps, enters K2/K6 in each KV
    format; and in probes.cu the probe kernels K8 page_copy, K9's
-   unpack/pack/inject bitcasts and K10 page_gather), one nvcc each, all in
-   parallel;
+   unpack/pack/inject bitcasts and K10 page_gather, beside an empty
+   kernel for the launch floor), one nvcc each, all in parallel;
 3. each kernel against its plain PyTorch version on the same inputs, at
    Llama-3.1-8B per-layer shapes (K=8, Hd=128, H=32, B=8, chunk 512 over
    ~576 tokens, decode lengths 512-600; page 64, and page 128 for the int8
@@ -57,7 +57,13 @@ final result line is printed only when every phase passed:
    0.0 when only another row or an unnamed page does; each timed beside
    its bound and one PyTorch call (index_copy_, the view/permute bitcast,
    index_select), and K10's scattered-page rate held under 1.05x the
-   card's memory rate;
+   card's memory rate. Phase 3 starts with the launch floor: the time
+   the same timing reads for an empty kernel, printed beside K9's inject.
+   K1 and K7 are also timed flushed (128 MB written over the L2 before
+   each call) beside their warm times, launched twice on copies of the
+   same pools (the same bytes), and given a table with one id equal to
+   num_pages (nothing written for it, the rest as the plain version
+   writes it without that entry);
 4. real weights: the vendored trained checkpoint tests/data/tiny-trained-llama
    through the port's safetensors reader in bf16 on the GPU, with bf16,
    int8 and int4 KV; the greedy continuation of "the capital of france is"
@@ -94,7 +100,8 @@ With --pairs N, phases 5, 6 and 7 and phase 8's bf16 off/on pair run N
 times in turns, to show their spread.
 
 Then a `kernels` JSON line (seventeen kernels: the nine, K4 in three
-forms, and the five probe kernels), the nvidia-smi line, and last
+forms, and the five probe kernels; and `launch_floor_ms`), the nvidia-smi
+line, and last
 {"ok": true, "device": {...}}.
 """
 
@@ -201,10 +208,49 @@ def _tables(b, w, num_pages, gen, dev):
     return perm.reshape(b, w).to(torch.int32).contiguous()
 
 
+def _write_repeats(name, label, write, plain, pools, table, srcs, num_pages):
+    """K1/K7 beyond the plain version's bytes: two launches on copies of the
+    same pools give the same bytes, and a table with one id equal to
+    `num_pages` leaves the pools as the plain version leaves them without
+    that entry (no byte outside the other named pages changes). Page 0 is
+    named once in `table`, so every byte is compared. `write`/`plain` take
+    (pools, table, source tensors)."""
+    a, b = [x.clone() for x in pools], [x.clone() for x in pools]
+    write(a, table, srcs)
+    write(b, table, srcs)
+    torch.cuda.synchronize()
+    assert all(_same_bytes(x, y) for x, y in zip(a, b)), f"{name} {label}: two launches differ"
+    j = len(table) // 2
+    bad = table.clone()
+    bad[j] = num_pages
+    keep = torch.cat((torch.arange(j), torch.arange(j + 1, len(table)))).to(table.device)
+    got, want = [x.clone() for x in pools], [x.clone() for x in pools]
+    write(got, bad, srcs)
+    plain(want, table[keep].contiguous(), [x[keep].contiguous() for x in srcs])
+    torch.cuda.synchronize()
+    assert all(_same_bytes(x, y) for x, y in zip(got, want)), \
+        f"{name} {label}: a table with an id equal to num_pages wrote the wrong bytes"
+
+
+def _write_times(kernel, flush, b_ms):
+    """Warm (20 calls on the same pools, inside the L2) and flushed (the L2
+    written over before each call) times of one KV write, and the share of
+    its bound the flushed time reaches."""
+    ms, cold = time_ms(kernel), time_ms(kernel, flush=flush)
+    return ms, cold, f"{ms:.4f} ms warm, {cold:.4f} flushed ({100 * b_ms / cold:.0f} % of bound)"
+
+
 def check_kv_write(peaks, gen, dev):
     from dynamo_tpu_torch.ops import kv_write as m
+    from dynamo_tpu_torch.scripts import l2_evict
 
-    res = {}
+    def write(p, table, s):
+        return m.paged_kv_write(p[0], p[1], table, s[0], s[1], page_size=page)
+
+    def plain(p, table, s):
+        return m.paged_kv_write_plain(p[0], p[1], table, s[0], s[1], page_size=page)
+
+    flush = l2_evict(dev)
     for label, (num_pages, page, kw, n) in {
         "8b": (200, 64, 1024, 64), "small": (40, 16, 64, 7),
     }.items():
@@ -226,9 +272,12 @@ def check_kv_write(peaks, gen, dev):
         assert same, f"kv_write {label}: pools differ from the plain version"
         changed = not torch.equal(k1, k)
         assert changed, f"kv_write {label}: pool not updated in place"
-        res[label] = 0.0
+        _write_repeats("kv_write", label, write, plain, (k, v), table, (nk, nv), num_pages)
         if label == "8b":
-            ms = time_ms(lambda: m.paged_kv_write(k1, v1, table, nk, nv, page_size=page))
+            nbytes = 2 * 2 * n * page * kw * 2 + n * 4
+            b_ms, by = bound_ms(nbytes, 0.0, peaks)
+            ms, _, times = _write_times(
+                lambda: m.paged_kv_write(k1, v1, table, nk, nv, page_size=page), flush, b_ms)
             plain_ms = time_ms(lambda: m.paged_kv_write_plain(k2, v2, table, nk, nv, page_size=page))
             kp1, vp1 = k1.view(num_pages, -1), v1.view(num_pages, -1)
             idx = table.long()
@@ -239,9 +288,8 @@ def check_kv_write(peaks, gen, dev):
                 vp1.index_copy_(0, idx, fv)
 
             lib_ms = time_ms(lib)
-            nbytes = 2 * 2 * n * page * kw * 2 + n * 4
-            b_ms, by = bound_ms(nbytes, 0.0, peaks)
-    log(f"[kernel] kv_write: byte-exact at 8B and small shapes; {ms:.4f} ms "
+    log(f"[kernel] kv_write: byte-exact at 8B and small shapes, two launches the same bytes, "
+        f"an id equal to num_pages skipped; {times} "
         f"(plain {plain_ms:.4f}, index_copy_ {lib_ms:.4f}, bound {b_ms:.4f} by {by})")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=by)
@@ -572,9 +620,20 @@ def _same_bytes(a, b):
 
 def check_kv_write_q(peaks, gen, dev, int4=False):
     from dynamo_tpu_torch.ops import kv_write as m
+    from dynamo_tpu_torch.scripts import l2_evict
 
     name = "kv_write_q4" if int4 else "kv_write_q"
     plain_fn = m.paged_kv_write_q4_plain if int4 else m.paged_kv_write_q_plain
+
+    def write(p, table, s):
+        return m.paged_kv_write(p[0], p[1], table, s[0], s[1], p[2], p[3], s[2], s[3],
+                                page_size=page, int4=int4)
+
+    def plain(p, table, s):
+        return plain_fn(p[0], p[1], table, s[0], s[1], p[2], p[3], s[2], s[3], page_size=page)
+
+    flush = l2_evict(dev)
+    times = {}
     for label, (num_pages, page, kh, hd, n) in {
         "8b-p64": (200, 64, 8, 128, 64), "8b-p128": (100, 128, 8, 128, 32),
         "small": (40, 16, 2, 32, 7), "k1-hd32": (12, 16, 1, 32, 5),
@@ -588,29 +647,27 @@ def check_kv_write_q(peaks, gen, dev, int4=False):
         nk, nv, nks, nvs = _q_pools(n, page, kh, hd, gen, dev, int4)
         nk, nv = nk.view(n, page, kw), nv.view(n, page, kw)
         mine = [x.clone() for x in (k, v, ks, vs)]
-        plain = [x.clone() for x in (k, v, ks, vs)]
-        out = m.paged_kv_write(mine[0], mine[1], table, nk, nv, mine[2], mine[3], nks, nvs,
-                               page_size=page, int4=int4)
+        plain_p = [x.clone() for x in (k, v, ks, vs)]
+        out = write(mine, table, (nk, nv, nks, nvs))
         assert all(a is b for a, b in zip(out, mine))
-        plain_fn(plain[0], plain[1], table, nk, nv, plain[2], plain[3], nks, nvs, page_size=page)
+        plain(plain_p, table, (nk, nv, nks, nvs))
         torch.cuda.synchronize()
         # byte-exact, trash page aside (several writers race on it)
-        for x, y, per_page in zip(mine, plain, (page, page, 1, 1)):
+        for x, y, per_page in zip(mine, plain_p, (page, page, 1, 1)):
             assert _same_bytes(x[per_page:], y[per_page:]), f"{name} {label}: differs from plain"
         assert not torch.equal(mine[0], k) and not torch.equal(mine[2], ks), \
             f"{name} {label}: pools not updated in place"
-        kernel = lambda: m.paged_kv_write(  # noqa: E731
-            mine[0], mine[1], table, nk, nv, mine[2], mine[3], nks, nvs, page_size=page,
-            int4=int4)
-        if label == "8b-p128":
-            p128_ms = time_ms(kernel)
+        _write_repeats(name, label, write, plain, (k, v, ks, vs), table, (nk, nv, nks, nvs),
+                       num_pages)
+        if label.startswith("8b"):
+            nbytes = 2 * (2 * n * page * kw + 2 * n * kh * page * 4) + n * 4
+            b_ms, by = bound_ms(nbytes, 0.0, peaks)
+            times[label] = _write_times(
+                lambda: write(mine, table, (nk, nv, nks, nvs)), flush, b_ms) + (b_ms, by)
         if label == "8b-p64":
-            ms = time_ms(kernel)
-            plain_ms = time_ms(lambda: plain_fn(
-                plain[0], plain[1], table, nk, nv, plain[2], plain[3], nks, nvs, page_size=page))
+            plain_ms = time_ms(lambda: plain(plain_p, table, (nk, nv, nks, nvs)))
             idx = table.long()
-            dst = [mine[0].view(num_pages, -1), mine[1].view(num_pages, -1),
-                   mine[2].view(num_pages, -1), mine[3].view(num_pages, -1)]
+            dst = [x.view(num_pages, -1) for x in mine]
             src = [nk.view(n, -1), nv.view(n, -1), nks.view(n, -1), nvs.view(n, -1)]
 
             def lib():
@@ -618,12 +675,12 @@ def check_kv_write_q(peaks, gen, dev, int4=False):
                     d_.index_copy_(0, idx, s_)
 
             lib_ms = time_ms(lib)
-            nbytes = 2 * (2 * n * page * kw + 2 * n * kh * page * 4) + n * 4
-            b_ms, by = bound_ms(nbytes, 0.0, peaks)
+    ms, _, p64, b_ms, by = times["8b-p64"]
+    p128 = times["8b-p128"]
     log(f"[kernel] {name}: pools and scale pools byte-exact at 8B page 64/128 and small"
-        f"{' (and K=1, Hd=32: 16-byte rows)' if int4 else ''}; {ms:.4f} ms at page 64 "
-        f"(page 128: {p128_ms:.4f}; plain {plain_ms:.4f}, index_copy_ {lib_ms:.4f}, "
-        f"bound {b_ms:.4f} by {by})")
+        f"{' (and K=1, Hd=32: 16-byte rows)' if int4 else ''}, two launches the same bytes, "
+        f"an id equal to num_pages skipped; page 64: {p64} (plain {plain_ms:.4f}, index_copy_ "
+        f"{lib_ms:.4f}, bound {b_ms:.4f} by {by}); page 128: {p128[2]} (bound {p128[3]:.4f})")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=by)
 
@@ -1694,13 +1751,18 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.build()
     log(f"[build] {len(_cuda.SOURCES)} sources (fourteen kernels: nine on the serving path, "
-        f"K4 entering K2/K6, and the five probe kernels K8-K10) built in {time.perf_counter() - t0:.1f} s "
+        f"K4 entering K2/K6, the five probe kernels K8-K10, and an empty one) built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_cuda.NVCC_FLAGS[:2])})")
     for n, text in _cuda.build_logs.items():
         for line in text.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"[ptxas] {n}: {line.strip()}")
 
+    from dynamo_tpu_torch.scripts import empty_launch
+
+    floor_ms = time_ms(lambda: empty_launch(dev))
+    log(f"[kernel] launch_floor: {floor_ms:.4f} ms (an empty kernel, one block of one warp, "
+        f"timed as every row below)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     results = {
@@ -1720,6 +1782,9 @@ def main() -> int:
         **check_bitcast(peaks, gen, dev),
         "page_gather": check_page_gather(peaks, gen, dev),
     }
+    inject_ms = results["bitcast_inject"]["ms"]
+    log(f"[kernel] bitcast_inject against the launch floor: {inject_ms:.4f} ms, floor "
+        f"{floor_ms:.4f}, {1e3 * (inject_ms - floor_ms):.2f} us above it")
     phase_real_weights(dev)
     # phases 5, 6 and 7 (bf16, int8 and int4 KV) on one set of weights;
     # --pairs repeats them in turns, for their spread
@@ -1785,7 +1850,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": floor_ms}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -8,25 +8,34 @@
 // and new_vs[i] ([K, page_size] f32) into scale-pool page page_table[i],
 // routed by the same table. Page 0 is the trash page: padding pages of a
 // dispatch all land there, rows and scales alike, so several blocks may
-// write it at once (its contents are never read as valid KV).
+// write it at once (its contents are never read as valid KV). Page ids
+// outside [0, num_pages) are skipped rather than written.
 //
 // Bound on the H100: bytes. It reads each source page (and scale tile)
 // once and writes it once, with no arithmetic, so the floor is
-// 2 * bytes / 3.35 TB/s. An int8 page is half a bf16 page and an int4
-// page (two codes a byte, K*Hd/2 bytes a row) a quarter; the scale tiles
-// add 2 * K * page_size * 4 bytes (4 KB a page at the 8B shape) to both.
+// 2 * bytes / 3.35 TB/s: 8.9 MB and 2.7 us for an int4 chunk of 64 pages
+// of the 8B model (int8 17.3 MB, bf16 33.6 MB). What holds it back on the
+// card is latency, not bandwidth: a few MB in one pass, so each block's
+// loads wait a full trip to memory and its stores another, and an empty
+// launch alone (chip_smoke.py's launch floor) reads ~4.7 us.
 //
-// Design: the copy is dtype-blind (16-byte vectors), one block per
-// (page, K-or-V, slice of the page). A bf16 page of the 8B model is
-// 128 KB; it is cut into 16 KB slices so a 64-page chunk launches 1024
-// blocks and every SM has loads in flight (an int4 page of 32 KB is two
-// slices). Each thread moves four 16-byte vectors per step, loads first,
-// so four requests are outstanding per thread. K7 is the same kernel
-// instantiated for a quantized format: the slice-0 block of each page and
-// pool also copies that page's scale tile (a few KB, one float a thread
-// per step). Its int8 and int4 instantiations run the same code: a packed
-// int4 row is bytes like any other. Page ids outside [0, num_pages) are
-// skipped rather than written.
+// Design: one pass of 16-byte vectors over a flat list of work items,
+// planned on the host (ops/kv_write.py `copy_plan`, from the shapes and
+// the SM count): item `it` is chunk c of pool p of page i, or of its scale
+// tile, with (i, p, c) from `it` alone. A chunk is at most 16 KB, one
+// round of four vectors for each of a block's 256 threads, so all of a
+// chunk's loads are in flight at once. Blocks take items b, b + grid, ...
+// (one item each at the 8B shapes, up to eight blocks an SM). The loads
+// leave before the page id is read: the source address does not depend on
+// it. The scale tiles are items of their own, copied beside the page
+// bytes rather than after them. A design on Hopper's bulk copies (one
+// thread a block issuing cp.async.bulk loads and stores through a ring of
+// shared-memory stages on mbarriers, over the same items) was right, but
+// slower warm in every format at the 8B page-64 shape and no faster
+// flushed (PERF.md §6): a copy this small pays the bulk unit's
+// latency twice and gains nothing from freeing the threads. The same code
+// serves bf16, int8 and int4 (a packed int4 row is bytes like any other);
+// the three instantiations differ in their name and their scale items.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,45 +43,72 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
-constexpr long long kSliceBytes = 16384;
+constexpr int kVecs = 4;  // 16-byte vectors a thread keeps in flight
+constexpr int kMaxChunk = kThreads * kVecs * 16;
 
 enum class KvFmt { kBf16, kInt8, kInt4 };
 
+struct Args {
+  unsigned char* k_pool;
+  unsigned char* v_pool;
+  const int32_t* page_table;
+  const unsigned char* new_k;
+  const unsigned char* new_v;
+  unsigned char* ks_pool;  // K7 only
+  unsigned char* vs_pool;
+  const unsigned char* new_ks;
+  const unsigned char* new_vs;
+  long long num_pages, page_bytes, tile_bytes;
+  unsigned n_items;
+  int chunk, page_chunks, tile_chunks;
+};
+
+// Item `it` of the plan: which bytes of which source it copies. Mirrored
+// by ops/kv_write.py `plan_items`.
+struct Item {
+  long long i;    // source page
+  long long off;  // bytes into the page (or its scale tile)
+  int bytes;
+  bool scale, v;
+};
+
+__device__ __forceinline__ Item item_of(const Args& a, unsigned it) {
+  const unsigned per_pair = (unsigned)(a.page_chunks + a.tile_chunks);
+  const unsigned pair = it / per_pair;
+  const int c = (int)(it - pair * per_pair);
+  Item r;
+  r.i = pair >> 1;
+  r.v = pair & 1;
+  r.scale = c >= a.page_chunks;
+  const long long whole = r.scale ? a.tile_bytes : a.page_bytes;
+  r.off = (long long)(r.scale ? c - a.page_chunks : c) * a.chunk;
+  r.bytes = (int)(whole - r.off < a.chunk ? whole - r.off : a.chunk);
+  return r;
+}
+
 template <KvFmt F>
-__global__ void __launch_bounds__(kThreads) paged_kv_write_kernel(
-    uint4* __restrict__ k_pool, uint4* __restrict__ v_pool,
-    const int32_t* __restrict__ page_table,
-    const uint4* __restrict__ new_k, const uint4* __restrict__ new_v,
-    float* __restrict__ ks_pool, float* __restrict__ vs_pool,      // K7 only
-    const float* __restrict__ new_ks, const float* __restrict__ new_vs,
-    long long num_pages, long long page_vecs, long long slice_vecs, int tile_floats) {
-  constexpr bool kQuant = F != KvFmt::kBf16;
-  const long long i = blockIdx.x;
-  const int32_t page = page_table[i];
-  if (page < 0 || page >= num_pages) return;
-  const uint4* __restrict__ src = (blockIdx.y == 0 ? new_k : new_v) + i * page_vecs;
-  uint4* __restrict__ dst = (blockIdx.y == 0 ? k_pool : v_pool) + (long long)page * page_vecs;
-  const long long lo = (long long)blockIdx.z * slice_vecs;
-  const long long hi = lo + slice_vecs < page_vecs ? lo + slice_vecs : page_vecs;
-  for (long long j = lo + threadIdx.x; j < hi; j += (long long)kThreads * kUnroll) {
-    uint4 buf[kUnroll];
+__global__ void __launch_bounds__(kThreads) paged_kv_write_kernel(const Args a) {
+  for (unsigned it = blockIdx.x; it < a.n_items; it += gridDim.x) {
+    const Item r = item_of(a, it);
+    const long long whole = r.scale ? a.tile_bytes : a.page_bytes;
+    const unsigned char* src =
+        (r.scale ? (r.v ? a.new_vs : a.new_ks) : (r.v ? a.new_v : a.new_k)) + r.i * whole + r.off;
+    const int nvec = r.bytes / 16;
+    uint4 buf[kVecs];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long jj = j + (long long)u * kThreads;
-      if (jj < hi) buf[u] = src[jj];
+    for (int u = 0; u < kVecs; ++u) {
+      const int j = threadIdx.x + u * kThreads;
+      if (j < nvec) buf[u] = ((const uint4*)src)[j];
     }
+    const int32_t page = a.page_table[r.i];
+    if (page < 0 || page >= a.num_pages) continue;
+    unsigned char* dst =
+        (r.scale ? (r.v ? a.vs_pool : a.ks_pool) : (r.v ? a.v_pool : a.k_pool)) +
+        (long long)page * whole + r.off;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const long long jj = j + (long long)u * kThreads;
-      if (jj < hi) dst[jj] = buf[u];
-    }
-  }
-  if constexpr (kQuant) {
-    if (blockIdx.z == 0) {
-      const float* __restrict__ ssrc = (blockIdx.y == 0 ? new_ks : new_vs) + i * tile_floats;
-      float* __restrict__ sdst = (blockIdx.y == 0 ? ks_pool : vs_pool) + (long long)page * tile_floats;
-      for (int j = threadIdx.x; j < tile_floats; j += kThreads) sdst[j] = ssrc[j];
+    for (int u = 0; u < kVecs; ++u) {
+      const int j = threadIdx.x + u * kThreads;
+      if (j < nvec) ((uint4*)dst)[j] = buf[u];
     }
   }
 }
@@ -80,55 +116,74 @@ __global__ void __launch_bounds__(kThreads) paged_kv_write_kernel(
 template <KvFmt F>
 int launch(void* k_pool, void* v_pool, const void* page_table, const void* new_k,
            const void* new_v, void* ks_pool, void* vs_pool, const void* new_ks,
-           const void* new_vs, long long n_pages, long long num_pages,
-           long long page_bytes, int tile_floats, void* stream) {
+           const void* new_vs, long long n_pages, long long num_pages, long long page_bytes,
+           long long tile_bytes, int chunk, int grid, void* stream) {
   if (n_pages <= 0) return 0;
-  const long long page_vecs = page_bytes / 16;
-  long long slices = (page_bytes + kSliceBytes - 1) / kSliceBytes;
-  if (slices < 1) slices = 1;
-  const long long slice_vecs = (page_vecs + slices - 1) / slices;
-  dim3 grid((unsigned)n_pages, 2, (unsigned)slices);
-  paged_kv_write_kernel<F><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (uint4*)k_pool, (uint4*)v_pool, (const int32_t*)page_table,
-      (const uint4*)new_k, (const uint4*)new_v, (float*)ks_pool, (float*)vs_pool,
-      (const float*)new_ks, (const float*)new_vs,
-      num_pages, page_vecs, slice_vecs, tile_floats);
+  if (chunk <= 0 || chunk % 16 || chunk > kMaxChunk || grid <= 0 || page_bytes % 16 ||
+      tile_bytes % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Args a;
+  a.k_pool = (unsigned char*)k_pool;
+  a.v_pool = (unsigned char*)v_pool;
+  a.page_table = (const int32_t*)page_table;
+  a.new_k = (const unsigned char*)new_k;
+  a.new_v = (const unsigned char*)new_v;
+  a.ks_pool = (unsigned char*)ks_pool;
+  a.vs_pool = (unsigned char*)vs_pool;
+  a.new_ks = (const unsigned char*)new_ks;
+  a.new_vs = (const unsigned char*)new_vs;
+  a.num_pages = num_pages;
+  a.page_bytes = page_bytes;
+  a.tile_bytes = tile_bytes;
+  a.chunk = chunk;
+  a.page_chunks = (int)((page_bytes + chunk - 1) / chunk);
+  a.tile_chunks = (int)((tile_bytes + chunk - 1) / chunk);
+  const long long n_items = 2 * n_pages * (a.page_chunks + a.tile_chunks);
+  if (n_items >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  a.n_items = (unsigned)n_items;
+  paged_kv_write_kernel<F><<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// K1. page_bytes must be a multiple of 16 and every pointer 16-byte aligned
-// (the Python wrapper checks both). Returns cudaGetLastError().
+// K1. page_bytes a multiple of 16, every pointer 16-byte aligned (the
+// Python wrapper checks both); chunk and grid from ops/kv_write.py
+// `copy_plan`. Returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// plan the kernel does not take.
 extern "C" int paged_kv_write_launch(
     void* k_pool, void* v_pool, const void* page_table,
     const void* new_k, const void* new_v,
     long long n_pages, long long num_pages, long long page_bytes,
-    void* stream) {
+    void* stream, int chunk, int grid) {
   return launch<KvFmt::kBf16>(k_pool, v_pool, page_table, new_k, new_v, nullptr, nullptr,
-                       nullptr, nullptr, n_pages, num_pages, page_bytes, 0, stream);
+                              nullptr, nullptr, n_pages, num_pages, page_bytes, 0, chunk, grid,
+                              stream);
 }
 
 // K7: K1 over int8 pages plus the scale tiles [K, page_size] f32 of each
-// page (tile_floats = K * page_size), with the same alignment rules.
+// page (tile_floats = K * page_size, a multiple of 4), with the same rules.
 extern "C" int paged_kv_write_q_launch(
     void* k_pool, void* v_pool, const void* page_table,
     const void* new_k, const void* new_v,
     void* ks_pool, void* vs_pool, const void* new_ks, const void* new_vs,
     long long n_pages, long long num_pages, long long page_bytes, int tile_floats,
-    void* stream) {
+    void* stream, int chunk, int grid) {
   return launch<KvFmt::kInt8>(k_pool, v_pool, page_table, new_k, new_v, ks_pool, vs_pool,
-                              new_ks, new_vs, n_pages, num_pages, page_bytes, tile_floats, stream);
+                              new_ks, new_vs, n_pages, num_pages, page_bytes,
+                              4LL * tile_floats, chunk, grid, stream);
 }
 
 // K7, int4 form: nibble-packed pages (K*Hd/2 bytes a row) and the same
-// scale tiles; the same alignment rules.
+// scale tiles; the same rules.
 extern "C" int paged_kv_write_q4_launch(
     void* k_pool, void* v_pool, const void* page_table,
     const void* new_k, const void* new_v,
     void* ks_pool, void* vs_pool, const void* new_ks, const void* new_vs,
     long long n_pages, long long num_pages, long long page_bytes, int tile_floats,
-    void* stream) {
+    void* stream, int chunk, int grid) {
   return launch<KvFmt::kInt4>(k_pool, v_pool, page_table, new_k, new_v, ks_pool, vs_pool,
-                              new_ks, new_vs, n_pages, num_pages, page_bytes, tile_floats, stream);
+                              new_ks, new_vs, n_pages, num_pages, page_bytes,
+                              4LL * tile_floats, chunk, grid, stream);
 }

@@ -106,6 +106,19 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_sm_counts: dict = {}
+
+
+def sm_count(device) -> int:
+    """The device's SM count, read once (the kernels' host-side plans)."""
+    n = _sm_counts.get(device)
+    if n is None:
+        import torch
+
+        n = _sm_counts[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)

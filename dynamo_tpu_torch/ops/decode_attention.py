@@ -72,15 +72,7 @@ def split_plan(b, kh, w, page_size, sm_count):
         chunk *= 2
 
 
-_sm_counts: dict = {}
 _scratch_bufs: dict = {}
-
-
-def _sm_count(device):
-    n = _sm_counts.get(device)
-    if n is None:
-        n = _sm_counts[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    return n
 
 
 def _scratch(device, n_part, n_tickets):
@@ -379,7 +371,7 @@ def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
     out = torch.empty_like(q)
     lib = _launcher()
     w = block_tables.shape[1]
-    chunk, splits = split_plan(b, kh, w, page_size, _sm_count(q.device))
+    chunk, splits = split_plan(b, kh, w, page_size, _cuda.sm_count(q.device))
     part = tickets = None
     if splits > 1:
         part, tickets = _scratch(

@@ -11,6 +11,12 @@ routing. int4 rows are nibble-packed, K*Hd/2 bytes; the copy is the same,
 but the wrapper takes `int4=True` so the launch is counted as K7's int4
 form. Page 0 is the trash page.
 
+The kernel copies a flat list of work items (chunks of the source pages
+and of their scale tiles) in 16-byte vectors; `copy_plan` sizes the items
+and the grid on the host from the shapes and the SM count, and
+`plan_items` lists the items as the kernel decodes them (the CPU tests
+walk that list).
+
 Correct-use contract (the engine's chunking guarantees both):
 - chunk starts are page-aligned (prefill_chunk % page_size == 0);
 - rows past the chunk tail inside a page may be garbage: they belong to
@@ -21,10 +27,75 @@ Correct-use contract (the engine's chunking guarantees both):
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Iterator, NamedTuple
 
 import torch
 
 from dynamo_tpu_torch.ops import _cuda
+
+# the kernel's largest chunk (csrc/kv_write.cu kMaxChunk: one round of four
+# 16-byte vectors for each of 256 threads) and its resident blocks an SM
+MAX_CHUNK = 16384
+BLOCKS_PER_SM = 8
+
+
+class CopyPlan(NamedTuple):
+    """K1/K7's work: items of at most `chunk` bytes (a multiple of 16),
+    `page_chunks` for each source page of each pool and `tile_chunks` for
+    each scale tile, walked by `grid` blocks."""
+
+    n_pages: int
+    page_bytes: int
+    tile_bytes: int
+    chunk: int
+    page_chunks: int
+    tile_chunks: int
+    grid: int
+
+    @property
+    def n_items(self) -> int:
+        return 2 * self.n_pages * (self.page_chunks + self.tile_chunks)
+
+
+@functools.lru_cache(maxsize=256)
+def copy_plan(n_pages: int, page_bytes: int, tile_bytes: int, sm_count: int) -> CopyPlan:
+    """The kernel's plan for `n_pages` source pages of `page_bytes` a pool
+    (and scale tiles of `tile_bytes`, 0 without) on a card of `sm_count`
+    SMs: a page in the fewest equal chunks of at most MAX_CHUNK, a scale
+    tile in chunks of the same size, and one block an item up to
+    BLOCKS_PER_SM blocks an SM (past that, blocks take several). From the
+    shapes alone, never the table, so it costs no sync."""
+    page_chunks = -(-page_bytes // MAX_CHUNK)
+    chunk = -(-page_bytes // (16 * page_chunks)) * 16  # a multiple of 16 bytes
+    tile_chunks = -(-tile_bytes // chunk)
+    n_items = 2 * n_pages * (page_chunks + tile_chunks)
+    grid = max(1, min(n_items, BLOCKS_PER_SM * sm_count))
+    return CopyPlan(n_pages, page_bytes, tile_bytes, chunk, page_chunks, tile_chunks, grid)
+
+
+class Item(NamedTuple):
+    """One work item: `nbytes` at byte `offset` of source page `i`'s rows
+    (`scale` False) or scale tile (`scale` True) in pool `pool` (0 k, 1 v),
+    copied to the same offset of pool page `page_table[i]`."""
+
+    scale: bool
+    pool: int
+    i: int
+    offset: int
+    nbytes: int
+
+
+def plan_items(plan: CopyPlan) -> Iterator[Item]:
+    """The plan's items in their flat order, decoded as the kernel decodes
+    them (csrc/kv_write.cu `item_of`); block b takes items b, b + grid, ..."""
+    per_pair = plan.page_chunks + plan.tile_chunks
+    for it in range(plan.n_items):
+        pair, c = divmod(it, per_pair)
+        scale = c >= plan.page_chunks
+        whole = plan.tile_bytes if scale else plan.page_bytes
+        off = (c - plan.page_chunks if scale else c) * plan.chunk
+        yield Item(scale, pair & 1, pair >> 1, off, min(plan.chunk, whole - off))
 
 
 def paged_kv_write_plain(k_cache, v_cache, page_table, new_k, new_v, *, page_size):
@@ -129,6 +200,7 @@ def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
             f"scale tiles must be [{n}, {kh}, {page_size}]")
         for t in (ks_cache, vs_cache, new_ks, new_vs):
             req(t.dtype == torch.float32, "scale pools and tiles must be float32")
+        req(kh * page_size % 4 == 0, "scale tiles must be whole 16-byte vectors (K * page % 4)")
         tensors += [ks_cache, vs_cache, new_ks, new_vs]
     else:
         req(k_cache.dtype in (torch.bfloat16, torch.float16, torch.float32),
@@ -139,16 +211,18 @@ def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
     req(page_table.dtype == torch.int32, "page_table must be int32")
     page_bytes = page_size * kw * k_cache.element_size()
     req(page_bytes % 16 == 0, "page bytes must be a multiple of 16")
-    for t in (k_cache, v_cache, new_k, new_v):
+    for t in tensors[:4] + tensors[5:]:
         req(t.data_ptr() % 16 == 0, "tensors must be 16-byte aligned")
+    plan = copy_plan(n, page_bytes, kh * page_size * 4 if quant else 0, _cuda.sm_count(dev))
     lib = _launcher()
+    tail = (_cuda.stream_ptr(dev), plan.chunk, plan.grid)
     if quant:
         launch = lib.paged_kv_write_q4_launch if int4 else lib.paged_kv_write_q_launch
         err = launch(
             k_cache.data_ptr(), v_cache.data_ptr(), page_table.data_ptr(),
             new_k.data_ptr(), new_v.data_ptr(), ks_cache.data_ptr(),
             vs_cache.data_ptr(), new_ks.data_ptr(), new_vs.data_ptr(),
-            n, num_pages, page_bytes, kh * page_size, _cuda.stream_ptr(dev),
+            n, num_pages, page_bytes, kh * page_size, *tail,
         )
         _cuda.check(err, f"paged_kv_write ({'int4' if int4 else 'int8'})")
         if int4:
@@ -158,8 +232,7 @@ def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
         return k_cache, v_cache, ks_cache, vs_cache
     err = lib.paged_kv_write_launch(
         k_cache.data_ptr(), v_cache.data_ptr(), page_table.data_ptr(),
-        new_k.data_ptr(), new_v.data_ptr(),
-        n, num_pages, page_bytes, _cuda.stream_ptr(dev),
+        new_k.data_ptr(), new_v.data_ptr(), n, num_pages, page_bytes, *tail,
     )
     _cuda.check(err, "paged_kv_write")
     paged_kv_write.launches += 1
@@ -175,12 +248,12 @@ def _launcher():
     lib = _cuda.load("kv_write")
     fn = lib.paged_kv_write_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        plan = [p, i32, i32]  # stream, chunk, grid
+        fn.argtypes = [p] * 5 + [i64] * 3 + plan
         fn.restype = ctypes.c_int
         fq = lib.paged_kv_write_q_launch
-        fq.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
-        )
+        fq.argtypes = [p] * 9 + [i64] * 3 + [i32] + plan
         fq.restype = ctypes.c_int
         f4 = lib.paged_kv_write_q4_launch
         f4.argtypes = fq.argtypes

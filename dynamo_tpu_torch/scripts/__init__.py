@@ -86,8 +86,24 @@ def probes_lib() -> ctypes.CDLL:
             "pack_int8_rows_launch": [p, p, i64, i64, p],
             "inject_int8_row_launch": [p, p, i64, i64, p],
             "page_gather_launch": [p, p, i64, i64, i32, i32, i32, i32, p, p],
+            "noop_launch": [p],
         }.items():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
     return lib
+
+
+def empty_launch(dev) -> None:
+    """Launch the empty kernel of `csrc/probes.cu` on dev's current stream:
+    timed with `time_ms`, the launch floor under every single-launch time."""
+    _cuda.check(probes_lib().noop_launch(_cuda.stream_ptr(dev)), "noop")
+
+
+def l2_evict(dev, nbytes: int = 128 << 20):
+    """A callable that writes `nbytes` (more than the H100's 50 MB L2), so
+    a kernel timed after it finds none of its own data in the L2, and the
+    L2 full of another buffer's dirty lines, as a kernel finds it behind
+    the projections on the engine's path."""
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    return lambda: buf.fill_(1)
