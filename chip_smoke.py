@@ -63,7 +63,10 @@ final result line is printed only when every phase passed:
    each call) beside their warm times, launched twice on copies of the
    same pools (the same bytes), and given a table with one id equal to
    num_pages (nothing written for it, the rest as the plain version
-   writes it without that entry);
+   writes it without that entry). Every KV write, attention and ragged
+   check also runs at page size 3 with K 2 (an int8/int4 scale tile of 24
+   bytes, not whole 16-byte vectors: K7 copies it in 4-byte words), the
+   odd page size the engine serves;
 4. real weights: the vendored trained checkpoint tests/data/tiny-trained-llama
    through the port's safetensors reader in bf16 on the GPU, with bf16,
    int8 and int4 KV; the greedy continuation of "the capital of france is"
@@ -72,12 +75,21 @@ final result line is printed only when every phase passed:
    prefilling in chunks beside the others' decode rows, repetitive text)
    with mixed steps and speculative decoding on must stream what the
    engine streams with both off, through K4 and the launches the engine's
-   dispatch counters imply;
+   dispatch counters imply; int8 KV also at page size 3. Phases 4-8 run
+   with the step pipeline on (the default): decode dispatches replay one
+   CUDA graph each, N+1 queued behind N;
 5. full width: llama-3.1-8b (32 layers, d 4096) in bf16 from seeded random
    weights, eight concurrent requests (ISL 512, OSL 64) through
-   TorchEngine.generate. Launch counters are zeroed just before and read
-   just after: each kernel of the path must have run, the expected number
-   of times, and no other kernel and no plain version may have run;
+   TorchEngine.generate, with the step pipeline off, then on. Launch
+   counters are zeroed just before and read just after: each kernel of the
+   path must have run, the expected number of times (a graph replay counts
+   the launches its capture recorded), and no other kernel and no plain
+   version may have run. Then the graph check: the last decode dispatch
+   run eagerly on cloned pools and replayed on the originals must give the
+   same tokens, byte-equal pools and the same launch counts. `[profile]`
+   traces one more round and prints its `cudaLaunchKernel` and
+   `cudaGraphLaunch` calls, device busy share, decode step ms, TTFT and
+   output tokens/s;
 6. the same at full width with int8 KV (kv_quantization="int8"), on phase
    5's weights: K5-K7 in their int8 forms run, no other kernel and no
    plain version does;
@@ -86,8 +98,8 @@ final result line is printed only when every phase passed:
 8. an admission wave at full width on phase 5's weights and engine
    settings: four held requests (ISL 512, OSL 128) stream, and once each
    has 8 tokens four more (ISL 512, OSL 64) arrive. bf16 KV with mixed
-   steps and speculative decoding off, then on; int8 and int4 KV with both
-   on. Each run asserts the launches its dispatch counters imply (K4 once a
+   steps and speculative decoding off; then on, with the step pipeline off
+   and then on; int8 and int4 KV with all three on. Each run asserts the launches its dispatch counters imply (K4 once a
    layer per mixed step and verify dispatch) and no plain call, and prints
    the wave's TTFT, the held streams' longest silence and tokens/s inside
    the wave, and the mixed and spec counters.
@@ -96,8 +108,9 @@ final result line is printed only when every phase passed:
    main() runs on a GPU, with the launch counters zeroed just before and
    read just after; every probe kernel must have launched, and K10's
    rates there stay under 1.05x the card's memory rate.
-With --pairs N, phases 5, 6 and 7 and phase 8's bf16 off/on pair run N
-times in turns, to show their spread.
+With --pairs N, phases 5, 6 and 7 (each a pipeline off/on pair) and
+phase 8's bf16 pipeline off/on pair run N times in turns, to show their
+spread.
 
 Then a `kernels` JSON line (seventeen kernels: the nine, K4 in three
 forms, and the five probe kernels; and `launch_floor_ms`), the nvidia-smi
@@ -252,7 +265,7 @@ def check_kv_write(peaks, gen, dev):
 
     flush = l2_evict(dev)
     for label, (num_pages, page, kw, n) in {
-        "8b": (200, 64, 1024, 64), "small": (40, 16, 64, 7),
+        "8b": (200, 64, 1024, 64), "small": (40, 16, 64, 7), "odd-p3": (40, 3, 64, 7),
     }.items():
         k, v = _pools(num_pages, page, kw, gen, dev)
         table = torch.randperm(num_pages - 1, generator=gen, device=dev)[:n].to(torch.int32) + 1
@@ -288,7 +301,8 @@ def check_kv_write(peaks, gen, dev):
                 vp1.index_copy_(0, idx, fv)
 
             lib_ms = time_ms(lib)
-    log(f"[kernel] kv_write: byte-exact at 8B and small shapes, two launches the same bytes, "
+    log(f"[kernel] kv_write: byte-exact at 8B, small and page-3 shapes, two launches the same "
+        f"bytes, "
         f"an id equal to num_pages skipped; {times} "
         f"(plain {plain_ms:.4f}, index_copy_ {lib_ms:.4f}, bound {b_ms:.4f} by {by})")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -398,6 +412,7 @@ def check_prefill(peaks, gen, dev):
         "small": (4, 48, 4, 2, 32, 16, 6, [0, 16, 7, 40], [48, 20, 1, 0]),
         "g1": (2, 40, 4, 4, 64, 16, 5, [0, 9], [40, 31]),
         "g8": (2, 24, 16, 2, 64, 16, 4, [8, 0], [24, 5]),
+        "p3": (4, 48, 4, 2, 32, 3, 30, [0, 15, 7, 40], [48, 20, 1, 0]),
     }
     errs = {}
     for label, (b, t, h, kh, hd, page, w, pos0, tlen) in cases.items():
@@ -455,13 +470,15 @@ def check_prefill(peaks, gen, dev):
 # key of a split), at the edge of a warp's first ring stage (64) and one
 # past it, one key, an idle row and a full table; "page24" a page size that
 # is neither a power of two nor a multiple of the kernel's 16-key tile, so
-# a tile's keys span two pages.
+# a tile's keys span two pages; "page3" the odd page size the engine serves
+# (K 2, so an int8/int4 scale tile is not whole 16-byte vectors).
 DECODE_SPLIT_CASES = {
     # B, H, K, Hd, page, W, lengths (write_pos = length - 1; 0 = idle row)
     "8b-w32": (8, 32, 8, 128, 64, 32, [576, 570, 590, 600, 512, 577, 583, 560]),
     "b1-2000": (1, 32, 8, 128, 64, 32, [2000]),
     "edges": (7, 8, 2, 64, 16, 12, [64, 65, 128, 129, 1, 0, 192]),
     "page24": (3, 8, 2, 64, 24, 8, [25, 129, 192]),
+    "page3": (4, 4, 2, 32, 3, 20, [37, 0, 1, 58]),
 }
 
 
@@ -637,6 +654,8 @@ def check_kv_write_q(peaks, gen, dev, int4=False):
     for label, (num_pages, page, kh, hd, n) in {
         "8b-p64": (200, 64, 8, 128, 64), "8b-p128": (100, 128, 8, 128, 32),
         "small": (40, 16, 2, 32, 7), "k1-hd32": (12, 16, 1, 32, 5),
+        # page 3, K 2: a 24-byte scale tile, copied in 4-byte words
+        "odd-p3": (40, 3, 2, 32, 7),
     }.items():
         if label == "k1-hd32" and not int4:
             continue  # an int4 row of 16 bytes: the narrowest the 16-byte copy takes
@@ -677,7 +696,8 @@ def check_kv_write_q(peaks, gen, dev, int4=False):
             lib_ms = time_ms(lib)
     ms, _, p64, b_ms, by = times["8b-p64"]
     p128 = times["8b-p128"]
-    log(f"[kernel] {name}: pools and scale pools byte-exact at 8B page 64/128 and small"
+    log(f"[kernel] {name}: pools and scale pools byte-exact at 8B page 64/128, small and "
+        f"page 3 (K 2: 24-byte scale tiles, in 4-byte words)"
         f"{' (and K=1, Hd=32: 16-byte rows)' if int4 else ''}, two launches the same bytes, "
         f"an id equal to num_pages skipped; page 64: {p64} (plain {plain_ms:.4f}, index_copy_ "
         f"{lib_ms:.4f}, bound {b_ms:.4f} by {by}); page 128: {p128[2]} (bound {p128[3]:.4f})")
@@ -709,6 +729,7 @@ def check_prefill_q(peaks, gen, dev, int4=False):
         "small": (4, 48, 4, 2, 32, 16, 6, [0, 16, 7, 40], [48, 20, 1, 0]),
         "g1": (2, 40, 4, 4, 64, 16, 5, [0, 9], [40, 31]),
         "g8": (2, 24, 16, 2, 64, 16, 4, [8, 0], [24, 5]),
+        "p3": (4, 48, 4, 2, 32, 3, 30, [0, 15, 7, 40], [48, 20, 1, 0]),
     }
     errs = {}
     for label, (b, t, h, kh, hd, page, w, pos0, tlen) in cases.items():
@@ -910,6 +931,8 @@ RAGGED_CASES = {
     "hd32-g2": (4, 2, 32, 16, 32, 6, [(37, 1), (14, 5), (32, 32), (0, 0), (60, 1), (45, 3)]),
     "hd64-g1": (4, 4, 64, 16, 32, 6, [(14, 5), (37, 1), (0, 0), (16, 24), (47, 2)]),
     "hd64-g8": (16, 2, 64, 16, 32, 6, [(30, 3), (0, 0), (37, 1), (9, 32), (62, 5)]),
+    # the odd page size the engine serves (K 2 at page 3)
+    "hd32-p3": (4, 2, 32, 3, 32, 30, [(37, 1), (14, 5), (33, 32), (0, 0), (60, 1), (45, 3)]),
 }
 RAGGED_NAMES = {"bf16": "ragged_attention", "int8": "ragged_attention_q",
                 "int4": "ragged_attention_q4"}
@@ -1363,14 +1386,17 @@ def phase_real_weights(dev):
     n = 16
 
     def engine(device, dtype, kv_quant, **kw):
+        cfg = dict(page_size=16, num_pages=64, prefill_chunk=32)
+        if kw.get("page_size", 16) != 16:
+            cfg["num_pages"] = 64 * 16 // kw["page_size"]
+        cfg.update(kw)
         return TorchEngine(EngineConfig(
-            model=load_config(CKPT), checkpoint_dir=CKPT, dtype=dtype, page_size=16,
-            num_pages=64, max_batch_size=4, max_model_len=256, prefill_chunk=32,
-            decode_steps=4, kv_quantization=kv_quant, **kw,
+            model=load_config(CKPT), checkpoint_dir=CKPT, dtype=dtype, max_batch_size=4,
+            max_model_len=256, decode_steps=4, kv_quantization=kv_quant, **cfg,
         ), device=device)
 
-    def run(device, dtype, kv_quant):
-        eng = engine(device, dtype, kv_quant)
+    def run(device, dtype, kv_quant, **kw):
+        eng = engine(device, dtype, kv_quant, **kw)
 
         async def go():
             (res,), _ = await run_requests(eng, [ids], n)
@@ -1379,13 +1405,17 @@ def phase_real_weights(dev):
 
         return asyncio.run(go())
 
-    for kv_quant, names in PATH_KERNELS.items():
-        ref = run("cpu", "float32", kv_quant)
+    # each KV format at page 16, and int8 KV at page 3 (K 2: scale tiles of
+    # 24 bytes, which K7 copies in 4-byte words)
+    for kv_quant, page in [(q, 16) for q in PATH_KERNELS] + [("int8", 3)]:
+        names = PATH_KERNELS[kv_quant]
+        odd = dict(page_size=page, prefill_chunk=48) if page != 16 else {}
+        ref = run("cpu", "float32", kv_quant, **odd)
         reset_counts()
-        got = run(dev, "bfloat16", kv_quant)
+        got = run(dev, "bfloat16", kv_quant, **odd)
         counts = read_counts()
         text = " ".join(inv[i] for i in got if i not in special)
-        kv = kv_quant or "bf16"
+        kv = (kv_quant or "bf16") + (f" (page {page})" if odd else "")
         log(f"[real] tiny-trained-llama bf16, {kv} KV on {dev}: {prompt!r} -> {text!r}; cpu f32 "
             f"reference agrees on {sum(a == b for a, b in zip(got, ref))}/{n}; launches {counts}")
         assert len(got) == n, f"expected {n} tokens, got {len(got)}"
@@ -1460,6 +1490,10 @@ async def profile_round(engine, prompts):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     return {
+        # host launch calls in the round: one cudaLaunchKernel per eager
+        # kernel, one cudaGraphLaunch per replayed decode dispatch
+        "launch_calls": {k: n for _, k, n in host
+                         if k in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")},
         "window_ms": window_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "device_busy_share": busy / window_us,
@@ -1478,18 +1512,68 @@ async def profile_round(engine, prompts):
     }
 
 
-def phase_full_width(dev, kv_quant=None, params=None):
-    """Serve eight requests at full width; returns the main path's launch
-    counts, the metrics and the engine's parameters (for the next phase)."""
+def graph_check(eng, tag):
+    """Each captured decode graph against an eager run of the same
+    dispatch: the eager run on clones of the pools (and of the carry), the
+    replay on the originals, from the same inputs (the last dispatch's).
+    The tokens must be equal, the pools byte-equal, and the launches one
+    replay counts equal to the eager run's. Greedy graphs only (a sampled
+    dispatch draws from the generator, which the two runs advance)."""
+    from dynamo_tpu_torch.engine import decode_graph
+
+    graphs = eng._graphs
+    assert graphs.captured(), f"{tag}: no decode graph was captured"
+    kv = eng.kv
+    checked = []
+    for width, greedy in graphs.captured():
+        if not greedy:
+            continue
+        clone = kv._replace(**{f: tuple(x.clone() for x in getattr(kv, f))
+                               for f in ("k", "v", "ks", "vs") if getattr(kv, f) is not None})
+        carry = eng._carry.clone()
+        eng.kv = clone
+        c0 = decode_graph._read_counts()
+        eager = eng._decode_step(width, greedy).clone()
+        c_eager = [b - a for a, b in zip(c0, decode_graph._read_counts())]
+        eng.kv = kv
+        eng._carry.copy_(carry)
+        c0 = decode_graph._read_counts()
+        replay = graphs.replay(width, greedy).clone()
+        c_graph = [b - a for a, b in zip(c0, decode_graph._read_counts())]
+        torch.cuda.synchronize()
+        assert torch.equal(eager, replay), f"{tag}: graph replay tokens differ from eager (w {width})"
+        for f in ("k", "v", "ks", "vs"):
+            for a, b in zip(getattr(clone, f) or (), getattr(kv, f) or ()):
+                assert _same_bytes(a, b), f"{tag}: pools differ after replay and eager ({f})"
+        assert c_graph == c_eager and sum(c_graph) > 0, \
+            f"{tag}: a replay counts {c_graph}, the eager run {c_eager}"
+        checked.append(f"w {width}: {sum(c_graph)} launches a replay")
+    assert checked, f"{tag}: no greedy graph to check"
+    return "; ".join(checked)
+
+
+def decode_step_ms(d, steps):
+    """Host wall a decode step takes: the dispatch walls (enqueue, with
+    the graph a replay) plus the waits that land them, whether alone
+    (`decode_sync_s`) or behind the next dispatch (`pipeline_overlap_s`),
+    over the steps dispatched."""
+    wall = d["decode_dispatch_s"] + d["decode_sync_s"] + d["pipeline_overlap_s"]
+    return 1e3 * wall / max(d["decode_dispatches"] * steps, 1)
+
+
+def phase_full_width(dev, kv_quant=None, params=None, pipe=True):
+    """Serve eight requests at full width, with the step pipeline on or
+    off; returns the main path's launch counts, the metrics and the
+    engine's parameters (for the next phase)."""
     from dynamo_tpu_torch import EngineConfig, TorchEngine
 
     isl, osl, nreq = 512, 64, 8
     cfg = EngineConfig(
         model="llama-3.1-8b", dtype="bfloat16", page_size=64, num_pages=256,
         max_batch_size=8, max_model_len=2048, prefill_chunk=512, decode_steps=8, seed=0,
-        kv_quantization=kv_quant,
+        kv_quantization=kv_quant, step_pipeline=pipe,
     )
-    tag = f"[8b {kv_quant or 'bf16'} KV]"
+    tag = f"[8b {kv_quant or 'bf16'} KV, pipeline {'on' if pipe else 'off'}]"
     t0 = time.perf_counter()
     eng = TorchEngine(cfg, params=params, device=dev)
     torch.cuda.synchronize()
@@ -1506,7 +1590,9 @@ def phase_full_width(dev, kv_quant=None, params=None):
     prof_prompts = [rng.randint(0, vocab, size=isl).tolist() for _ in range(nreq)]
 
     async def go():
-        await run_requests(eng, warm, 8)  # warm-up: cuBLAS handles, allocator
+        # warm-up: cuBLAS handles, the allocator, and the decode graph (one
+        # eager dispatch, then its capture)
+        await run_requests(eng, warm, 24)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         s0 = eng.phase_stats
@@ -1519,6 +1605,7 @@ def phase_full_width(dev, kv_quant=None, params=None):
         return res, wall, counts, s0, s1, prof
 
     res, wall, counts, s0, s1, prof = asyncio.run(go())
+    graphs = graph_check(eng, tag)
     d = {k: s1[k] - s0[k] for k in s1}
     layers = eng.model_cfg.num_layers
     for toks, _, reason, _ in res:
@@ -1533,26 +1620,36 @@ def phase_full_width(dev, kv_quant=None, params=None):
     check_counts(counts, want, f"full width, {kv_quant or 'bf16'} KV")
     ttft = sorted(r[1] for r in res)
     first_done = min(r[1] for r in res)
-    decode_toks = nreq * (osl - 1)
     decode_window = wall - first_done
+    step_ms = decode_step_ms(d, cfg.decode_steps)
     m = {
         "ttft_p50_s": statistics.median(ttft),
         "ttft_max_s": ttft[-1],
-        "decode_tok_s": decode_toks / d["decode_dispatch_s"],
+        "decode_tok_s": 1e3 * nreq / step_ms,
         "wall_s": wall,
         "output_tok_s_wall": nreq * osl / wall,
         "prefill_step_ms": 1e3 * d["prefill_dispatch_s"] / d["prefill_dispatches"],
         "prefill_dispatches": d["prefill_dispatches"],
-        "decode_step_ms": 1e3 * d["decode_dispatch_s"] / (d["decode_dispatches"] * cfg.decode_steps),
+        "decode_step_ms": step_ms,
+        "decode_enqueue_ms": 1e3 * d["decode_dispatch_s"] / d["decode_dispatches"],
         "decode_dispatches": d["decode_dispatches"],
+        "pipeline_overlapped": d["pipeline_overlapped"],
         "decode_window_s": decode_window,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "kv_pool_gb": kv_bytes / 1e9,
         "preemptions": d["preemptions"],
     }
     log(f"{tag} {nreq} x (ISL {isl}, OSL {osl}) through TorchEngine.generate: " + json.dumps(m))
-    log(f"[profile] {kv_quant or 'bf16'} KV, one more round ({nreq} x ISL {isl}, OSL 16) "
-        "under torch.profiler: " + json.dumps(prof))
+    log(f"[profile] {kv_quant or 'bf16'} KV, pipeline {'on' if pipe else 'off'}, one more round "
+        f"({nreq} x ISL {isl}, OSL 16) under torch.profiler: " + json.dumps(prof))
+    log(f"[profile] {kv_quant or 'bf16'} KV, pipeline {'on' if pipe else 'off'}, summary: "
+        + json.dumps({
+            "launch_calls": prof["launch_calls"], "decode_step_ms": m["decode_step_ms"],
+            "ttft_p50_s": m["ttft_p50_s"], "ttft_max_s": m["ttft_max_s"],
+            "output_tok_s_wall": m["output_tok_s_wall"],
+            "device_busy_share": prof["device_busy_share"]}))
+    log(f"{tag} graph check (eager on cloned pools, replay on the originals): tokens equal, "
+        f"pools byte-equal, launches equal; {graphs}")
     log(f"{tag} launches on the main path: {json.dumps({k: v[0] for k, v in counts.items()})}; "
         f"plain calls: {json.dumps({k: v[1] for k, v in counts.items()})}")
     params = eng.params
@@ -1609,17 +1706,20 @@ async def wave_requests(engine, held, wave, held_osl, wave_osl, held_before):
     return held_res, wave_res, t_start, t_wave
 
 
-def phase_wave(dev, params, kv_quant=None, on=True, cfg=None, traffic=None, ref_held=None):
+def phase_wave(dev, params, kv_quant=None, on=True, cfg=None, traffic=None, ref_held=None,
+               pipe=True):
     """Phase 8: an admission wave arriving while held streams decode, with
-    mixed steps and speculative decoding on or off. Asserts the launches
-    the engine's dispatch counters imply, and no plain call. Returns the
-    launches, the metrics, the held streams' tokens and the weights."""
+    mixed steps and speculative decoding on or off, and the step pipeline
+    on or off. Asserts the launches the engine's dispatch counters imply,
+    and no plain call. Returns the launches, the metrics, the held streams'
+    tokens and the weights."""
     from dynamo_tpu_torch import EngineConfig, TorchEngine
 
     tr = dict(WAVE_TRAFFIC, **(traffic or {}))
     conf = EngineConfig(**dict(WAVE_CFG, **(cfg or {})), kv_quantization=kv_quant,
-                        mixed_batching=on, spec_decode=on)
-    tag = f"[wave {conf.model} {kv_quant or 'bf16'} KV, mixed + spec {'on' if on else 'off'}]"
+                        mixed_batching=on, spec_decode=on, step_pipeline=pipe)
+    tag = (f"[wave {conf.model} {kv_quant or 'bf16'} KV, mixed + spec {'on' if on else 'off'}, "
+           f"pipeline {'on' if pipe else 'off'}]")
     eng = TorchEngine(conf, params=params, device=dev)
     rng = np.random.RandomState(1)
     vocab = eng.model_cfg.vocab_size
@@ -1668,8 +1768,9 @@ def phase_wave(dev, params, kv_quant=None, on=True, cfg=None, traffic=None, ref_
         **{k: d[k] for k in MIXED_STATS},
         "mixed_dispatch_ms": 1e3 * d["mixed_dispatch_s"] / max(d["mixed_steps"], 1),
         "prefill_dispatch_ms": 1e3 * d["prefill_dispatch_s"] / max(d["prefill_dispatches"], 1),
-        "decode_step_ms": 1e3 * d["decode_dispatch_s"] / max(
-            d["decode_dispatches"] * conf.decode_steps, 1),
+        "decode_step_ms": decode_step_ms(d, conf.decode_steps),
+        **{k: d[k] for k in ("pipeline_overlapped", "mixed_carry_rows", "mixed_holds",
+                             "mixed_spec_shed")},
         "spec_dispatch_ms": 1e3 * d["spec_dispatch_s"] / max(d["spec_dispatches"], 1),
     }
     if ref_held is not None:
@@ -1724,8 +1825,8 @@ def phase_probes(peaks, dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1,
-                    help="full-width runs of phases 5, 6 and 7, and of phase 8's bf16 "
-                         "off/on pair, in turns (default 1)")
+                    help="pipeline off/on pairs of phases 5, 6 and 7, and of phase 8's "
+                         "bf16 wave, in turns (default 1)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script needs one GPU", file=sys.stderr)
@@ -1786,24 +1887,29 @@ def main() -> int:
     log(f"[kernel] bitcast_inject against the launch floor: {inject_ms:.4f} ms, floor "
         f"{floor_ms:.4f}, {1e3 * (inject_ms - floor_ms):.2f} us above it")
     phase_real_weights(dev)
-    # phases 5, 6 and 7 (bf16, int8 and int4 KV) on one set of weights;
-    # --pairs repeats them in turns, for their spread
+    # phases 5, 6 and 7 (bf16, int8 and int4 KV) on one set of weights,
+    # each with the step pipeline off then on; --pairs repeats the pairs in
+    # turns, for their spread
     launches, params = {}, None
     for i in range(args.pairs):
         for kv_quant, names in PATH_KERNELS.items():
-            torch.cuda.empty_cache()
-            counts, _, params = phase_full_width(dev, kv_quant=kv_quant, params=params)
-            if i == 0:
-                launches.update({k: counts[k] for k in names})
-    # phase 8: the admission wave, bf16 KV off then on (--pairs times, in
-    # turns), then int8 and int4 KV with mixed steps and spec on
+            for pipe in (False, True):
+                torch.cuda.empty_cache()
+                counts, _, params = phase_full_width(dev, kv_quant=kv_quant, params=params,
+                                                     pipe=pipe)
+                if i == 0 and pipe:
+                    launches.update({k: counts[k] for k in names})
+    # phase 8: the admission wave in bf16 KV with mixed steps and spec off
+    # (the held streams' reference), then on with the step pipeline off and
+    # on (--pairs times, in turns), then int8 and int4 KV with all three on
+    torch.cuda.empty_cache()
+    _, _, ref_held, params = phase_wave(dev, params, on=False)
     for i in range(args.pairs):
-        torch.cuda.empty_cache()
-        _, _, ref_held, params = phase_wave(dev, params, on=False)
-        torch.cuda.empty_cache()
-        counts, _, _, params = phase_wave(dev, params, on=True, ref_held=ref_held)
-        if i == 0:
-            launches["ragged_attention"] = counts["ragged_attention"]
+        for pipe in (False, True):
+            torch.cuda.empty_cache()
+            counts, _, _, params = phase_wave(dev, params, on=True, ref_held=ref_held, pipe=pipe)
+            if i == 0 and pipe:
+                launches["ragged_attention"] = counts["ragged_attention"]
     for kv_quant in ("int8", "int4"):
         torch.cuda.empty_cache()
         counts, _, _, params = phase_wave(dev, params, kv_quant=kv_quant, on=True)

@@ -36,6 +36,9 @@
 // latency twice and gains nothing from freeing the threads. The same code
 // serves bf16, int8 and int4 (a packed int4 row is bytes like any other);
 // the three instantiations differ in their name and their scale items.
+// A scale tile that is not whole 16-byte vectors (K * page_size not a
+// multiple of 4, e.g. K 2 at page 3) lies at 4-byte offsets in its pool, so
+// its items go in 4-byte words, four a thread (at most 4 KB an item).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,6 +48,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kVecs = 4;  // 16-byte vectors a thread keeps in flight
 constexpr int kMaxChunk = kThreads * kVecs * 16;
+constexpr int kMaxWordChunk = kThreads * kVecs * 4;
 
 enum class KvFmt { kBf16, kInt8, kInt4 };
 
@@ -60,7 +64,8 @@ struct Args {
   const unsigned char* new_vs;
   long long num_pages, page_bytes, tile_bytes;
   unsigned n_items;
-  int chunk, page_chunks, tile_chunks;
+  int chunk, page_chunks, tile_chunk, tile_chunks;
+  bool tile_words;  // scale tiles in 4-byte words (tile_bytes % 16 != 0)
 };
 
 // Item `it` of the plan: which bytes of which source it copies. Mirrored
@@ -81,8 +86,9 @@ __device__ __forceinline__ Item item_of(const Args& a, unsigned it) {
   r.v = pair & 1;
   r.scale = c >= a.page_chunks;
   const long long whole = r.scale ? a.tile_bytes : a.page_bytes;
-  r.off = (long long)(r.scale ? c - a.page_chunks : c) * a.chunk;
-  r.bytes = (int)(whole - r.off < a.chunk ? whole - r.off : a.chunk);
+  const int size = r.scale ? a.tile_chunk : a.chunk;
+  r.off = (long long)(r.scale ? c - a.page_chunks : c) * size;
+  r.bytes = (int)(whole - r.off < size ? whole - r.off : size);
   return r;
 }
 
@@ -93,6 +99,24 @@ __global__ void __launch_bounds__(kThreads) paged_kv_write_kernel(const Args a) 
     const long long whole = r.scale ? a.tile_bytes : a.page_bytes;
     const unsigned char* src =
         (r.scale ? (r.v ? a.new_vs : a.new_ks) : (r.v ? a.new_v : a.new_k)) + r.i * whole + r.off;
+    if (r.scale && a.tile_words) {
+      const int nw = r.bytes / 4;
+      uint32_t wbuf[kVecs];
+#pragma unroll
+      for (int u = 0; u < kVecs; ++u) {
+        const int j = threadIdx.x + u * kThreads;
+        if (j < nw) wbuf[u] = ((const uint32_t*)src)[j];
+      }
+      const int32_t page = a.page_table[r.i];
+      if (page < 0 || page >= a.num_pages) continue;
+      uint32_t* dst = (uint32_t*)((r.v ? a.vs_pool : a.ks_pool) + (long long)page * whole + r.off);
+#pragma unroll
+      for (int u = 0; u < kVecs; ++u) {
+        const int j = threadIdx.x + u * kThreads;
+        if (j < nw) dst[j] = wbuf[u];
+      }
+      continue;
+    }
     const int nvec = r.bytes / 16;
     uint4 buf[kVecs];
 #pragma unroll
@@ -117,10 +141,13 @@ template <KvFmt F>
 int launch(void* k_pool, void* v_pool, const void* page_table, const void* new_k,
            const void* new_v, void* ks_pool, void* vs_pool, const void* new_ks,
            const void* new_vs, long long n_pages, long long num_pages, long long page_bytes,
-           long long tile_bytes, int chunk, int grid, void* stream) {
+           long long tile_bytes, int chunk, int tile_chunk, int grid, void* stream) {
   if (n_pages <= 0) return 0;
+  const bool tile_words = tile_bytes % 16 != 0;
   if (chunk <= 0 || chunk % 16 || chunk > kMaxChunk || grid <= 0 || page_bytes % 16 ||
-      tile_bytes % 16) {
+      tile_bytes % 4 || (tile_bytes && tile_chunk <= 0) ||
+      (tile_words ? tile_chunk % 4 || tile_chunk > kMaxWordChunk
+                  : tile_chunk % 16 || tile_chunk > kMaxChunk)) {
     return (int)cudaErrorInvalidValue;
   }
   Args a;
@@ -138,7 +165,9 @@ int launch(void* k_pool, void* v_pool, const void* page_table, const void* new_k
   a.tile_bytes = tile_bytes;
   a.chunk = chunk;
   a.page_chunks = (int)((page_bytes + chunk - 1) / chunk);
-  a.tile_chunks = (int)((tile_bytes + chunk - 1) / chunk);
+  a.tile_chunk = tile_bytes ? tile_chunk : chunk;
+  a.tile_chunks = (int)((tile_bytes + a.tile_chunk - 1) / a.tile_chunk);
+  a.tile_words = tile_words;
   const long long n_items = 2 * n_pages * (a.page_chunks + a.tile_chunks);
   if (n_items >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   a.n_items = (unsigned)n_items;
@@ -158,21 +187,23 @@ extern "C" int paged_kv_write_launch(
     long long n_pages, long long num_pages, long long page_bytes,
     void* stream, int chunk, int grid) {
   return launch<KvFmt::kBf16>(k_pool, v_pool, page_table, new_k, new_v, nullptr, nullptr,
-                              nullptr, nullptr, n_pages, num_pages, page_bytes, 0, chunk, grid,
-                              stream);
+                              nullptr, nullptr, n_pages, num_pages, page_bytes, 0, chunk, 0,
+                              grid, stream);
 }
 
 // K7: K1 over int8 pages plus the scale tiles [K, page_size] f32 of each
-// page (tile_floats = K * page_size, a multiple of 4), with the same rules.
+// page (tile_floats = K * page_size floats, in items of tile_chunk bytes:
+// 16-byte vectors when the tile is whole vectors, else 4-byte words), with
+// the same rules.
 extern "C" int paged_kv_write_q_launch(
     void* k_pool, void* v_pool, const void* page_table,
     const void* new_k, const void* new_v,
     void* ks_pool, void* vs_pool, const void* new_ks, const void* new_vs,
     long long n_pages, long long num_pages, long long page_bytes, int tile_floats,
-    void* stream, int chunk, int grid) {
+    void* stream, int chunk, int tile_chunk, int grid) {
   return launch<KvFmt::kInt8>(k_pool, v_pool, page_table, new_k, new_v, ks_pool, vs_pool,
                               new_ks, new_vs, n_pages, num_pages, page_bytes,
-                              4LL * tile_floats, chunk, grid, stream);
+                              4LL * tile_floats, chunk, tile_chunk, grid, stream);
 }
 
 // K7, int4 form: nibble-packed pages (K*Hd/2 bytes a row) and the same
@@ -182,8 +213,8 @@ extern "C" int paged_kv_write_q4_launch(
     const void* new_k, const void* new_v,
     void* ks_pool, void* vs_pool, const void* new_ks, const void* new_vs,
     long long n_pages, long long num_pages, long long page_bytes, int tile_floats,
-    void* stream, int chunk, int grid) {
+    void* stream, int chunk, int tile_chunk, int grid) {
   return launch<KvFmt::kInt4>(k_pool, v_pool, page_table, new_k, new_v, ks_pool, vs_pool,
                               new_ks, new_vs, n_pages, num_pages, page_bytes,
-                              4LL * tile_floats, chunk, grid, stream);
+                              4LL * tile_floats, chunk, tile_chunk, grid, stream);
 }

@@ -3,12 +3,12 @@
 The fields keep their names and meaning. The features the port does not
 run yet keep their fields with the "off" value, and setting one raises
 `NotImplementedError` at construction: a request for weight quantization,
-the step pipeline, host offload or TP overlap must never be served by a
-silent approximation. `kv_quantization="int8"` and `"int4"` are ported;
-int4 with one scale group per kv head (`kv_quant_group` None or head_dim)
-only. Speculative decoding (`spec_decode`) and stall-free mixed
-prefill+decode steps (`mixed_batching`) are ported, alone and together,
-on the serialized engine.
+host offload or TP overlap must never be served by a silent approximation.
+`kv_quantization="int8"` and `"int4"` are ported; int4 with one scale group
+per kv head (`kv_quant_group` None or head_dim) only. Speculative decoding
+(`spec_decode`) and stall-free mixed prefill+decode steps
+(`mixed_batching`) are ported, alone and together, with the step pipeline
+(`step_pipeline`, on by default as in the JAX package) and without it.
 """
 
 from __future__ import annotations
@@ -22,7 +22,6 @@ from dynamo_tpu_torch.models.config import ModelConfig, get_config
 _UNPORTED = {
     "quantization": None,
     "host_kv_pages": 0,
-    "step_pipeline": False,
     "tp_overlap": False,
 }
 
@@ -82,7 +81,11 @@ class EngineConfig:
     # True: every decode row joins and prefill shrinks around them; False:
     # chunks keep their size and decode rows join only if all fit
     mixed_decode_priority: bool = True
-    step_pipeline: bool = False
+    # the step pipeline: decode dispatch N+1 is enqueued behind N through a
+    # device-resident carry while N's tokens are fetched, and a prefill's
+    # first token is fetched asynchronously; False = the serialized
+    # dispatch -> fetch -> sync baseline (same streams, other scheduling)
+    step_pipeline: bool = True
     tp_overlap: bool = False
     # default end-to-end deadline per request, seconds (0 = none); a
     # request's own metadata "deadline" takes precedence. Expired requests

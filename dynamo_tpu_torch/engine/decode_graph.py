@@ -1,0 +1,124 @@
+"""The decode dispatch as one CUDA graph.
+
+The port's counterpart of the JAX package's jitted decode scan
+(`dynamo_tpu/engine/engine.py::_decode_fn`): a decode dispatch runs
+`decode_steps` model steps, each a few hundred kernel launches, and eager
+PyTorch pays the host's launch cost for every one of them. Here the whole
+loop is captured once for each (dispatch width, all_greedy) pair, after
+one eager run at that width, and every later dispatch of that pair is one
+`cudaGraphLaunch`.
+
+What makes the loop capturable:
+- it reads only static device buffers that the engine writes before each
+  replay (the token carry, the fused [positions, active] upload, the block
+  tables and the sampling parameters) and writes its tokens into a buffer
+  the graph owns, and the new carry in place;
+- the kernels launch on `torch.cuda.current_stream`, the capture stream
+  while capturing; their host plans (`split_plan`, `copy_plan`) read
+  shapes only;
+- K3/K5's split scratch and tickets (`ops/decode_attention._scratch`) are
+  grown by the eager run before the capture, and each graph keeps the
+  buffers it captured alive (a later, larger call may replace them in the
+  wrapper's cache); the kernel leaves its tickets at 0 itself;
+- the sampler's generator is registered with each graph, so every replay
+  draws fresh Gumbel noise;
+- the kernel wrappers' launch counters count in Python, so they move while
+  capturing and not on replay: each graph records its counts at capture,
+  takes them back, and adds them on every replay, so the counts stay exact.
+
+A capture or replay that fails raises: there is no eager fallback. On the
+CPU the same function runs eagerly every time.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from dynamo_tpu_torch.ops import decode_attention, kv_write, prefill_attention
+
+
+def launch_counters() -> list:
+    """(wrapper, counter attribute) of every serving-path kernel."""
+    wrappers = (kv_write.paged_kv_write, prefill_attention.flash_prefill_attention,
+                decode_attention.fused_paged_decode_attention,
+                decode_attention.ragged_paged_attention)
+    return [(w, a) for w in wrappers for a in ("launches", "launches_q", "launches_q4")]
+
+
+def _read_counts() -> list:
+    return [getattr(w, a) for w, a in launch_counters()]
+
+
+def _add_counts(deltas: list, sign: int = 1) -> None:
+    for (w, a), d in zip(launch_counters(), deltas):
+        if d:
+            setattr(w, a, getattr(w, a) + sign * d)
+
+
+class _Captured:
+    __slots__ = ("graph", "out", "counts", "keep")
+
+    def __init__(self, graph, out, counts, keep):
+        self.graph = graph
+        self.out = out          # the graph's token buffer [steps + 1, width]
+        self.counts = counts    # launches one replay makes, per counter
+        self.keep = keep        # buffers the graph reads that nothing else holds
+
+
+class DecodeGraphs:
+    """Runs `step(width, all_greedy) -> out` eagerly the first time at a
+    (width, all_greedy) pair and as a replayed CUDA graph after that; on a
+    non-CUDA device, always eagerly."""
+
+    def __init__(self, step: Callable, device: torch.device, generator: torch.Generator):
+        self._step = step
+        self.device = device
+        self._gen = generator
+        self._graphs: dict = {}
+        self._warm: set = set()
+        self._pool = None
+
+    def run(self, width: int, all_greedy: bool) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return self._step(width, all_greedy)
+        key = (width, all_greedy)
+        cap = self._graphs.get(key)
+        if cap is None:
+            if key not in self._warm:
+                # the eager warm-up: real work, and it grows the kernels'
+                # scratch to this width before anything is captured
+                self._warm.add(key)
+                return self._step(width, all_greedy)
+            cap = self._graphs[key] = self._capture(width, all_greedy)
+        return self.replay(width, all_greedy)
+
+    def replay(self, width: int, all_greedy: bool) -> torch.Tensor:
+        """Replay the captured graph of this pair; returns its token buffer."""
+        cap = self._graphs[(width, all_greedy)]
+        cap.graph.replay()
+        _add_counts(cap.counts)
+        return cap.out
+
+    def captured(self) -> list:
+        return sorted(self._graphs)
+
+    def _capture(self, width: int, all_greedy: bool) -> _Captured:
+        graph = torch.cuda.CUDAGraph()
+        register = getattr(graph, "register_generator_state", None)
+        if register is None:
+            raise RuntimeError(
+                f"torch {torch.__version__} cannot register the sampler's generator "
+                "with a CUDA graph (CUDAGraph.register_generator_state): the decode "
+                "graph needs it")
+        register(self._gen)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        before = _read_counts()
+        with torch.cuda.graph(graph, pool=self._pool):
+            out = self._step(width, all_greedy)
+        counts = [b - a for a, b in zip(before, _read_counts())]
+        _add_counts(counts, -1)  # capture launches nothing; replays count
+        keep = list(decode_attention._scratch_bufs.values())
+        return _Captured(graph, out, counts, keep)

@@ -10,7 +10,19 @@ Port of `dynamo_tpu/engine/engine.py::JaxEngine`, main path only:
   the page-scatter kernel, then runs flash attention over the pool;
 - multi-step decode: `decode_steps` tokens per dispatch in a device-side
   loop (sampled tokens feed the next step without a host sync); each
-  layer runs the fused write + decode attention kernel;
+  layer runs the fused write + decode attention kernel. On a CUDA device
+  the dispatch is one replayed CUDA graph (engine/decode_graph.py), the
+  counterpart of the reference's jitted scan;
+- the step pipeline (`step_pipeline`, the default): decode dispatch N+1
+  is enqueued behind N, its input tokens read from a device-resident
+  carry vector, while N's tokens copy to the host; block tables and
+  sampling parameters live on the device and are scatter-updated only
+  for slots whose state changed; a prefill's first token stays on the
+  device as the slot's carry and is fetched asynchronously; mixed steps
+  launch behind the in-flight dispatch too, their q_len 1 rows reading
+  the carry. `step_pipeline=False` is the serialized baseline (dispatch,
+  fetch, sync; a prefill's first token emitted at its own dispatch's
+  sync): the same streams, other scheduling;
 - KV pools in the model's dtype, or int8 with per-token-per-kv-head f32
   scale pools (`kv_quantization="int8"`), or nibble-packed int4 (two codes
   a byte) with the same scale pools (`kv_quantization="int4"`), which the
@@ -31,9 +43,11 @@ Port of `dynamo_tpu/engine/engine.py::JaxEngine`, main path only:
 - streamed `EngineOutput` frames, finishing on max_tokens or EOS.
 
 The engine runs on a CUDA device unless the caller asks for the CPU, where
-every kernel wrapper takes its plain PyTorch version. The host loop is
-single-threaded asyncio and owns the allocator, slots and queues. Decode
-dispatch and sync are serialized (the step pipeline is later work).
+every kernel wrapper takes its plain PyTorch version and the decode step
+runs eagerly. The host loop is single-threaded asyncio and owns the
+allocator, slots and queues; CUDA launches are asynchronous already, so
+no worker thread is needed: a fetch is a non-blocking copy into pinned
+memory behind a recorded event that the loop polls.
 
 Uniform step invariant (as in the reference): a decoding sequence has KV
 for exactly `total_tokens - 1` positions; the newest sampled token is fed
@@ -55,6 +69,7 @@ import torch
 
 from dynamo_tpu_torch.engine.allocator import PageAllocator
 from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.decode_graph import DecodeGraphs
 from dynamo_tpu_torch.engine.scheduler import (
     Sequence,
     pick_admission_index,
@@ -80,6 +95,59 @@ log = logging.getLogger("dynamo_tpu_torch.engine")
 
 def _pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
+
+
+class _Fetch:
+    """Device results on their way to the host. On a CUDA device each
+    tensor is copied without blocking into pinned memory behind a recorded
+    event, and `get()` polls the event, so the loop serves other work (and
+    the device runs the next dispatch) while the copy lands. On the CPU the
+    results are already on the host."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, tensors):
+        self.event = None
+        if tensors[0].device.type == "cuda":
+            self.host = [
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+                for t in tensors
+            ]
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = list(tensors)
+
+    async def get(self) -> list:
+        if self.event is not None:
+            while not self.event.query():
+                await asyncio.sleep(0)
+            return [h.numpy() for h in self.host]
+        return await asyncio.to_thread(lambda: [h.numpy() for h in self.host])
+
+
+class _Dispatch:
+    """One in-flight dispatch (decode loop, spec verify, or a pipelined
+    mixed step): its fetch and the slot snapshot it was built from."""
+
+    __slots__ = ("out", "snapshot", "steps", "spec", "pos0", "draft_lens", "mixed", "bld")
+
+    def __init__(self, out, snapshot, steps, spec=False, pos0=None, draft_lens=None,
+                 mixed=False, bld=None):
+        self.out = out                  # _Fetch of [steps + 1, B] tokens (row 0 the input carry)
+        self.snapshot = snapshot        # list[(slot_index, Sequence)]
+        self.steps = steps
+        # speculative verify dispatch: out fetches (tokens [B, T],
+        # n_emit [B]); pos0/draft_lens are the positions and draft
+        # lengths the build used (the rewind at sync needs them)
+        self.spec = spec
+        self.pos0 = pos0
+        self.draft_lens = draft_lens
+        # pipelined mixed step: out fetches its sampled tokens (or (out,
+        # n_emit) with spec rows); bld is the host build, landed by
+        # _sync_mixed
+        self.mixed = mixed
+        self.bld = bld
 
 
 class TorchEngine:
@@ -142,31 +210,73 @@ class TorchEngine:
         self.waiting: deque[Sequence] = deque()
         self.slots: list[Optional[Sequence]] = [None] * config.max_batch_size
         self._prefilling: deque[Sequence] = deque()
-        self._host_tables = np.zeros(
-            (config.max_batch_size, config.max_pages_per_seq), np.int32
-        )
+        self._inflight: Optional[_Dispatch] = None
+        # slot -> first-token carry override: (device token vector, row)
+        # from a prefill dispatch, or a host int (a sync's newest token)
+        self._overrides: dict[int, object] = {}
+        # _carry_ok[slot]: the device carry row holds the slot's CURRENT
+        # input token (set when a decode dispatch or a mixed step's carry
+        # scatter will leave it there) — the step pipeline's license to
+        # build the next window from the device carry while host history
+        # is stale. Cleared when an override supersedes the carry and on
+        # preemption and finish (the slot may be reused).
+        self._carry_ok = np.zeros(config.max_batch_size, bool)
+        b, w, dev = config.max_batch_size, config.max_pages_per_seq, self.device
+        # the device carry: each slot's next input token; row B is the dump
+        # row a mixed step scatters its prefill and padding rows into
+        self._carry = torch.zeros(b + 1, dtype=torch.int32, device=dev)
+        # the decode dispatch's one fused upload, [positions, active]
+        self._pos_act = torch.zeros((b, 2), dtype=torch.int32, device=dev)
+        # device-resident slow-changing inputs: block tables and sampling
+        # params (samp_f = [temperature, top_p], samp_i = [top_k]), updated
+        # from the host mirrors only for the slots marked dirty (admit and
+        # page growth); rows of released slots keep garbage (inactive rows
+        # are masked and write nothing)
+        self._host_tables = np.zeros((b, w), np.int32)
+        self._host_samp_f = np.zeros((b, 2), np.float32)
+        self._host_samp_f[:, 1] = 1.0
+        self._host_samp_i = np.zeros((b, 1), np.int32)
+        self._dev_tables = torch.zeros((b, w), dtype=torch.int32, device=dev)
+        self._dev_samp_f = torch.from_numpy(self._host_samp_f.copy()).to(dev)
+        self._dev_samp_i = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        self._dirty_slots: set[int] = set()
         self._wake = asyncio.Event()
         self._loop_task: Optional[asyncio.Task] = None
         self._closed = False
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(config.seed ^ 0x5EED)
+        self._graphs = DecodeGraphs(self._decode_step, self.device, self._gen)
         # set once a request carries a deadline: until then no tick reads
         # the clock for the deadline sweeps
         self._has_deadlines = False
-        # engine-side phase accounting (host walls around dispatch calls
-        # that end in a device->host fetch, so they include device time)
+        # engine-side phase accounting: host walls of the dispatch calls
+        # (with the step pipeline, enqueue time) and of the fetches that
+        # land them (`*_sync_s`, or `pipeline_overlap_s` for a fetch that
+        # waited while another dispatch was already queued on the device)
         self._phase_stats = {
             "prefill_dispatch_s": 0.0,
             "prefill_tokens": 0,
             "prefill_dispatches": 0,
             "decode_dispatch_s": 0.0,
+            "decode_sync_s": 0.0,
             "decode_tokens": 0,
             "decode_dispatches": 0,
             "preemptions": 0,
+            # the step pipeline: fetches overlapped with a queued dispatch
+            # and their host wait; ticks a serialized engine parked a
+            # worthwhile mixed step behind an in-flight dispatch; decode
+            # rows a mixed step read from the device carry, and carry rows
+            # that shed their drafts (stale host history)
+            "pipeline_overlapped": 0,
+            "pipeline_overlap_s": 0.0,
+            "mixed_holds": 0,
+            "mixed_carry_rows": 0,
+            "mixed_spec_shed": 0,
             # mixed prefill+decode steps: dispatches, decode rows carried,
             # prefill tokens carried, the largest step's budget tokens
             # (decode rows count 1 + drafts) and its verify rows
             "mixed_dispatch_s": 0.0,
+            "mixed_sync_s": 0.0,
             "mixed_steps": 0,
             "mixed_decode_rows": 0,
             "mixed_prefill_tokens": 0,
@@ -175,6 +285,7 @@ class TorchEngine:
             # speculative verify: standalone dispatches, and rows, drafted,
             # accepted and emitted tokens over standalone and mixed verify
             "spec_dispatch_s": 0.0,
+            "spec_sync_s": 0.0,
             "spec_dispatches": 0,
             "spec_rows": 0,
             "spec_drafted": 0,
@@ -190,7 +301,9 @@ class TorchEngine:
         """Refuse at construction what the CUDA kernels do not take, rather
         than failing the first request. The int8 and int4 kernels (K5-K7)
         take the shapes their bf16 counterparts (K1-K3) take: bf16
-        activations, these head dims and GQA groups, any page size."""
+        activations, these head dims and GQA groups, any page size (K7
+        copies a scale tile that is not whole 16-byte vectors in 4-byte
+        words)."""
         from dynamo_tpu_torch.ops import decode_attention
 
         m = self.model_cfg
@@ -228,6 +341,32 @@ class TorchEngine:
     @property
     def phase_stats(self) -> dict:
         return dict(self._phase_stats)
+
+    def _launch(self, fn, *args) -> asyncio.Future:
+        """Start a dispatch. On a CUDA device the launches are
+        asynchronous already, so `fn` runs inline and the future is done;
+        on the CPU the plain versions compute synchronously, so `fn` runs
+        in a worker thread (as the reference runs its dispatches) and the
+        loop keeps landing other work meanwhile. A dispatch reads only its
+        build and the device state, which nothing else touches while it
+        runs."""
+        if self.device.type == "cuda":
+            fut = asyncio.get_running_loop().create_future()
+            fut.set_result(fn(*args))
+            return fut
+        return asyncio.ensure_future(asyncio.to_thread(fn, *args))
+
+    def _up(self, arr: np.ndarray, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A host array on the device (into `out` when given). On a CUDA
+        device it goes through pinned memory without blocking the host: a
+        copy from pageable memory may wait for the stream's queued work."""
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+            if out is None:
+                return t.to(self.device, non_blocking=True)
+            return out.copy_(t, non_blocking=True)
+        return t if out is None else out.copy_(t)
 
     # ------------------------------------------------------------------
     # requests
@@ -281,6 +420,9 @@ class TorchEngine:
 
     @staticmethod
     def _refuse_unported(pre: PreprocessedRequest) -> None:
+        """Refuse what the port does not serve yet. `top_logprobs` alone is
+        served, as in the reference, which reads it only with `logprobs`
+        (`Sequence.from_request` zeroes it otherwise)."""
         so = pre.sampling_options
         unported = {
             "n > 1": so.n not in (None, 1),
@@ -288,7 +430,7 @@ class TorchEngine:
             "presence_penalty": bool(so.presence_penalty),
             "repetition_penalty": so.repetition_penalty not in (None, 1.0),
             "seed": so.seed is not None,
-            "logprobs": bool(so.logprobs) or bool(so.top_logprobs),
+            "logprobs": bool(so.logprobs),
             "prompt_embeds": pre.prompt_embeds is not None,
             "disagg": bool(pre.disagg),
         }
@@ -312,6 +454,8 @@ class TorchEngine:
             except asyncio.CancelledError:
                 pass
         for seq in list(self.waiting) + [s for s in self.slots if s]:
+            if seq.first_task is not None and not seq.first_task.done():
+                seq.first_task.cancel()
             seq.out_queue.put_nowait(
                 EngineOutput.final(FINISH_REASON_CANCELLED).to_dict()
             )
@@ -327,23 +471,57 @@ class TorchEngine:
                 progressed = self._shed_expired_waiting()
                 progressed |= self._admit_new()
                 # stall-free mixed step first: when it runs, the normal
-                # prefill and decode ticks stand down this tick
-                mixed = self.config.mixed_batching and self._mixed_tick()
-                if mixed:
-                    progressed = True
-                else:
+                # prefill and decode ticks stand down this tick. With the
+                # step pipeline the mixed step launches behind the
+                # in-flight dispatch and stays in flight ("pipelined");
+                # serialized engines "hold" a tick while one is in flight
+                mixed = None
+                if self.config.mixed_batching:
+                    mixed = await self._mixed_tick()
+                    progressed |= mixed in (True, "pipelined")
+                if mixed is None:
                     progressed |= await self._prefill_tick()
-                    bld = self._maybe_dispatch_decode()
-                    if bld is not None:
-                        run, args = bld
-                        run(*args)
+                pipe = self.config.step_pipeline
+                if not pipe and mixed != "pipelined":
+                    # serialized: the old dispatch lands BEFORE the next
+                    # one is built
+                    old, self._inflight = self._inflight, None
+                    if old is not None:
+                        await self._sync_dispatch(old)
                         progressed = True
+                new = None
+                bld = self._maybe_dispatch_decode() if mixed is None else None
+                if bld == "sync_first":
+                    # worthwhile spec drafts behind an in-flight dispatch:
+                    # sync it now and build again, so the verify window
+                    # dispatches this tick instead of after a dead one
+                    old, self._inflight = self._inflight, None
+                    if old is not None:
+                        await self._sync_dispatch(old)
+                        progressed = True
+                    bld = self._maybe_dispatch_decode()
+                    if bld == "sync_first":  # nothing left in flight
+                        bld = None
+                if bld is not None:
+                    new = self._launch(self._run_decode_dispatch, bld)
+                    progressed = True
+                if pipe and mixed != "pipelined":
+                    # pipelined: N+1 is queued on the device; land N while
+                    # it runs
+                    old, self._inflight = self._inflight, None
+                    if old is not None:
+                        await self._sync_dispatch(old, overlapped=new is not None)
+                        progressed = True
+                if new is not None:
+                    self._inflight = await new
                 if progressed:
                     await asyncio.sleep(0)
                     continue
                 self._wake.clear()
                 if self._closed:
                     return
+                if self._inflight is not None:
+                    continue  # the next tick lands it
                 await self._wake.wait()
         except Exception:
             log.exception("engine loop crashed; failing all requests")
@@ -352,6 +530,7 @@ class TorchEngine:
             self.waiting.clear()
             self.slots = [None] * len(self.slots)
             self._prefilling.clear()
+            self._inflight = None
             raise
 
     # ---- deadlines ----------------------------------------------------
@@ -414,7 +593,7 @@ class TorchEngine:
             seq.slot = slot
             seq.prefilling = True
             self.slots[slot] = seq
-            self._mark_slot_tables(seq)
+            self._mark_slot_state(seq)
             if self.config.spec_decode and seq.spec is None:
                 # seed the n-gram index with the prompt once; it survives
                 # preemption (the history it covers does not change)
@@ -436,11 +615,40 @@ class TorchEngine:
         seq.num_computed = 0
         return True
 
-    def _mark_slot_tables(self, seq: Sequence) -> None:
-        row = self._host_tables[seq.slot]
+    def _mark_slot_state(self, seq: Sequence) -> None:
+        """Refresh a slot's device-resident rows (block table and sampling
+        params) in the host mirrors and mark the slot dirty: on admit and
+        on page growth, the only times a live slot's slow-changing inputs
+        change."""
+        i = seq.slot
+        row = self._host_tables[i]
         row[:] = 0
         n = min(len(seq.page_ids), row.shape[0])
         row[:n] = seq.page_ids[:n]
+        self._host_samp_f[i] = (seq.temperature, seq.top_p)
+        self._host_samp_i[i] = (seq.top_k,)
+        self._dirty_slots.add(i)
+
+    def _snap_dirty(self):
+        """The dirty slots' host rows, snapshotted at a dispatch's build
+        (None when nothing changed: steady decode then uploads nothing
+        slow-changing)."""
+        if not self._dirty_slots:
+            return None
+        idx = np.asarray(sorted(self._dirty_slots), np.int64)
+        self._dirty_slots.clear()
+        return (idx, self._host_tables[idx].copy(), self._host_samp_f[idx].copy(),
+                self._host_samp_i[idx].copy())
+
+    def _flush_dev_state(self, snap) -> None:
+        """Scatter a dirty snapshot into the device-resident rows."""
+        if snap is None:
+            return
+        idx, tb, sf, si = snap
+        rows = self._up(idx)
+        self._dev_tables.index_copy_(0, rows, self._up(tb))
+        self._dev_samp_f.index_copy_(0, rows, self._up(sf))
+        self._dev_samp_i.index_copy_(0, rows, self._up(si))
 
     # ---- prefill ------------------------------------------------------
 
@@ -485,26 +693,35 @@ class TorchEngine:
                     break
                 groups[bucket] = [seq]  # one chunk over budget still runs
                 break
+        pipe = self.config.step_pipeline
         for bucket, seqs in groups.items():
             progressed = True
-            toks = self._prefill_group_dispatch(seqs, bucket)
+            toks = await self._launch(self._prefill_group_dispatch, seqs, bucket, not pipe)
+            finals = []
             for j, seq in enumerate(seqs):
                 seq.num_computed += min(seq.total_tokens - seq.num_computed, bucket)
                 if seq.num_computed >= seq.total_tokens:
-                    seq.prefilling = False
-                    seq.device_pos = seq.num_computed
-                    self._append_token(seq, toks[j])
+                    # final chunk: with the pipeline the sampled token stays
+                    # on the device as the slot's carry override and one
+                    # fetch per group emits it early; serialized engines
+                    # emit it here
+                    self._mark_decode_ready(seq, (toks, j) if pipe else toks[j])
+                    if pipe:
+                        finals.append((seq, j))
                 else:
                     self._prefilling.append(seq)
+            if finals:
+                self._start_first_emit(finals, toks)
         await asyncio.sleep(0)
         return progressed
 
     @torch.inference_mode()
-    def _prefill_group_dispatch(self, seqs: list[Sequence], bucket: int) -> list[int]:
+    def _prefill_group_dispatch(self, seqs: list[Sequence], bucket: int, fetch: bool):
         """One chunk for each sequence in ONE [n, bucket] model step (n
         padded to a power of two; padding rows write the trash page and
-        attend nothing). Returns the sampled tokens (valid for rows whose
-        chunk was final) on the host."""
+        attend nothing). Returns the sampled tokens [n] (valid for rows
+        whose chunk was final): on the host as a list when `fetch`, else
+        the device tensor."""
         ps = self.page_size
         n = _pow2(len(seqs))
         tok_arr = np.zeros((n, bucket), np.int32)
@@ -542,30 +759,90 @@ class TorchEngine:
             topp[j] = seq.top_p
         t0 = time.perf_counter()
         dev = self.device
-        pos_t = torch.from_numpy(pos_arr).to(dev)
+        pos_t = self._up(pos_arr)
         attn = llama.AttnSpec.page_write(
-            torch.from_numpy(wtables.reshape(-1)).to(dev),
-            torch.from_numpy(btables).to(dev), pos_t[:, 0].contiguous(),
-            torch.from_numpy(t_valid).to(dev), ps,
+            self._up(wtables.reshape(-1)), self._up(btables), pos_t[:, 0].contiguous(),
+            self._up(t_valid), ps,
         )
         hidden, _ = llama.forward(
-            self.params, self.model_cfg, torch.from_numpy(tok_arr).to(dev), pos_t,
+            self.params, self.model_cfg, self._up(tok_arr), pos_t,
             self.kv, attn, inv_freq=self._inv_freq,
         )
-        last_h = hidden[torch.arange(n, device=dev), torch.from_numpy(last_idx).to(dev)]
+        last_h = hidden[torch.arange(n, device=dev), self._up(last_idx)]
         lg = llama.logits(self.params, self.model_cfg, last_h)
         toks = sample_tokens(
-            lg, self._gen, torch.from_numpy(temp).to(dev),
-            torch.from_numpy(topk).to(dev), torch.from_numpy(topp).to(dev),
+            lg, self._gen, self._up(temp), self._up(topk), self._up(topp),
             all_greedy=bool((temp <= 0.0).all()),
-        ).tolist()
+        )
+        if fetch:
+            toks = toks.tolist()  # the dispatch's one device->host sync
         st = self._phase_stats
         st["prefill_dispatch_s"] += time.perf_counter() - t0
         st["prefill_dispatches"] += 1
         st["prefill_tokens"] += int(t_valid.sum())
         return toks
 
+    def _mark_decode_ready(self, seq: Sequence, tok) -> None:
+        """A final prefill chunk landed: the slot decodes from here. `tok`
+        is (device token vector, row), kept on the device as the slot's
+        carry override until a fetch emits it, or a host int, emitted now
+        (and fed to the next dispatch through the same override)."""
+        seq.prefilling = False
+        seq.device_pos = seq.num_computed
+        self._overrides[seq.slot] = tok
+        # the override supersedes whatever the carry row holds (a previous
+        # tenant's token): nothing reads that row until a dispatch re-arms it
+        self._carry_ok[seq.slot] = False
+        seq.carry_pending = isinstance(tok, tuple)
+        if not seq.carry_pending:
+            self._append_token(seq, int(tok))
+
+    def _start_first_emit(self, finals, toks) -> None:
+        """One asynchronous fetch per prefill group that emits the group's
+        first tokens as soon as the copy lands, instead of parking them
+        until the next decode dispatch syncs (whose row 0 would carry
+        them). The reference starts it only while no decode stream runs,
+        since on its device each fetch is a host round trip that
+        serializes against the decode syncs; here it is one small copy
+        behind an event, so every group starts one and a wave that
+        arrives mid-decode does not wait a whole decode dispatch for its
+        first tokens."""
+        task = asyncio.get_running_loop().create_task(
+            self._emit_first_group(finals, _Fetch([toks])))
+        for seq, _ in finals:
+            seq.first_task = task
+
+    async def _emit_first_group(self, finals, fetch: _Fetch) -> None:
+        (toks,) = await fetch.get()
+        me = asyncio.current_task()
+        for seq, row in finals:
+            if (
+                seq.first_task is not me  # preempted and re-prefilled since
+                or not seq.carry_pending
+                or seq.slot < 0
+                or self.slots[seq.slot] is not seq
+            ):
+                continue  # finished or preempted meanwhile
+            seq.carry_pending = False
+            seq.num_computed = seq.total_tokens
+            self._append_token(seq, int(toks[row]))
+
     # ---- mixed prefill+decode steps (stall-free batching) -------------
+
+    def _mixed_eligible_decode(self) -> Optional[list]:
+        """Decode-ready rows a mixed step can carry (after the cancellation
+        and deadline sweep), or None when the whole batch must take the
+        normal paths this tick: a row whose first token is still on the
+        device with no fetch in flight can only be emitted by a decode
+        sync. A row whose fetch is in flight sits this step out."""
+        rows = []
+        for i, s in self._decode_ready_rows():
+            if s.carry_pending:
+                if s.first_task is not None and not s.first_task.done():
+                    continue
+                return None
+            rows.append((i, s))
+        return rows
 
     def _select_mixed_prefill(self, leftover: int) -> list:
         """Strict FIFO prefix of the prefill queue fitting `leftover` budget
@@ -587,28 +864,102 @@ class TorchEngine:
             leftover -= chunk
         return picks
 
-    def _mixed_tick(self) -> bool:
+    async def _mixed_tick(self):
         """One stall-free mixed step when decode-ready rows and pending
         prefill chunks coexist: both advance in one token-budgeted step, so
         an admission wave never parks running streams for longer than one
         step. Decode rows cost 1 budget token each (1 + k with drafts) and
-        prefill chunks shrink into the leftover. Returns True when a step
-        ran (the normal prefill and decode ticks then stand down), False
-        when the normal paths should run. A failed step raises: the loop's
+        prefill chunks shrink into the leftover.
+
+        With the step pipeline the step launches BEHIND the in-flight
+        dispatch: rows that advanced deterministically in it (a decode
+        loop, or a previous mixed step's q_len 1 rows) join at q_len 1
+        reading their input token from the device carry (`_carry_ok` is
+        the license), and shed their drafts (drafting needs synced host
+        history); rows whose in-flight advance depends on the data (verify
+        windows) sit the step out. The old dispatch lands while the new
+        one runs, and the new step stays in flight.
+
+        Returns True (a serialized step ran and landed), "pipelined" (a
+        step was dispatched and left in flight), "hold" (serialized
+        engines: worthwhile, but the in-flight dispatch must land first),
+        or None (the normal paths run). A failed step raises: the loop's
         crash path fails the requests, and no quiet retreat to the normal
         paths hides a broken kernel."""
         if self._closed or not self._prefilling:
-            return False
+            return None
         cfg = self.config
-        rows = self._decode_ready_rows()
+        pipeline = cfg.step_pipeline
+        # classify the in-flight dispatch's rows: deterministic advances
+        # can ride the device carry, data-dependent ones wait for the sync
+        stale_det: dict[int, Sequence] = {}
+        blocked: set[int] = set()
+        infl = self._inflight
+        if infl is not None and pipeline:
+            if infl.spec:
+                blocked = {i for i, _ in infl.snapshot}
+            elif infl.mixed:
+                for kind, slot, seq, chunk in infl.bld["entries"]:
+                    if kind != "dec":
+                        continue
+                    if chunk == 1 and self._carry_ok[slot]:
+                        stale_det[slot] = seq
+                    else:
+                        blocked.add(slot)
+            else:
+                # a decode loop: every row advances decode_steps and its
+                # last sample is already bound for the device carry
+                for i, s in infl.snapshot:
+                    if self._carry_ok[i]:
+                        stale_det[i] = s
+                    else:
+                        blocked.add(i)
+        rows = self._mixed_eligible_decode()
+        if rows and blocked and all(i in blocked for i, _ in rows):
+            # every decode-ready row waits on an in-flight verify window:
+            # land it now and build from fresh history, rather than leave
+            # the chunks to a normal prefill dispatch that parks every
+            # stream (the reference takes its normal paths here)
+            old, self._inflight = self._inflight, None
+            await self._sync_dispatch(old)
+            rows, stale_det = self._mixed_eligible_decode(), {}
+            if not rows:
+                return True  # the sync itself made progress
+        elif rows:
+            rows = [(i, s) for i, s in rows if i not in blocked]
         if not rows:
-            return False
+            return None
+        carry_rows = {i for i, s in rows if stale_det.get(i) is s}
+        spec = cfg.spec_decode and cfg.mixed_spec
+        if carry_rows and spec and any(
+            s.spec is not None and s.spec.gate_open() for i, s in rows if i in carry_rows
+        ):
+            # a carry row whose acceptance gate is open would draft if its
+            # host history were current: land the in-flight dispatch now
+            # and build from fresh history (gated-off rows keep the overlap
+            # and shed instead)
+            old, self._inflight = self._inflight, None
+            if old is not None:
+                await self._sync_dispatch(old)
+            rows = self._mixed_eligible_decode()
+            if not rows:
+                return True  # the sync itself made progress
+            carry_rows = set()
         # spec x mixed: decode rows carry their n-gram drafts as verify
-        # rows of q_len 1 + k; drafts trade off against the chunks
+        # rows of q_len 1 + k; drafts trade off against the chunks. Carry
+        # rows never draft: their host history is stale until the sync
         drafts: dict[int, list[int]] = {}
-        if cfg.spec_decode and cfg.mixed_spec:
+        shed = 0
+        if spec:
             k_cap = min(cfg.spec_k_max, cfg.prefill_chunk - 1)
             for i, seq in rows:
+                if i in carry_rows:
+                    if seq.spec is not None:
+                        shed += 1
+                        # tick the probe countdown as a gated maybe_draft
+                        # would, so a shed row's gate can reopen
+                        seq.spec.shed_tick()
+                    continue
                 d = seq.spec.maybe_draft(self._draft_room(seq, k_cap))
                 if d:
                     drafts[i] = d
@@ -630,30 +981,51 @@ class TorchEngine:
             dec_cost = shed_drafts_to(budget - 1)
             leftover = budget - dec_cost
             if leftover < 1:
-                return False  # the budget cannot fit both planes
+                return None  # the budget cannot fit both planes
             picks = self._select_mixed_prefill(leftover)
         else:
             # chunks keep their size; decode rows join only if all fit
             picks = self._select_mixed_prefill(budget)
             dec_cost = shed_drafts_to(budget - sum(c for _, c in picks))
             if budget - sum(c for _, c in picks) < dec_cost:
-                return False
+                return None
         if not picks:
-            return False
+            return None
+        if self._inflight is not None and not pipeline:
+            # serialized: host-built windows need synced token history, so
+            # both planes park this tick (the stall the pipeline removes)
+            self._phase_stats["mixed_holds"] += 1
+            return "hold"
         # grow decode rows' pages through the positions this step writes;
         # growth may preempt (a participant too): re-filter both sides
         prep = self._grow_and_collect(
             rows, lambda seq: seq.device_pos + len(drafts.get(seq.slot, ())))
         if prep is None:
-            return False
+            return None
         rows = prep[0]
         picks = [(s, c) for s, c in picks if s.slot >= 0 and self.slots[s.slot] is s]
         if not picks:
-            return False
-        bld = self._build_mixed(rows, picks, drafts)
+            return None
+        bld = self._build_mixed(rows, picks, drafts, carry_rows=carry_rows,
+                                pipelined=pipeline)
+        bld["n_shed"] = shed
+        # the picked chunks leave the prefill queue while the step is in
+        # flight; the sync re-appends non-final chunks
         for seq, _ in picks:
             self._prefilling.remove(seq)
-        self._sync_mixed(bld, self._run_mixed_dispatch(bld))
+        task = self._launch(self._run_mixed_dispatch, bld)
+        if pipeline:
+            old, self._inflight = self._inflight, None
+            if old is not None:
+                # the old dispatch lands while the step queued behind it runs
+                await self._sync_dispatch(old, overlapped=True)
+            self._inflight = _Dispatch(await task, [], 1, mixed=True, bld=bld)
+            return "pipelined"
+        fetch = await task
+        t0 = time.perf_counter()
+        toks = await fetch.get()
+        self._phase_stats["mixed_sync_s"] += time.perf_counter() - t0
+        self._sync_mixed(bld, toks)
         return True
 
     def _draft_room(self, seq: Sequence, k_cap: int) -> int:
@@ -664,13 +1036,21 @@ class TorchEngine:
         room = self.config.max_model_len - 1 - seq.device_pos
         return min(k_cap, remaining - 1, room)
 
-    def _build_mixed(self, rows: list, picks: list, drafts: dict) -> dict:
+    def _build_mixed(self, rows: list, picks: list, drafts: dict,
+                     carry_rows=frozenset(), pipelined: bool = False) -> dict:
         """Host-side inputs of one mixed step: decode rows first (q_len 1,
         their last token, or a verify window [last, d_1..d_k] when spec
         composes), then one chunk per prefill pick. Rows pad to a power of
         two and columns to the chunk's prefill bucket; padding rows have
         q_len 0 and write the trash page, as do padding columns. Block
-        tables are cut to the power-of-two bucket of the pages attended."""
+        tables are cut to the power-of-two bucket of the pages attended.
+
+        Step-pipeline contract: `carry_rows` read their q_len 1 input from
+        the device carry (their host token is a stale placeholder here),
+        and every decode row's newest sample goes back into the carry.
+        When `pipelined`, each q_len 1 decode row's `device_pos` advances
+        now, as a decode loop's build does, so the next build can launch
+        behind this step before it lands."""
         ps = self.page_size
         use_spec = bool(drafts)
         k_max = self.config.spec_k_max if use_spec else 0
@@ -682,13 +1062,17 @@ class TorchEngine:
         wslots = np.zeros((n, t_b), np.int32)
         last_idx = np.zeros(n, np.int64)
         q_lens = np.zeros(n, np.int32)
+        # [slot row, carry mask, decode mask] per row
+        meta = np.zeros((n, 3), np.int64)
         temp = np.zeros(n, np.float32)
         topk = np.zeros(n, np.int32)
         topp = np.ones(n, np.float32)
         draft_arr = np.zeros((n, k_max), np.int32)
         dlen_arr = np.zeros(n, np.int32)
+        pos0 = np.zeros(n, np.int32)
         entries = []  # (kind, slot, seq, tokens) per built row
         w_need = 1
+        n_carry = 0
         j = 0
         for slot, seq in rows:
             d = drafts.get(slot, [])
@@ -700,11 +1084,24 @@ class TorchEngine:
             draft_arr[j, :kd] = d
             dlen_arr[j] = kd
             pos_arr[j, :kd + 1] = idx
+            pos0[j] = seq.device_pos
             # past-budget positions write the trash page
             wslots[j, :kd + 1] = np.where(
                 idx < max_len, pages[np.minimum(idx, max_len - 1) // ps] * ps + idx % ps, 0)
             last_idx[j] = kd
-            w_need = max(w_need, (seq.device_pos + kd) // ps + 1)
+            meta[j] = (slot, slot in carry_rows, 1)
+            n_carry += slot in carry_rows
+            # the step's carry scatter leaves this row's newest sample in
+            # the device carry: the next pipelined build's license
+            self._carry_ok[slot] = True
+            if slot not in carry_rows:
+                # the host-built window replaces any override (its token is
+                # in host history already); a carry row's stale override
+                # stays until the in-flight steps' syncs overwrite it
+                self._overrides.pop(slot, None)
+            if pipelined and kd == 0:
+                seq.device_pos += 1  # the deterministic advance, at build
+            w_need = max(w_need, (int(pos0[j]) + kd) // ps + 1)
             entries.append(("dec", slot, seq, 1 + kd))
             j += 1
         for seq, chunk in picks:
@@ -712,9 +1109,11 @@ class TorchEngine:
             idx = np.arange(start, start + chunk)
             tok_arr[j, :chunk] = seq.tokens[start:start + chunk]
             pos_arr[j, :chunk] = idx
+            pos0[j] = start
             pages = np.asarray(seq.page_ids, np.int32)
             wslots[j, :chunk] = pages[idx // ps] * ps + idx % ps
             last_idx[j] = chunk - 1
+            meta[j] = (seq.slot, 0, 0)
             w_need = max(w_need, -(-(start + chunk) // ps))
             entries.append(("pf", seq.slot, seq, chunk))
             j += 1
@@ -727,39 +1126,45 @@ class TorchEngine:
             temp[j], topk[j], topp[j] = seq.temperature, seq.top_k, seq.top_p
         return dict(
             tokens=tok_arr, positions=pos_arr, wslots=wslots, tables=tables,
-            last_idx=last_idx, q_lens=q_lens, temp=temp, topk=topk, topp=topp,
-            spec=use_spec, draft=draft_arr, dlen=dlen_arr, entries=entries,
+            last_idx=last_idx, q_lens=q_lens, meta=meta, temp=temp, topk=topk, topp=topp,
+            spec=use_spec, draft=draft_arr, dlen=dlen_arr, pos0=pos0, entries=entries,
             all_greedy=bool(all(e[2].temperature <= 0.0 for e in entries)),
+            pipelined=pipelined, n_carry=n_carry, n_shed=0,
         )
 
     @torch.inference_mode()
-    def _run_mixed_dispatch(self, bld: dict):
+    def _run_mixed_dispatch(self, bld: dict) -> _Fetch:
         """Device half of a mixed step (`_mixed_model_step` of the
-        reference, without the step pipeline's device carry): every row
-        writes its KV through the row write, reads through K4 and samples
-        at its last valid column. Returns the sampled tokens [n] on the
-        host, or (out [n, k+1], n_emit [n]) when verify rows composed in:
-        each row's logits over a (k+1)-wide window ending at its last
-        column go through `verify_draft_tokens` (prefill rows have no
-        drafts, so window column 0 is their plain sample and n_emit 1)."""
+        reference): carry rows take their input token from the device
+        carry, every row writes its KV through the row write, reads
+        through K4 and samples at its last valid column, and each decode
+        row's newest token goes back into the carry. Returns the fetch of
+        the sampled tokens [n], or of (out [n, k+1], n_emit [n]) when
+        verify rows composed in: each row's logits over a (k+1)-wide
+        window ending at its last column go through `verify_draft_tokens`
+        (prefill rows have no drafts, so window column 0 is their plain
+        sample and n_emit 1)."""
         t0 = time.perf_counter()
         dev = self.device
         n = bld["tokens"].shape[0]
-        tokens = torch.from_numpy(bld["tokens"]).to(dev)
-        positions = torch.from_numpy(bld["positions"]).to(dev)
-        last_idx = torch.from_numpy(bld["last_idx"]).to(dev)
-        temp = torch.from_numpy(bld["temp"]).to(dev)
-        topk = torch.from_numpy(bld["topk"]).to(dev)
-        topp = torch.from_numpy(bld["topp"]).to(dev)
+        tokens = self._up(bld["tokens"])
+        positions = self._up(bld["positions"])
+        last_idx = self._up(bld["last_idx"])
+        meta = self._up(bld["meta"])
+        slot_rows, carry_mask, dec_mask = meta[:, 0], meta[:, 1].bool(), meta[:, 2].bool()
+        temp = self._up(bld["temp"])
+        topk = self._up(bld["topk"])
+        topp = self._up(bld["topp"])
+        if bld["n_carry"]:
+            tokens[:, 0] = torch.where(carry_mask, self._carry[slot_rows], tokens[:, 0])
         attn = llama.AttnSpec.ragged(
-            torch.from_numpy(bld["tables"]).to(dev), positions[:, 0].contiguous(),
-            torch.from_numpy(bld["q_lens"]).to(dev),
-            torch.from_numpy(bld["wslots"].reshape(-1)).to(dev), self.page_size,
+            self._up(bld["tables"]), positions[:, 0].contiguous(),
+            self._up(bld["q_lens"]), self._up(bld["wslots"].reshape(-1)), self.page_size,
         )
         hidden, _ = llama.forward(self.params, self.model_cfg, tokens, positions,
                                   self.kv, attn, inv_freq=self._inv_freq)
         if bld["spec"]:
-            dlen = torch.from_numpy(bld["dlen"]).to(dev)
+            dlen = self._up(bld["dlen"])
             win = bld["draft"].shape[1] + 1
             offs = torch.clamp(
                 (last_idx - dlen)[:, None] + torch.arange(win, device=dev),
@@ -768,25 +1173,37 @@ class TorchEngine:
                 hidden, 1, offs[:, :, None].expand(-1, -1, hidden.shape[-1]))
             out, n_emit = verify_draft_tokens(
                 llama.logits(self.params, self.model_cfg, win_h),
-                torch.from_numpy(bld["draft"]).to(dev), dlen, self._gen, temp, topk,
+                self._up(bld["draft"]), dlen, self._gen, temp, topk,
                 topp, all_greedy=bld["all_greedy"])
-            res = (out.cpu().numpy(), n_emit.cpu().numpy())
+            newest = torch.gather(out, 1, torch.clamp(n_emit - 1, min=0)[:, None].long())[:, 0]
+            res = [out, n_emit]
         else:
             last_h = hidden[torch.arange(n, device=dev), last_idx]
-            res = sample_tokens(
+            newest = sample_tokens(
                 llama.logits(self.params, self.model_cfg, last_h), self._gen, temp,
-                topk, topp, all_greedy=bld["all_greedy"]).cpu().numpy()
+                topk, topp, all_greedy=bld["all_greedy"])
+            res = [newest]
+        # every decode row's newest token becomes its next device-side
+        # input; prefill and padding rows land in the dump row
+        dump = torch.full_like(slot_rows, len(self.slots))
+        self._carry.index_copy_(0, torch.where(dec_mask, slot_rows, dump),
+                                newest.to(torch.int32))
+        fetch = _Fetch(res)
         self._phase_stats["mixed_dispatch_s"] += time.perf_counter() - t0
-        return res
+        return fetch
 
     def _sync_mixed(self, bld: dict, toks) -> None:
         """Land a mixed step: decode rows emit their next token (verify
         rows their accepted prefix plus one, rewinding like a standalone
         verify), final chunks their first token; non-final chunks go back
-        to the end of the prefill queue."""
+        to the end of the prefill queue. Each surviving row's newest token
+        becomes its carry override, so a following decode dispatch starts
+        from it."""
         spec_mode = bld["spec"]
         if spec_mode:
             out, n_emit = toks
+        else:
+            (toks,) = toks
         n_dec = n_dec_tokens = n_pf_tokens = 0
         spec_rows = drafted_total = accepted_total = emitted_total = 0
         for j, (kind, slot, seq, chunk) in enumerate(bld["entries"]):
@@ -796,28 +1213,37 @@ class TorchEngine:
             else:
                 n_pf_tokens += chunk
             if slot < 0 or seq.slot != slot or self.slots[slot] is not seq:
-                continue  # finished or preempted while the step was built
+                continue  # finished or preempted while the step ran
             tok = int(out[j, 0]) if spec_mode else int(toks[j])
             if kind == "dec":
                 if spec_mode:
                     drafted = int(bld["dlen"][j])
                     emitted, accepted = self._emit_verify_row(
-                        slot, seq, out[j], int(n_emit[j]), drafted)
+                        slot, seq, out[j], int(n_emit[j]), drafted, int(bld["pos0"][j]),
+                        keep_pos=bld["pipelined"] and drafted == 0)
                     spec_rows += 1
                     drafted_total += drafted
                     accepted_total += accepted
                     emitted_total += emitted
                     continue
-                seq.device_pos += 1
+                if not bld["pipelined"]:
+                    # pipelined builds advanced device_pos already
+                    seq.device_pos += 1
                 seq.num_computed += 1
                 self._append_token(seq, tok)
+                if self.slots[slot] is seq:
+                    self._overrides[slot] = tok
                 continue
             seq.num_computed += chunk
+            if seq in self._prefilling:
+                self._prefilling.remove(seq)
             if seq.num_computed >= seq.total_tokens:
                 # final chunk: the in-step sample is the first token
                 seq.prefilling = False
                 seq.device_pos = seq.num_computed
                 self._append_token(seq, tok)
+                if self.slots[slot] is seq:
+                    self._overrides[slot] = tok
             else:
                 self._prefilling.append(seq)
         st = self._phase_stats
@@ -826,6 +1252,8 @@ class TorchEngine:
         st["mixed_prefill_tokens"] += n_pf_tokens
         st["mixed_step_tokens_max"] = max(
             st["mixed_step_tokens_max"], n_dec_tokens + n_pf_tokens)
+        st["mixed_carry_rows"] += bld["n_carry"]
+        st["mixed_spec_shed"] += bld["n_shed"]
         if spec_mode:
             st["mixed_spec_rows"] += spec_rows
             st["spec_rows"] += spec_rows
@@ -853,9 +1281,11 @@ class TorchEngine:
 
     def _maybe_dispatch_decode(self):
         """Host-side build of the next decode dispatch (cancellation sweep,
-        page growth, input arrays): (runner, args) of a speculative verify
-        dispatch when drafts are worthwhile, else of a multi-step decode
-        dispatch; None when nothing is decode-ready."""
+        page growth, the fused [positions, active] upload, the carry
+        overrides and the dirty-slot snapshot): a verify build when drafts
+        are worthwhile, else a multi-step decode build; "sync_first" when
+        worthwhile drafts wait behind an in-flight dispatch (the loop lands
+        it and builds again); None when nothing can dispatch."""
         if self._closed:
             return None
         ready = self._decode_ready_rows()
@@ -869,26 +1299,38 @@ class TorchEngine:
             # pure admission wave: hold for a fuller batch (never once a
             # stream is mid-decode)
             return None
+        if self._inflight is not None and (self._inflight.spec or self._inflight.mixed):
+            # a verify window advances data-dependently, and a mixed step
+            # re-arms its rows' overrides at its sync: a build from the
+            # host state before that sync would replay a stale carry
+            return None
         if self.config.spec_decode:
             bld = self._maybe_build_spec(ready)
+            if bld == "wait":
+                return "sync_first" if self.config.step_pipeline else None
             if bld is not None:
-                return self._run_spec, (bld,)
+                return bld
         steps = self.config.decode_steps
         prep = self._grow_and_collect(ready, lambda seq: seq.device_pos + steps - 1)
         if prep is None:
             return None
         active, width = prep
-        tokens = np.zeros(width, np.int32)
         pos_act = np.zeros((width, 2), np.int32)
-        temp = np.zeros(width, np.float32)
-        topk = np.zeros(width, np.int32)
-        topp = np.ones(width, np.float32)
         for i, seq in active:
-            tokens[i] = seq.last_token
             pos_act[i] = (seq.device_pos, 1)
-            temp[i], topk[i], topp[i] = seq.temperature, seq.top_k, seq.top_p
             seq.device_pos += steps
-        return self._run_decode, (active, steps, tokens, pos_act, temp, topk, topp)
+            # the loop ends with this row's newest sample in the carry
+            self._carry_ok[i] = True
+        overrides = {
+            slot: val for slot, val in self._overrides.items()
+            if slot < width and pos_act[slot, 1]
+        }
+        self._overrides.clear()
+        return dict(
+            spec=False, pos_act=pos_act, overrides=overrides, active=active, steps=steps,
+            width=width, all_greedy=all(s.temperature <= 0.0 for _, s in active),
+            dirty=self._snap_dirty(),
+        )
 
     def _grow_and_collect(self, ready, upto):
         """Grow each row's pages through `upto(seq)` (clamped to the last
@@ -925,62 +1367,95 @@ class TorchEngine:
             if victim is seq:
                 return False
         if grew:
-            self._mark_slot_tables(seq)
+            self._mark_slot_state(seq)
         return True
 
     def _preempt(self, seq: Sequence) -> None:
         """Out of pages: release the sequence's pages and requeue it at the
-        front; re-admission re-prefills prompt + generated tokens."""
+        front; re-admission re-prefills prompt + generated tokens. The
+        slot's carry license and override go with it (the slot may be
+        reused; re-admission re-arms through the prefill override)."""
         log.info("preempting seq %s (out of KV pages)", seq.seq_id)
         self._phase_stats["preemptions"] += 1
         self.allocator.release(seq.page_ids)
         self.slots[seq.slot] = None
+        self._overrides.pop(seq.slot, None)
+        self._carry_ok[seq.slot] = False
         if seq in self._prefilling:
             self._prefilling.remove(seq)
         seq.slot = -1
         seq.prefilling = False
+        seq.carry_pending = False
+        seq.first_task = None
         seq.page_ids = []
         seq.num_computed = 0
         seq.device_pos = 0
         self.waiting.appendleft(seq)
 
+    def _apply_overrides(self, overrides: dict) -> None:
+        """Write carry overrides into the device carry: prefill first
+        tokens device to device, grouped by source vector, and host ints
+        in one upload."""
+        by_vec: dict[int, tuple] = {}
+        ints = []
+        for slot, val in overrides.items():
+            if isinstance(val, tuple):
+                vec, row = val
+                ent = by_vec.setdefault(id(vec), (vec, [], []))
+                ent[1].append(slot)
+                ent[2].append(row)
+            else:
+                ints.append((slot, int(val)))
+        for vec, slots, rows in by_vec.values():
+            self._carry.index_copy_(
+                0, self._up(np.asarray(slots, np.int64)),
+                vec.index_select(0, self._up(np.asarray(rows, np.int64))))
+        if ints:
+            arr = np.asarray(ints, np.int64)
+            self._carry.index_copy_(0, self._up(arr[:, 0].copy()),
+                                    self._up(arr[:, 1].astype(np.int32)))
+
     @torch.inference_mode()
-    def _run_decode(self, active, steps, tokens, pos_act, temp, topk, topp) -> None:
+    def _run_decode_dispatch(self, bld: dict) -> _Dispatch:
+        """Enqueue a decode (or verify) dispatch: the dirty rows and carry
+        overrides go to the device, then the decode loop runs (a replayed
+        CUDA graph on the card) and its tokens start for the host."""
+        if bld["spec"]:
+            return self._run_spec_dispatch(bld)
         t0 = time.perf_counter()
-        width = tokens.shape[0]
-        dev = self.device
-        out = self._decode_multi(
-            torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(pos_act).to(dev),
-            torch.from_numpy(self._host_tables[:width]).to(dev),
-            torch.from_numpy(temp).to(dev), torch.from_numpy(topk).to(dev),
-            torch.from_numpy(topp).to(dev),
-            all_greedy=bool(all(s.temperature <= 0.0 for _, s in active)),
-            steps=steps,
-        ).tolist()  # the dispatch's one device->host sync
+        self._flush_dev_state(bld["dirty"])
+        self._apply_overrides(bld["overrides"])
+        w = bld["width"]
+        self._up(bld["pos_act"], out=self._pos_act[:w])
+        out = self._graphs.run(w, bld["all_greedy"])
+        fetch = _Fetch([out])
         st = self._phase_stats
         st["decode_dispatch_s"] += time.perf_counter() - t0
         st["decode_dispatches"] += 1
-        st["decode_tokens"] += len(active) * steps
-        for step in range(steps):
-            for i, seq in active:
-                if self.slots[i] is not seq:
-                    continue  # finished earlier in this dispatch: overshoot
-                seq.num_computed += 1
-                self._append_token(seq, out[step][i])
+        st["decode_tokens"] += len(bld["active"]) * bld["steps"]
+        return _Dispatch(fetch, bld["active"], bld["steps"])
 
-    def _decode_multi(self, tokens, pos_act, block_tables, temp, topk, topp,
-                      all_greedy: bool, steps: int) -> torch.Tensor:
-        """`steps` decode iterations with on-device token feedback; returns
-        the sampled tokens [steps, B]. Inactive rows attend nothing and
-        write nothing (lengths 0, write_pos -1); positions past the model
-        length budget (overshoot of finished rows) skip the write too."""
+    @torch.inference_mode()
+    def _decode_step(self, width: int, all_greedy: bool) -> torch.Tensor:
+        """The decode loop over the static device buffers (what the CUDA
+        graph captures): `decode_steps` iterations with on-device token
+        feedback from the carry, tables and sampling params of the first
+        `width` slots. Returns [steps + 1, width] tokens, row 0 the input
+        carry, and leaves the last sample in the carry. Inactive rows
+        attend nothing and write nothing (lengths 0, write_pos -1);
+        positions past the model length budget (overshoot of finished
+        rows) skip the write too."""
+        pos_act = self._pos_act[:width]
         positions = pos_act[:, 0]
         active = pos_act[:, 1].bool()
+        block_tables = self._dev_tables[:width]
+        temp, topp = self._dev_samp_f[:width, 0], self._dev_samp_f[:width, 1]
+        topk = self._dev_samp_i[:width, 0]
         max_len = self.config.max_model_len
         no = torch.full_like(positions, -1)
-        outs = []
-        for _ in range(steps):
+        tokens = self._carry[:width]
+        outs = [tokens.clone()]
+        for _ in range(self.config.decode_steps):
             lengths = torch.where(
                 active, torch.clamp(positions + 1, max=max_len), torch.zeros_like(positions)
             ).to(torch.int32)
@@ -996,7 +1471,51 @@ class TorchEngine:
             tokens = sample_tokens(lg, self._gen, temp, topk, topp, all_greedy=all_greedy)
             outs.append(tokens)
             positions = positions + 1
+        self._carry[:width].copy_(tokens)
         return torch.stack(outs)
+
+    async def _sync_dispatch(self, d: _Dispatch, overlapped: bool = False) -> None:
+        """Land a dispatch: fetch its tokens and emit them. `overlapped`:
+        another dispatch is already queued on the device, so this fetch's
+        wait hides behind device work."""
+        # first-token fetches for sequences in this dispatch land first:
+        # their token precedes these in the stream
+        for task in {s.first_task for _, s in d.snapshot if s.first_task}:
+            try:
+                await task
+            except Exception:
+                log.exception("first-token emit task failed")
+        t0 = time.perf_counter()
+        arrs = await d.out.get()
+        dt = time.perf_counter() - t0
+        st = self._phase_stats
+        if overlapped:
+            st["pipeline_overlap_s"] += dt
+            st["pipeline_overlapped"] += 1
+        else:
+            st["mixed_sync_s" if d.mixed else "spec_sync_s" if d.spec
+               else "decode_sync_s"] += dt
+        if d.mixed:
+            self._sync_mixed(d.bld, arrs)
+            return
+        if d.spec:
+            self._sync_spec(d, arrs)
+            return
+        out = arrs[0]
+        # row 0 is the dispatch's input carry: sequences that entered with
+        # their first token still on the device emit it here, before their
+        # decode tokens
+        for i, seq in d.snapshot:
+            if self.slots[i] is seq and seq.carry_pending:
+                seq.carry_pending = False
+                seq.num_computed = seq.total_tokens
+                self._append_token(seq, int(out[0, i]))
+        for step in range(1, out.shape[0]):
+            for i, seq in d.snapshot:
+                if self.slots[i] is not seq:
+                    continue  # finished earlier in this dispatch: overshoot
+                seq.num_computed += 1
+                self._append_token(seq, int(out[step, i]))
 
     # ---- speculative verify --------------------------------------------
 
@@ -1004,15 +1523,23 @@ class TorchEngine:
         """Host side of a standalone verify dispatch: n-gram drafts for
         every decode-ready row and the [B, k_max + 1] window of each
         (its last token, then its drafts). None when drafts are not
-        worthwhile: the batch must average at least one drafted token a
+        worthwhile (the batch must average at least one drafted token a
         row, since a verify dispatch is ONE model step for every row and
-        rows without drafts fall from decode_steps tokens to one."""
+        rows without drafts fall from decode_steps tokens to one) or a row
+        has its first token still on the device; "wait" when they are
+        worthwhile but host history is stale until the in-flight dispatch
+        lands."""
+        for _, s in ready:
+            if s.carry_pending:
+                return None
         k_max = self.config.spec_k_max
         drafts: dict[int, list[int]] = {}
         for i, seq in ready:
             drafts[i] = seq.spec.maybe_draft(self._draft_room(seq, k_max))
         if sum(len(d) for d in drafts.values()) < max(1, len(ready)):
             return None
+        if self._inflight is not None:
+            return "wait"
         prep = self._grow_and_collect(
             ready, lambda seq: seq.device_pos + len(drafts.get(seq.slot, ())))
         if prep is None:
@@ -1029,6 +1556,7 @@ class TorchEngine:
         tables = np.zeros((b, w), np.int32)
         draft = np.zeros((b, k_max), np.int32)
         dlen = np.zeros(b, np.int32)
+        pos0 = np.zeros(b, np.int32)
         act = np.zeros(b, bool)
         temp = np.zeros(b, np.float32)
         topk = np.zeros(b, np.int32)
@@ -1036,6 +1564,7 @@ class TorchEngine:
         for i, seq in active:
             d = drafts[i]
             act[i] = True
+            pos0[i] = seq.device_pos
             tokens[i, 0] = seq.last_token
             tokens[i, 1:1 + len(d)] = d
             draft[i, :len(d)] = d
@@ -1044,9 +1573,24 @@ class TorchEngine:
             npg = min(len(seq.page_ids), w)
             tables[i, :npg] = seq.page_ids[:npg]
             temp[i], topk[i], topp[i] = seq.temperature, seq.top_k, seq.top_p
-        return dict(tokens=tokens, positions=positions, tables=tables, draft=draft,
-                    dlen=dlen, act=act, temp=temp, topk=topk, topp=topp, active=active,
-                    all_greedy=bool((temp[act] <= 0.0).all()))
+            # the host window replaces the carry; the verify step never
+            # touches the carry vector, so its sync re-arms an override
+            self._overrides.pop(i, None)
+            self._carry_ok[i] = False
+        return dict(spec=True, tokens=tokens, positions=positions, tables=tables,
+                    draft=draft, dlen=dlen, pos0=pos0, act=act, temp=temp, topk=topk,
+                    topp=topp, active=active, all_greedy=bool((temp[act] <= 0.0).all()))
+
+    def _run_spec_dispatch(self, bld: dict) -> _Dispatch:
+        """Enqueue a verify step (`_spec_verify_step`) and start its
+        results for the host."""
+        t0 = time.perf_counter()
+        fetch = _Fetch(list(self._spec_verify_step(bld)))
+        st = self._phase_stats
+        st["spec_dispatch_s"] += time.perf_counter() - t0
+        st["spec_dispatches"] += 1
+        return _Dispatch(fetch, bld["active"], 1, spec=True, pos0=bld["pos0"],
+                         draft_lens=bld["dlen"])
 
     @torch.inference_mode()
     def _spec_verify_step(self, bld: dict):
@@ -1057,13 +1601,13 @@ class TorchEngine:
         emits the accepted prefix plus one. Rejected drafts leave garbage
         KV in slots past the accepted length: the causal mask hides it and
         the next step rewrites those slots before any query reaches them.
-        Returns (out [B, T], n_emit [B]) on the host."""
+        Returns (out [B, T], n_emit [B]) on the device."""
         s = self.page_size
         dev = self.device
-        tables = torch.from_numpy(bld["tables"]).to(dev)
-        positions = torch.from_numpy(bld["positions"]).to(dev)
-        dlen = torch.from_numpy(bld["dlen"]).to(dev)
-        act = torch.from_numpy(bld["act"]).to(dev)
+        tables = self._up(bld["tables"])
+        positions = self._up(bld["positions"])
+        dlen = self._up(bld["dlen"])
+        act = self._up(bld["act"])
         w, t = tables.shape[1], positions.shape[1]
         page_idx = torch.clamp(positions // s, max=w - 1).long()
         wslots = torch.gather(tables, 1, page_idx) * s + positions % s
@@ -1078,47 +1622,48 @@ class TorchEngine:
             wslots.reshape(-1), s,
         )
         hidden, _ = llama.forward(
-            self.params, self.model_cfg, torch.from_numpy(bld["tokens"]).to(dev),
+            self.params, self.model_cfg, self._up(bld["tokens"]),
             positions, self.kv, attn, inv_freq=self._inv_freq)
-        out, n_emit = verify_draft_tokens(
+        return verify_draft_tokens(
             llama.logits(self.params, self.model_cfg, hidden),
-            torch.from_numpy(bld["draft"]).to(dev), dlen, self._gen,
-            torch.from_numpy(bld["temp"]).to(dev), torch.from_numpy(bld["topk"]).to(dev),
-            torch.from_numpy(bld["topp"]).to(dev), all_greedy=bld["all_greedy"])
-        return out.cpu().numpy(), n_emit.cpu().numpy()
+            self._up(bld["draft"]), dlen, self._gen,
+            self._up(bld["temp"]), self._up(bld["topk"]),
+            self._up(bld["topp"]), all_greedy=bld["all_greedy"])
 
-    def _run_spec(self, bld: dict) -> None:
-        """Dispatch a verify step and land it (`_sync_spec` of the
-        reference): one `_emit_verify_row` per surviving row."""
-        t0 = time.perf_counter()
-        out, n_emit = self._spec_verify_step(bld)
+    def _sync_spec(self, d: _Dispatch, arrs) -> None:
+        """Land a verify dispatch: one `_emit_verify_row` per surviving
+        row."""
+        out, n_emit = arrs
         st = self._phase_stats
-        st["spec_dispatch_s"] += time.perf_counter() - t0
-        st["spec_dispatches"] += 1
-        for i, seq in bld["active"]:
+        for i, seq in d.snapshot:
             if self.slots[i] is not seq:
-                continue
-            drafted = int(bld["dlen"][i])
-            emitted, accepted = self._emit_verify_row(i, seq, out[i], int(n_emit[i]), drafted)
+                continue  # finished or preempted meanwhile
+            drafted = int(d.draft_lens[i])
+            emitted, accepted = self._emit_verify_row(
+                i, seq, out[i], int(n_emit[i]), drafted, int(d.pos0[i]))
             st["spec_rows"] += 1
             st["spec_drafted"] += drafted
             st["spec_accepted"] += accepted
             st["spec_emitted"] += emitted
 
     def _emit_verify_row(self, slot: int, seq: Sequence, out_row, n: int,
-                         drafted: int) -> tuple:
+                         drafted: int, base: int, keep_pos: bool = False) -> tuple:
         """Land one verify row (standalone or inside a mixed step): emit
         the accepted prefix plus the corrected or bonus token, advancing
-        num_computed and device_pos only past emitted tokens, so the KV a
-        rejected tail left stays beyond the sequence's length and is
-        rewritten before any query attends it. Returns (emitted,
-        accepted)."""
+        num_computed, and device_pos to just past the emitted tokens, so
+        the KV a rejected tail left stays beyond the sequence's length and
+        is rewritten before any query attends it. `keep_pos`: a pipelined
+        mixed step's q_len 1 row advanced device_pos at build, and a later
+        build may have advanced it again: nothing to rewind. The last
+        emitted token becomes the slot's carry override (verify windows
+        never touch the device carry). Returns (emitted, accepted)."""
         emitted = 0
         for j in range(n):
             if self.slots[slot] is not seq:
                 break  # EOS or length mid-window: the tail is discarded
             seq.num_computed += 1
-            seq.device_pos += 1
+            if not keep_pos:
+                seq.device_pos = base + j + 1
             self._append_token(seq, int(out_row[j]))
             emitted += 1
         # what landed: a draft that finished the stream discards the tail
@@ -1126,6 +1671,8 @@ class TorchEngine:
         accepted = n - 1 if emitted == n else emitted
         if drafted:
             seq.spec.observe(drafted, accepted)
+        if self.slots[slot] is seq:
+            self._overrides[slot] = int(out_row[n - 1])
         return emitted, accepted
 
     # ---- bookkeeping --------------------------------------------------
@@ -1144,6 +1691,8 @@ class TorchEngine:
         self.allocator.release(seq.page_ids)
         seq.page_ids = []
         if seq.slot >= 0:
+            self._overrides.pop(seq.slot, None)
+            self._carry_ok[seq.slot] = False
             self.slots[seq.slot] = None
             seq.slot = -1
         if seq in self._prefilling:

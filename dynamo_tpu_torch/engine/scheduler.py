@@ -48,6 +48,11 @@ class Sequence:
     generated: int = 0
     prefilling: bool = False   # admitted but prompt KV not yet complete
     device_pos: int = 0        # next position a decode dispatch will write
+    # step pipeline: the prefill's first token is still on the device
+    # (the slot's carry override) and not yet emitted; `first_task` is the
+    # asynchronous fetch that emits it early, if one was started
+    carry_pending: bool = False
+    first_task: Optional[object] = None
     # tenant priority class (Context metadata "priority"; higher = more
     # important): orders admission picks and preemption-victim selection
     priority: int = 0

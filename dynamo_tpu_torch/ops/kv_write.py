@@ -12,10 +12,12 @@ but the wrapper takes `int4=True` so the launch is counted as K7's int4
 form. Page 0 is the trash page.
 
 The kernel copies a flat list of work items (chunks of the source pages
-and of their scale tiles) in 16-byte vectors; `copy_plan` sizes the items
-and the grid on the host from the shapes and the SM count, and
-`plan_items` lists the items as the kernel decodes them (the CPU tests
-walk that list).
+and of their scale tiles) in 16-byte vectors, or, for scale tiles that are
+not whole 16-byte vectors (K * page_size not a multiple of 4, e.g. K 2 at
+page 3), in 4-byte words: such tiles sit at 4-byte offsets in their pools;
+`copy_plan` sizes the items and the grid on the host from the shapes and
+the SM count, and `plan_items` lists the items as the kernel decodes them
+(the CPU tests walk that list).
 
 Correct-use contract (the engine's chunking guarantees both):
 - chunk starts are page-aligned (prefill_chunk % page_size == 0);
@@ -35,22 +37,29 @@ import torch
 from dynamo_tpu_torch.ops import _cuda
 
 # the kernel's largest chunk (csrc/kv_write.cu kMaxChunk: one round of four
-# 16-byte vectors for each of 256 threads) and its resident blocks an SM
+# 16-byte vectors for each of 256 threads), the largest scale-tile chunk
+# copied in 4-byte words (one round of four words a thread), and its
+# resident blocks an SM
 MAX_CHUNK = 16384
+MAX_WORD_CHUNK = 4096
 BLOCKS_PER_SM = 8
 
 
 class CopyPlan(NamedTuple):
-    """K1/K7's work: items of at most `chunk` bytes (a multiple of 16),
-    `page_chunks` for each source page of each pool and `tile_chunks` for
-    each scale tile, walked by `grid` blocks."""
+    """K1/K7's work: page items of at most `chunk` bytes (a multiple of
+    16), `page_chunks` for each source page of each pool, and `tile_chunks`
+    scale-tile items of at most `tile_chunk` bytes for each scale tile,
+    copied in `tile_vec`-byte vectors (16, or 4 for a tile that is not whole
+    16-byte vectors); walked by `grid` blocks."""
 
     n_pages: int
     page_bytes: int
     tile_bytes: int
     chunk: int
     page_chunks: int
+    tile_chunk: int
     tile_chunks: int
+    tile_vec: int
     grid: int
 
     @property
@@ -64,14 +73,19 @@ def copy_plan(n_pages: int, page_bytes: int, tile_bytes: int, sm_count: int) -> 
     (and scale tiles of `tile_bytes`, 0 without) on a card of `sm_count`
     SMs: a page in the fewest equal chunks of at most MAX_CHUNK, a scale
     tile in chunks of the same size, and one block an item up to
-    BLOCKS_PER_SM blocks an SM (past that, blocks take several). From the
-    shapes alone, never the table, so it costs no sync."""
+    BLOCKS_PER_SM blocks an SM (past that, blocks take several). A scale
+    tile that is not whole 16-byte vectors goes in 4-byte words, in chunks
+    of at most MAX_WORD_CHUNK. From the shapes alone, never the table, so
+    it costs no sync."""
     page_chunks = -(-page_bytes // MAX_CHUNK)
     chunk = -(-page_bytes // (16 * page_chunks)) * 16  # a multiple of 16 bytes
-    tile_chunks = -(-tile_bytes // chunk)
+    tile_vec = 16 if tile_bytes % 16 == 0 else 4
+    tile_chunk = chunk if tile_vec == 16 else min(MAX_WORD_CHUNK, tile_bytes)
+    tile_chunks = -(-tile_bytes // tile_chunk) if tile_bytes else 0
     n_items = 2 * n_pages * (page_chunks + tile_chunks)
     grid = max(1, min(n_items, BLOCKS_PER_SM * sm_count))
-    return CopyPlan(n_pages, page_bytes, tile_bytes, chunk, page_chunks, tile_chunks, grid)
+    return CopyPlan(n_pages, page_bytes, tile_bytes, chunk, page_chunks, tile_chunk,
+                    tile_chunks, tile_vec, grid)
 
 
 class Item(NamedTuple):
@@ -94,8 +108,9 @@ def plan_items(plan: CopyPlan) -> Iterator[Item]:
         pair, c = divmod(it, per_pair)
         scale = c >= plan.page_chunks
         whole = plan.tile_bytes if scale else plan.page_bytes
-        off = (c - plan.page_chunks if scale else c) * plan.chunk
-        yield Item(scale, pair & 1, pair >> 1, off, min(plan.chunk, whole - off))
+        size = plan.tile_chunk if scale else plan.chunk
+        off = (c - plan.page_chunks if scale else c) * size
+        yield Item(scale, pair & 1, pair >> 1, off, min(size, whole - off))
 
 
 def paged_kv_write_plain(k_cache, v_cache, page_table, new_k, new_v, *, page_size):
@@ -200,7 +215,6 @@ def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
             f"scale tiles must be [{n}, {kh}, {page_size}]")
         for t in (ks_cache, vs_cache, new_ks, new_vs):
             req(t.dtype == torch.float32, "scale pools and tiles must be float32")
-        req(kh * page_size % 4 == 0, "scale tiles must be whole 16-byte vectors (K * page % 4)")
         tensors += [ks_cache, vs_cache, new_ks, new_vs]
     else:
         req(k_cache.dtype in (torch.bfloat16, torch.float16, torch.float32),
@@ -215,14 +229,15 @@ def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
         req(t.data_ptr() % 16 == 0, "tensors must be 16-byte aligned")
     plan = copy_plan(n, page_bytes, kh * page_size * 4 if quant else 0, _cuda.sm_count(dev))
     lib = _launcher()
-    tail = (_cuda.stream_ptr(dev), plan.chunk, plan.grid)
+    stream = _cuda.stream_ptr(dev)
     if quant:
         launch = lib.paged_kv_write_q4_launch if int4 else lib.paged_kv_write_q_launch
         err = launch(
             k_cache.data_ptr(), v_cache.data_ptr(), page_table.data_ptr(),
             new_k.data_ptr(), new_v.data_ptr(), ks_cache.data_ptr(),
             vs_cache.data_ptr(), new_ks.data_ptr(), new_vs.data_ptr(),
-            n, num_pages, page_bytes, kh * page_size, *tail,
+            n, num_pages, page_bytes, kh * page_size, stream, plan.chunk,
+            plan.tile_chunk, plan.grid,
         )
         _cuda.check(err, f"paged_kv_write ({'int4' if int4 else 'int8'})")
         if int4:
@@ -232,7 +247,8 @@ def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
         return k_cache, v_cache, ks_cache, vs_cache
     err = lib.paged_kv_write_launch(
         k_cache.data_ptr(), v_cache.data_ptr(), page_table.data_ptr(),
-        new_k.data_ptr(), new_v.data_ptr(), n, num_pages, page_bytes, *tail,
+        new_k.data_ptr(), new_v.data_ptr(), n, num_pages, page_bytes, stream,
+        plan.chunk, plan.grid,
     )
     _cuda.check(err, "paged_kv_write")
     paged_kv_write.launches += 1
@@ -249,11 +265,11 @@ def _launcher():
     fn = lib.paged_kv_write_launch
     if fn.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        plan = [p, i32, i32]  # stream, chunk, grid
-        fn.argtypes = [p] * 5 + [i64] * 3 + plan
+        fn.argtypes = [p] * 5 + [i64] * 3 + [p, i32, i32]  # stream, chunk, grid
         fn.restype = ctypes.c_int
         fq = lib.paged_kv_write_q_launch
-        fq.argtypes = [p] * 9 + [i64] * 3 + [i32] + plan
+        # stream, chunk, tile chunk, grid
+        fq.argtypes = [p] * 9 + [i64] * 3 + [i32] + [p, i32, i32, i32]
         fq.restype = ctypes.c_int
         f4 = lib.paged_kv_write_q4_launch
         f4.argtypes = fq.argtypes

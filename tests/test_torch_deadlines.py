@@ -95,7 +95,8 @@ def impls(loop):
     async def build():
         jeng = JaxEngine(JaxConfig(**ENGINE_KW, attn_backend="gather", step_pipeline=False))
         params = llama.params_from_jax(jax.device_get(jeng.params), device="cpu")
-        teng = TorchEngine(EngineConfig(**ENGINE_KW), params=params, device="cpu")
+        teng = TorchEngine(EngineConfig(**ENGINE_KW, step_pipeline=False), params=params,
+                           device="cpu")
         return {"jax": Impl(jeng, JaxContext, jcommon), "torch": Impl(teng, Context, tcommon)}
 
     out = loop.run_until_complete(build())

@@ -146,19 +146,20 @@ def test_default_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize(
     "field,value",
-    [("spec_decode", True), ("mixed_batching", True), ("step_pipeline", True),
+    [("spec_decode", True), ("mixed_batching", True), ("host_kv_pages", 8),
      ("kv_quant_group", 32)],
 )
 def test_unported_config_refused(field, value):
     # kv_quant_group's unported case: int4 scale groups finer than head_dim (32 < 128)
     other = {"kv_quantization": "int4", "model": "llama-3.1-8b"} if field == "kv_quant_group" else {}
-    refused = field
     if field in ("spec_decode", "mixed_batching"):
-        # served on the serialized engine; under the step pipeline (whose
-        # device carry they would ride) they are not ported
-        EngineConfig(**{"model": "tiny", field: value})
-        other, refused = {"step_pipeline": True}, "step_pipeline"
-    with pytest.raises(NotImplementedError, match=refused):
+        # served with the step pipeline (the default) and without it
+        assert EngineConfig(model="tiny").step_pipeline
+        for pipe in (True, False):
+            cfg = EngineConfig(**{"model": "tiny", "step_pipeline": pipe, field: value})
+            assert getattr(cfg, field) == value and cfg.step_pipeline == pipe
+        return
+    with pytest.raises(NotImplementedError, match=field):
         EngineConfig(**{"model": "tiny", **other, field: value})
 
 
@@ -166,6 +167,34 @@ def test_int4_group_must_divide_head_dim():
     with pytest.raises(ValueError, match="must divide head_dim=16"):
         EngineConfig(model="tiny", kv_quantization="int4", kv_quant_group=6)
     EngineConfig(model="tiny", kv_quantization="int4", kv_quant_group=16)  # served
+
+
+async def test_top_logprobs_without_logprobs_is_served():
+    """`top_logprobs` without `logprobs` asks for nothing unported: the
+    reference zeroes it (`Sequence.from_request`) and serves the request,
+    and the port streams the same tokens."""
+    from dynamo_tpu.engine import EngineConfig as JaxConfig, JaxEngine
+    from dynamo_tpu.llm.local_model import LocalModel
+    from dynamo_tpu.llm.protocols import common as jc
+    from dynamo_tpu.runtime.pipeline.context import Context as JaxContext
+
+    ids = _tokenizer().encode("The capital of France is")
+
+    async def serve(eng, ctx_cls, pre_cls, stop_cls, samp_cls):
+        pre = pre_cls(token_ids=list(ids), stop_conditions=stop_cls(max_tokens=8, ignore_eos=True),
+                      sampling_options=samp_cls(greedy=True, top_logprobs=1))
+        frames = [f async for f in await eng.generate(ctx_cls(pre.to_dict()))]
+        await eng.close()
+        assert frames[-1]["finish_reason"] == "length"
+        return [t for f in frames for t in f.get("token_ids") or []]
+
+    jeng = JaxEngine(JaxConfig(model=LocalModel.prepare(CKPT).model_cfg, checkpoint_dir=CKPT,
+                               dtype="float32", attn_backend="gather", **ENGINE_KW))
+    want = await serve(jeng, JaxContext, jc.PreprocessedRequest, jc.StopConditions,
+                       jc.SamplingOptions)
+    got = await serve(_port_engine(), Context, PreprocessedRequest, StopConditions,
+                      SamplingOptions)
+    assert got == want and len(got) == 8
 
 
 async def test_unported_request_refused():

@@ -359,3 +359,32 @@ async def test_int8_greedy_matches_jax_engine_on_trained_checkpoint():
     await eng.close()
     assert got == want
     assert tok.decode(got).strip().startswith("paris"), tok.decode(got)
+
+
+async def test_int8_greedy_matches_jax_engine_at_odd_page_size():
+    """int8 KV at page size 3 (K 2: a scale tile of 24 bytes, not whole
+    16-byte vectors, which K7 copies in 4-byte words on the card): the
+    port's greedy stream equals JaxEngine's on the trained checkpoint."""
+    from dynamo_tpu.engine import EngineConfig as JaxConfig, JaxEngine
+    from dynamo_tpu.llm.local_model import LocalModel
+    from dynamo_tpu.llm.protocols import common as jcommon
+    from dynamo_tpu.runtime.pipeline.context import Context as JaxContext
+    from tests.test_torch_engine import CKPT
+
+    odd = dict(ENGINE_KW, page_size=3, prefill_chunk=48)
+    ids = _tokenizer().encode("the capital of germany is berlin . the capital of france is")
+    n = 12
+    jeng = JaxEngine(JaxConfig(
+        model=LocalModel.prepare(CKPT).model_cfg, checkpoint_dir=CKPT, dtype="float32",
+        attn_backend="gather", kv_quantization="int8", **odd,
+    ))
+    want = await _greedy(
+        jeng, ids, n, JaxContext, jcommon.PreprocessedRequest,
+        jcommon.StopConditions, jcommon.SamplingOptions,
+    )
+    await jeng.close()
+    eng = _port_engine(kv_quantization="int8", page_size=3, prefill_chunk=48)
+    assert eng.kv.ks[0].shape[1:] == (2, 3)
+    got = await _greedy(eng, ids, n)
+    await eng.close()
+    assert got == want

@@ -73,6 +73,9 @@ def test_bf16_byte_exact():
 PLAN_SHAPES = {
     "8b-p64": (64, 64, 8, 128), "8b-p128": (32, 128, 8, 128),
     "small": (7, 16, 2, 32), "k1-hd32": (5, 16, 1, 32),
+    # K 2 at page 3: a 24-byte scale tile, not whole 16-byte vectors, which
+    # K7 copies in 4-byte words
+    "odd-page3": (5, 3, 2, 32),
 }
 FORMATS = ("bf16", "int8", "int4")
 
@@ -92,11 +95,16 @@ def test_copy_plan_covers_every_byte_once(label, fmt, sm):
     plan = m.copy_plan(n, page_bytes, tile_bytes, sm)
     assert plan.chunk % 16 == 0 and 0 < plan.chunk <= m.MAX_CHUNK
     assert 1 <= plan.grid <= min(m.BLOCKS_PER_SM * sm, plan.n_items)
+    # scale tiles go in 16-byte vectors when whole vectors, else in words
+    assert plan.tile_vec == (16 if tile_bytes % 16 == 0 else 4)
+    if plan.tile_vec == 4:
+        assert plan.tile_chunk % 4 == 0 and 0 < plan.tile_chunk <= m.MAX_WORD_CHUNK
     spans = {}
     items = list(m.plan_items(plan))
     assert len(items) == plan.n_items
     for it in items:
-        assert it.offset % 16 == 0 and it.nbytes % 16 == 0 and 0 < it.nbytes <= plan.chunk
+        vec, size = (plan.tile_vec, plan.tile_chunk) if it.scale else (16, plan.chunk)
+        assert it.offset % vec == 0 and it.nbytes % vec == 0 and 0 < it.nbytes <= size
         spans.setdefault((it.scale, it.pool, it.i), []).append((it.offset, it.nbytes))
     want_keys = {(False, p, i) for p in (0, 1) for i in range(n)}
     if tile_bytes:

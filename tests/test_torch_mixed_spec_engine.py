@@ -75,8 +75,8 @@ async def _jax_serve(traffic, **kw):
     return list(outs), {k: stats[k] for k in COUNTERS}
 
 
-async def _port_serve(traffic, **kw):
-    eng = _port_engine(**kw)
+async def _port_serve(traffic, step_pipeline=False, **kw):
+    eng = _port_engine(step_pipeline=step_pipeline, **kw)
     outs = await asyncio.gather(*[_greedy(eng, ids, n) for ids, n in traffic])
     stats = eng.phase_stats
     await eng.close()
