@@ -75,7 +75,9 @@ final result line is printed only when every phase passed:
    prefilling in chunks beside the others' decode rows, repetitive text)
    with mixed steps and speculative decoding on must stream what the
    engine streams with both off, through K4 and the launches the engine's
-   dispatch counters imply; int8 KV also at page size 3. Phases 4-8 run
+   dispatch counters imply; int8 KV also at page size 3. And the prefix
+   cache: a prompt of 3 pages + 3 tokens served cold, then warm over its
+   3 cached pages, must stream the same tokens in each KV format. Phases 4-8 run
    with the step pipeline on (the default): decode dispatches replay one
    CUDA graph each, N+1 queued behind N;
 5. full width: llama-3.1-8b (32 layers, d 4096) in bf16 from seeded random
@@ -107,7 +109,24 @@ final result line is printed only when every phase passed:
    proto_page_write, probe_bitcast, profile_dma) run in process what their
    main() runs on a GPU, with the launch counters zeroed just before and
    read just after; every probe kernel must have launched, and K10's
-   rates there stay under 1.05x the card's memory rate.
+   rates there stay under 1.05x the card's memory rate;
+10. the prefix cache and the prefix wire at full width, on phase 5's
+   weights and engine settings with the step pipeline on, in bf16, int8
+   and int4 KV: a seeded shared prefix of 448 tokens (7 pages); one request
+   of prefix + 64 tokens alone (cold), then eight of prefix + 64 tokens of
+   their own at once (ISL 512, OSL 64), each reusing the 7 pages, then the
+   first prompt again (all 8 of its pages cached: the last is released and
+   recomputed, a full hit at the page boundary). The shared pages' bytes
+   (K, V and scales, every layer) must be unchanged by the warm round and
+   each prefix hash stored once; `export_prefix` -> `clear_cache` (its
+   removed event) -> `ingest_prefix` must land the 448 tokens through
+   K1/K7 once a layer with no plain call, a second export must be
+   byte-equal to the first, and a request after it must reuse 448 tokens.
+   Each serving window launches what the dispatch counters imply. Prints
+   cold and warm TTFT, prefill tokens computed, decode step ms, host ms
+   hashing a prompt's blocks, and the share of the warm tokens equal to a
+   cold serve of the same eight prompts (not gated: at random 8B weights
+   the cold and warm prefills run GEMMs of other row counts).
 With --pairs N, phases 5, 6 and 7 (each a pipeline off/on pair) and
 phase 8's bf16 pipeline off/on pair run N times in turns, to show their
 spread.
@@ -122,6 +141,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import gc
 import json
 import os
 import re
@@ -1344,7 +1364,11 @@ def check_counts(counts, want, what):
         assert plain == 0, f"{what}: the plain version of {name} ran {plain} times"
 
 
-async def run_requests(engine, prompts, osl):
+async def run_requests(engine, prompts, osl, metas=None):
+    """Serve `prompts` at once (greedy, `osl` tokens each). Returns each
+    request's (tokens, TTFT s, finish reason, end time) and the wall;
+    `metas`, when given, receives each request's first-frame meta, in
+    prompt order."""
     from dynamo_tpu_torch.llm.protocols.common import (
         PreprocessedRequest, SamplingOptions, StopConditions)
     from dynamo_tpu_torch.runtime.pipeline.context import Context
@@ -1356,17 +1380,20 @@ async def run_requests(engine, prompts, osl):
             sampling_options=SamplingOptions(greedy=True),
         )
         t0 = time.perf_counter()
-        toks, t_first, reason = [], None, None
+        toks, t_first, reason, meta = [], None, None, None
         async for f in await engine.generate(Context(pre.to_dict())):
             if f.get("token_ids") and t_first is None:
                 t_first = time.perf_counter()
+                meta = f.get("meta")
             toks.extend(f.get("token_ids") or [])
             reason = f.get("finish_reason") or reason
-        return toks, t_first - t0, reason, time.perf_counter()
+        return toks, t_first - t0, reason, time.perf_counter(), meta
 
     t0 = time.perf_counter()
     res = await asyncio.gather(*[one(p) for p in prompts])
-    return res, time.perf_counter() - t0
+    if metas is not None:
+        metas.extend(r[4] for r in res)
+    return [r[:4] for r in res], time.perf_counter() - t0
 
 
 def phase_real_weights(dev):
@@ -1442,6 +1469,34 @@ def phase_real_weights(dev):
 
         return asyncio.run(go()), eng
 
+    # the prefix cache on the checkpoint: a prompt of 3 pages + 3 tokens
+    # served cold, then warm over its 3 cached pages (the tail prefill
+    # starts at the page boundary, K2/K6 reading the reused pages), must
+    # stream the same tokens in each KV format
+    prompt = line[:3 * 16 + 3]
+    for kv_quant in PATH_KERNELS:
+        kv = kv_quant or "bf16"
+        eng = engine(dev, "bfloat16", kv_quant)
+
+        async def go():
+            metas = []
+            (cold,), _ = await run_requests(eng, [prompt], n, metas)
+            (warm,), _ = await run_requests(eng, [prompt], n, metas)
+            await eng.close()
+            return cold[0], warm[0], [m["prefix_cached_tokens"] for m in metas]
+
+        reset_counts()
+        cold, warm, cached = asyncio.run(go())
+        counts = read_counts()
+        st = eng.phase_stats
+        log(f"[real] prefix cache, {kv} KV: cold then warm over {cached[1]} cached tokens, "
+            f"streams equal: {warm == cold}; prefix_hits {st['prefix_hits']}, prefill tokens "
+            f"{st['prefill_tokens']}")
+        assert cached == [0, 3 * 16], f"prefix cache, {kv} KV: cached tokens {cached}"
+        assert warm == cold, f"prefix cache, {kv} KV: warm {warm} vs cold {cold}"
+        check_counts(counts, path_launches(st, eng.model_cfg.num_layers, 4, kv_quant),
+                     f"real weights, prefix cache, {kv} KV")
+
     for kv_quant in PATH_KERNELS:
         kv = kv_quant or "bf16"
         want, _ = serve(kv_quant)
@@ -1510,6 +1565,33 @@ async def profile_round(engine, prompts):
             if any(w in k for w in ("Synchronize", "Memcpy", "local_scalar", "aten::item"))
         },
     }
+
+
+class GcPauses:
+    """The garbage collector's pauses inside a window (`gc.callbacks`):
+    a pause inside a dispatch's host enqueue delays that dispatch, so
+    TTFT outliers are read beside these."""
+
+    def __init__(self):
+        self.pauses, self._t0 = [], 0.0
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.pauses.append((info["generation"], 1e3 * (time.perf_counter() - self._t0)))
+
+    def __enter__(self):
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
+
+    def summary(self, prefix="gc") -> dict:
+        ms = [p for _, p in self.pauses]
+        return {f"{prefix}_collections": len(ms), f"{prefix}_gen2": sum(g == 2 for g, _ in self.pauses),
+                f"{prefix}_ms_total": sum(ms), f"{prefix}_ms_max": max(ms, default=0.0)}
 
 
 def graph_check(eng, tag):
@@ -1597,14 +1679,15 @@ def phase_full_width(dev, kv_quant=None, params=None, pipe=True):
         torch.cuda.reset_peak_memory_stats()
         s0 = eng.phase_stats
         reset_counts()
-        res, wall = await run_requests(eng, prompts, osl)
+        with GcPauses() as gcp:
+            res, wall = await run_requests(eng, prompts, osl)
         counts = read_counts()
         s1 = eng.phase_stats
         prof = await profile_round(eng, prof_prompts)
         await eng.close()
-        return res, wall, counts, s0, s1, prof
+        return res, wall, counts, s0, s1, prof, gcp
 
-    res, wall, counts, s0, s1, prof = asyncio.run(go())
+    res, wall, counts, s0, s1, prof, gcp = asyncio.run(go())
     graphs = graph_check(eng, tag)
     d = {k: s1[k] - s0[k] for k in s1}
     layers = eng.model_cfg.num_layers
@@ -1638,6 +1721,7 @@ def phase_full_width(dev, kv_quant=None, params=None, pipe=True):
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "kv_pool_gb": kv_bytes / 1e9,
         "preemptions": d["preemptions"],
+        **gcp.summary(),
     }
     log(f"{tag} {nreq} x (ISL {isl}, OSL {osl}) through TorchEngine.generate: " + json.dumps(m))
     log(f"[profile] {kv_quant or 'bf16'} KV, pipeline {'on' if pipe else 'off'}, one more round "
@@ -1822,6 +1906,181 @@ def phase_probes(peaks, dev):
     return {name: counts[name][0] for name in PROBE_KERNELS}
 
 
+# ---------------------------------------------------------------- phase 10
+
+# phase 5's engine; `phase_prefix(cfg=..., traffic=...)` swaps in a small
+# model and shorter prompts for a CPU rehearsal
+PREFIX_CFG = dict(model="llama-3.1-8b", dtype="bfloat16", page_size=64, num_pages=256,
+                  max_batch_size=8, max_model_len=2048, prefill_chunk=512, decode_steps=8,
+                  seed=0)
+PREFIX_TRAFFIC = dict(prefix=448, tail=64, osl=64, wave=8)
+
+
+def _pool_pages(kv, pids, page):
+    """Copies of pages `pids` in every pool of every layer (K, V and, with
+    quantized KV, the scale pools)."""
+    idx = torch.tensor(pids, device=kv.k[0].device)
+    rows = (idx[:, None] * page + torch.arange(page, device=idx.device)).reshape(-1)
+    out = [x.index_select(0, rows) for x in kv.k + kv.v]
+    return out + [x.index_select(0, idx) for x in (kv.ks or ()) + (kv.vs or ())]
+
+
+async def idle(eng):
+    """Wait until the engine has landed its in-flight dispatch (with the
+    step pipeline, the overshoot queued behind a round's last sync) and
+    the device has drained, so the next round's TTFT does not include
+    the last one's tail."""
+    while eng._inflight is not None:
+        await asyncio.sleep(0.001)
+    torch.cuda.synchronize()
+
+
+def phase_prefix(dev, params, kv_quant=None, smi="", cfg=None, traffic=None):
+    """Phase 10: the prefix cache and the prefix wire at full width, with
+    the step pipeline on. A seeded shared prefix of `prefix` tokens; one
+    request of prefix + `tail` tokens alone (cold), then `wave` requests
+    of prefix + their own tails at once (each must reuse the prefix's
+    pages), then the first prompt again (all its pages cached: the last is
+    released and recomputed, a full hit at the page boundary). Asserts the
+    shared pages' bytes unchanged across the warm round, each prefix hash
+    stored once, `export_prefix` -> `clear_cache` (its removed event) ->
+    `ingest_prefix` landing the prefix through K1/K7 once a layer with no
+    plain call, a byte-equal second export and a request riding the
+    ingested pages, and in every serving window the launches the dispatch
+    counters imply. Then a cold serve of the same `wave` prompts, whose
+    tokens the warm ones are compared with (reported, not gated: at
+    random 8B weights the cold and warm prefills run GEMMs of other row
+    counts). Returns the metrics and the weights."""
+    from dynamo_tpu_torch import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.llm.tokens import TokenBlockSequence, compute_block_hashes
+
+    tr = dict(PREFIX_TRAFFIC, **(traffic or {}))
+    conf = EngineConfig(**dict(PREFIX_CFG, **(cfg or {})), kv_quantization=kv_quant)
+    tag = f"[prefix {conf.model} {kv_quant or 'bf16'} KV, pipeline on]"
+    eng = TorchEngine(conf, params=params, device=dev)
+    events = []
+    eng.subscribe_events(events.append)
+    page, layers = eng.page_size, eng.model_cfg.num_layers
+    write = PATH_KERNELS[kv_quant][0]
+    rng = np.random.RandomState(2)
+    vocab = eng.model_cfg.vocab_size
+    isl = tr["prefix"] + tr["tail"]
+    prefix = rng.randint(0, vocab, size=tr["prefix"]).tolist()
+    first = prefix + rng.randint(0, vocab, size=tr["tail"]).tolist()
+    wave = [prefix + rng.randint(0, vocab, size=tr["tail"]).tolist() for _ in range(tr["wave"])]
+    after = prefix + rng.randint(0, vocab, size=tr["tail"]).tolist()
+    warmup = [rng.randint(0, vocab, size=isl).tolist() for _ in range(tr["wave"])]
+    hashes = compute_block_hashes(prefix, page)
+    n_pref = len(hashes) * page
+    t0 = time.perf_counter()
+    for p in wave:
+        TokenBlockSequence(p, page)
+    hash_ms = 1e3 * (time.perf_counter() - t0) / len(wave)
+
+    def window(counts, s0, s1, what):
+        d = {k: s1[k] - s0[k] for k in s1}
+        check_counts(counts, path_launches(d, layers, conf.decode_steps, kv_quant),
+                     f"{tag} {what}")
+        return d
+
+    async def go():
+        # warm-up (cuBLAS handles, the decode graph), then an empty cache;
+        # each round starts on an idle engine and device
+        await run_requests(eng, warmup, 24)
+        eng.allocator.clear_cache()
+        await idle(eng)
+        m = {"host_hash_ms_per_request": hash_ms}
+        s0, metas = eng.phase_stats, []
+        reset_counts()
+        (cold1,), _ = await run_requests(eng, [first], tr["osl"], metas)
+        pids = [eng.allocator._by_hash[h] for h in hashes]
+        before = [x.clone() for x in _pool_pages(eng.kv, pids, page)]
+        await idle(eng)
+        p0 = eng.phase_stats["prefill_dispatch_s"]
+        with GcPauses() as gc_warm:
+            warm, _ = await run_requests(eng, wave, tr["osl"], metas)
+        warm_enqueue_ms = 1e3 * (eng.phase_stats["prefill_dispatch_s"] - p0)
+        await idle(eng)
+        after_warm = _pool_pages(eng.kv, pids, page)
+        assert all(_same_bytes(a, b) for a, b in zip(before, after_warm)), \
+            f"{tag}: a shared prefix page changed during the warm round"
+        assert eng.peek_prefix_tokens(first) == len(first) // page * page
+        (full,), _ = await run_requests(eng, [first], tr["osl"], metas)
+        await idle(eng)
+        d = window(read_counts(), s0, eng.phase_stats, "cold, warm and full-hit serves")
+        cached = [mt["prefix_cached_tokens"] for mt in metas]
+        assert cached == [0] + [n_pref] * (tr["wave"] + 1), f"{tag}: cached tokens {cached}"
+        hits = tr["wave"] + 1
+        assert (d["prefix_hits"], d["prefix_reused_tokens"]) == (hits, hits * n_pref), d
+        assert d["prefix_full_hits"] == hits and d["prefix_restored_tokens"] == 0, d
+        stored = [b["block_hash"] for e in events if e["type"] == "stored" for b in e["blocks"]]
+        assert all(stored.count(h) == 1 for h in hashes), f"{tag}: a prefix hash stored twice"
+        m.update({
+            "cold_ttft_s": cold1[1], "warm_ttft_p50_s": statistics.median(r[1] for r in warm),
+            "full_hit_ttft_s": full[1], "prefill_tokens": d["prefill_tokens"],
+            "prefill_tokens_cold_equivalent": (hits + 1) * isl,
+            "prefix_reused_tokens": d["prefix_reused_tokens"],
+            "decode_step_ms": decode_step_ms(d, conf.decode_steps),
+            "warm_prefill_enqueue_ms": warm_enqueue_ms, **gc_warm.summary("warm_gc"),
+        })
+
+        # the prefix wire: export, drop the cache, ingest, export again
+        wire = eng.export_prefix(prefix)
+        assert wire[0] == n_pref, f"{tag}: export_prefix gave {wire[0]} tokens"
+        n_ev = len(events)
+        eng.allocator.clear_cache()
+        removed = {h for e in events[n_ev:] if e["type"] == "removed" for h in e["block_hashes"]}
+        assert set(hashes) <= removed and eng.peek_prefix_tokens(prefix) == 0
+        reset_counts()
+        t0 = time.perf_counter()
+        n = eng.ingest_prefix(prefix, *wire[1:])
+        torch.cuda.synchronize()
+        m["ingest_ms"] = 1e3 * (time.perf_counter() - t0)
+        check_counts(read_counts(), {write: layers}, f"{tag} ingest_prefix")
+        again = eng.export_prefix(prefix)
+        assert n == n_pref and again[0] == n_pref, f"{tag}: ingest {n}, export {again[0]}"
+        assert all(a is b or _same_bytes(a, b) for a, b in zip(wire[1:], again[1:])), \
+            f"{tag}: the exported prefix differs after export -> ingest"
+        s0, metas = eng.phase_stats, []
+        reset_counts()
+        (rode,), _ = await run_requests(eng, [after], tr["osl"], metas)
+        await idle(eng)
+        window(read_counts(), s0, eng.phase_stats, "serve after ingest")
+        assert metas[0]["prefix_cached_tokens"] == n_pref, metas
+
+        # the same wave cold, for TTFT and the warm tokens' agreement
+        eng.allocator.clear_cache()
+        s0, metas = eng.phase_stats, []
+        reset_counts()
+        with GcPauses() as gc_cold:
+            cold, _ = await run_requests(eng, wave, tr["osl"], metas)
+        await idle(eng)
+        d = window(read_counts(), s0, eng.phase_stats, "cold wave")
+        assert [mt["prefix_cached_tokens"] for mt in metas] == [0] * tr["wave"]
+        same = sum(a == b for x, y in zip(warm, cold) for a, b in zip(x[0], y[0]))
+        m.update({
+            "cold_wave_ttft_p50_s": statistics.median(r[1] for r in cold),
+            "cold_wave_prefill_tokens": d["prefill_tokens"],
+            "cold_wave_prefill_enqueue_ms": 1e3 * d["prefill_dispatch_s"],
+            **gc_cold.summary("cold_gc"),
+            "warm_tokens_equal_to_cold_share": same / sum(len(r[0]) for r in cold),
+        })
+        for toks, _, reason, _ in warm + cold + [cold1, full, rode]:
+            assert len(toks) == tr["osl"] and reason == "length", (len(toks), reason)
+        await eng.close()
+        return m
+
+    m = asyncio.run(go())
+    log(f"{tag} shared prefix {tr['prefix']} tokens ({len(hashes)} pages); 1 cold request, then "
+        f"{tr['wave']} at once (ISL {isl}, OSL {tr['osl']}), then the first again: shared pages "
+        f"byte-unchanged, each prefix hash stored once; export -> clear -> ingest "
+        f"({layers} {write} launches, no plain call) -> byte-equal export; {smi}: "
+        + json.dumps(m))
+    params = eng.params
+    del eng
+    return m, params
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1,
@@ -1914,10 +2173,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         counts, _, _, params = phase_wave(dev, params, kv_quant=kv_quant, on=True)
         launches[RAGGED_KERNEL[kv_quant]] = counts[RAGGED_KERNEL[kv_quant]]
-    del params
     # phase 9: the probe path
     torch.cuda.empty_cache()
     launches.update(phase_probes(peaks, dev))
+    # phase 10: the prefix cache and the prefix wire, on phase 5's weights
+    for kv_quant in PATH_KERNELS:
+        torch.cuda.empty_cache()
+        _, params = phase_prefix(dev, params, kv_quant=kv_quant, smi=smi)
+    del params
 
     meta = {
         "kv_write": ("dynamo_tpu_torch/csrc/kv_write.cu", "dynamo_tpu/ops/pallas_kv_write.py:60"),

@@ -40,7 +40,17 @@ Port of `dynamo_tpu/engine/engine.py::JaxEngine`, main path only:
   `request_timeout_s`): a request already past its deadline raises
   `DeadlineExceededError` before any device work, a queued one is shed
   and a running one finished, both with finish reason "timeout";
-- streamed `EngineOutput` frames, finishing on max_tokens or EOS.
+- the prefix cache: admission reuses every cached full page of the
+  prompt (the tail prefill starts at the page boundary past them, and at
+  least one token is always computed, into a fresh page), full pages are
+  registered under their chained block hashes as their KV comes to hold
+  emitted tokens only, and the allocator's `stored`/`removed` events go to
+  `subscribe_events` subscribers (the KV-aware router's feed);
+- the prefix wire: `peek_prefix_tokens`, `export_prefix` (a cached
+  prefix's KV rows in the reference's wire format) and `ingest_prefix`
+  (whole pages landed through the page-scatter kernel and registered);
+- streamed `EngineOutput` frames, finishing on max_tokens or EOS; the
+  first frame after an admission carries the prefix hit in its meta.
 
 The engine runs on a CUDA device unless the caller asks for the CPU, where
 every kernel wrapper takes its plain PyTorch version and the decode step
@@ -83,9 +93,13 @@ from dynamo_tpu_torch.llm.protocols.common import (
     FINISH_REASON_TIMEOUT,
     DeadlineExceededError,
     EngineOutput,
+    KvQuantMismatchError,
     PreprocessedRequest,
 )
+from dynamo_tpu_torch.llm.tokens import TokenBlockSequence, compute_block_hashes
 from dynamo_tpu_torch.models import llama
+from dynamo_tpu_torch.ops import quant
+from dynamo_tpu_torch.ops.kv_write import paged_kv_write
 from dynamo_tpu_torch.ops.rope import rope_inv_freq
 from dynamo_tpu_torch.ops.sampling import sample_tokens, verify_draft_tokens
 from dynamo_tpu_torch.runtime.pipeline.context import Context
@@ -95,6 +109,20 @@ log = logging.getLogger("dynamo_tpu_torch.engine")
 
 def _pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
+
+
+def _wire_tensor(a) -> torch.Tensor:
+    """A wire array as a CPU tensor: tensors pass, numpy arrays (and
+    arrays exposing `__array__`) are wrapped (copied when read-only), and
+    a bfloat16 array of the ml_dtypes type is read by its bits."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a, order="C")  # a tensor must not alias read-only memory
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 class _Fetch:
@@ -204,7 +232,11 @@ class TorchEngine:
             self.model_cfg, self.num_pages * self.page_size, dtype=self._dtype,
             device=self.device, kv_quant=config.kv_quantization, page_size=self.page_size,
         )
-        self.allocator = PageAllocator(self.num_pages, self.page_size)
+        # KV events (stored/removed) feed the KV-aware router
+        self._event_seq = 0
+        self._event_subscribers: list = []
+        self.allocator = PageAllocator(self.num_pages, self.page_size,
+                                       on_event=self._emit_event)
         self._inv_freq = torch.from_numpy(rope_inv_freq(self.model_cfg)).to(self.device)
 
         self.waiting: deque[Sequence] = deque()
@@ -295,6 +327,15 @@ class TorchEngine:
             # generate or from the queue), and running ones finished by it
             "deadline_shed": 0,
             "deadline_timeouts": 0,
+            # prefix cache at admission: hits, hits that recompute at most
+            # the last page, tokens reused and tail tokens still computed.
+            # prefix_restored_tokens (host-tier restores) stays 0 until the
+            # host tier is ported
+            "prefix_hits": 0,
+            "prefix_full_hits": 0,
+            "prefix_reused_tokens": 0,
+            "prefix_restored_tokens": 0,
+            "prefix_tail_tokens": 0,
         }
 
     def _check_kernel_shapes(self) -> None:
@@ -341,6 +382,20 @@ class TorchEngine:
     @property
     def phase_stats(self) -> dict:
         return dict(self._phase_stats)
+
+    def subscribe_events(self, cb) -> None:
+        """KV cache events (`stored`/`removed`, each with `event_id` and
+        `block_size`) for the KV-aware router."""
+        self._event_subscribers.append(cb)
+
+    def _emit_event(self, event: dict) -> None:
+        event = {**event, "event_id": self._event_seq, "block_size": self.page_size}
+        self._event_seq += 1
+        for cb in self._event_subscribers:
+            try:
+                cb(event)
+            except Exception:
+                log.exception("kv event subscriber failed")
 
     def _launch(self, fn, *args) -> asyncio.Future:
         """Start a dispatch. On a CUDA device the launches are
@@ -393,7 +448,10 @@ class TorchEngine:
                 f"prompt of {len(pre.token_ids)} tokens cannot fit the KV pool "
                 f"({self.num_pages - 1} pages x {self.page_size} tokens)"
             )
-        seq = Sequence.from_request(request, pre, self.config.max_model_len)
+        seq = Sequence.from_request(
+            request, pre, self.page_size, self.config.max_model_len,
+            blocks=self._blocks_from_metadata(request, pre),
+        )
         if not seq.deadline and self.config.request_timeout_s > 0:
             seq.deadline = time.time() + self.config.request_timeout_s
         if seq.deadline:
@@ -417,6 +475,24 @@ class TorchEngine:
                     return
 
         return _gen()
+
+    def _blocks_from_metadata(self, request: Context, pre):
+        """The block-hash chain the KV router computed to score workers,
+        carried in Context metadata (`kv_block_size`, `kv_seq_hashes`,
+        `kv_local_hashes`): it saves hashing the prompt again. Ignored
+        unless the block size is this engine's page size and the chain
+        covers exactly the prompt's full pages; `Sequence.from_request`'s
+        mismatch guard stays the backstop."""
+        md = request.metadata
+        if md.get("kv_block_size") != self.page_size:
+            return None
+        sh, lh = md.get("kv_seq_hashes"), md.get("kv_local_hashes")
+        if not sh or not lh:
+            return None
+        try:
+            return TokenBlockSequence.with_hashes(pre.token_ids, self.page_size, sh, lh)
+        except (TypeError, ValueError):
+            return None
 
     @staticmethod
     def _refuse_unported(pre: PreprocessedRequest) -> None:
@@ -592,6 +668,10 @@ class TorchEngine:
             del self.waiting[idx]
             seq.slot = slot
             seq.prefilling = True
+            seq.first_meta = {
+                "prefix_cached_tokens": seq.num_cached,
+                "prompt_tokens": seq.prompt_len,
+            }
             self.slots[slot] = seq
             self._mark_slot_state(seq)
             if self.config.spec_decode and seq.spec is None:
@@ -605,14 +685,39 @@ class TorchEngine:
         return progressed
 
     def _reserve_pages(self, seq: Sequence) -> bool:
-        """Allocate pages covering all current tokens (prefix-cache reuse
-        is not ported yet: every admission computes its whole prompt)."""
-        need = -(-seq.total_tokens // self.page_size)
-        fresh = self.allocator.allocate(need)
+        """Match the longest cached prefix of the sequence's full pages and
+        allocate fresh pages for the rest of its current tokens. At least
+        one token is always computed (a query position must sample the
+        next token): when every page is cached the last match is released
+        and recomputed into a fresh page, so no write lands in a page
+        other sequences share. On a miss the matches are released."""
+        t = seq.total_tokens
+        hashes = seq.blocks.sequence_hashes()
+        cap = seq.cacheable_pages(self.page_size)
+        if cap is not None:
+            hashes = hashes[:cap]
+        matched = self.allocator.match_prefix(hashes)
+        while len(matched) * self.page_size >= t:
+            self.allocator.release([matched[-1]])
+            matched = matched[:-1]
+        need = -(-t // self.page_size) - len(matched)
+        fresh = self.allocator.allocate(need) if need else []
         if fresh is None:
+            self.allocator.release(matched)
             return False
-        seq.page_ids = fresh
-        seq.num_computed = 0
+        seq.page_ids = matched + fresh
+        seq.num_cached = len(matched) * self.page_size
+        seq.num_computed = seq.num_cached
+        seq.registered_pages = len(matched)
+        seq.blocks_reused = len(matched)
+        if matched:
+            tail = t - seq.num_cached
+            st = self._phase_stats
+            st["prefix_hits"] += 1
+            # "full": the cache covered every page but the last
+            st["prefix_full_hits"] += tail <= self.page_size
+            st["prefix_reused_tokens"] += seq.num_cached
+            st["prefix_tail_tokens"] += tail
         return True
 
     def _mark_slot_state(self, seq: Sequence) -> None:
@@ -700,6 +805,7 @@ class TorchEngine:
             finals = []
             for j, seq in enumerate(seqs):
                 seq.num_computed += min(seq.total_tokens - seq.num_computed, bucket)
+                self._register_full_pages(seq)
                 if seq.num_computed >= seq.total_tokens:
                     # final chunk: with the pipeline the sampled token stays
                     # on the device as the slot's carry override and one
@@ -1230,11 +1336,13 @@ class TorchEngine:
                     # pipelined builds advanced device_pos already
                     seq.device_pos += 1
                 seq.num_computed += 1
+                self._register_full_pages(seq)
                 self._append_token(seq, tok)
                 if self.slots[slot] is seq:
                     self._overrides[slot] = tok
                 continue
             seq.num_computed += chunk
+            self._register_full_pages(seq)
             if seq in self._prefilling:
                 self._prefilling.remove(seq)
             if seq.num_computed >= seq.total_tokens:
@@ -1337,14 +1445,19 @@ class TorchEngine:
         writable position; may preempt), re-filter the rows that survived
         and bucket the dispatch width to the power-of-two prefix covering
         the highest active slot (at least 8). Returns (active, width), or
-        None when a growth preempted its own sequence or nothing stayed
-        decode-ready."""
+        None when nothing stayed decode-ready.
+
+        A growth that preempts its own sequence drops that row only; the
+        others dispatch. (The reference gives up the whole dispatch for
+        the tick instead, which livelocks once the prefix cache is on: the
+        preempted sequence re-admits onto its own cached pages, prefills
+        its short tail within the tick, and preempts itself again before
+        the other rows ever dispatch.)"""
         max_pos = self.config.max_model_len - 1
         for _, seq in ready:
             if seq.slot < 0 or self.slots[seq.slot] is not seq:
                 continue  # preempted by an earlier growth this pass
-            if not self._ensure_pages_through(seq, min(upto(seq), max_pos)):
-                return None
+            self._ensure_pages_through(seq, min(upto(seq), max_pos))
         active = [(i, s) for i, s in ready if self.slots[i] is s and not s.prefilling]
         if not active:
             return None
@@ -1371,12 +1484,14 @@ class TorchEngine:
         return True
 
     def _preempt(self, seq: Sequence) -> None:
-        """Out of pages: release the sequence's pages and requeue it at the
-        front; re-admission re-prefills prompt + generated tokens. The
-        slot's carry license and override go with it (the slot may be
-        reused; re-admission re-arms through the prefill override)."""
+        """Out of pages: register the sequence's full pages, release them
+        and requeue it at the front; re-admission matches its own
+        registered pages and re-prefills the rest. The slot's carry license
+        and override go with it (the slot may be reused; re-admission
+        re-arms through the prefill override)."""
         log.info("preempting seq %s (out of KV pages)", seq.seq_id)
         self._phase_stats["preemptions"] += 1
+        self._register_full_pages(seq)
         self.allocator.release(seq.page_ids)
         self.slots[seq.slot] = None
         self._overrides.pop(seq.slot, None)
@@ -1388,8 +1503,10 @@ class TorchEngine:
         seq.carry_pending = False
         seq.first_task = None
         seq.page_ids = []
+        seq.num_cached = 0
         seq.num_computed = 0
         seq.device_pos = 0
+        seq.registered_pages = 0
         self.waiting.appendleft(seq)
 
     def _apply_overrides(self, overrides: dict) -> None:
@@ -1515,6 +1632,7 @@ class TorchEngine:
                 if self.slots[i] is not seq:
                     continue  # finished earlier in this dispatch: overshoot
                 seq.num_computed += 1
+                self._register_full_pages(seq)
                 self._append_token(seq, int(out[step, i]))
 
     # ---- speculative verify --------------------------------------------
@@ -1664,6 +1782,7 @@ class TorchEngine:
             seq.num_computed += 1
             if not keep_pos:
                 seq.device_pos = base + j + 1
+            self._register_full_pages(seq)
             self._append_token(seq, int(out_row[j]))
             emitted += 1
         # what landed: a draft that finished the stream discards the tail
@@ -1675,19 +1794,193 @@ class TorchEngine:
             self._overrides[slot] = int(out_row[n - 1])
         return emitted, accepted
 
+    # ---- the prefix wire -----------------------------------------------
+
+    def peek_prefix_tokens(self, token_ids: list[int], max_tokens: Optional[int] = None,
+                           hashes: Optional[list[int]] = None) -> int:
+        """Cached-prefix length of a prompt in tokens, taking no reference
+        (what `_reserve_pages` would reuse; the router's and the prefix
+        pull's decision input). Pass `hashes` when the prompt's chained
+        block hashes are at hand. The HBM tier only: the host tier is not
+        ported."""
+        if hashes is None:
+            hashes = compute_block_hashes(token_ids, self.page_size)
+        if max_tokens is not None:
+            hashes = hashes[:max_tokens // self.page_size]
+        return self.allocator.peek_prefix_tokens(hashes=hashes)
+
+    def export_prefix(self, token_ids: list[int], hashes: Optional[list[int]] = None):
+        """This engine's cached KV for a prompt's longest cached prefix, the
+        source side of a prefix pull: (n_tokens, k, v, ks, vs) in the
+        reference's wire format, as CPU tensors (`.numpy()` gives the
+        reference's arrays byte for byte; a bf16 wire's bits through
+        `.view(torch.int16)`): k/v [L, T, K*Hd] in the model dtype, or
+        int8 rows, or nibble-packed int4 rows [L, T, K*Hd/2], with dense
+        f32 scales ks/vs [L, T, K] (None for a model-dtype pool). None
+        when no full page of the prompt is cached. The matched pages stay
+        pinned for the gather (no eviction can race it) and are released
+        after it; they stay cached. Blocking: the rows are copied to the
+        host."""
+        if hashes is None:
+            hashes = compute_block_hashes(token_ids, self.page_size)
+        pages = self.allocator.match_prefix(hashes)
+        if not pages:
+            return None
+        try:
+            ps = self.page_size
+            slots = self._up((np.asarray(pages, np.int64)[:, None] * ps
+                              + np.arange(ps)).reshape(-1))
+            kv = self.kv
+            with torch.inference_mode():
+                k = torch.stack([x.index_select(0, slots) for x in kv.k]).cpu()
+                v = torch.stack([x.index_select(0, slots) for x in kv.v]).cpu()
+                ks = vs = None
+                if kv.quantized:
+                    ks = torch.stack([quant.gather_kv_scales(x, slots) for x in kv.ks]).cpu()
+                    vs = torch.stack([quant.gather_kv_scales(x, slots) for x in kv.vs]).cpu()
+        finally:
+            self.allocator.release(pages)
+        return len(pages) * ps, k, v, ks, vs
+
+    def ingest_prefix(self, token_ids: list[int], k, v, ks=None, vs=None) -> int:
+        """Land externally computed KV for a token prefix in the pools and
+        the prefix cache: the receiving side of a prefix pull. `k`/`v`
+        [L, T, K*Hd] (or nibble-packed [L, T, K*Hd/2]) and `ks`/`vs`
+        [L, T, K] as `export_prefix` gives them, as tensors or numpy arrays
+        (a bf16 array of the ml_dtypes type is read by its bits). Only
+        whole pages are ingested, and the run already cached is skipped;
+        returns the tokens now cached. A following `generate` with the
+        prompt rides the cache and computes the tail. The rows go through
+        `_convert_wire_kv`, then each layer's pages through the page-scatter
+        write (K1, or K7 in its int8 or int4 form), which on the card is
+        the hand-written kernel; a failed launch raises. The matched pages
+        stay pinned until the new pages are registered (the new pages
+        chain from them); all pins are released at the end, so the pages
+        stay cached."""
+        ps = self.page_size
+        full_pages = len(token_ids) // ps
+        if full_pages == 0:
+            return 0
+        blocks = TokenBlockSequence(list(token_ids), ps).blocks[:full_pages]
+        cached = self.allocator.match_prefix([b.sequence_hash for b in blocks])
+        start = len(cached)
+        if start == full_pages:
+            self.allocator.release(cached)
+            return full_pages * ps
+        pages = self.allocator.allocate(full_pages - start)
+        if pages is None:
+            self.allocator.release(cached)
+            return start * ps
+        try:
+            t0, t1 = start * ps, full_pages * ps
+            wire = [None if a is None else _wire_tensor(a)[:, t0:t1] for a in (k, v, ks, vs)]
+            nk, nv, nks, nvs = self._convert_wire_kv(*wire)
+            n = len(pages)
+            kv = self.kv
+            table = self._up(np.asarray(pages, np.int32))
+            with torch.inference_mode():
+                for i in range(len(kv.k)):
+                    src = (nk[i].reshape(n, ps, -1).contiguous(),
+                           nv[i].reshape(n, ps, -1).contiguous())
+                    if kv.quantized:
+                        src += (kv.ks[i], kv.vs[i],
+                                quant.scales_to_page_tiles(nks[i], ps),
+                                quant.scales_to_page_tiles(nvs[i], ps))
+                    paged_kv_write(kv.k[i], kv.v[i], table, *src, page_size=ps,
+                                   int4=kv.int4)
+            self.allocator.register(
+                pages, [(b.sequence_hash, b.local_hash) for b in blocks[start:]],
+                parent_hash=blocks[start].parent_sequence_hash,
+            )
+        finally:
+            # registered pages stay cached; after a failure the unhashed
+            # pages free at once
+            self.allocator.release(cached + pages)
+        return full_pages * ps
+
+    def _convert_wire_kv(self, nk, nv, nks, nvs):
+        """A wire's rows in this engine's KV format, on the device: a
+        model-dtype wire entering an int8 or int4 pool is quantized, a
+        quantized wire of the pool's own tier passes byte for byte, an
+        int8 wire entering a model-dtype pool is dequantized. Any other
+        pair would requantize bytes that were quantized once already, and
+        raises `KvQuantMismatchError`, as does a wire whose scale channels
+        are not the pool's (one scale per token and kv head)."""
+        m = self.model_cfg
+        kh = m.num_kv_heads
+        tier = self.config.kv_quantization
+        wire = None  # the wire's tier, from its row width
+        if nks is not None:
+            wire = "int4" if nk.shape[-1] * 2 == kh * m.head_dim else "int8"
+        if wire is not None and wire != (tier or "int8"):
+            raise KvQuantMismatchError(
+                f"wire KV payload is {wire} but this engine's pool tier is "
+                f"{tier or self.config.dtype}: cross-tier injection would requantize "
+                "already-quantized bytes; both sides need matching kv_quantization"
+            )
+        if wire is not None and nks.shape[-1] != kh:
+            raise KvQuantMismatchError(
+                f"{wire} wire KV carries {nks.shape[-1]} scale channels but this "
+                f"engine's pools use {kh} (kv_quant_group mismatch): both sides need "
+                "matching kv_quantization grouping"
+            )
+        dev = self.device
+        nk, nv = nk.to(dev), nv.to(dev)
+        if tier and nks is None:
+            qz = quant.quantize_kv_rows_int4 if tier == "int4" else quant.quantize_kv_rows
+            nk, nks = qz(nk, kh)
+            nv, nvs = qz(nv, kh)
+        elif tier:
+            nks, nvs = nks.to(dev, torch.float32), nvs.to(dev, torch.float32)
+        elif nks is not None:
+            nk = quant.dequantize_kv_rows(nk, nks.to(dev), out_dtype=self._dtype)
+            nv = quant.dequantize_kv_rows(nv, nvs.to(dev), out_dtype=self._dtype)
+            nks = nvs = None
+        else:
+            nk, nv = nk.to(self._dtype), nv.to(self._dtype)
+        return nk, nv, nks, nvs
+
     # ---- bookkeeping --------------------------------------------------
 
     def _append_token(self, seq: Sequence, token: int) -> None:
-        seq.tokens.append(token)
+        """Emit one token; the first after an admission carries
+        `first_meta`."""
+        seq.blocks.extend([token])
         if seq.spec is not None:
             seq.spec.extend([token])
         seq.generated += 1
-        seq.out_queue.put_nowait(EngineOutput(token_ids=[token]).to_dict())
+        frame = EngineOutput(token_ids=[token])
+        if seq.first_meta is not None:
+            frame.meta = seq.first_meta
+            seq.first_meta = None
+        seq.out_queue.put_nowait(frame.to_dict())
         reason = seq.check_finish(token)
         if reason:
             self._finish(seq, reason)
 
+    def _register_full_pages(self, seq: Sequence) -> None:
+        """Register the sequence's full pages whose KV is computed under
+        their block hashes (emits `stored`). `num_computed` advances only
+        past positions holding emitted tokens, so a rejected draft's KV,
+        the pipeline's overshoot positions and a partial page are never
+        registered."""
+        full = seq.num_computed // self.page_size
+        cap = seq.cacheable_pages(self.page_size)
+        if cap is not None:
+            full = min(full, cap)
+        start = seq.registered_pages
+        if full <= start:
+            return
+        blocks = seq.blocks.blocks[start:full]
+        self.allocator.register(
+            seq.page_ids[start:full],
+            [(b.sequence_hash, b.local_hash) for b in blocks],
+            parent_hash=blocks[0].parent_sequence_hash,
+        )
+        seq.registered_pages = full
+
     def _finish(self, seq: Sequence, reason: str) -> None:
+        self._register_full_pages(seq)
         self.allocator.release(seq.page_ids)
         seq.page_ids = []
         if seq.slot >= 0:

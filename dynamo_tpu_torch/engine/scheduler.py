@@ -6,13 +6,14 @@ engine reads. The scheduler is deliberately simple and single-threaded
 
 - FIFO admission into fixed decode **slots** (highest priority class
   first when the engine schedules by priority);
-- prompt pages allocated up front, decode pages grown one at a time;
+- prompt pages allocated up front (after the prefix-cache match), decode
+  pages grown one at a time;
 - when a decode-time page allocation fails, the most-recently admitted
   sequence is preempted: pages released, sequence requeued at the front,
-  and its prompt plus generated tokens re-prefilled on re-admission.
+  and its re-prefill rides the prefix cache (its own registered pages).
 
-Tokens are a plain list: prefix-cache reuse is not ported yet, so no
-block hashes are kept per sequence.
+A sequence's tokens live in a `TokenBlockSequence`, which hashes each full
+page of them as it completes: the hashes key the prefix cache.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
     FINISH_REASON_LENGTH,
     PreprocessedRequest,
 )
+from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
 from dynamo_tpu_torch.runtime.pipeline.context import Context
 
 _seq_counter = itertools.count()
@@ -38,12 +40,18 @@ _seq_counter = itertools.count()
 @dataclass
 class Sequence:
     ctx: Context
-    tokens: list[int]                   # prompt + sampled tokens
+    blocks: TokenBlockSequence          # prompt + sampled tokens, hashed per page
     out_queue: asyncio.Queue = field(default_factory=asyncio.Queue)
     seq_id: int = field(default_factory=lambda: next(_seq_counter))
 
+    prompt_len: int = 0
     page_ids: list[int] = field(default_factory=list)
+    num_cached: int = 0        # prefix-cache tokens reused at admission
     num_computed: int = 0      # tokens whose KV is valid in pages
+    registered_pages: int = 0  # leading pages whose hashes are registered
+    # prefix pages the last reservation reused (a preemption-resume
+    # restamps it)
+    blocks_reused: int = 0
     slot: int = -1
     generated: int = 0
     prefilling: bool = False   # admitted but prompt KV not yet complete
@@ -53,6 +61,9 @@ class Sequence:
     # asynchronous fetch that emits it early, if one was started
     carry_pending: bool = False
     first_task: Optional[object] = None
+    # meta of the first emitted token after an admission (the prefix-cache
+    # hit: prefix_cached_tokens, prompt_tokens)
+    first_meta: Optional[dict] = None
     # tenant priority class (Context metadata "priority"; higher = more
     # important): orders admission picks and preemption-victim selection
     priority: int = 0
@@ -77,14 +88,26 @@ class Sequence:
 
     @classmethod
     def from_request(
-        cls, ctx: Context, pre: PreprocessedRequest, max_model_len: int,
+        cls, ctx: Context, pre: PreprocessedRequest, page_size: int,
+        max_model_len: int, blocks: Optional[TokenBlockSequence] = None,
     ) -> "Sequence":
-        seq = cls(ctx=ctx, tokens=list(pre.token_ids))
+        if blocks is not None and (
+            blocks.block_size != page_size
+            or blocks.total_tokens != len(pre.token_ids)
+        ):
+            # a stale or mismatched precompute would corrupt the prefix
+            # cache (wrong chained hashes): hash here instead
+            blocks = None
+        seq = cls(
+            ctx=ctx,
+            blocks=blocks or TokenBlockSequence(pre.token_ids, page_size),
+            prompt_len=len(pre.token_ids),
+        )
         so = pre.sampling_options
         seq.temperature = 0.0 if so.greedy else float(so.temperature or 0.0)
         seq.top_k = int(so.top_k or 0)
         seq.top_p = float(so.top_p if so.top_p is not None else 1.0)
-        budget = max_model_len - len(seq.tokens)
+        budget = max_model_len - seq.prompt_len
         mt = pre.stop_conditions.max_tokens
         seq.max_new_tokens = max(0, min(budget, mt) if mt is not None else budget)
         seq.eos_ids = frozenset(
@@ -106,13 +129,25 @@ class Sequence:
             return False
         return (now if now is not None else time.time()) > self.deadline
 
+    def cacheable_pages(self, page_size: int) -> Optional[int]:
+        """Pages eligible for prefix-cache match and registration; None is
+        no limit. The reference limits sequences with prompt embeds to the
+        text before them; the port refuses embeds (`_refuse_unported`)."""
+        return None
+
+    @property
+    def tokens(self) -> list[int]:
+        return self.blocks.all_tokens()
+
     @property
     def total_tokens(self) -> int:
-        return len(self.tokens)
+        return self.blocks.total_tokens
 
     @property
     def last_token(self) -> int:
-        return self.tokens[-1]
+        if self.blocks.partial:
+            return self.blocks.partial[-1]
+        return self.blocks.blocks[-1].tokens[-1]
 
     def check_finish(self, new_token: int) -> Optional[str]:
         """Engine-level stop: eos/stop ids and token budget (stop *strings*
