@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port (dynamo_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--pairs N]
+    python3 chip_smoke.py [--pairs N] [--serving N]
 
 Phases, each printed on its own line; any failure exits non-zero and the
 final result line is printed only when every phase passed:
@@ -77,7 +77,12 @@ final result line is printed only when every phase passed:
    engine streams with both off, through K4 and the launches the engine's
    dispatch counters imply; int8 KV also at page size 3. And the prefix
    cache: a prompt of 3 pages + 3 tokens served cold, then warm over its
-   3 cached pages, must stream the same tokens in each KV format. Phases 4-8 run
+   3 cached pages, must stream the same tokens in each KV format. The
+   prompts are encoded by the port's tokenizer. Then the serving entry
+   itself: `python -m dynamo_tpu_torch.run in=http out=torch --model-path
+   tests/data/tiny-trained-llama` as a subprocess on the card, whose greedy
+   streamed completion of the same prompt must equal the engine's text
+   (a non-zero exit or a timeout fails). Phases 4-8 run
    with the step pipeline on (the default): decode dispatches replay one
    CUDA graph each, N+1 queued behind N;
 5. full width: llama-3.1-8b (32 layers, d 4096) in bf16 from seeded random
@@ -127,9 +132,29 @@ final result line is printed only when every phase passed:
    hashing a prompt's blocks, and the share of the warm tokens equal to a
    cold serve of the same eight prompts (not gated: at random 8B weights
    the cold and warm prefills run GEMMs of other row counts).
+11. the serving entry at full width: a model dir naming the llama-3.1-8b
+   preset (seeded random weights, no safetensors) with a synthetic
+   WordLevel tokenizer of 128,256 words (three specials, the template's
+   words, then one word per id) and a chat template; the server started
+   through `dynamo_tpu_torch.run`'s `build_parser` and `serve_http` with
+   phase 5's engine flags (bf16 KV, step pipeline on) in this process's
+   event loop, driven by the port's raw-socket client: a warm-up round,
+   then eight concurrent streamed completions (ISL 512, OSL 64,
+   ignore_eos) with the launch counters zeroed just before and read just
+   after (K1-K3 as the dispatch counters imply, no plain call), one chat
+   request through the template, and the same ids straight through
+   `engine.generate`. Gates HTTP 200, SSE that parses and ends with
+   [DONE], 64 tokens a stream with finish reason length and every word
+   mapping back to an id; prints TTFT through HTTP and direct, host ms to
+   render and to tokenize a prompt, us a token to detokenize and frame,
+   output tok/s over the wall, the event loop's largest lag and the share
+   of HTTP tokens equal to the direct ones (not gated); then the same
+   host costs on a synthetic ByteLevel BPE of 128,256 tokens (the path a
+   Llama-class tokenizer.json takes), its encode cold and warm.
 With --pairs N, phases 5, 6 and 7 (each a pipeline off/on pair) and
 phase 8's bf16 pipeline off/on pair run N times in turns, to show their
-spread.
+spread. With --serving N only the build and phase 11 run, N times, and
+no result line is printed (a measurement, not the smoke).
 
 Then a `kernels` JSON line (seventeen kernels: the nine, K4 in three
 forms, and the five probe kernels; and `launch_floor_ms`), the nvidia-smi
@@ -145,9 +170,11 @@ import gc
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1398,19 +1425,15 @@ async def run_requests(engine, prompts, osl, metas=None):
 
 def phase_real_weights(dev):
     from dynamo_tpu_torch import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.llm.tokenizer import HuggingFaceTokenizer
     from dynamo_tpu_torch.models.weights import load_config
 
-    with open(os.path.join(CKPT, "tokenizer.json")) as f:
-        tok = json.load(f)
-    vocab = tok["model"]["vocab"]
-    inv = {i: w for w, i in vocab.items()}
-    special = {t["id"] for t in tok["added_tokens"] if t.get("special")}
-    def encode(text):
-        return [vocab.get(w, vocab["<unk>"]) for w in re.findall(r"\w+|[^\w\s]+", text.lower())]
-
+    tok = HuggingFaceTokenizer.from_file(CKPT)
+    encode = tok.encode
     prompt = "the capital of france is"
     ids = encode(prompt)
     n = 16
+    texts = {}
 
     def engine(device, dtype, kv_quant, **kw):
         cfg = dict(page_size=16, num_pages=64, prefill_chunk=32)
@@ -1441,7 +1464,8 @@ def phase_real_weights(dev):
         reset_counts()
         got = run(dev, "bfloat16", kv_quant, **odd)
         counts = read_counts()
-        text = " ".join(inv[i] for i in got if i not in special)
+        text = tok.decode(got)
+        texts[(kv_quant, page)] = text
         kv = (kv_quant or "bf16") + (f" (page {page})" if odd else "")
         log(f"[real] tiny-trained-llama bf16, {kv} KV on {dev}: {prompt!r} -> {text!r}; cpu f32 "
             f"reference agrees on {sum(a == b for a, b in zip(got, ref))}/{n}; launches {counts}")
@@ -1512,6 +1536,77 @@ def phase_real_weights(dev):
         check_counts(counts, path_launches(st, eng.model_cfg.num_layers, 4, kv_quant),
                      f"real weights, mixed + spec, {kv} KV")
         assert counts[RAGGED_KERNEL[kv_quant]][0] > 0
+    return texts[(None, 16)]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_real_http(want: str, timeout_s: float = 300.0, extra=()) -> None:
+    """Phase 4 through the serving entry: `python -m dynamo_tpu_torch.run
+    in=http out=torch` on the vendored checkpoint as a subprocess on the
+    card (its default flags: bf16, page 16, the step pipeline on), whose
+    greedy streamed completion of "the capital of france is" must equal
+    the text the engine streamed in phase 4 (`want`). A non-zero exit or a
+    timeout fails; the server is stopped in every case."""
+    from dynamo_tpu_torch.llm.http import client
+
+    port = free_port()
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.run", "in=http", "out=torch",
+           "--model-path", os.path.relpath(CKPT, ROOT), "--http-host", "127.0.0.1",
+           "--http-port", str(port), "--num-pages", "256", *extra]
+    t0 = time.perf_counter()
+    out = tempfile.TemporaryFile("w+")  # a file, not a pipe nobody drains
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, text=True)
+
+    async def go():
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"the server exited with {proc.returncode}")
+            try:
+                reply = await client.request("127.0.0.1", port, "GET", "/health")
+                health = await reply.json()
+                if reply.status == 200:
+                    break
+            except OSError:
+                pass
+            await asyncio.sleep(0.5)
+        up = time.perf_counter() - t0
+        reply = await client.request("127.0.0.1", port, "POST", "/v1/completions", {
+            "model": health["models"][0], "prompt": "the capital of france is",
+            "max_tokens": 16, "temperature": 0, "stream": True})
+        assert reply.status == 200, f"HTTP {reply.status}"
+        msgs = [m async for _, m in reply.sse()]
+        assert msgs and msgs[-1].done, "the SSE stream did not end with [DONE]"
+        chunks = [m.json() for m in msgs if m.data is not None]
+        text = "".join(c["text"] for ch in chunks for c in ch["choices"])
+        usage = [ch["usage"] for ch in chunks if ch.get("usage")]
+        return up, text, usage
+
+    try:
+        up, text, usage = asyncio.run(asyncio.wait_for(go(), timeout_s))
+    except BaseException:
+        proc.kill()
+        proc.wait(timeout=30)
+        out.seek(0)
+        log("[real-http] server output (tail):\n" + "\n".join(out.read().splitlines()[-30:]))
+        raise
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        out.close()
+    log(f"[real-http] {' '.join(cmd[1:])}: up in {up:.1f} s; greedy completion {text!r}, "
+        f"usage {usage}; equal to the engine's stream in phase 4: {text == want}")
+    assert usage and usage[-1]["completion_tokens"] == 16, usage
+    assert text == want, f"HTTP completion {text!r} vs the engine's {want!r}"
 
 
 MIXED_STATS = ("mixed_steps", "mixed_decode_rows", "mixed_prefill_tokens",
@@ -2081,11 +2176,422 @@ def phase_prefix(dev, params, kv_quant=None, smi="", cfg=None, traffic=None):
     return m, params
 
 
+
+# ---------------------------------------------------------------- phase 11
+
+# phase 5's engine settings as `dynamo_tpu_torch.run` flags;
+# `phase_serving(flags=..., traffic=...)` swaps in a small model and
+# shorter prompts for a CPU rehearsal
+SERVE_PRESET = "llama-3.1-8b"
+SERVE_FLAGS = ["--page-size", "64", "--num-pages", "256", "--max-batch-size", "8",
+               "--max-model-len", "2048", "--prefill-chunk", "512", "--decode-steps", "8"]
+SERVE_TRAFFIC = dict(n=8, isl=512, osl=64, chat_osl=16)
+# the synthetic tokenizer's words: three specials, the chat template's
+# words, then one word per remaining id, so that every id decodes to one
+# word and every word maps back to its id
+SERVE_WORDS = ["<unk>", "<s>", "</s>", "user", "assistant", "system", ":"]
+SERVE_TEMPLATE = (
+    "{% for m in messages %}<s>{{ m['role'] }} : {{ m['content'] | trim }}</s>\n{% endfor %}"
+    "{% if add_generation_prompt %}<s>assistant :{% endif %}"
+)
+
+
+def serving_model_dir(path: str, preset: str, vocab: int) -> None:
+    """A model dir the entry serves from seeded random weights: config.json
+    naming the preset (no safetensors), a WordLevel tokenizer.json of
+    `vocab` words and a tokenizer_config.json with a chat template and
+    an eos token."""
+    words = SERVE_WORDS + [f"w{i}" for i in range(len(SERVE_WORDS), vocab)]
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"dynamo_tpu_preset": preset, "max_position_embeddings": 2048}, f)
+    with open(os.path.join(path, "tokenizer.json"), "w") as f:
+        json.dump({
+            "version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [{"id": i, "content": w, "single_word": False, "lstrip": False,
+                              "rstrip": False, "normalized": False, "special": True}
+                             for i, w in enumerate(words[:3])],
+            "normalizer": {"type": "Lowercase"}, "pre_tokenizer": {"type": "Whitespace"},
+            "post_processor": None, "decoder": None,
+            "model": {"type": "WordLevel", "vocab": {w: i for i, w in enumerate(words)},
+                      "unk_token": "<unk>"},
+        }, f)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"bos_token": "<s>", "eos_token": "</s>", "chat_template": SERVE_TEMPLATE}, f)
+
+
+# English letter frequencies (a-z, per cent) and word lengths (1-12
+# letters, per cent of running words) for the synthetic BPE's language
+BPE_LETTERS = [8.2, 1.5, 2.8, 4.3, 12.7, 2.2, 2.0, 6.1, 7.0, 0.15, 0.77, 4.0, 2.4, 6.7, 7.5,
+               1.9, 0.095, 6.0, 6.3, 9.1, 2.8, 0.98, 2.4, 0.15, 2.0, 0.074]
+BPE_LENGTHS = [3, 17, 21, 16, 11, 9, 8, 6, 4, 2.5, 1.5, 1]
+BPE_VOCAB = 128_256  # Llama-3's
+
+
+def synthetic_bpe(vocab: int, seed: int = 0):
+    """A ByteLevel BPE tokenizer.json (as a dict) of `vocab` tokens and a
+    sampler of English-shaped text for it. Word types are drawn from
+    English letter and length frequencies and ranked by a Zipf law; each,
+    most frequent first, with a leading space ("Ġ") and one in ten also
+    bare and capitalised, adds the merges that build it left to right
+    from its first byte, until the vocabulary holds `vocab` tokens. So a
+    frequent word encodes to one token after one merge a letter, and the
+    word's merge loop (`tokenizer._BPE.tokenize`) does the work a trained
+    BPE of this size does; rare words stop at shorter pieces."""
+    from dynamo_tpu_torch.llm import tokenizer as tk
+
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    p_let = np.array(BPE_LETTERS) / sum(BPE_LETTERS)
+    p_len = np.array(BPE_LENGTHS) / sum(BPE_LENGTHS)
+    toks = [tk._BYTE_CHAR[b] for b in range(256)]
+    index = {t: i for i, t in enumerate(toks)}
+    merges, types, seen = [], [], set()
+
+    def chain(word):
+        cur = word[0]
+        for ch in word[1:]:
+            nxt = cur + ch
+            if nxt not in index:
+                if len(toks) >= vocab:
+                    return False
+                index[nxt] = len(toks)
+                toks.append(nxt)
+                merges.append([cur, ch])
+            cur = nxt
+        return True
+
+    while len(toks) < vocab:
+        w = "".join(rng.choice(letters, size=rng.choice(len(p_len), p=p_len) + 1, p=p_let))
+        if w in seen:
+            continue
+        seen.add(w)
+        types.append(w)
+        forms = ["\u0120" + w] + (["\u0120" + w.capitalize(), w] if rng.rand() < 0.1 else [])
+        for f in forms:
+            if not chain(f):
+                break
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": [],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                          "use_regex": True},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": index, "merges": merges},
+    }
+    zipf = 1.0 / np.arange(1, len(types) + 1) ** 1.07
+    zipf /= zipf.sum()
+
+    def text(words: int, trng) -> str:
+        out, cap = [], True
+        for i in trng.choice(len(types), size=words, p=zipf):
+            w = types[i].capitalize() if cap else types[i]
+            cap = trng.rand() < 0.06
+            out.append(w + (". " if cap else ", " if trng.rand() < 0.05 else " "))
+        return "".join(out).rstrip()
+
+    return spec, text
+
+
+def detok_frame_us(tok, streams, model_name) -> float:
+    """us a token for the backend's incremental decoder and stop jail, the
+    delta chunk and its SSE frame, over token streams."""
+    from dynamo_tpu_torch.llm.backend import StopSequenceDecoder
+    from dynamo_tpu_torch.llm.protocols.openai import DeltaGenerator
+
+    t0, frames, n = time.perf_counter(), [], 0
+    for toks in streams:
+        dec = StopSequenceDecoder(tok, [], set(), set(), len(toks), ignore_eos=True)
+        delta = DeltaGenerator(model_name, kind="completion")
+        for t in toks:
+            frame = json.dumps(delta.chunk(dec.step(t), dec.finish_reason))
+            frames.append(b"data: %s\n\n" % frame.encode())
+        n += len(toks)
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def bpe_host_cost(vocab: int, n: int, words: int, model_name: str) -> dict:
+    """The frontend's host cost on the ByteLevel BPE path, which a
+    Llama-class tokenizer.json takes: a `synthetic_bpe` of `vocab` tokens,
+    `n` prompts of `words` words each. Encode cold (the word cache
+    cleared: every word's merge loop runs) and warm, ms a prompt (median
+    over the prompts); us a token to detokenize and frame the prompts'
+    ids as streams."""
+    from dynamo_tpu_torch.llm.tokenizer import HuggingFaceTokenizer
+
+    t0 = time.perf_counter()
+    spec, text = synthetic_bpe(vocab)
+    tok = HuggingFaceTokenizer(spec)
+    build_s = time.perf_counter() - t0
+    trng = np.random.RandomState(4)
+    texts = [text(words, trng) for _ in range(n)]
+    cold, warm, streams = [], [], []
+    for t in texts:
+        tok._model._cache.clear()
+        t1 = time.perf_counter()
+        ids = tok.encode(t)
+        t2 = time.perf_counter()
+        assert tok.encode(t) == ids
+        t3 = time.perf_counter()
+        assert tok.decode(ids) == t, "the synthetic BPE does not round-trip"
+        cold.append(1e3 * (t2 - t1))
+        warm.append(1e3 * (t3 - t2))
+        streams.append(ids)
+    return {"vocab": tok.vocab_size, "merges": len(spec["model"]["merges"]),
+            "build_s": build_s, "prompt_words": words,
+            "prompt_tokens_median": statistics.median(map(len, streams)),
+            "tokenize_cold_ms": statistics.median(cold),
+            "tokenize_cold_ms_max": max(cold), "tokenize_warm_ms": statistics.median(warm),
+            "detok_frame_us_per_token": detok_frame_us(tok, streams, model_name)}
+
+
+class LoopLag:
+    """The event loop's lateness: a task that sleeps 1 ms at a time and
+    keeps the largest overshoot, what a request's next step waits behind
+    (tokenizing, rendering, detokenizing, framing, the engine's host
+    work, all on the one loop)."""
+
+    def __init__(self):
+        self.max_ms, self._task = 0.0, None
+
+    async def _tick(self):
+        while True:
+            t = time.perf_counter()
+            await asyncio.sleep(0.001)
+            self.max_ms = max(self.max_ms, 1e3 * (time.perf_counter() - t) - 1.0)
+
+    def __enter__(self):
+        self._task = asyncio.get_running_loop().create_task(self._tick())
+        return self
+
+    def __exit__(self, *exc):
+        self._task.cancel()
+
+
+async def sse_completion(port, body, t_send=None):
+    """One streamed request through the raw client: (status, its data
+    chunks, TTFT s to the first chunk with text, end time)."""
+    from dynamo_tpu_torch.llm.http import client
+
+    t0 = t_send or time.perf_counter()
+    path = "/v1/chat/completions" if "messages" in body else "/v1/completions"
+    reply = await client.request("127.0.0.1", port, "POST", path, body)
+    if reply.status != 200:
+        return reply.status, [await reply.read()], None, time.perf_counter()
+    chunks, ttft, done = [], None, False
+    async for t, msg in reply.sse():
+        if msg.done:
+            done = True
+            continue
+        if msg.data is None:
+            continue
+        ch = msg.json()
+        chunks.append(ch)
+        texts = [c.get("text") or (c.get("delta") or {}).get("content")
+                 for c in ch.get("choices") or []]
+        if ttft is None and any(texts):
+            ttft = t - t0
+    assert done, "the SSE stream did not end with data: [DONE]"
+    return 200, chunks, ttft, time.perf_counter()
+
+
+def phase_serving(dev, smi="", preset=SERVE_PRESET, flags=None, traffic=None):
+    """Phase 11: the serving entry at full width. A model dir naming the
+    preset (random weights, seed 0) with a synthetic WordLevel tokenizer
+    of the model's vocabulary size and a chat template; the server started
+    through `dynamo_tpu_torch.run`'s `build_parser` and `serve_http` in
+    this process's event loop (bf16 KV, step pipeline on); one warm-up
+    round, then `n` concurrent streamed completions (ISL `isl` words, OSL
+    `osl`, ignore_eos) with the launch counters zeroed just before and read
+    just after, one chat request through the template, then the same
+    prompts' ids straight through `engine.generate`, the HTTP round again
+    and the direct one again; each round from a cold cache on an idle
+    engine, with when the requests reached the engine, the prefill's host
+    enqueue, the event loop's largest lag and the GC's pauses beside its
+    TTFT. Gates: HTTP 200, SSE
+    that parses and ends with [DONE], `osl` tokens a stream with finish
+    reason length, every word mapping back to an id, the launches the
+    dispatch counters imply and no plain call. Prints TTFT through HTTP
+    and direct, host ms to render and to tokenize a prompt, us a token to
+    detokenize and frame, output tok/s over the wall and the share of HTTP
+    tokens equal to the direct ones (reported, not gated); and the
+    tokenize and detokenize-and-frame costs again on a ByteLevel BPE of
+    Llama-3's vocabulary size (`bpe_host_cost`), the path a Llama-class
+    tokenizer.json takes."""
+    from dynamo_tpu_torch.llm.local_model import LocalModel
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.run import build_parser, serve_http
+
+    tr = dict(SERVE_TRAFFIC, **(traffic or {}))
+    n, isl, osl = tr["n"], tr["isl"], tr["osl"]
+    vocab = get_config(preset).vocab_size
+    tmp = tempfile.TemporaryDirectory()
+    model_dir = os.path.join(tmp.name, preset)
+    os.mkdir(model_dir)
+    serving_model_dir(model_dir, preset, vocab)
+    lm = LocalModel.prepare(model_dir)
+    pre = OpenAIPreprocessor(lm.card)
+    tok = pre.tokenizer
+    args = build_parser().parse_args(
+        ["in=http", "out=torch", "--model-path", model_dir, "--http-host", "127.0.0.1",
+         "--http-port", "0", "--device", str(dev), *(flags or SERVE_FLAGS)])
+    tag = f"[serve {preset} bf16 KV, pipeline on]"
+    rng = np.random.RandomState(3)
+    first = len(SERVE_WORDS)
+
+    def prompts():
+        ids = [rng.randint(first, vocab, size=isl).tolist() for _ in range(n)]
+        return ids, [" ".join(f"w{i}" for i in p) for p in ids]
+
+    warm_ids, warm_text = prompts()
+    ids, text = prompts()
+    messages = [{"role": "system", "content": "w7 w8 w9"}, {"role": "user", "content": text[0]}]
+
+    # host cost of the frontend's steps, timed alone (median of 5)
+    def med_ms(fn, k=5):
+        ts = []
+        for _ in range(k):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(ts)
+
+    rendered = pre.formatter.render(messages)
+    m = {"render_ms": med_ms(lambda: pre.formatter.render(messages)),
+         "tokenize_ms": med_ms(lambda: tok.encode(text[0])),
+         "chat_prompt_tokens": len(tok.encode(rendered))}
+    assert tok.encode(text[0]) == ids[0], "the synthetic tokenizer does not round-trip"
+    # the same steps on the ByteLevel BPE path, at Llama-3's vocabulary
+    # size (the synthetic language runs about 1.63 tokens a word, so 0.615
+    # words a token of ISL)
+    m["bpe"] = bpe_host_cost(BPE_VOCAB, n, round(0.615 * isl), lm.card.display_name)
+
+    def body(words):
+        return {"model": model_name, "prompt": words, "max_tokens": osl, "temperature": 0,
+                "stream": True, "nvext": {"ignore_eos": True}}
+
+    async def go():
+        svc, eng = await serve_http(args, "torch")
+        try:
+            return await serve(svc, eng)
+        finally:
+            await svc.stop()
+            await eng.close()
+
+    async def serve(svc, eng):
+        t_up = time.perf_counter() - t_start
+        arrivals = []  # when each request reaches engine.generate
+        generate = eng.generate
+
+        async def timed_generate(ctx):
+            arrivals.append(time.perf_counter())
+            return await generate(ctx)
+
+        eng.generate = timed_generate
+
+        async def measured(kind):
+            """One round from a cold cache and an idle engine: the eight
+            streamed through HTTP, or their ids through engine.generate."""
+            eng.allocator.clear_cache()
+            await idle(eng)
+            arrivals.clear()
+            s0 = eng.phase_stats
+            t0 = time.perf_counter()
+            with GcPauses() as gcp, LoopLag() as lag:
+                if kind == "http":
+                    res = await asyncio.gather(
+                        *[sse_completion(svc.port, body(t), t0) for t in text])
+                    ttft = sorted(r[2] for r in res)
+                else:
+                    res, _ = await run_requests(eng, ids, osl)
+                    ttft = sorted(r[1] for r in res)
+                wall = time.perf_counter() - t0
+            await idle(eng)
+            d = {k: eng.phase_stats[k] - s0[k] for k in s0}
+            return res, d, {
+                "ttft_p50_s": statistics.median(ttft), "ttft_max_s": ttft[-1],
+                "output_tok_s_wall": n * osl / wall, "wall_s": wall,
+                "engine_arrival_first_ms": 1e3 * (arrivals[0] - t0),
+                "engine_arrival_last_ms": 1e3 * (arrivals[-1] - t0),
+                "prefill_dispatches": d["prefill_dispatches"],
+                "prefill_enqueue_ms": 1e3 * d["prefill_dispatch_s"],
+                "decode_step_ms": decode_step_ms(d, args.decode_steps),
+                "loop_lag_max_ms": lag.max_ms, **gcp.summary(),
+            }
+
+        # warm-up: cuBLAS, the allocator, the decode graphs
+        await asyncio.gather(*[sse_completion(svc.port, body(t)) for t in warm_text])
+        reset_counts()
+        res, d, http1 = await measured("http")
+        counts = read_counts()
+        check_counts(counts, path_launches(d, eng.model_cfg.num_layers, eng.config.decode_steps,
+                                           None), f"{tag} HTTP round")
+        chat = await sse_completion(svc.port, {
+            "model": model_name, "messages": messages, "max_tokens": tr["chat_osl"],
+            "stream": True})
+        direct, _, direct1 = await measured("direct")
+        _, _, http2 = await measured("http")
+        _, _, direct2 = await measured("direct")
+        return t_up, res, counts, chat, direct, [http1, http2], [direct1, direct2]
+
+    model_name = lm.card.display_name
+    t_start = time.perf_counter()
+    t_up, res, counts, chat, direct, http_m, direct_m = asyncio.run(go())
+    tmp.cleanup()
+
+    vocab_map = {w: i for i, w in enumerate(SERVE_WORDS)}
+    http_ids = []
+    for status, chunks, ttft, _ in res:
+        assert status == 200, f"{tag}: HTTP {status}: {chunks}"
+        text_out = "".join(c["text"] for ch in chunks for c in ch["choices"])
+        finish = [c["finish_reason"] for ch in chunks for c in ch["choices"]
+                  if c["finish_reason"]]
+        usage = [ch["usage"] for ch in chunks if ch.get("usage")]
+        assert finish == ["length"], f"{tag}: finish reasons {finish}"
+        assert usage and usage[-1]["completion_tokens"] == osl, f"{tag}: usage {usage}"
+        words = text_out.split()
+        got = [vocab_map[w] if w in vocab_map else int(w[1:]) if w[:1] == "w" and w[1:].isdigit()
+               and first <= int(w[1:]) < vocab else None for w in words]
+        assert None not in got, f"{tag}: a word maps to no id: {words}"
+        http_ids.append(got)
+    status, chat_chunks, chat_ttft, _ = chat
+    assert status == 200 and chat_chunks, f"{tag}: chat request HTTP {status}"
+    chat_text = "".join((c.get("delta") or {}).get("content") or ""
+                        for ch in chat_chunks for c in ch["choices"])
+    for toks, _, reason, _ in direct:
+        assert len(toks) == osl and reason == "length", (len(toks), reason)
+    same = sum(a == b for x, (y, *_) in zip(http_ids, direct) for a, b in zip(x, y))
+
+    # detokenize and frame the direct round's tokens again, timed
+    detok_us = detok_frame_us(tok, [toks for toks, *_ in direct], model_name)
+
+    m.update({
+        "server_up_s": t_up, "detok_frame_us_per_token": detok_us,
+        "chat_ttft_s": chat_ttft, "http_tokens_equal_to_direct_share": same / (n * osl),
+        "http": http_m, "direct": direct_m,
+    })
+    log(f"{tag} {n} x (ISL {isl}, OSL {osl}) streamed through python -m dynamo_tpu_torch.run "
+        f"in=http out=torch ({' '.join(flags or SERVE_FLAGS)}) and the same ids through "
+        f"engine.generate, in turns from a cold cache; a chat through the template -> {chat_text[:60]!r}; {smi}: "
+        + json.dumps(m))
+    log(f"{tag} launches on the HTTP round: "
+        f"{json.dumps({k: v[0] for k, v in counts.items() if v[0]})}; plain calls: "
+        f"{sum(v[1] for v in counts.values())}")
+    return m, {k: v[0] for k, v in counts.items()}
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1,
                     help="pipeline off/on pairs of phases 5, 6 and 7, and of phase 8's "
                          "bf16 wave, in turns (default 1)")
+    ap.add_argument("--serving", type=int, default=0, metavar="N",
+                    help="measurement: build the kernels, run phase 11 alone N times and "
+                         "exit, without the result lines")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script needs one GPU", file=sys.stderr)
@@ -2118,6 +2624,12 @@ def main() -> int:
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"[ptxas] {n}: {line.strip()}")
 
+    if args.serving:
+        for _ in range(args.serving):
+            torch.cuda.empty_cache()
+            phase_serving(dev, smi=smi)
+        return 0
+
     from dynamo_tpu_torch.scripts import empty_launch
 
     floor_ms = time_ms(lambda: empty_launch(dev))
@@ -2145,7 +2657,7 @@ def main() -> int:
     inject_ms = results["bitcast_inject"]["ms"]
     log(f"[kernel] bitcast_inject against the launch floor: {inject_ms:.4f} ms, floor "
         f"{floor_ms:.4f}, {1e3 * (inject_ms - floor_ms):.2f} us above it")
-    phase_real_weights(dev)
+    phase_real_http(phase_real_weights(dev))
     # phases 5, 6 and 7 (bf16, int8 and int4 KV) on one set of weights,
     # each with the step pipeline off then on; --pairs repeats the pairs in
     # turns, for their spread
@@ -2181,6 +2693,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         _, params = phase_prefix(dev, params, kv_quant=kv_quant, smi=smi)
     del params
+    # phase 11: the serving entry at full width (its own engine, seed 0)
+    torch.cuda.empty_cache()
+    phase_serving(dev, smi=smi)
 
     meta = {
         "kv_write": ("dynamo_tpu_torch/csrc/kv_write.cu", "dynamo_tpu/ops/pallas_kv_write.py:60"),

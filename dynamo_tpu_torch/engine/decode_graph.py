@@ -24,7 +24,13 @@ What makes the loop capturable:
   draws fresh Gumbel noise;
 - the kernel wrappers' launch counters count in Python, so they move while
   capturing and not on replay: each graph records its counts at capture,
-  takes them back, and adds them on every replay, so the counts stay exact.
+  takes them back, and adds them on every replay, so the counts stay exact;
+- nothing frees a CUDA graph while one is being captured: destroying a
+  graph (`CUDAGraph.reset`) is not permitted during a capture and
+  invalidates it, and a dead engine's graphs sit in reference cycles that
+  any collection may free. `torch.cuda.graph` no longer collects first
+  (unless `torch.compiler.config.force_cudagraph_gc`), so the capture
+  collects before it begins and keeps the collector off until it ends.
 
 A capture or replay that fails raises: there is no eager fallback. On the
 CPU the same function runs eagerly every time.
@@ -32,6 +38,7 @@ CPU the same function runs eagerly every time.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import torch
@@ -116,8 +123,15 @@ class DecodeGraphs:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         before = _read_counts()
-        with torch.cuda.graph(graph, pool=self._pool):
-            out = self._step(width, all_greedy)
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                out = self._step(width, all_greedy)
+        finally:
+            if gc_on:
+                gc.enable()
         counts = [b - a for a, b in zip(before, _read_counts())]
         _add_counts(counts, -1)  # capture launches nothing; replays count
         keep = list(decode_attention._scratch_bufs.values())

@@ -1,1 +1,3 @@
-"""LLM-level types shared by the engine: protocols and token blocks."""
+"""LLM-level layers: protocols, token blocks, the tokenizer, the chat
+template renderer, the preprocessor and backend operators, the HTTP
+frontend."""

@@ -1,0 +1,247 @@
+"""Backend operator: incremental detokenization + stop handling.
+
+Equivalent of the reference's Backend postprocessor (reference:
+lib/llm/src/backend.rs:56-496): sits between the preprocessor and a
+token-level engine. On the response path it
+
+- detokenizes incrementally via `DecodeStream`,
+- applies eos / stop-token-id finish detection (engine-agnostic safety net),
+- runs the hidden-stop-sequence **jail**: text that could be the beginning of
+  a stop string is held back until it either completes the stop string
+  (request finishes, stop text suppressed) or diverges (held text released),
+- enforces max_tokens / min_tokens.
+"""
+
+from __future__ import annotations
+
+from typing import AsyncIterator, Optional
+
+from dynamo_tpu_torch.llm.protocols.common import (
+    FINISH_REASON_CANCELLED,
+    FINISH_REASON_EOS,
+    FINISH_REASON_ERROR,
+    FINISH_REASON_LENGTH,
+    EngineOutput,
+    PreprocessedRequest,
+)
+from dynamo_tpu_torch.llm.tokenizer import HuggingFaceTokenizer
+from dynamo_tpu_torch.runtime.pipeline.context import Context
+from dynamo_tpu_torch.runtime.pipeline.engine import AsyncEngine, Operator
+
+
+def _held_suffix_len(text: str, stops: list[str]) -> int:
+    """Length of the longest suffix of `text` that is a proper prefix of any
+    stop string — that much must stay jailed."""
+    best = 0
+    for stop in stops:
+        max_k = min(len(text), len(stop) - 1)
+        for k in range(max_k, 0, -1):
+            if text.endswith(stop[:k]):
+                best = max(best, k)
+                break
+    return best
+
+
+class StopSequenceDecoder:
+    """Per-request decode state: DecodeStream + stop jail
+    (reference: backend.rs Decoder ~:200-496)."""
+
+    def __init__(
+        self,
+        tokenizer: HuggingFaceTokenizer,
+        stop_sequences: list[str],
+        eos_token_ids: set[int],
+        stop_token_ids: set[int],
+        max_tokens: Optional[int],
+        min_tokens: Optional[int] = None,
+        ignore_eos: bool = False,
+    ):
+        self._decode = tokenizer.decode_stream()
+        self._stops = [s for s in stop_sequences if s]
+        self._eos_ids = eos_token_ids
+        self._stop_ids = stop_token_ids
+        self._max_tokens = max_tokens
+        self._min_tokens = min_tokens or 0
+        self._ignore_eos = ignore_eos
+        self._jail = ""  # held-back text
+        self._generated = 0
+        self.finish_reason: Optional[str] = None
+
+    @property
+    def finished(self) -> bool:
+        return self.finish_reason is not None
+
+    def step(self, token_id: int) -> Optional[str]:
+        """Feed one generated token id; returns releasable text (may be
+        empty) or None if nothing can be released. Sets finish_reason when
+        the request is done."""
+        if self.finished:
+            return None
+        self._generated += 1
+
+        past_min = self._generated > self._min_tokens
+        if not self._ignore_eos and past_min and token_id in self._eos_ids:
+            self.finish_reason = FINISH_REASON_EOS
+            return self.flush()
+        if past_min and token_id in self._stop_ids:
+            self.finish_reason = FINISH_REASON_EOS
+            return self.flush()
+
+        piece = self._decode.step(token_id)
+        released: Optional[str] = None
+        if piece:
+            self._jail += piece
+            # full stop string materialized?
+            hit = None
+            for stop in self._stops:
+                idx = self._jail.find(stop)
+                if idx != -1 and (hit is None or idx < hit[0]):
+                    hit = (idx, stop)
+            if hit is not None:
+                self.finish_reason = FINISH_REASON_EOS
+                released = self._jail[: hit[0]]
+                self._jail = ""
+                return released or None
+            held = _held_suffix_len(self._jail, self._stops)
+            if held < len(self._jail):
+                released = self._jail[: len(self._jail) - held]
+                self._jail = self._jail[len(self._jail) - held :]
+
+        if self._max_tokens is not None and self._generated >= self._max_tokens:
+            self.finish_reason = FINISH_REASON_LENGTH
+            tail = self._jail
+            self._jail = ""
+            released = (released or "") + tail
+            return released or None
+        return released
+
+    def flush(self) -> Optional[str]:
+        """Release all held-back text (stream ending for any reason)."""
+        text = self._jail
+        self._jail = ""
+        return text or None
+
+
+class Backend(Operator):
+    def __init__(self, tokenizer: HuggingFaceTokenizer):
+        self.tokenizer = tokenizer
+
+    @classmethod
+    def from_card(cls, card) -> "Backend":
+        return cls(HuggingFaceTokenizer.from_file(card.tokenizer_dir()))
+
+    async def generate(
+        self, request: Context, next_engine: AsyncEngine
+    ) -> AsyncIterator[dict]:
+        payload = request.payload
+        pre = (
+            PreprocessedRequest.from_dict(payload)
+            if isinstance(payload, dict)
+            else payload
+        )
+        decoder = StopSequenceDecoder(
+            self.tokenizer,
+            stop_sequences=pre.stop_conditions.stop,
+            eos_token_ids=set(pre.eos_token_ids),
+            stop_token_ids=set(pre.stop_conditions.stop_token_ids),
+            max_tokens=pre.stop_conditions.max_tokens,
+            min_tokens=pre.stop_conditions.min_tokens,
+            ignore_eos=pre.stop_conditions.ignore_eos,
+        )
+        upstream = await next_engine.generate(request.map(pre.to_dict()))
+
+        async def _out() -> AsyncIterator[dict]:
+            # token ids consumed but not yet emitted (their text is still held
+            # by the incremental detokenizer) — attached to the next frame so
+            # usage accounting downstream sees every generated token; same for
+            # frame meta (e.g. first-frame prefix_cached_tokens), merged so a
+            # fully-jailed frame's meta is not dropped
+            pending_ids: list[int] = []
+            pending_lps: list = []   # aligned with pending_ids (logprobs mode)
+            pending_tops: list = []  # aligned top-alternative lists
+            pending_meta: dict = {}
+            cum_lp = None
+            async for raw in upstream:
+                out = EngineOutput.from_dict(raw) if isinstance(raw, dict) else raw
+                if request.is_stopped() and not decoder.finished:
+                    decoder.finish_reason = FINISH_REASON_CANCELLED
+                    if out.meta:
+                        pending_meta.update(out.meta)
+                    yield EngineOutput(
+                        token_ids=pending_ids,
+                        log_probs=pending_lps or None,
+                        top_log_probs=pending_tops or None,
+                        cum_log_probs=cum_lp,
+                        finish_reason=FINISH_REASON_CANCELLED,
+                        meta=pending_meta or None,
+                    ).to_dict()
+                    return
+                text_parts: list[str] = []
+                consumed = 0
+                for tid in out.token_ids:
+                    piece = decoder.step(tid)
+                    consumed += 1
+                    if piece:
+                        text_parts.append(piece)
+                    if decoder.finished:
+                        break
+                # only the consumed prefix: tokens past a mid-chunk stop must
+                # not leak into usage accounting downstream
+                pending_ids.extend(out.token_ids[:consumed])
+                if out.log_probs:
+                    consumed_lps = out.log_probs[:consumed]
+                    pending_lps.extend(consumed_lps)
+                    # running sum over CONSUMED tokens (a mid-chunk stop
+                    # must not credit the discarded tail)
+                    cum_lp = (cum_lp or 0.0) + sum(
+                        lp for lp in consumed_lps if lp is not None
+                    )
+                if out.top_log_probs:
+                    pending_tops.extend(out.top_log_probs[:consumed])
+                if out.meta:
+                    pending_meta.update(out.meta)
+                if text_parts or decoder.finished:
+                    yield EngineOutput(
+                        token_ids=pending_ids,
+                        text="".join(text_parts) or None,
+                        log_probs=pending_lps or None,
+                        top_log_probs=pending_tops or None,
+                        cum_log_probs=cum_lp,
+                        finish_reason=decoder.finish_reason,
+                        meta=pending_meta or None,
+                    ).to_dict()
+                    pending_ids = []
+                    pending_lps = []
+                    pending_tops = []
+                    pending_meta = {}
+                if decoder.finished:
+                    # tell the engine to stop producing (remote: stop frame)
+                    request.stop_generating()
+                    return
+                if out.finish_reason:
+                    # engine finished on its own (its own length/stop logic):
+                    # release any text held back as a partial stop-string match
+                    yield EngineOutput(
+                        token_ids=pending_ids,
+                        text=decoder.flush(),
+                        log_probs=pending_lps or None,
+                        top_log_probs=pending_tops or None,
+                        cum_log_probs=cum_lp,
+                        finish_reason=out.finish_reason,
+                        meta=pending_meta or None,
+                    ).to_dict()
+                    return
+            if not decoder.finished:
+                # upstream ended without a finish frame (truncated/crashed
+                # stream): release held text, surface the abnormal end
+                yield EngineOutput(
+                    token_ids=pending_ids,
+                    text=decoder.flush(),
+                    log_probs=pending_lps or None,
+                    top_log_probs=pending_tops or None,
+                    cum_log_probs=cum_lp,
+                    finish_reason=FINISH_REASON_ERROR,
+                    meta=pending_meta or None,
+                ).to_dict()
+
+        return _out()

@@ -1,0 +1,388 @@
+"""OpenAI → backend preprocessing operator.
+
+Equivalent of the reference's OpenAIPreprocessor (reference:
+lib/llm/src/preprocessor.rs:64-235 + preprocessor/prompt/*): renders the
+model's chat template (the subset of Jinja that HF ships in
+tokenizer_config.json, through `llm/chat_template.py`), tokenizes, merges
+stop conditions and eos ids into a `PreprocessedRequest`, then maps the
+engine's `EngineOutput` stream back into
+OpenAI chat/completion chunks via `DeltaGenerator`.
+
+Annotations (reference: nvext annotations, preprocessor.rs): requesting
+``formatted_prompt`` or ``token_ids`` yields annotation items
+(``{"__annotation__": name, "data": ...}``) ahead of the data stream; the
+HTTP layer renders them as SSE events.
+
+The port of the JAX package's `llm/preprocessor.py`: the same operator on
+the port's plain-Python tokenizer and template renderer, without the
+tracing span (M12).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+from typing import AsyncIterator, Optional
+
+from dynamo_tpu_torch.llm.chat_template import ChatTemplate
+from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+from dynamo_tpu_torch.llm.protocols.common import EngineOutput, PreprocessedRequest
+from dynamo_tpu_torch.llm.protocols.openai import (
+    ChatCompletionRequest,
+    CompletionRequest,
+    DeltaGenerator,
+    RequestError,
+)
+from dynamo_tpu_torch.llm.tokenizer import HuggingFaceTokenizer
+from dynamo_tpu_torch.runtime.pipeline.context import Context
+from dynamo_tpu_torch.runtime.pipeline.engine import AsyncEngine, Operator
+from dynamo_tpu_torch.utils.logging import get_logger
+
+log = get_logger("dynamo_tpu_torch.preprocessor")
+
+
+class PromptFormatter:
+    """HF-style chat template renderer (reference: preprocessor/prompt/
+    template/tokcfg.rs)."""
+
+    def __init__(self, template: str, bos_token: Optional[str], eos_token: Optional[str]):
+        # with the globals raise_exception and strftime_now, as jinja2's
+        # environment in the JAX package
+        self._template = ChatTemplate(template)
+        self._bos = bos_token
+        self._eos = eos_token
+
+    @classmethod
+    def from_card(cls, card: ModelDeploymentCard) -> Optional["PromptFormatter"]:
+        template = card.chat_template
+        bos = eos = None
+        cfg_path = card.artifacts.get("tokenizer_config.json")
+        if cfg_path:
+            with open(cfg_path) as f:
+                cfg = json.load(f)
+            template = template or cfg.get("chat_template")
+
+            def _tok(v):
+                return v.get("content") if isinstance(v, dict) else v
+
+            bos, eos = _tok(cfg.get("bos_token")), _tok(cfg.get("eos_token"))
+        if not template:
+            return None
+        return cls(template, bos, eos)
+
+    def render(
+        self,
+        messages: list[dict],
+        tools: Optional[list[dict]] = None,
+        add_generation_prompt: bool = True,
+    ) -> str:
+        return self._template.render(
+            messages=messages,
+            tools=tools,
+            add_generation_prompt=add_generation_prompt,
+            bos_token=self._bos or "",
+            eos_token=self._eos or "",
+        )
+
+
+def _message_text(message: dict) -> str:
+    """Normalize OpenAI message content (str | content-part list | None)."""
+    content = message.get("content")
+    if content is None:
+        return ""
+    if isinstance(content, str):
+        return content
+    if isinstance(content, list):
+        parts = []
+        for part in content:
+            if isinstance(part, dict) and part.get("type") == "text":
+                parts.append(part.get("text") or "")
+            elif isinstance(part, str):
+                parts.append(part)
+            else:
+                raise RequestError(
+                    f"unsupported content part type {part.get('type') if isinstance(part, dict) else type(part).__name__!r}"
+                )
+        return "".join(parts)
+    raise RequestError("message 'content' must be a string or list of parts")
+
+
+def _normalize_messages(messages: list[dict]) -> list[dict]:
+    return [{**m, "content": _message_text(m)} for m in messages]
+
+
+class OpenAIPreprocessor(Operator):
+    def __init__(
+        self,
+        card: ModelDeploymentCard,
+        tokenizer: Optional[HuggingFaceTokenizer] = None,
+    ):
+        self.card = card
+        self.tokenizer = tokenizer or HuggingFaceTokenizer.from_file(card.tokenizer_dir())
+        self.formatter = PromptFormatter.from_card(card)
+        self.eos_ids = self.tokenizer.eos_token_ids()
+
+    # ---------------------------------------------------------------- build
+
+    def preprocess_chat(self, req: ChatCompletionRequest) -> tuple[PreprocessedRequest, str]:
+        """reference: preprocessor.rs:117-186 preprocess_request."""
+        messages = _normalize_messages(req.messages)
+        if req.ext.use_raw_prompt:
+            prompt = "".join(m["content"] for m in messages)
+        elif self.formatter is not None:
+            prompt = self.formatter.render(messages, tools=req.tools)
+        else:
+            # no chat template: simple role-tagged concatenation
+            prompt = (
+                "".join(f"{m.get('role')}: {m['content']}\n" for m in messages)
+                + "assistant:"
+            )
+        token_ids = self.tokenizer.encode(prompt)
+        if len(token_ids) >= self.card.context_length:
+            raise RequestError(
+                f"prompt ({len(token_ids)} tokens) exceeds context length "
+                f"{self.card.context_length}"
+            )
+        pre = PreprocessedRequest(
+            token_ids=token_ids,
+            stop_conditions=req.stop_conditions(),
+            sampling_options=req.sampling_options(),
+            eos_token_ids=list(self.eos_ids),
+            annotations=list(req.ext.annotations),
+            mdc_sum=self.card.checksum,
+        )
+        return pre, prompt
+
+    def preprocess_completion(self, req: CompletionRequest) -> tuple[PreprocessedRequest, str]:
+        if isinstance(req.prompt, str):
+            prompt = req.prompt
+            token_ids = self.tokenizer.encode(prompt)
+        elif isinstance(req.prompt, list) and all(isinstance(t, int) for t in req.prompt):
+            prompt = ""
+            token_ids = list(req.prompt)
+        else:
+            raise RequestError("'prompt' must be a string or list of token ids")
+        if len(token_ids) >= self.card.context_length:
+            raise RequestError(
+                f"prompt ({len(token_ids)} tokens) exceeds context length "
+                f"{self.card.context_length}"
+            )
+        pre = PreprocessedRequest(
+            token_ids=token_ids,
+            stop_conditions=req.stop_conditions(),
+            sampling_options=req.sampling_options(),
+            eos_token_ids=list(self.eos_ids),
+            annotations=list(req.ext.annotations),
+            mdc_sum=self.card.checksum,
+        )
+        return pre, prompt
+
+    # ------------------------------------------------------------- operator
+
+    async def generate(
+        self, request: Context, next_engine: AsyncEngine
+    ) -> AsyncIterator[dict]:
+        req = request.payload
+        if isinstance(req, ChatCompletionRequest):
+            pre, prompt = self.preprocess_chat(req)
+            kind = "chat"
+        elif isinstance(req, CompletionRequest):
+            pre, prompt = self.preprocess_completion(req)
+            kind = "completion"
+        else:
+            raise TypeError(f"unsupported request type {type(req).__name__}")
+
+        delta = DeltaGenerator(req.model, kind=kind)
+        delta.prompt_tokens = len(pre.token_ids)
+        want_lps = pre.sampling_options.logprobs
+        # legacy completions echo: the response text starts with the
+        # prompt (decoded when the prompt came as token ids)
+        echo_text = None
+        if kind == "completion" and getattr(req, "echo", False):
+            echo_text = prompt or self.tokenizer.decode(pre.token_ids)
+
+        def _logprobs_payload(out: EngineOutput) -> Optional[dict]:
+            if not want_lps or not out.log_probs:
+                return None
+            toks = [self.tokenizer.decode([t]) for t in out.token_ids]
+            tops = out.top_log_probs or [None] * len(toks)
+
+            def top_entries(alts):
+                if not alts:
+                    return []
+                return [
+                    {"token": self.tokenizer.decode([tid]), "logprob": lp}
+                    for tid, lp in alts
+                ]
+
+            if kind == "chat":
+                return {
+                    "content": [
+                        {
+                            "token": t,
+                            "logprob": lp,
+                            **(
+                                {"top_logprobs": top_entries(alts)}
+                                if alts is not None else {}
+                            ),
+                        }
+                        for t, lp, alts in zip(toks, out.log_probs, tops)
+                    ]
+                }
+            payload = {"tokens": toks, "token_logprobs": list(out.log_probs)}
+            if out.top_log_probs:
+                # legacy shape: one {token: logprob} dict per position;
+                # distinct ids can decode to the same text (byte
+                # fallbacks) — keep the best logprob, don't drop mass
+                # to dict-overwrite order
+                def merged(alts):
+                    d: dict = {}
+                    for tid, lp in alts or []:
+                        t = self.tokenizer.decode([tid])
+                        if t not in d or lp > d[t]:
+                            d[t] = lp
+                    return d
+
+                payload["top_logprobs"] = [merged(a) for a in tops]
+            return payload
+
+        n = max(1, pre.sampling_options.n or 1)
+        if n == 1:
+            upstream = await next_engine.generate(request.map(pre.to_dict()))
+
+            async def _out() -> AsyncIterator[dict]:
+                # instant first frame: admission succeeded — lets the HTTP
+                # layer's first-item peek commit SSE headers before prefill
+                # finishes (written as an SSE comment, invisible to clients)
+                yield {"__annotation__": "ready", "data": None}
+                # reference: annotations emitted ahead of the stream
+                if "formatted_prompt" in pre.annotations:
+                    yield {"__annotation__": "formatted_prompt", "data": prompt}
+                if "token_ids" in pre.annotations:
+                    yield {"__annotation__": "token_ids", "data": pre.token_ids}
+                if echo_text:
+                    yield delta.chunk(echo_text)
+                finish_sent = False
+                async for raw in upstream:
+                    out = EngineOutput.from_dict(raw) if isinstance(raw, dict) else raw
+                    text = out.text
+                    if text is None and out.tokens:
+                        text = "".join(out.tokens)
+                    delta.completion_tokens += len(out.token_ids)
+                    if text or out.finish_reason:
+                        if out.finish_reason:
+                            finish_sent = True
+                        yield delta.chunk(
+                            text, out.finish_reason,
+                            logprobs=_logprobs_payload(out),
+                        )
+                if not finish_sent:
+                    yield delta.chunk(None, "stop")
+                yield {**delta.chunk(None, None), "usage": delta.usage(), "choices": []}
+
+            return _out()
+
+        # ---- n > 1: fan the prompt out into n engine streams (the prefix
+        # cache shares the prompt compute; choices are merged by index —
+        # reference behavior: vLLM's n sampling). Seeded requests derive
+        # per-choice seeds so choices differ but stay reproducible.
+        #
+        # Streams and pump tasks are created lazily inside the generator:
+        # if the caller never iterates the returned stream (e.g. it errors
+        # first), nothing was started, so nothing leaks generating tokens.
+
+        async def _out_n() -> AsyncIterator[dict]:
+            streams = []
+            forks = []
+            try:
+                for idx in range(n):
+                    d = pre.to_dict()
+                    so = dict(d["sampling_options"])
+                    if so.get("seed") is not None:
+                        so["seed"] = int(so["seed"]) + idx
+                    d["sampling_options"] = so
+                    # forked contexts: choice idx finishing (backend stop)
+                    # must not cancel its siblings; client disconnect
+                    # cancels all
+                    fctx = request.fork(d, str(idx))
+                    forks.append(fctx)
+                    streams.append(await next_engine.generate(fctx))
+            except BaseException:
+                # mid-creation failure: already-admitted siblings would
+                # otherwise keep generating with no consumer — kill their
+                # contexts before surfacing the error
+                for fctx in forks:
+                    fctx.kill()
+                raise
+
+            # bounded: pumps block when the client consumes slowly, keeping
+            # the n==1 path's backpressure
+            queue: asyncio.Queue = asyncio.Queue(maxsize=8)
+
+            async def _pump(idx: int, stream) -> None:
+                try:
+                    async for raw in stream:
+                        await queue.put((idx, raw))
+                except Exception as exc:  # noqa: BLE001 — surfaced to the consumer
+                    await queue.put((idx, exc))
+                finally:
+                    await queue.put((idx, None))
+
+            tasks = [
+                asyncio.create_task(_pump(idx, s)) for idx, s in enumerate(streams)
+            ]
+            finish_sent = [False] * n
+            live = n
+            completed = False
+            try:
+                # see n==1 path: instant post-admission frame for SSE TTFB
+                yield {"__annotation__": "ready", "data": None}
+                if "formatted_prompt" in pre.annotations:
+                    yield {"__annotation__": "formatted_prompt", "data": prompt}
+                if "token_ids" in pre.annotations:
+                    yield {"__annotation__": "token_ids", "data": pre.token_ids}
+                if echo_text:
+                    for idx in range(n):
+                        yield delta.chunk(echo_text, index=idx)
+                while live:
+                    idx, raw = await queue.get()
+                    if raw is None:
+                        live -= 1
+                        continue
+                    if isinstance(raw, Exception):
+                        # one choice's engine failure fails the request
+                        # (n==1 semantics) rather than masquerading as a
+                        # normally-finished choice. Past admission, any
+                        # stream fault is a server fault — normalize to
+                        # RuntimeError so HTTP maps it to 5xx, never 400.
+                        if isinstance(raw, RuntimeError):
+                            raise raw
+                        raise RuntimeError(f"engine stream failed: {raw}") from raw
+                    out = EngineOutput.from_dict(raw) if isinstance(raw, dict) else raw
+                    text = out.text
+                    if text is None and out.tokens:
+                        text = "".join(out.tokens)
+                    delta.completion_tokens += len(out.token_ids)
+                    if text or out.finish_reason:
+                        if out.finish_reason:
+                            finish_sent[idx] = True
+                        yield delta.chunk(
+                            text, out.finish_reason,
+                            logprobs=_logprobs_payload(out), index=idx,
+                        )
+                for idx in range(n):
+                    if not finish_sent[idx]:
+                        yield delta.chunk(None, "stop", index=idx)
+                yield {**delta.chunk(None, None), "usage": delta.usage(), "choices": []}
+                completed = True
+            finally:
+                for t in tasks:
+                    t.cancel()
+                if not completed:
+                    # abnormal exit (error or abandoned mid-stream): stop
+                    # the engine-side sequences, don't rely on the caller
+                    # enumerating exception types
+                    for fctx in forks:
+                        fctx.kill()
+
+        return _out_n()

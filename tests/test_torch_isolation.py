@@ -1,9 +1,12 @@
 """The port stands alone: no module of dynamo_tpu_torch, and not
-chip_smoke.py, imports jax, jaxlib or the JAX package dynamo_tpu, and
-building a CPU TorchEngine (with speculative decoding and mixed steps, so
-the copied n-gram proposer loads too) loads none of them. The test process itself has
-jax loaded (tests/conftest.py), so the import check runs in a fresh
-interpreter."""
+chip_smoke.py, imports jax, jaxlib or the JAX package dynamo_tpu, nor the
+packages the card's machine does not promise (tokenizers, jinja2, aiohttp,
+msgpack, safetensors, xxhash); building a CPU TorchEngine (with
+speculative decoding and mixed steps, so the copied n-gram proposer loads
+too) loads none of them, and with all of them made unimportable the whole
+`out=torch` HTTP pipeline builds on the CPU from the vendored checkpoint
+and serves a streamed chat request. The test process itself has jax
+loaded (tests/conftest.py), so those checks run in a fresh interpreter."""
 
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu", "tokenizers", "jinja2", "aiohttp", "msgpack",
+             "safetensors", "xxhash"}
 
 
 def _port_files():
@@ -70,3 +74,53 @@ print(json.dumps({{
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"dynamo_tpu": [], "jax": [], "port": True, "spec": True}
+
+
+def test_http_pipeline_serves_with_the_packages_blocked():
+    """A `sys.meta_path` finder makes the six packages (and jax) fail to
+    import; the port's `out=torch` entry still serves one streamed chat."""
+    ckpt = os.path.join(ROOT, "tests", "data", "tiny-trained-llama")
+    code = f"""
+import asyncio, json, sys
+BLOCKED = {sorted(FORBIDDEN)!r}
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{{name}} is blocked")
+        return None
+
+sys.meta_path.insert(0, Block())
+for m in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
+    del sys.modules[m]
+sys.path.insert(0, {ROOT!r})
+from dynamo_tpu_torch.llm.http import client
+from dynamo_tpu_torch.run import build_parser, serve_http
+
+async def main():
+    args = build_parser().parse_args(["in=http", "out=torch", "--model-path", {ckpt!r},
+                                      "--device", "cpu", "--num-pages", "32",
+                                      "--http-host", "127.0.0.1", "--http-port", "0"])
+    svc, eng = await serve_http(args, "torch")
+    reply = await client.request("127.0.0.1", svc.port, "POST", "/v1/chat/completions", {{
+        "model": "tiny-trained-llama", "stream": True, "max_tokens": 6,
+        "messages": [{{"role": "user", "content": "the capital of france is"}}]}})
+    msgs = [m async for _, m in reply.sse()]
+    await svc.stop()
+    await eng.close()
+    text = "".join(c["delta"].get("content", "") for m in msgs if m.data
+                   for c in m.json()["choices"])
+    print(json.dumps({{"status": reply.status, "done": msgs[-1].done, "text": text,
+                      "blocked_loaded": sorted(m for m in sys.modules
+                                               if m.split(".")[0] in BLOCKED)}}))
+
+asyncio.run(main())
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=ROOT,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["status"] == 200 and got["done"] and got["text"]
+    assert got["blocked_loaded"] == []

@@ -1,0 +1,90 @@
+"""`python -m dynamo_tpu_torch.run` against `python -m dynamo_tpu.run`: the
+same flags with the same defaults (the port adds `--device`), `in=batch:F`
+on the vendored checkpoint writing the same outputs (greedy, float32; the
+JAX side on gather attention), and the refusals of what the port does not
+serve: `dyn://` modes, parallelism above 1, the hub, router, disagg and
+multi-node flags at any value but their default, and no GPU with the default
+device (the engine's own error, never a fallback)."""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+
+import pytest
+import torch
+
+from dynamo_tpu.run import build_parser as jax_parser
+from dynamo_tpu.run import run_batch as jax_run_batch
+from dynamo_tpu_torch.run import build_parser, main, run_batch, serve_http
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CKPT = os.path.join(ROOT, "tests", "data", "tiny-trained-llama")
+
+
+def _defaults(parser) -> dict:
+    return {a.dest: (a.default, tuple(a.option_strings)) for a in parser._actions
+            if a.dest != "help"}
+
+
+def test_flags_and_defaults_match_the_jax_run():
+    ours, theirs = _defaults(build_parser()), _defaults(jax_parser())
+    assert ours.pop("device") == ("cuda", ("--device",))
+    assert ours == theirs
+
+
+def test_batch_outputs_equal(tmp_path, capsys):
+    prompts = ["the capital of france is", "berlin is the capital of", "the"]
+    outs = {}
+    for impl in ("jax", "torch"):
+        path = tmp_path / f"{impl}.jsonl"
+        path.write_text("".join(json.dumps({"text": p}) + "\n" for p in prompts))
+        common = ["in=batch:" + str(path), "out=" + impl, "--model-path", CKPT,
+                  "--dtype", "float32", "--num-pages", "64", "--max-tokens", "10"]
+        if impl == "jax":
+            args = jax_parser().parse_args(common + ["--attn-backend", "gather"])
+            asyncio.run(jax_run_batch(args, "jax", str(path)))
+        else:
+            args = build_parser().parse_args(common + ["--device", "cpu"])
+            asyncio.run(run_batch(args, "torch", str(path)))
+        outs[impl] = [json.loads(line) for line in open(str(path) + ".out.jsonl")]
+    assert outs["torch"] == outs["jax"]
+    assert [o["input"] for o in outs["torch"]] == prompts
+    assert all(o["output"] for o in outs["torch"])
+    assert "batch done: n=3" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv, named", [
+    (["in=dyn://demo.backend.generate", "out=torch"], "M17"),
+    (["in=http", "out=dyn://demo.backend.generate"], "M17"),
+    (["in=http", "out=torch", "--tp", "2"], "M13"),
+    (["in=http", "out=torch", "--pp", "2"], "M13"),
+    (["in=http", "out=torch", "--num-nodes", "2"], "M13"),
+    (["in=http", "out=torch", "--admission"], "M12"),
+    (["in=http", "out=torch", "--attn-backend", "gather"], "attn-backend"),
+    (["in=http", "out=torch", "--hub", "127.0.0.1:2379"], "M17"),
+    (["in=http", "out=torch", "--router-mode", "kv"], "M17"),
+    (["in=http", "out=torch", "--disagg-mode", "prefill"], "M11"),
+    (["in=http", "out=torch", "--max-local-prefill-length", "64"], "M11"),
+    (["in=http", "out=torch", "--node-rank", "1"], "M13"),
+    (["in=http", "out=torch", "--coordinator", "127.0.0.1:9000"], "M13"),
+])
+def test_unported_modes_raise(argv, named):
+    with pytest.raises(NotImplementedError, match=named):
+        main(argv + ["--model-path", CKPT])
+
+
+def test_unported_engine_flags_raise():
+    args = build_parser().parse_args(["in=http", "out=torch", "--model-path", CKPT,
+                                      "--device", "cpu", "--quantization", "int8"])
+    with pytest.raises(NotImplementedError, match="quantization"):
+        asyncio.run(serve_http(args, "torch"))
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a GPU")
+def test_default_device_without_gpu_is_an_error():
+    args = build_parser().parse_args(["in=http", "out=torch", "--model-path", CKPT,
+                                      "--http-port", "0"])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        asyncio.run(serve_http(args, "torch"))

@@ -201,3 +201,64 @@ async def test_traffic_counters_equal_jax_pipelined(mode):
     assert abs(stats.pop("decode_dispatches") - jstats.pop("decode_dispatches")) <= 1
     assert stats == jstats
     assert stats["pipeline_overlapped"] > 0
+
+
+class _Cycle:
+    """Garbage in a reference cycle, as a closed engine's graphs are."""
+
+    def __init__(self):
+        self.me = self
+
+
+@pytest.mark.parametrize("fails", [False, True], ids=["captures", "step_raises"])
+def test_decode_graph_capture_frees_nothing_while_capturing(monkeypatch, fails):
+    """DecodeGraphs._capture collects before the capture begins and keeps
+    the collector off until it ends (destroying a CUDA graph during a
+    capture invalidates it), and turns it back on after, also when the
+    step raises. The CUDA graph API is stood in for: the CPU has none."""
+    import gc
+    import weakref
+
+    import torch
+
+    from dynamo_tpu_torch.engine import decode_graph
+
+    seen = {}
+
+    class FakeGraph:
+        def register_generator_state(self, gen):
+            seen["gen"] = gen
+
+    class FakeCapture:
+        def __init__(self, graph, pool=None):
+            pass
+
+        def __enter__(self):
+            seen["garbage_alive_at_begin"] = dead() is not None
+            seen["gc_on_at_begin"] = gc.isenabled()
+
+        def __exit__(self, *exc):
+            seen["gc_on_at_end"] = gc.isenabled()
+
+    def step(width, all_greedy):
+        seen["gc_on_in_step"] = gc.isenabled()
+        if fails:
+            raise RuntimeError("capture failed")
+        return torch.zeros(3, width)
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", FakeCapture)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    graphs = decode_graph.DecodeGraphs(step, torch.device("cpu"), torch.Generator())
+    dead = weakref.ref(_Cycle())
+    assert gc.isenabled()
+    if fails:
+        with pytest.raises(RuntimeError, match="capture failed"):
+            graphs._capture(4, True)
+    else:
+        assert graphs._capture(4, True).out.shape == (3, 4)
+    assert seen["gen"] is graphs._gen
+    assert not seen["garbage_alive_at_begin"]
+    assert not seen["gc_on_at_begin"] and not seen["gc_on_in_step"]
+    assert not seen["gc_on_at_end"]
+    assert gc.isenabled()
