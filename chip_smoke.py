@@ -151,6 +151,25 @@ final result line is printed only when every phase passed:
    of HTTP tokens equal to the direct ones (not gated); then the same
    host costs on a synthetic ByteLevel BPE of 128,256 tokens (the path a
    Llama-class tokenizer.json takes), its encode cold and warm.
+12. the rest of M4 at full width, on phase 5's weights and engine (bf16
+   KV, pipeline on), after phase 10. First the extended sampler on the
+   card against its CPU version on the same [8, 128256] f32 logits:
+   penalties within one f32 ulp, logprobs and top-8 within 1e-5, the
+   seeded hash's uniforms bit for bit, seeded draws and count rows equal,
+   and its time beside the plain sampler's. Then rounds of 8 requests (ISL
+   512, OSL 64), each served once to run and capture its decode graph and
+   once measured: plain greedy; frequency_penalty 2.0 (fewer repeats than
+   the plain streams, or none); logprobs with top_logprobs 5 (each
+   token's logprob its top-1's, all <= 0, tops sorted, cum_log_probs the
+   running sum); 8 seeded sampled rows, which must stream the same served
+   again in two other batch compositions; and plain, penalized and
+   logprob rows together. Each round asserts the launches its dispatch
+   counters imply and no plain call, and prints the graph keys it added
+   and its decode step ms against the plain round's; then `graph_check`
+   over every greedy graph (count rows and logprob carries restored
+   between the eager run and the replay), each graph's device ms a step
+   replayed alone (two passes in turns, CUDA events), the number of
+   graphs, the graph pool's bytes and the count buffer's.
 With --pairs N, phases 5, 6 and 7 (each a pipeline off/on pair) and
 phase 8's bf16 pipeline off/on pair run N times in turns, to show their
 spread. With --serving N only the build and phase 11 run, N times, and
@@ -1689,42 +1708,60 @@ class GcPauses:
                 f"{prefix}_ms_total": sum(ms), f"{prefix}_ms_max": max(ms, default=0.0)}
 
 
+def _clone_outs(outs):
+    return [None if o is None else o.clone() for o in outs]
+
+
+@torch.inference_mode()
 def graph_check(eng, tag):
     """Each captured decode graph against an eager run of the same
-    dispatch: the eager run on clones of the pools (and of the carry), the
-    replay on the originals, from the same inputs (the last dispatch's).
-    The tokens must be equal, the pools byte-equal, and the launches one
-    replay counts equal to the eager run's. Greedy graphs only (a sampled
-    dispatch draws from the generator, which the two runs advance)."""
+    dispatch: the eager run on clones of the pools (and of the carries and
+    the penalty count rows), the replay on the originals, from the same
+    inputs (the last dispatch's). The outputs (tokens, and the logprobs and
+    tops where the key reports them) must be equal, the pools and count
+    rows byte-equal, and the launches one replay counts equal to the eager
+    run's. Greedy graphs only (a sampled dispatch draws from the
+    generator, which the two runs advance)."""
     from dynamo_tpu_torch.engine import decode_graph
 
     graphs = eng._graphs
     assert graphs.captured(), f"{tag}: no decode graph was captured"
     kv = eng.kv
+    carries = (eng._carry, eng._carry_lps, eng._carry_tid, eng._carry_tlp)
     checked = []
-    for width, greedy in graphs.captured():
+    for key in graphs.captured():
+        width, greedy = key[:2]
         if not greedy:
             continue
         clone = kv._replace(**{f: tuple(x.clone() for x in getattr(kv, f))
                                for f in ("k", "v", "ks", "vs") if getattr(kv, f) is not None})
-        carry = eng._carry.clone()
+        saved = _clone_outs(carries)
+        counts = None if eng._counts is None else eng._counts.clone()
         eng.kv = clone
         c0 = decode_graph._read_counts()
-        eager = eng._decode_step(width, greedy).clone()
+        eager = _clone_outs(eng._decode_step(*key))
         c_eager = [b - a for a, b in zip(c0, decode_graph._read_counts())]
+        counts_eager = None if counts is None else eng._counts.clone()
         eng.kv = kv
-        eng._carry.copy_(carry)
+        for dst, src in zip(carries, saved):
+            dst.copy_(src)
+        if counts is not None:
+            eng._counts.copy_(counts)
         c0 = decode_graph._read_counts()
-        replay = graphs.replay(width, greedy).clone()
+        replay = _clone_outs(graphs.replay(*key))
         c_graph = [b - a for a, b in zip(c0, decode_graph._read_counts())]
         torch.cuda.synchronize()
-        assert torch.equal(eager, replay), f"{tag}: graph replay tokens differ from eager (w {width})"
+        for e, r in zip(eager, replay):
+            assert (e is None) == (r is None), f"{tag}: graph outputs differ in kind ({key})"
+            assert e is None or torch.equal(e, r), f"{tag}: graph replay differs from eager ({key})"
         for f in ("k", "v", "ks", "vs"):
             for a, b in zip(getattr(clone, f) or (), getattr(kv, f) or ()):
                 assert _same_bytes(a, b), f"{tag}: pools differ after replay and eager ({f})"
+        if counts is not None:
+            assert torch.equal(counts_eager, eng._counts), f"{tag}: count rows differ ({key})"
         assert c_graph == c_eager and sum(c_graph) > 0, \
             f"{tag}: a replay counts {c_graph}, the eager run {c_eager}"
-        checked.append(f"w {width}: {sum(c_graph)} launches a replay")
+        checked.append(f"{key}: {sum(c_graph)} launches a replay")
     assert checked, f"{tag}: no greedy graph to check"
     return "; ".join(checked)
 
@@ -2584,6 +2621,282 @@ def phase_serving(dev, smi="", preset=SERVE_PRESET, flags=None, traffic=None):
         f"{sum(v[1] for v in counts.values())}")
     return m, {k: v[0] for k, v in counts.items()}
 
+# ---------------------------------------------------------------- phase 12
+
+# phase 5's engine (bf16 KV, pipeline on) and traffic;
+# `phase_ext(cfg=..., traffic=...)` swaps in a small model for a CPU rehearsal
+EXT_CFG = dict(PREFIX_CFG)
+EXT_TRAFFIC = dict(n=8, isl=512, osl=64)
+ATOL_LOGPROB = 1e-5
+
+
+@torch.inference_mode()
+def check_sampler(dev):
+    """The extended sampler on the card against its CPU version on the same
+    [8, 128256] f32 logits (the 8B decode shape): penalties within one f32
+    ulp, logprobs and top-8 within ATOL_LOGPROB (ids equal where
+    neighbouring logprobs differ by more), the seeded hash's uniforms bit
+    for bit (integer math), seeded draws on the penalized logits the same
+    ids, and the count rows byte-equal. Times the sampler's two paths on
+    the card."""
+    from dynamo_tpu_torch.ops import sampling as s
+
+    g = torch.Generator().manual_seed(12)
+    b, v = 8, 128_256
+    logits = torch.randn(b, v, generator=g) * 3
+    counts = torch.randint(0, 4, (b, v), generator=g).to(torch.int8)
+    fp = torch.linspace(0.0, 2.0, b)
+    pp = torch.linspace(0.5, 0.0, b)
+    rp = torch.linspace(1.0, 2.0, b)
+    temp = torch.full((b,), 0.8)
+    topk = torch.full((b,), 50, dtype=torch.int32)
+    topp = torch.full((b,), 0.95)
+    seeds = torch.arange(b, dtype=torch.int32) * 7919 + 5
+    pos = torch.arange(b, dtype=torch.int32) + 512
+    greedy = (torch.zeros(b), torch.zeros(b, dtype=torch.int32), torch.ones(b))
+
+    def run(d):
+        to = [x.to(d) for x in (logits, counts, fp, pp, rp, temp, topk, topp, seeds, pos)]
+        lg, cn, f, p_, r, t, k, tp, sd, ps = to
+        pen = s.apply_penalties(lg, cn, f, p_, r)
+        lps = s.sample_tokens(lg, None, *(x.to(d) for x in greedy), all_greedy=True,
+                              return_logprobs=True, top_n=s.TOP_LOGPROBS_MAX)
+        u = s.seeded_uniforms(sd, ps, s.CANDIDATES)
+        ids = s.sample_tokens(lg, None, t, k, tp, counts=cn, freq_pen=f, pres_pen=p_,
+                              rep_pen=r, seeds=sd, positions=ps)
+        cnt = cn.clone()
+        s.count_tokens(cnt, 3, lg.argmax(-1).to(torch.int32))
+        for _ in range(130):
+            s.bump_counts(cnt, ids, ps % 2 == 0)
+        return [x.cpu() for x in (pen, *lps, u, ids, cnt)]
+
+    cpu, card = run(torch.device("cpu")), run(dev)
+    pen_c, pen_d = cpu[0].numpy(), card[0].numpy()
+    assert (np.abs(pen_d - pen_c) <= np.spacing(np.abs(pen_c))).all(), "penalties off by > 1 ulp"
+    assert torch.equal(cpu[1], card[1]), "greedy ids differ"
+    lp_err = max((cpu[2] - card[2]).abs().max().item(), (cpu[4] - card[4]).abs().max().item())
+    assert lp_err <= ATOL_LOGPROB, f"logprobs differ by {lp_err}"
+    tl = cpu[4].numpy()
+    gaps = np.abs(np.diff(tl, axis=1)) > ATOL_LOGPROB
+    distinct = np.ones_like(tl, bool)
+    distinct[:, :-1] &= gaps
+    distinct[:, 1:] &= gaps
+    assert (cpu[3].numpy()[distinct] == card[3].numpy()[distinct]).all(), "top ids differ"
+    assert torch.equal(cpu[5], card[5]), "the seeded hash's uniforms differ"
+    assert torch.equal(cpu[6], card[6]), "seeded draws differ"
+    assert torch.equal(cpu[7], card[7]), "count rows differ"
+    to = [x.to(dev) for x in (logits, counts, fp, pp, rp, temp, topk, topp, seeds, pos)]
+    lg, cn, f, p_, r, t, k, tp, sd, ps = to
+    gd = [x.to(dev) for x in greedy]
+    plain_ms = time_ms(lambda: s.sample_tokens(lg, None, t, k, tp))
+    greedy_ms = time_ms(lambda: s.sample_tokens(lg, None, *gd, all_greedy=True))
+    ext_ms = time_ms(lambda: s.sample_tokens(
+        lg, None, t, k, tp, counts=cn, freq_pen=f, pres_pen=p_, rep_pen=r, seeds=sd,
+        positions=ps, return_logprobs=True, top_n=s.TOP_LOGPROBS_MAX))
+    # where the extended call's time goes, piece by piece
+    raw = lg.float()
+    cnt = cn.clone()
+    ids = s.sample_tokens(lg, None, t, k, tp)
+    pieces = {
+        "apply_penalties": lambda: s.apply_penalties(raw, cn, f, p_, r),
+        "bump_counts": lambda: s.bump_counts(cnt, ids, ps >= 0),
+        "logsumexp": lambda: torch.logsumexp(raw, dim=-1),
+        "topk_8": lambda: torch.topk(raw, s.TOP_LOGPROBS_MAX, dim=-1),
+        "shortlist_mask": lambda: s.shortlist_mask(raw / t[:, None], k, tp),
+        "seeded_uniforms": lambda: s.seeded_uniforms(sd, ps, s.CANDIDATES),
+    }
+    res = {"logprob_max_abs_err": lp_err, "greedy_ms": greedy_ms, "sampled_ms": plain_ms,
+           "ext_ms": ext_ms, **{f"{k_}_ms": time_ms(fn) for k_, fn in pieces.items()}}
+    log(f"[sampler] extended sampler on the card against its CPU version at [8, 128256] f32: "
+        f"penalties within 1 ulp, logprobs and top-8 within {ATOL_LOGPROB}, seeded uniforms, "
+        f"seeded ids and count rows equal; " + json.dumps(res))
+    return res
+
+
+async def serve_frames(engine, reqs):
+    """Serve `reqs` at once, each (ids, osl, sampling options). Returns each
+    request's token frames and its TTFT (s)."""
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+    from dynamo_tpu_torch.runtime.pipeline.context import Context
+
+    async def one(ids, osl, so):
+        pre = PreprocessedRequest(
+            token_ids=list(ids), stop_conditions=StopConditions(max_tokens=osl, ignore_eos=True),
+            sampling_options=SamplingOptions(**so))
+        t0 = time.perf_counter()
+        frames, t_first = [], None
+        async for f in await engine.generate(Context(pre.to_dict())):
+            if f.get("token_ids"):
+                t_first = t_first or time.perf_counter()
+                frames.append(f)
+            elif f.get("finish_reason"):
+                assert f["finish_reason"] == "length", f
+        assert len(frames) == osl, f"{len(frames)} tokens of {osl}"
+        return frames, t_first - t0
+
+    return await asyncio.gather(*[one(*r) for r in reqs])
+
+
+def _toks(frames):
+    return [f["token_ids"][0] for f in frames]
+
+
+def _graph_pool_bytes(eng):
+    pool = eng._graphs._pool
+    if pool is None or eng.device.type != "cuda":
+        return None
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id") or ()) == tuple(pool))
+
+
+def phase_ext(dev, params, smi="", cfg=None, traffic=None):
+    """Phase 12: the rest of M4 at full width, on phase 5's weights and
+    engine (bf16 KV, pipeline on). Rounds of `n` requests of ISL `isl`, OSL
+    `osl`, each served once unmeasured (its decode graph is run eagerly,
+    then captured) and then measured from an empty prefix cache with the
+    launch counters zeroed around it: plain greedy; greedy with
+    frequency_penalty 2.0 (repeats counted against the plain round's);
+    greedy with logprobs and top_logprobs 5 (each token's logprob equal to
+    its top-1, all <= 0, tops sorted, cum_log_probs the running sum);
+    seeded sampled rows, served again in two other batch compositions
+    (beside greedy rows of other prompts), which must stream the same;
+    and a round mixing plain, penalized and logprob rows. Each round
+    checks the launches its dispatch counters imply (no plain call),
+    prints the graph keys it added, `graph_check` (every greedy graph
+    replayed against an eager run, launches exact) and its decode step
+    ms against the plain round's. Returns the metrics and the weights."""
+    from dynamo_tpu_torch import EngineConfig, TorchEngine
+
+    tr = dict(EXT_TRAFFIC, **(traffic or {}))
+    n, isl, osl = tr["n"], tr["isl"], tr["osl"]
+    conf = EngineConfig(**dict(EXT_CFG, **(cfg or {})))
+    tag = f"[ext {conf.model} bf16 KV, pipeline on]"
+    eng = TorchEngine(conf, params=params, device=dev)
+    layers, vocab = eng.model_cfg.num_layers, eng.model_cfg.vocab_size
+    rng = np.random.RandomState(12)
+    prompts = [rng.randint(0, vocab, size=isl).tolist() for _ in range(n)]
+    fillers = [rng.randint(0, vocab, size=isl).tolist() for _ in range(n)]
+    greedy = dict(greedy=True)
+    pen = dict(greedy=True, frequency_penalty=2.0)
+    lps = dict(greedy=True, logprobs=True, top_logprobs=5)
+    seeded = [dict(temperature=0.8, top_k=50, top_p=0.95, seed=1000 + i) for i in range(n)]
+    q = max(n // 4, 1)
+    rounds = {
+        "plain": [greedy] * n,
+        "penalty": [pen] * n,
+        "logprobs": [lps] * n,
+        "seeded": seeded,
+        "mixed": [greedy] * (n - 2 * q) + [pen] * q + [lps] * q,
+    }
+
+    async def measured(reqs):
+        eng.allocator.clear_cache()
+        await idle(eng)
+        s0 = eng.phase_stats
+        reset_counts()
+        res = await serve_frames(eng, reqs)
+        counts = read_counts()
+        await idle(eng)
+        d = {k: v - s0[k] for k, v in eng.phase_stats.items()}
+        check_counts(counts, path_launches(d, layers, conf.decode_steps, None), tag)
+        return res, d, {k: c[0] for k, c in counts.items() if c[0]}
+
+    async def go():
+        out = {}
+        for name, sos in rounds.items():
+            reqs = [(p, osl, so) for p, so in zip(prompts, sos)]
+            keys0 = set(eng._graphs.captured())
+            await serve_frames(eng, reqs)
+            res, d, launched = await measured(reqs)
+            out[name] = (res, d, launched, sorted(set(eng._graphs.captured()) - keys0))
+            if name == "seeded":
+                # the same seeded requests in two other batch compositions,
+                # each half beside greedy rows of other prompts
+                again = {}
+                for half in (range(0, n // 2), range(n // 2, n)):
+                    mix = [reqs[i] for i in half] + [(f, osl, greedy) for f in fillers[:n - len(half)]]
+                    got, _, _ = await measured(mix)
+                    again.update({i: g for i, g in zip(half, got)})
+                out["seeded_again"] = [again[i] for i in range(n)]
+        await eng.close()
+        return out
+
+    out = asyncio.run(go())
+    steps = conf.decode_steps
+    plain_ms = decode_step_ms(out["plain"][1], steps)
+    plain_toks = [_toks(f) for f, _ in out["plain"][0]]
+    m = {"plain_decode_step_ms": plain_ms}
+    for name in rounds:
+        res, d, launched, keys = out[name]
+        toks = [_toks(f) for f, _ in res]
+        step_ms = decode_step_ms(d, steps)
+        r = {"decode_step_ms": step_ms, "over_plain_ms": step_ms - plain_ms,
+             "ttft_p50_s": statistics.median(t for _, t in res),
+             "decode_dispatches": d["decode_dispatches"],
+             "mixed_steps": d["mixed_steps"], "spec_dispatches": d["spec_dispatches"]}
+        if name == "penalty":
+            reps = [len(t) - len(set(t)) for t in toks]
+            plain_reps = [len(t) - len(set(t)) for t in plain_toks]
+            r.update(repeats=sum(reps), plain_repeats=sum(plain_reps),
+                     equal_to_plain=sum(a == b for a, b in zip(toks, plain_toks)))
+            assert sum(reps) <= sum(plain_reps), f"{tag} penalized streams repeat more: {r}"
+            assert sum(reps) == 0 or sum(reps) < sum(plain_reps), f"{tag} {r}"
+        if name in ("logprobs", "mixed"):
+            for (frames, _), so in zip(res, rounds[name]):
+                if not so.get("logprobs"):
+                    assert all(f.get("log_probs") is None for f in frames)
+                    continue
+                cum = 0.0
+                for f in frames:
+                    (lp,), ((tops),) = f["log_probs"], f["top_log_probs"]
+                    cum += lp
+                    assert lp <= 0 and abs(f["cum_log_probs"] - cum) < 1e-3, (f, cum)
+                    # the token is a top-1: at random bf16 weights the best
+                    # logits tie exactly, and argmax and topk may name
+                    # different ids of the same value
+                    assert len(tops) == 5 and abs(tops[0][1] - lp) <= 1e-6, (tops, lp)
+                    assert f["token_ids"][0] in [i for i, v in tops if v == tops[0][1]], tops
+                    assert all(a[1] >= b[1] for a, b in zip(tops, tops[1:])), tops
+            r["tokens_equal_plain_share"] = sum(
+                a == b for t, p in zip(toks, plain_toks) for a, b in zip(t, p)) / (n * osl)
+        if name == "seeded":
+            again = [_toks(f) for f, _ in out["seeded_again"]]
+            assert again == toks, f"{tag} seeded streams differ across batch compositions"
+            r["distinct_streams"] = len(set(map(tuple, toks)))
+        m[name] = r
+        log(f"{tag} round {name}: {n} x (ISL {isl}, OSL {osl}); graph keys added "
+            f"(width, all_greedy, use_ext, want_lps, want_tops): {keys}; launches "
+            f"{json.dumps(launched)}, no plain call; " + json.dumps(r))
+    assert m["seeded"]["distinct_streams"] > 1, f"{tag} the seeds drew one stream"
+    check = graph_check(eng, tag)
+    # each graph's device time a step, replayed back to back on the same
+    # inputs (all rows active at the prompts' end; the engine is closed, so
+    # nothing reads what the replays write), in two passes in turns
+    keys = eng._graphs.captured()
+    with torch.inference_mode():
+        eng._pos_act[:, 0] = isl
+        eng._pos_act[:, 1] = 1
+    replay_ms = {k: [] for k in keys}
+    for order in (keys, keys[::-1]):
+        for k in order:
+            replay_ms[k].append(time_ms(lambda k=k: eng._graphs.replay(*k), iters=10,
+                                        warmup=2) / conf.decode_steps)
+    m["graph_step_ms"] = {str(k): v for k, v in replay_ms.items()}
+    log(f"{tag} device ms a decode step, each graph replayed alone (two passes in turns; "
+        f"width, all_greedy, use_ext, want_lps, want_tops): " + json.dumps(m["graph_step_ms"]))
+    m["graphs"] = len(eng._graphs.captured())
+    m["graph_pool_bytes"] = _graph_pool_bytes(eng)
+    m["count_buffer_bytes"] = eng._counts.numel() * eng._counts.element_size()
+    log(f"{tag} graph check (eager on cloned pools, carries and count rows, replay on the "
+        f"originals): outputs equal, pools and count rows byte-equal, launches equal; {check}")
+    log(f"{tag} {m['graphs']} decode graphs captured {eng._graphs.captured()}; graph pool "
+        f"{m['graph_pool_bytes']} bytes; count buffer {m['count_buffer_bytes']} bytes; {smi}")
+    params = eng.params
+    del eng
+    return m, params
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1,
@@ -2692,6 +3005,11 @@ def main() -> int:
     for kv_quant in PATH_KERNELS:
         torch.cuda.empty_cache()
         _, params = phase_prefix(dev, params, kv_quant=kv_quant, smi=smi)
+    # phase 12: the extended sampler, then penalties, logprobs, seeds and
+    # a mixed round through the decode graphs, on phase 5's weights
+    torch.cuda.empty_cache()
+    check_sampler(dev)
+    _, params = phase_ext(dev, params, smi=smi)
     del params
     # phase 11: the serving entry at full width (its own engine, seed 0)
     torch.cuda.empty_cache()

@@ -4,15 +4,19 @@ The port's counterpart of the JAX package's jitted decode scan
 (`dynamo_tpu/engine/engine.py::_decode_fn`): a decode dispatch runs
 `decode_steps` model steps, each a few hundred kernel launches, and eager
 PyTorch pays the host's launch cost for every one of them. Here the whole
-loop is captured once for each (dispatch width, all_greedy) pair, after
-one eager run at that width, and every later dispatch of that pair is one
-`cudaGraphLaunch`.
+loop is captured once for each key met, after one eager run at that key,
+and every later dispatch of that key is one `cudaGraphLaunch`. A key is
+(dispatch width, all_greedy, use_ext, want_lps, want_tops): the last three
+say which parts of the extended sampler the batch needs (penalties and
+seeds, logprobs, top-N alternatives), so a batch that needs none replays
+the same graph it would without them.
 
 What makes the loop capturable:
 - it reads only static device buffers that the engine writes before each
-  replay (the token carry, the fused [positions, active] upload, the block
-  tables and the sampling parameters) and writes its tokens into a buffer
-  the graph owns, and the new carry in place;
+  replay (the token carry and its logprob and tops, the fused [positions,
+  active] upload, the block tables and the sampling parameters) and writes
+  its outputs into buffers the graph owns, and the new carry and the
+  penalty count rows in place;
 - the kernels launch on `torch.cuda.current_stream`, the capture stream
   while capturing; their host plans (`split_plan`, `copy_plan`) read
   shapes only;
@@ -21,7 +25,8 @@ What makes the loop capturable:
   buffers it captured alive (a later, larger call may replace them in the
   wrapper's cache); the kernel leaves its tickets at 0 itself;
 - the sampler's generator is registered with each graph, so every replay
-  draws fresh Gumbel noise;
+  draws fresh Gumbel noise; seeded rows draw from a stateless hash of
+  their seed and position, which has no state to register;
 - the kernel wrappers' launch counters count in Python, so they move while
   capturing and not on replay: each graph records its counts at capture,
   takes them back, and adds them on every replay, so the counts stay exact;
@@ -69,15 +74,15 @@ class _Captured:
 
     def __init__(self, graph, out, counts, keep):
         self.graph = graph
-        self.out = out          # the graph's token buffer [steps + 1, width]
+        self.out = out          # the graph's output buffers (tokens [steps + 1, width], ...)
         self.counts = counts    # launches one replay makes, per counter
         self.keep = keep        # buffers the graph reads that nothing else holds
 
 
 class DecodeGraphs:
-    """Runs `step(width, all_greedy) -> out` eagerly the first time at a
-    (width, all_greedy) pair and as a replayed CUDA graph after that; on a
-    non-CUDA device, always eagerly."""
+    """Runs `step(*key) -> outputs` eagerly the first time at a key
+    (width, all_greedy, use_ext, want_lps, want_tops) and as a replayed
+    CUDA graph after that; on a non-CUDA device, always eagerly."""
 
     def __init__(self, step: Callable, device: torch.device, generator: torch.Generator):
         self._step = step
@@ -87,23 +92,23 @@ class DecodeGraphs:
         self._warm: set = set()
         self._pool = None
 
-    def run(self, width: int, all_greedy: bool) -> torch.Tensor:
+    def run(self, *key) -> tuple:
         if self.device.type != "cuda":
-            return self._step(width, all_greedy)
-        key = (width, all_greedy)
+            return self._step(*key)
         cap = self._graphs.get(key)
         if cap is None:
             if key not in self._warm:
                 # the eager warm-up: real work, and it grows the kernels'
-                # scratch to this width before anything is captured
+                # scratch to this width (and the sampler's buffers to this
+                # key) before anything is captured
                 self._warm.add(key)
-                return self._step(width, all_greedy)
-            cap = self._graphs[key] = self._capture(width, all_greedy)
-        return self.replay(width, all_greedy)
+                return self._step(*key)
+            cap = self._graphs[key] = self._capture(*key)
+        return self.replay(*key)
 
-    def replay(self, width: int, all_greedy: bool) -> torch.Tensor:
-        """Replay the captured graph of this pair; returns its token buffer."""
-        cap = self._graphs[(width, all_greedy)]
+    def replay(self, *key) -> tuple:
+        """Replay the captured graph of this key; returns its output buffers."""
+        cap = self._graphs[key]
         cap.graph.replay()
         _add_counts(cap.counts)
         return cap.out
@@ -111,7 +116,7 @@ class DecodeGraphs:
     def captured(self) -> list:
         return sorted(self._graphs)
 
-    def _capture(self, width: int, all_greedy: bool) -> _Captured:
+    def _capture(self, *key) -> _Captured:
         graph = torch.cuda.CUDAGraph()
         register = getattr(graph, "register_generator_state", None)
         if register is None:
@@ -128,7 +133,7 @@ class DecodeGraphs:
         gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self._pool):
-                out = self._step(width, all_greedy)
+                out = self._step(*key)
         finally:
             if gc_on:
                 gc.enable()

@@ -27,7 +27,17 @@ Port of `dynamo_tpu/engine/engine.py::JaxEngine`, main path only:
   scale pools (`kv_quantization="int8"`), or nibble-packed int4 (two codes
   a byte) with the same scale pools (`kv_quantization="int4"`), which the
   int8 and int4 forms of the three kernels read and write;
-- on-device sampling: greedy, temperature, top-k, top-p;
+- on-device sampling: greedy, temperature, top-k, top-p, and the
+  extended sampler (`ops/sampling.py`): frequency, presence and
+  repetition penalties over an int8 count row per slot (the prompt
+  counted at admission, each sample bumped in the step), per-request
+  seeds (a stateless hash of seed, position and rank), and the sampled
+  token's logprob with the exact top-N alternatives. Each decode graph is
+  keyed on which of these its batch needs; rows that need any of them keep
+  the batch off mixed steps and verify dispatches, as in the reference;
+- `n > 1` arrives as one stream per choice (the preprocessor forks it);
+- `metrics()` (the reference's keys whose planes are ported) and
+  `subscribe_requests` (a summary of each finished request);
 - stall-free mixed steps (`mixed_batching`): while decode-ready rows and
   prefill chunks coexist, ONE token-budgeted step carries decode rows at
   q_len 1 beside the chunks; its KV lands through the row write and its
@@ -101,7 +111,13 @@ from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.ops import quant
 from dynamo_tpu_torch.ops.kv_write import paged_kv_write
 from dynamo_tpu_torch.ops.rope import rope_inv_freq
-from dynamo_tpu_torch.ops.sampling import sample_tokens, verify_draft_tokens
+from dynamo_tpu_torch.ops.sampling import (
+    TOP_LOGPROBS_MAX,
+    bump_counts,
+    count_tokens,
+    sample_tokens,
+    verify_draft_tokens,
+)
 from dynamo_tpu_torch.runtime.pipeline.context import Context
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
@@ -130,7 +146,8 @@ class _Fetch:
     tensor is copied without blocking into pinned memory behind a recorded
     event, and `get()` polls the event, so the loop serves other work (and
     the device runs the next dispatch) while the copy lands. On the CPU the
-    results are already on the host."""
+    results are already on the host. A None entry (an output the dispatch
+    was not asked for) stays None."""
 
     __slots__ = ("host", "event")
 
@@ -138,6 +155,7 @@ class _Fetch:
         self.event = None
         if tensors[0].device.type == "cuda":
             self.host = [
+                None if t is None else
                 torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
                 for t in tensors
             ]
@@ -146,12 +164,15 @@ class _Fetch:
         else:
             self.host = list(tensors)
 
+    def _numpy(self) -> list:
+        return [None if h is None else h.numpy() for h in self.host]
+
     async def get(self) -> list:
         if self.event is not None:
             while not self.event.query():
                 await asyncio.sleep(0)
-            return [h.numpy() for h in self.host]
-        return await asyncio.to_thread(lambda: [h.numpy() for h in self.host])
+            return self._numpy()
+        return await asyncio.to_thread(self._numpy)
 
 
 class _Dispatch:
@@ -235,6 +256,8 @@ class TorchEngine:
         # KV events (stored/removed) feed the KV-aware router
         self._event_seq = 0
         self._event_subscribers: list = []
+        # finish summaries (subscribe_requests) feed EngineMetrics/SloTracker
+        self._request_observers: list = []
         self.allocator = PageAllocator(self.num_pages, self.page_size,
                                        on_event=self._emit_event)
         self._inv_freq = torch.from_numpy(rope_inv_freq(self.model_cfg)).to(self.device)
@@ -257,20 +280,32 @@ class TorchEngine:
         # the device carry: each slot's next input token; row B is the dump
         # row a mixed step scatters its prefill and padding rows into
         self._carry = torch.zeros(b + 1, dtype=torch.int32, device=dev)
+        # beside it, the carry token's logprob and top-N alternatives: row 0
+        # of a dispatch that reports them (a prefill's first token rides in
+        # through the same override as its token)
+        self._carry_lps = torch.zeros(b + 1, dtype=torch.float32, device=dev)
+        self._carry_tid = torch.zeros((b + 1, TOP_LOGPROBS_MAX), dtype=torch.int32, device=dev)
+        self._carry_tlp = torch.zeros((b + 1, TOP_LOGPROBS_MAX), dtype=torch.float32, device=dev)
+        # token occurrence counts for the penalties, [B, V] int8, allocated
+        # at first use (_ensure_counts)
+        self._counts: Optional[torch.Tensor] = None
         # the decode dispatch's one fused upload, [positions, active]
         self._pos_act = torch.zeros((b, 2), dtype=torch.int32, device=dev)
         # device-resident slow-changing inputs: block tables and sampling
-        # params (samp_f = [temperature, top_p], samp_i = [top_k]), updated
-        # from the host mirrors only for the slots marked dirty (admit and
-        # page growth); rows of released slots keep garbage (inactive rows
-        # are masked and write nothing)
+        # params (samp_f = [temperature, top_p, frequency_penalty,
+        # presence_penalty, repetition_penalty], samp_i = [top_k, seed]),
+        # updated from the host mirrors only for the slots marked dirty
+        # (admit and page growth); rows of released slots keep garbage
+        # (inactive rows are masked and write nothing)
         self._host_tables = np.zeros((b, w), np.int32)
-        self._host_samp_f = np.zeros((b, 2), np.float32)
+        self._host_samp_f = np.zeros((b, 5), np.float32)
         self._host_samp_f[:, 1] = 1.0
-        self._host_samp_i = np.zeros((b, 1), np.int32)
+        self._host_samp_f[:, 4] = 1.0
+        self._host_samp_i = np.zeros((b, 2), np.int32)
+        self._host_samp_i[:, 1] = -1
         self._dev_tables = torch.zeros((b, w), dtype=torch.int32, device=dev)
         self._dev_samp_f = torch.from_numpy(self._host_samp_f.copy()).to(dev)
-        self._dev_samp_i = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        self._dev_samp_i = torch.from_numpy(self._host_samp_i.copy()).to(dev)
         self._dirty_slots: set[int] = set()
         self._wake = asyncio.Event()
         self._loop_task: Optional[asyncio.Task] = None
@@ -388,6 +423,96 @@ class TorchEngine:
         `block_size`) for the KV-aware router."""
         self._event_subscribers.append(cb)
 
+    def subscribe_requests(self, cb) -> None:
+        """Per-request finish summaries: {request_id, finish_reason,
+        prompt_tokens, tokens, tenant, prefix, queue_wait_s, ttft_s,
+        itl_s}, fired once a sequence finishes (`_finish`)."""
+        self._request_observers.append(cb)
+
+    # the reference's `metrics()` keys whose planes the port does not have
+    # yet: the KV custody ledger, the jit-compile telemetry, the offload
+    # restore gate (M11), the degrade ladder with its watchdog and fault
+    # points, the flight recorder (M12), and the tp executor attribution
+    # (M13). Every other key is served with the reference's meaning.
+    UNPORTED_METRICS = frozenset({
+        "kv_ledger_violations", "kv_ledger_orphan_pages", "kv_ledger_audits",
+        "kv_ledger_inflight",
+        "compile_events", "compile_time_s",
+        "offload_restored", "offload_declined", "offload_restore_failed",
+        "degraded_step_pipeline", "degraded_spec", "degraded_mixed",
+        "degraded_decode_scan", "degrades_total", "recoveries_total", "mixed_disabled",
+        "watchdog_fired", "faults_injected",
+        "flight_digests", "flight_dumps", "flight_suppressed", "step_anomalies",
+        "tp_overlap_dispatches", "gspmd_fallback_dispatches",
+    })
+
+    def metrics(self) -> dict:
+        """ForwardPassMetrics equivalent (the reference's `metrics()`, less
+        `UNPORTED_METRICS`): slots, queue, KV pool and prefix-cache gauges,
+        the step walls' device/stall split, and the spec, mixed, pipeline
+        and deadline counters. On a CUDA device also the memory gauges
+        (`hbm_*`, from the caching allocator's statistics); on the CPU they
+        are absent, as the reference's are on a backend without memory
+        statistics."""
+        active = sum(1 for s in self.slots if s is not None)
+        usable = self.num_pages - 1
+        ps = self._phase_stats
+        alloc = self.allocator
+        device_s = (ps["prefill_dispatch_s"] + ps["decode_dispatch_s"]
+                    + ps["spec_dispatch_s"] + ps["mixed_dispatch_s"])
+        stall_s = ps["decode_sync_s"] + ps["spec_sync_s"] + ps["mixed_sync_s"]
+        return {
+            "request_active_slots": active,
+            "request_total_slots": len(self.slots),
+            "kv_active_blocks": int(round(alloc.usage() * usable)),
+            "kv_total_blocks": usable,
+            "num_requests_waiting": len(self.waiting),
+            "gpu_cache_usage_perc": alloc.usage(),
+            "prefix_cache_hit_rate": alloc.hit_rate(),
+            "prefix_hits": ps["prefix_hits"],
+            "prefix_full_hits": ps["prefix_full_hits"],
+            "prefix_reused_tokens": ps["prefix_reused_tokens"],
+            "prefix_restored_tokens": ps["prefix_restored_tokens"],
+            "prefix_tail_tokens": ps["prefix_tail_tokens"],
+            "kv_pages_used": alloc.pages_used,
+            "kv_pages_cached": alloc.pages_cached,
+            "kv_pages_free": alloc.pages_free,
+            "kv_pages_peak_used": alloc.peak_used,
+            "kv_fragmentation": round(alloc.fragmentation(), 4),
+            "slot_occupancy": round(active / len(self.slots), 4) if self.slots else 0.0,
+            # no host pool until M11
+            "offload_host_pages": 0,
+            **self._device_memory_stats(),
+            "step_device_s": round(device_s, 4),
+            "step_stall_s": round(stall_s, 4),
+            "spec_acceptance_rate": (
+                ps["spec_accepted"] / ps["spec_drafted"] if ps["spec_drafted"] else 0.0),
+            "spec_tokens_per_step": (
+                ps["spec_emitted"] / ps["spec_rows"] if ps["spec_rows"] else 0.0),
+            "mixed_steps": ps["mixed_steps"],
+            "mixed_decode_rows": ps["mixed_decode_rows"],
+            "mixed_prefill_tokens": ps["mixed_prefill_tokens"],
+            "mixed_spec_rows": ps["mixed_spec_rows"],
+            "pipeline_overlapped": ps["pipeline_overlapped"],
+            "pipeline_overlap_s": round(ps["pipeline_overlap_s"], 4),
+            "mixed_carry_rows": ps["mixed_carry_rows"],
+            "deadline_shed": ps["deadline_shed"],
+            "deadline_timeouts": ps["deadline_timeouts"],
+        }
+
+    def _device_memory_stats(self) -> dict:
+        if self.device.type != "cuda":
+            return {}
+        stats = torch.cuda.memory_stats(self.device)
+        in_use = stats.get("allocated_bytes.all.current", 0)
+        limit = torch.cuda.get_device_properties(self.device).total_memory
+        return {
+            "hbm_bytes_in_use": int(in_use),
+            "hbm_bytes_limit": int(limit),
+            "hbm_utilization": round(in_use / limit, 4),
+            "hbm_peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
+        }
+
     def _emit_event(self, event: dict) -> None:
         event = {**event, "event_id": self._event_seq, "block_size": self.page_size}
         self._event_seq += 1
@@ -452,6 +577,7 @@ class TorchEngine:
             request, pre, self.page_size, self.config.max_model_len,
             blocks=self._blocks_from_metadata(request, pre),
         )
+        seq.t_submit = time.perf_counter()
         if not seq.deadline and self.config.request_timeout_s > 0:
             seq.deadline = time.time() + self.config.request_timeout_s
         if seq.deadline:
@@ -496,17 +622,11 @@ class TorchEngine:
 
     @staticmethod
     def _refuse_unported(pre: PreprocessedRequest) -> None:
-        """Refuse what the port does not serve yet. `top_logprobs` alone is
-        served, as in the reference, which reads it only with `logprobs`
-        (`Sequence.from_request` zeroes it otherwise)."""
-        so = pre.sampling_options
+        """Refuse what the port does not serve yet: prompt embeddings (M14)
+        and the disaggregated paths (M11). `n > 1` reaches the engine as
+        one stream per choice, each with `n` kept as the request set it, as
+        in the reference."""
         unported = {
-            "n > 1": so.n not in (None, 1),
-            "frequency_penalty": bool(so.frequency_penalty),
-            "presence_penalty": bool(so.presence_penalty),
-            "repetition_penalty": so.repetition_penalty not in (None, 1.0),
-            "seed": so.seed is not None,
-            "logprobs": bool(so.logprobs),
             "prompt_embeds": pre.prompt_embeds is not None,
             "disagg": bool(pre.disagg),
         }
@@ -668,6 +788,7 @@ class TorchEngine:
             del self.waiting[idx]
             seq.slot = slot
             seq.prefilling = True
+            seq.t_admit = time.perf_counter()
             seq.first_meta = {
                 "prefix_cached_tokens": seq.num_cached,
                 "prompt_tokens": seq.prompt_len,
@@ -680,9 +801,30 @@ class TorchEngine:
                 seq.spec = NgramProposer(
                     self.config.spec_ngram_max, self.config.spec_index_window)
                 seq.spec.extend(seq.tokens)
+            if seq.has_penalties:
+                self._count_prompt(seq)
             self._prefilling.append(seq)
             progressed = True
         return progressed
+
+    def _ensure_counts(self) -> torch.Tensor:
+        if self._counts is None:
+            with torch.inference_mode():
+                self._counts = torch.zeros(
+                    (self.config.max_batch_size, self.model_cfg.vocab_size),
+                    dtype=torch.int8, device=self.device)
+        return self._counts
+
+    @torch.inference_mode()
+    def _count_prompt(self, seq: Sequence) -> None:
+        """Reset the slot's count row and count the sequence's tokens, so
+        penalties see "the text so far": the prompt, and after a
+        preemption what was generated too (token id 0 is not counted). On
+        the device it queues behind every dispatch already launched, so an
+        earlier tenant's in-flight bumps land before the reset."""
+        counts = self._ensure_counts()
+        counts[seq.slot].zero_()
+        count_tokens(counts, seq.slot, self._up(np.asarray(seq.tokens, np.int32)))
 
     def _reserve_pages(self, seq: Sequence) -> bool:
         """Match the longest cached prefix of the sequence's full pages and
@@ -730,8 +872,9 @@ class TorchEngine:
         row[:] = 0
         n = min(len(seq.page_ids), row.shape[0])
         row[:n] = seq.page_ids[:n]
-        self._host_samp_f[i] = (seq.temperature, seq.top_p)
-        self._host_samp_i[i] = (seq.top_k,)
+        self._host_samp_f[i] = (seq.temperature, seq.top_p, seq.frequency_penalty,
+                                seq.presence_penalty, seq.repetition_penalty)
+        self._host_samp_i[i] = (seq.top_k, seq.seed)
         self._dirty_slots.add(i)
 
     def _snap_dirty(self):
@@ -801,7 +944,7 @@ class TorchEngine:
         pipe = self.config.step_pipeline
         for bucket, seqs in groups.items():
             progressed = True
-            toks = await self._launch(self._prefill_group_dispatch, seqs, bucket, not pipe)
+            res = await self._launch(self._prefill_group_dispatch, seqs, bucket, not pipe)
             finals = []
             for j, seq in enumerate(seqs):
                 seq.num_computed += min(seq.total_tokens - seq.num_computed, bucket)
@@ -811,13 +954,13 @@ class TorchEngine:
                     # on the device as the slot's carry override and one
                     # fetch per group emits it early; serialized engines
                     # emit it here
-                    self._mark_decode_ready(seq, (toks, j) if pipe else toks[j])
+                    self._mark_decode_ready(seq, res, j, pipe)
                     if pipe:
                         finals.append((seq, j))
                 else:
                     self._prefilling.append(seq)
             if finals:
-                self._start_first_emit(finals, toks)
+                self._start_first_emit(finals, res)
         await asyncio.sleep(0)
         return progressed
 
@@ -825,9 +968,15 @@ class TorchEngine:
     def _prefill_group_dispatch(self, seqs: list[Sequence], bucket: int, fetch: bool):
         """One chunk for each sequence in ONE [n, bucket] model step (n
         padded to a power of two; padding rows write the trash page and
-        attend nothing). Returns the sampled tokens [n] (valid for rows
-        whose chunk was final): on the host as a list when `fetch`, else
-        the device tensor."""
+        attend nothing). Returns (tokens [n], logprobs [n], top ids [n, 8],
+        top logprobs [n, 8]), valid for rows whose chunk was final, the
+        last three None unless a row asked for them: numpy arrays when
+        `fetch`, else device tensors.
+
+        When any row has penalties or a seed, the group samples on the
+        extended path: each row reads its slot's count row, seeded rows
+        draw at the position of the chunk's last token, and each final
+        row's sample is counted into its slot's row."""
         ps = self.page_size
         n = _pow2(len(seqs))
         tok_arr = np.zeros((n, bucket), np.int32)
@@ -837,6 +986,12 @@ class TorchEngine:
         temp = np.zeros(n, np.float32)
         topk = np.zeros(n, np.int32)
         topp = np.ones(n, np.float32)
+        pen = np.zeros((n, 3), np.float32)
+        pen[:, 2] = 1.0
+        seeds = np.full(n, -1, np.int32)
+        slot_rows = np.zeros(n, np.int64)
+        last_pos = np.zeros(n, np.int32)
+        finals = []  # rows whose chunk is final: their sample is counted
         wtables = np.zeros((n, -(-bucket // ps)), np.int32)
         # attention table width: pages actually attended this chunk,
         # bucketed to a power of two
@@ -863,6 +1018,15 @@ class TorchEngine:
             temp[j] = seq.temperature
             topk[j] = seq.top_k
             topp[j] = seq.top_p
+            pen[j] = (seq.frequency_penalty, seq.presence_penalty, seq.repetition_penalty)
+            seeds[j] = seq.seed
+            slot_rows[j] = seq.slot
+            last_pos[j] = start + chunk - 1
+            if start + chunk >= len(tokens):
+                finals.append(j)
+        use_ext = any(s.has_penalties or s.seed >= 0 for s in seqs)
+        want_lps = any(s.want_logprobs for s in seqs)
+        want_tops = any(s.top_logprobs > 0 for s in seqs)
         t0 = time.perf_counter()
         dev = self.device
         pos_t = self._up(pos_arr)
@@ -876,34 +1040,68 @@ class TorchEngine:
         )
         last_h = hidden[torch.arange(n, device=dev), self._up(last_idx)]
         lg = llama.logits(self.params, self.model_cfg, last_h)
-        toks = sample_tokens(
+        ext = {}
+        if use_ext:
+            counts = self._ensure_counts()
+            pen_t = self._up(pen)
+            ext = dict(counts=counts[self._up(slot_rows)], freq_pen=pen_t[:, 0],
+                       pres_pen=pen_t[:, 1], rep_pen=pen_t[:, 2], seeds=self._up(seeds),
+                       positions=self._up(last_pos))
+        res = sample_tokens(
             lg, self._gen, self._up(temp), self._up(topk), self._up(topp),
-            all_greedy=bool((temp <= 0.0).all()),
+            all_greedy=bool((temp <= 0.0).all()), return_logprobs=want_lps,
+            top_n=TOP_LOGPROBS_MAX if want_tops else 0, **ext,
         )
+        res = list(res) if want_lps else [res]
+        res += [None] * (4 - len(res))
+        if use_ext and finals:
+            # final rows hold distinct slots: one scatter, no collisions
+            rows = self._up(np.asarray(finals, np.int64))
+            sl = self._up(slot_rows[finals])
+            toks = res[0].index_select(0, rows).long()
+            cur = counts[sl, toks].to(torch.int32)
+            counts[sl, toks] = torch.clamp(cur + 1, max=127).to(torch.int8)
         if fetch:
-            toks = toks.tolist()  # the dispatch's one device->host sync
+            # the dispatch's one device->host sync
+            res = [None if t is None else t.cpu().numpy() for t in res]
         st = self._phase_stats
         st["prefill_dispatch_s"] += time.perf_counter() - t0
         st["prefill_dispatches"] += 1
         st["prefill_tokens"] += int(t_valid.sum())
-        return toks
+        return res
 
-    def _mark_decode_ready(self, seq: Sequence, tok) -> None:
-        """A final prefill chunk landed: the slot decodes from here. `tok`
-        is (device token vector, row), kept on the device as the slot's
-        carry override until a fetch emits it, or a host int, emitted now
-        (and fed to the next dispatch through the same override)."""
+    @staticmethod
+    def _lp_tops(seq: Sequence, lps, tid, tlp, at) -> tuple:
+        """(logprob, top alternatives) of one emitted token at index `at`
+        of host outputs, as `_append_token` takes them; (None, None) for a
+        sequence that did not ask."""
+        if not seq.want_logprobs or lps is None:
+            return None, None
+        tops = None
+        if tid is not None and seq.top_logprobs:
+            tops = [[int(tid[at][j]), float(tlp[at][j])] for j in range(seq.top_logprobs)]
+        return float(lps[at]), tops
+
+    def _mark_decode_ready(self, seq: Sequence, res, row: int, pipe: bool) -> None:
+        """A final prefill chunk landed: the slot decodes from here. With
+        the pipeline the sampled token (and its logprob and tops) stays on
+        the device as the slot's carry override, (device outputs, row),
+        until a fetch emits it; serialized engines emit it now from the
+        host outputs and feed it to the next dispatch as a host int."""
         seq.prefilling = False
         seq.device_pos = seq.num_computed
-        self._overrides[seq.slot] = tok
         # the override supersedes whatever the carry row holds (a previous
         # tenant's token): nothing reads that row until a dispatch re-arms it
         self._carry_ok[seq.slot] = False
-        seq.carry_pending = isinstance(tok, tuple)
-        if not seq.carry_pending:
-            self._append_token(seq, int(tok))
+        seq.carry_pending = pipe
+        if pipe:
+            self._overrides[seq.slot] = (res, row)
+            return
+        tok = int(res[0][row])
+        self._overrides[seq.slot] = tok
+        self._append_token(seq, tok, *self._lp_tops(seq, *res[1:], row))
 
-    def _start_first_emit(self, finals, toks) -> None:
+    def _start_first_emit(self, finals, res) -> None:
         """One asynchronous fetch per prefill group that emits the group's
         first tokens as soon as the copy lands, instead of parking them
         until the next decode dispatch syncs (whose row 0 would carry
@@ -914,12 +1112,12 @@ class TorchEngine:
         arrives mid-decode does not wait a whole decode dispatch for its
         first tokens."""
         task = asyncio.get_running_loop().create_task(
-            self._emit_first_group(finals, _Fetch([toks])))
+            self._emit_first_group(finals, _Fetch(res)))
         for seq, _ in finals:
             seq.first_task = task
 
     async def _emit_first_group(self, finals, fetch: _Fetch) -> None:
-        (toks,) = await fetch.get()
+        toks, lps, tid, tlp = await fetch.get()
         me = asyncio.current_task()
         for seq, row in finals:
             if (
@@ -931,18 +1129,22 @@ class TorchEngine:
                 continue  # finished or preempted meanwhile
             seq.carry_pending = False
             seq.num_computed = seq.total_tokens
-            self._append_token(seq, int(toks[row]))
+            self._append_token(seq, int(toks[row]), *self._lp_tops(seq, lps, tid, tlp, row))
 
     # ---- mixed prefill+decode steps (stall-free batching) -------------
 
     def _mixed_eligible_decode(self) -> Optional[list]:
         """Decode-ready rows a mixed step can carry (after the cancellation
         and deadline sweep), or None when the whole batch must take the
-        normal paths this tick: a row whose first token is still on the
-        device with no fetch in flight can only be emitted by a decode
-        sync. A row whose fetch is in flight sits this step out."""
+        normal paths this tick: a row on the extended sampler (penalties,
+        seed, logprobs) needs the decode dispatch's, and a row whose first
+        token is still on the device with no fetch in flight can only be
+        emitted by a decode sync. A row whose fetch is in flight sits this
+        step out."""
         rows = []
         for i, s in self._decode_ready_rows():
+            if s.needs_ext_sampling:
+                return None
             if s.carry_pending:
                 if s.first_task is not None and not s.first_task.done():
                     continue
@@ -955,11 +1157,15 @@ class TorchEngine:
         tokens, as (seq, chunk) picks; a non-final chunk rounds down to a
         page multiple (the next chunk must start page-aligned). Scanning
         stops at the first sequence that cannot join: skipping it would
-        let later arrivals jump the queue."""
+        let later arrivals jump the queue. A sequence on the extended
+        sampler cannot: its final chunk must sample on the prefill
+        dispatch's extended path."""
         picks = []
         for seq in self._prefilling:
             if leftover < 1 or seq.ctx.is_stopped():
                 break  # the normal tick's sweep owns cancellation
+            if seq.needs_ext_sampling:
+                break
             need = seq.total_tokens - seq.num_computed
             chunk = min(need, self.config.prefill_chunk, leftover)
             if chunk < need:
@@ -1434,9 +1640,13 @@ class TorchEngine:
             if slot < width and pos_act[slot, 1]
         }
         self._overrides.clear()
+        # the graph key: which parts of the extended sampler the batch needs
         return dict(
             spec=False, pos_act=pos_act, overrides=overrides, active=active, steps=steps,
             width=width, all_greedy=all(s.temperature <= 0.0 for _, s in active),
+            use_ext=any(s.has_penalties or s.seed >= 0 for _, s in active),
+            want_lps=any(s.want_logprobs for _, s in active),
+            want_tops=any(s.top_logprobs > 0 for _, s in active),
             dirty=self._snap_dirty(),
         )
 
@@ -1511,22 +1721,27 @@ class TorchEngine:
 
     def _apply_overrides(self, overrides: dict) -> None:
         """Write carry overrides into the device carry: prefill first
-        tokens device to device, grouped by source vector, and host ints
-        in one upload."""
-        by_vec: dict[int, tuple] = {}
+        tokens device to device (with their logprobs and tops, where the
+        prefill reported them), grouped by source dispatch, and host ints
+        in one upload (a host int was emitted already, so its carry
+        logprob is never read)."""
+        by_res: dict[int, tuple] = {}
         ints = []
         for slot, val in overrides.items():
             if isinstance(val, tuple):
-                vec, row = val
-                ent = by_vec.setdefault(id(vec), (vec, [], []))
+                res, row = val
+                ent = by_res.setdefault(id(res), (res, [], []))
                 ent[1].append(slot)
                 ent[2].append(row)
             else:
                 ints.append((slot, int(val)))
-        for vec, slots, rows in by_vec.values():
-            self._carry.index_copy_(
-                0, self._up(np.asarray(slots, np.int64)),
-                vec.index_select(0, self._up(np.asarray(rows, np.int64))))
+        carries = (self._carry, self._carry_lps, self._carry_tid, self._carry_tlp)
+        for res, slots, rows in by_res.values():
+            sl = self._up(np.asarray(slots, np.int64))
+            rw = self._up(np.asarray(rows, np.int64))
+            for dst, src in zip(carries, res):
+                if src is not None:
+                    dst.index_copy_(0, sl, src.index_select(0, rw))
         if ints:
             arr = np.asarray(ints, np.int64)
             self._carry.index_copy_(0, self._up(arr[:, 0].copy()),
@@ -1544,8 +1759,11 @@ class TorchEngine:
         self._apply_overrides(bld["overrides"])
         w = bld["width"]
         self._up(bld["pos_act"], out=self._pos_act[:w])
-        out = self._graphs.run(w, bld["all_greedy"])
-        fetch = _Fetch([out])
+        # an extended row's count buffer exists: its final prefill chunk
+        # sampled on the extended path (mixed steps never carry one)
+        out = self._graphs.run(w, bld["all_greedy"], bld["use_ext"], bld["want_lps"],
+                               bld["want_tops"])
+        fetch = _Fetch(list(out))
         st = self._phase_stats
         st["decode_dispatch_s"] += time.perf_counter() - t0
         st["decode_dispatches"] += 1
@@ -1553,25 +1771,39 @@ class TorchEngine:
         return _Dispatch(fetch, bld["active"], bld["steps"])
 
     @torch.inference_mode()
-    def _decode_step(self, width: int, all_greedy: bool) -> torch.Tensor:
+    def _decode_step(self, width: int, all_greedy: bool, use_ext: bool = False,
+                     want_lps: bool = False, want_tops: bool = False) -> tuple:
         """The decode loop over the static device buffers (what the CUDA
         graph captures): `decode_steps` iterations with on-device token
         feedback from the carry, tables and sampling params of the first
-        `width` slots. Returns [steps + 1, width] tokens, row 0 the input
-        carry, and leaves the last sample in the carry. Inactive rows
-        attend nothing and write nothing (lengths 0, write_pos -1);
-        positions past the model length budget (overshoot of finished
-        rows) skip the write too."""
+        `width` slots. Returns (tokens, logprobs, top ids, top logprobs),
+        [steps + 1, width] (the tops [steps + 1, width, 8]), row 0 the
+        input carry's, the last three None unless asked for; leaves the
+        last sample in the carry. Inactive rows attend nothing and write
+        nothing (lengths 0, write_pos -1); positions past the model length
+        budget (overshoot of finished rows) skip the write too.
+
+        `use_ext`: the extended sampler, reading the penalties, the seeds
+        and the count rows, which each step's sample bumps in place. The
+        reference also bumps "fresh" carry rows first, tokens injected
+        from a remote prefill and never counted; the port has no such
+        path: every carry token was counted where it was sampled."""
         pos_act = self._pos_act[:width]
         positions = pos_act[:, 0]
         active = pos_act[:, 1].bool()
         block_tables = self._dev_tables[:width]
-        temp, topp = self._dev_samp_f[:width, 0], self._dev_samp_f[:width, 1]
-        topk = self._dev_samp_i[:width, 0]
+        samp_f, samp_i = self._dev_samp_f[:width], self._dev_samp_i[:width]
+        temp, topp, topk = samp_f[:, 0], samp_f[:, 1], samp_i[:, 0]
+        counts = self._counts[:width] if use_ext else None
         max_len = self.config.max_model_len
         no = torch.full_like(positions, -1)
         tokens = self._carry[:width]
-        outs = [tokens.clone()]
+        outs = [[tokens.clone()]]
+        if want_lps:
+            outs.append([self._carry_lps[:width].clone()])
+        if want_tops:
+            outs += [[self._carry_tid[:width].clone()], [self._carry_tlp[:width].clone()]]
+        top_n = TOP_LOGPROBS_MAX if want_tops else 0
         for _ in range(self.config.decode_steps):
             lengths = torch.where(
                 active, torch.clamp(positions + 1, max=max_len), torch.zeros_like(positions)
@@ -1585,11 +1817,23 @@ class TorchEngine:
                 self.kv, attn, inv_freq=self._inv_freq,
             )
             lg = llama.logits(self.params, self.model_cfg, hidden[:, 0])
-            tokens = sample_tokens(lg, self._gen, temp, topk, topp, all_greedy=all_greedy)
-            outs.append(tokens)
+            ext = {}
+            if use_ext:
+                ext = dict(counts=counts, freq_pen=samp_f[:, 2], pres_pen=samp_f[:, 3],
+                           rep_pen=samp_f[:, 4], seeds=samp_i[:, 1], positions=positions)
+            res = sample_tokens(lg, self._gen, temp, topk, topp, all_greedy=all_greedy,
+                                return_logprobs=want_lps, top_n=top_n, **ext)
+            res = res if want_lps else (res,)
+            tokens = res[0]
+            if use_ext:
+                bump_counts(counts, tokens, active)
+            for o, r in zip(outs, res):
+                o.append(r)
             positions = positions + 1
-        self._carry[:width].copy_(tokens)
-        return torch.stack(outs)
+        out = [torch.stack(o) for o in outs]
+        for dst, o in zip((self._carry, self._carry_lps, self._carry_tid, self._carry_tlp), out):
+            dst[:width].copy_(o[-1])
+        return tuple(out) + (None,) * (4 - len(out))
 
     async def _sync_dispatch(self, d: _Dispatch, overlapped: bool = False) -> None:
         """Land a dispatch: fetch its tokens and emit them. `overlapped`:
@@ -1618,7 +1862,7 @@ class TorchEngine:
         if d.spec:
             self._sync_spec(d, arrs)
             return
-        out = arrs[0]
+        out, extra = arrs[0], arrs[1:]
         # row 0 is the dispatch's input carry: sequences that entered with
         # their first token still on the device emit it here, before their
         # decode tokens
@@ -1626,14 +1870,15 @@ class TorchEngine:
             if self.slots[i] is seq and seq.carry_pending:
                 seq.carry_pending = False
                 seq.num_computed = seq.total_tokens
-                self._append_token(seq, int(out[0, i]))
+                self._append_token(seq, int(out[0, i]), *self._lp_tops(seq, *extra, (0, i)))
         for step in range(1, out.shape[0]):
             for i, seq in d.snapshot:
                 if self.slots[i] is not seq:
                     continue  # finished earlier in this dispatch: overshoot
                 seq.num_computed += 1
                 self._register_full_pages(seq)
-                self._append_token(seq, int(out[step, i]))
+                self._append_token(seq, int(out[step, i]),
+                                   *self._lp_tops(seq, *extra, (step, i)))
 
     # ---- speculative verify --------------------------------------------
 
@@ -1646,9 +1891,10 @@ class TorchEngine:
         rows without drafts fall from decode_steps tokens to one) or a row
         has its first token still on the device; "wait" when they are
         worthwhile but host history is stale until the in-flight dispatch
-        lands."""
+        lands. A row on the extended sampler keeps the whole batch on the
+        decode loop: the verifier samples on the plain path only."""
         for _, s in ready:
-            if s.carry_pending:
+            if s.carry_pending or s.needs_ext_sampling:
                 return None
         k_max = self.config.spec_k_max
         drafts: dict[int, list[int]] = {}
@@ -1942,14 +2188,26 @@ class TorchEngine:
 
     # ---- bookkeeping --------------------------------------------------
 
-    def _append_token(self, seq: Sequence, token: int) -> None:
+    def _append_token(self, seq: Sequence, token: int, logprob: Optional[float] = None,
+                      tops: Optional[list] = None) -> None:
         """Emit one token; the first after an admission carries
-        `first_meta`."""
+        `first_meta`. A sequence that asked for logprobs gets the token's
+        logprob, the running sum and, with `top_logprobs`, its
+        alternatives as [[id, logprob], ...]."""
         seq.blocks.extend([token])
         if seq.spec is not None:
             seq.spec.extend([token])
         seq.generated += 1
+        if seq.generated == 1:
+            seq.t_first_emit = time.perf_counter()
         frame = EngineOutput(token_ids=[token])
+        if seq.want_logprobs:
+            if logprob is not None:
+                seq.cum_logprob += logprob
+            frame.log_probs = [logprob]
+            frame.cum_log_probs = seq.cum_logprob
+            if tops is not None:
+                frame.top_log_probs = [tops]
         if seq.first_meta is not None:
             frame.meta = seq.first_meta
             seq.first_meta = None
@@ -1991,5 +2249,35 @@ class TorchEngine:
         if seq in self._prefilling:
             self._prefilling.remove(seq)
         seq.prefilling = False
+        self._note_finished(seq, reason)
         seq.out_queue.put_nowait(EngineOutput.final(reason).to_dict())
         self._wake.set()
+
+    def _note_finished(self, seq: Sequence, reason: str) -> None:
+        """The finish summary for `subscribe_requests` observers (the
+        reference's, less its tracing span and KV-ledger call, which come
+        with M12). The host tier is not ported: no prefix block is
+        restored or declined."""
+        if not self._request_observers:
+            return
+        now = time.perf_counter()
+        summary = {
+            "request_id": seq.ctx.id,
+            "finish_reason": reason,
+            "prompt_tokens": seq.prompt_len,
+            "tokens": seq.generated,
+            "tenant": seq.tenant,
+            "prefix": {"reused_blocks": seq.blocks_reused, "restored_blocks": 0,
+                       "declined_blocks": 0, "gate_reason": ""},
+            "queue_wait_s": (seq.t_admit - seq.t_submit
+                             if seq.t_admit and seq.t_submit else None),
+            "ttft_s": (seq.t_first_emit - seq.t_submit
+                       if seq.t_first_emit and seq.t_submit else None),
+            "itl_s": ((now - seq.t_first_emit) / (seq.generated - 1)
+                      if seq.t_first_emit and seq.generated > 1 else None),
+        }
+        for cb in self._request_observers:
+            try:
+                cb(summary)
+            except Exception:
+                log.exception("request observer failed")

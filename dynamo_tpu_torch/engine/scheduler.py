@@ -32,6 +32,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
     PreprocessedRequest,
 )
 from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
+from dynamo_tpu_torch.ops.sampling import TOP_LOGPROBS_MAX
 from dynamo_tpu_torch.runtime.pipeline.context import Context
 
 _seq_counter = itertools.count()
@@ -77,11 +78,26 @@ class Sequence:
     # set from the engine's request_timeout_s; checked by the admission
     # shed and the sweep of running sequences.
     deadline: float = 0.0
+    # perf_counter stamps: submit (generate), the latest admission to a
+    # slot, the first emitted token; the finish summary reads them
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_first_emit: float = 0.0
+    # tenant label for per-tenant SLO attainment (Context metadata
+    # "tenant", stamped by the HTTP frontend from x-tenant-id)
+    tenant: str = "default"
 
     # per-request sampling (resolved once at admission)
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
+    frequency_penalty: float = 0.0
+    presence_penalty: float = 0.0
+    repetition_penalty: float = 1.0
+    seed: int = -1                 # -1: the engine's generator
+    want_logprobs: bool = False
+    top_logprobs: int = 0          # alternatives per position (<= 8)
+    cum_logprob: float = 0.0
     max_new_tokens: int = 0
     eos_ids: frozenset[int] = frozenset()
     ignore_eos: bool = False
@@ -107,6 +123,18 @@ class Sequence:
         seq.temperature = 0.0 if so.greedy else float(so.temperature or 0.0)
         seq.top_k = int(so.top_k or 0)
         seq.top_p = float(so.top_p if so.top_p is not None else 1.0)
+        seq.frequency_penalty = float(so.frequency_penalty or 0.0)
+        seq.presence_penalty = float(so.presence_penalty or 0.0)
+        seq.repetition_penalty = float(
+            so.repetition_penalty if so.repetition_penalty else 1.0)
+        # any seed folds into the non-negative int32 domain (-1 is the
+        # unseeded sentinel), so wide and negative seeds stay reproducible
+        seq.seed = (int(so.seed) & 0x7FFFFFFF) if so.seed is not None else -1
+        seq.want_logprobs = bool(so.logprobs)
+        seq.top_logprobs = (
+            max(0, min(int(so.top_logprobs or 0), TOP_LOGPROBS_MAX))
+            if seq.want_logprobs else 0
+        )
         budget = max_model_len - seq.prompt_len
         mt = pre.stop_conditions.max_tokens
         seq.max_new_tokens = max(0, min(budget, mt) if mt is not None else budget)
@@ -122,7 +150,32 @@ class Sequence:
             seq.deadline = float(ctx.metadata.get("deadline") or 0.0)
         except (TypeError, ValueError):
             seq.deadline = 0.0
+        tenant = ctx.metadata.get("tenant")
+        if tenant:
+            seq.tenant = str(tenant)
         return seq
+
+    @property
+    def has_penalties(self) -> bool:
+        return (
+            self.frequency_penalty != 0.0
+            or self.presence_penalty != 0.0
+            or self.repetition_penalty != 1.0
+        )
+
+    @property
+    def needs_ext_sampling(self) -> bool:
+        """Penalties and seeds need the extended sampler (the count rows,
+        the seeded hash), logprobs its logsumexp outputs. The host-built
+        step families (spec verify, mixed steps) sample on the plain path
+        only, so these requests take the normal dispatches: one predicate
+        for the three gates."""
+        return (
+            self.has_penalties
+            or self.seed >= 0
+            or self.want_logprobs
+            or self.top_logprobs > 0
+        )
 
     def past_deadline(self, now: Optional[float] = None) -> bool:
         if not self.deadline:

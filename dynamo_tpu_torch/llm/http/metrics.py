@@ -4,17 +4,20 @@ Equivalent of the reference's HTTP metrics (reference:
 lib/llm/src/http/service/metrics.rs:36-201): `{prefix}_requests_total`
 (model/endpoint/status labels), `{prefix}_inflight_requests`,
 `{prefix}_request_duration_seconds` histogram, plus the RAII
-`InflightGuard` that records status on exit.
+`InflightGuard` that records status on exit; `EngineMetrics` (the
+engine's `metrics()` gauges and its request histograms) and `SloTracker`
+(per-tenant SLO attainment), both fed by `TorchEngine.subscribe_requests`.
 
-A copy of the JAX package's `llm/http/metrics.py` without `EngineMetrics`
-and `SloTracker` (the engine's histograms and SLO attainment, M12/M17).
+A copy of the JAX package's `llm/http/metrics.py` without the flight
+recorder's and the KV ledger's counter families and the SLO tracker's
+`on_breach` hook (M12).
 """
 
 from __future__ import annotations
 
 import time
-from collections import defaultdict
-from typing import Iterable
+from collections import defaultdict, deque
+from typing import Iterable, Optional
 
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
 
@@ -166,6 +169,223 @@ class ServiceMetrics:
         for metric in (self.requests_total, self.inflight, self.duration, *self.extra):
             lines.extend(metric.render())
         return "\n".join(lines) + "\n"
+
+
+# ITL is a per-token gap: the default buckets start at 5 ms, which would
+# put every healthy decode (~1-5 ms/token on an accelerator) in the first
+# bucket
+ITL_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+)
+TOKENS_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0,
+                  512.0, 1024.0, 2048.0, 4096.0, 8192.0, 16384.0)
+
+
+class EngineMetrics:
+    """Engine-side request latency histograms and `engine.metrics()`
+    gauges, rendered through `ServiceMetrics.extra` so one `GET /metrics`
+    scrape covers the service and the engine behind it.
+
+    The histograms are fed by the engine's per-request summaries
+    (`subscribe_requests`, fired at finish): TTFT is submit to the first
+    token the engine emitted (its fetch included, transport to the client
+    excluded), ITL the request's mean inter-token gap, queue wait submit to
+    decode-slot admission. Gauges re-read `engine.metrics()` at every
+    render, so they are fresh at each scrape without a poll loop."""
+
+    def __init__(
+        self,
+        engine=None,
+        prefix: str = "dynamo_tpu",
+        slo: Optional["SloTracker"] = None,
+        worker_id: Optional[str] = None,
+    ):
+        self.engine = engine
+        self._prefix = prefix
+        # optional SLO attainment tracker, fed from the same summaries and
+        # rendered through the same scrape
+        self.slo = slo
+        # optional stable instance label (utils/instance.worker_id): every
+        # engine gauge then carries worker_id="..."
+        self._worker_label = f'{{worker_id="{worker_id}"}}' if worker_id else ""
+        self.ttft = Histogram(
+            f"{prefix}_engine_ttft_seconds",
+            "Engine TTFT: request submit to first token emitted",
+        )
+        self.itl = Histogram(
+            f"{prefix}_engine_itl_seconds",
+            "Mean inter-token latency per finished request",
+            buckets=ITL_BUCKETS,
+        )
+        self.queue_wait = Histogram(
+            f"{prefix}_engine_queue_wait_seconds",
+            "Request submit to decode-slot admission",
+        )
+        self.tokens = Histogram(
+            f"{prefix}_engine_tokens_per_request",
+            "Generated tokens per finished request",
+            buckets=TOKENS_BUCKETS,
+        )
+        if engine is not None and hasattr(engine, "subscribe_requests"):
+            engine.subscribe_requests(self.observe)
+
+    def observe(self, summary: dict) -> None:
+        """Request-finish hook (see TorchEngine._note_finished for the
+        fields)."""
+        if summary.get("ttft_s") is not None:
+            self.ttft.observe(summary["ttft_s"])
+        if summary.get("itl_s") is not None:
+            self.itl.observe(summary["itl_s"])
+        if summary.get("queue_wait_s") is not None:
+            self.queue_wait.observe(summary["queue_wait_s"])
+        if summary.get("tokens"):
+            self.tokens.observe(float(summary["tokens"]))
+        if self.slo is not None:
+            self.slo.observe(summary)
+
+    def render(self) -> Iterable[str]:
+        if self.engine is not None:
+            try:
+                gauges = self.engine.metrics()
+            except Exception:  # noqa: BLE001 (a scrape must never 500)
+                gauges = {}
+            for key, val in gauges.items():
+                name = f"{self._prefix}_engine_{key}"
+                yield f"# TYPE {name} gauge"
+                yield f"{name}{self._worker_label} {float(val)}"
+        for h in (self.ttft, self.itl, self.queue_wait, self.tokens):
+            yield from h.render()
+        if self.slo is not None:
+            yield from self.slo.render()
+
+
+# ---------------------------------------------------------------------- SLO
+
+# the request-summary fields an SLO can target (the engine's finish
+# summary keys), with the Prometheus-facing metric slug they render under
+SLO_METRICS = {
+    "ttft_s": "ttft",
+    "itl_s": "itl",
+    "queue_wait_s": "queue_wait",
+}
+
+
+class SloTracker:
+    """Rolling-window SLO attainment accounting.
+
+    Targets come from config as ``{tenant: {ttft_s|itl_s|queue_wait_s:
+    seconds}}``; the ``"default"`` tenant covers requests with no tenant
+    label (the HTTP frontend stamps ``x-tenant-id`` into Context
+    metadata). Fed per finished request from the engine's summaries, it
+    keeps a bounded rolling window per (tenant, metric) and renders:
+
+    - ``slo_attainment{tenant,metric}``: the attained fraction over the
+      window (1.0 with no samples: an idle tenant is not in breach). A
+      value exactly at the target attains (<=).
+    - ``slo_breaches_total{tenant,metric}`` / ``slo_requests_total``:
+      monotonic burn-rate counters (zero-series declared at registration
+      so dashboards see them from the first scrape)."""
+
+    def __init__(
+        self,
+        targets: Optional[dict] = None,
+        window_s: float = 300.0,
+        max_samples: int = 4096,
+        prefix: str = "dynamo_tpu",
+    ):
+        self.targets: dict = targets or {}
+        self.window_s = window_s
+        self.max_samples = max_samples
+        # (tenant, metric) -> deque[(monotonic_ts, attained_bool)]
+        self._windows: dict[tuple, deque] = {}
+        self.breaches = Counter(
+            f"{prefix}_slo_breaches_total",
+            "Requests that missed their SLO target (burn rate numerator)",
+        )
+        self.requests = Counter(
+            f"{prefix}_slo_requests_total",
+            "Requests evaluated against an SLO target",
+        )
+        self.attainment = Gauge(
+            f"{prefix}_slo_attainment",
+            "Attained fraction over the rolling window (1.0 = all within "
+            "target)",
+        )
+        # zero-series at registration: every configured (tenant, metric)
+        # renders from the first scrape, before any request finishes
+        for tenant, tspec in self.targets.items():
+            for field_name, slug in SLO_METRICS.items():
+                if (tspec or {}).get(field_name) is None:
+                    continue
+                self.breaches.declare(tenant=tenant, metric=slug)
+                self.requests.declare(tenant=tenant, metric=slug)
+                self.attainment.set(1.0, tenant=tenant, metric=slug)
+
+    def _resolve(self, tenant: str) -> tuple[str, dict]:
+        """(row, targets) for a request's tenant: a configured tenant uses
+        its own spec under its own row (an explicitly empty spec means
+        exempt, not fall-through), while unknown tenants ride the default
+        target and aggregate under the "default" row."""
+        if tenant in self.targets:
+            return tenant, self.targets[tenant] or {}
+        return "default", self.targets.get("default") or {}
+
+    def observe(self, summary: dict, now: Optional[float] = None) -> None:
+        """Request-finish hook (wire into `subscribe_requests` or call
+        from `EngineMetrics.observe`)."""
+        tenant = str(summary.get("tenant") or "default")
+        row, tspec = self._resolve(tenant)
+        if not tspec:
+            return
+        now = time.monotonic() if now is None else now
+        for field_name, slug in SLO_METRICS.items():
+            target = tspec.get(field_name)
+            value = summary.get(field_name)
+            if target is None or value is None:
+                continue
+            attained = value <= target  # at the target attains
+            win = self._windows.setdefault((row, slug), deque(maxlen=self.max_samples))
+            win.append((now, attained))
+            self.requests.inc(tenant=row, metric=slug)
+            if not attained:
+                self.breaches.inc(tenant=row, metric=slug)
+            self._refresh(row, slug, now)
+
+    def _refresh(self, tenant: str, slug: str, now: float) -> None:
+        win = self._windows.get((tenant, slug))
+        if win is None:
+            return
+        horizon = now - self.window_s
+        while win and win[0][0] < horizon:
+            win.popleft()
+        if win:
+            frac = sum(1 for _, ok in win if ok) / len(win)
+        else:
+            frac = 1.0  # idle window: vacuously attaining
+        self.attainment.set(round(frac, 4), tenant=tenant, metric=slug)
+
+    def attained_fraction(self, tenant: str, metric: str, now: Optional[float] = None) -> float:
+        """Window fraction for one (tenant, metric slug); 1.0 when idle."""
+        now = time.monotonic() if now is None else now
+        self._refresh(tenant, metric, now)
+        win = self._windows.get((tenant, metric))
+        if not win:
+            return 1.0
+        return sum(1 for _, ok in win if ok) / len(win)
+
+    def snapshot(self, now: Optional[float] = None) -> dict:
+        """``{"tenant/metric": fraction}`` for every tracked window."""
+        now = time.monotonic() if now is None else now
+        return {f"{tenant}/{slug}": round(self.attained_fraction(tenant, slug, now), 4)
+                for (tenant, slug) in list(self._windows)}
+
+    def render(self) -> Iterable[str]:
+        now = time.monotonic()
+        for (tenant, slug) in list(self._windows):
+            self._refresh(tenant, slug, now)
+        yield from self.attainment.render()
+        yield from self.breaches.render()
+        yield from self.requests.render()
 
 
 class InflightGuard:

@@ -13,10 +13,14 @@ The port of `python -m dynamo_tpu.run` (reference: launch/dynamo-run/src/
     out=echo_core / out=echo_full   CPU fake backends
 
 It has the JAX run's flags, names and defaults, plus `--device` (default
-cuda: with no GPU the engine's own error, never a fallback). Not ported,
+cuda: with no GPU the engine's own error, never a fallback). With
+out=torch, `/metrics` also renders the engine's gauges and request
+histograms (`EngineMetrics`), and per-tenant SLO attainment (`SloTracker`)
+when `--slo-targets FILE` (or the DYN_SLO_TARGETS inline JSON) names
+targets. Not ported,
 and refused with the ROADMAP item that brings them: `in=dyn://...` and
 `out=dyn://...` (M17), `--tp/--pp/--sp` above 1 and `--num-nodes` above 1
-(M13), `--slo-targets` and `--admission` (M12/M17), and any value but the
+(M13), `--admission` (M17), and any value but the
 default of `--hub`, `--router-mode` (M17), `--disagg-mode`,
 `--max-local-prefill-length` (M11), `--node-rank` and `--coordinator`
 (M13). The engine flags go to
@@ -34,6 +38,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import sys
 import time
 from typing import Optional
@@ -85,7 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--request-timeout", type=float, default=None,
                    help="default end-to-end deadline per request, seconds "
                         "(per-request x-request-timeout header overrides)")
-    p.add_argument("--slo-targets", help="per-tenant SLO targets (not ported: M12/M17)")
+    p.add_argument("--slo-targets",
+                   help="JSON file of per-tenant SLO targets ({tenant: {ttft_s|itl_s|"
+                        "queue_wait_s: seconds}}) rendered as attainment on /metrics")
     p.add_argument("--admission", action="store_true",
                    help="front-door admission gate (not ported: M17)")
     p.add_argument("--disagg-mode", choices=["agg", "decode", "prefill"],
@@ -137,14 +144,33 @@ def refuse_unported(args, out: str, inp: str = "") -> None:
         raise NotImplementedError(
             "--node-rank/--coordinator: multi-node serving is not ported to "
             "dynamo_tpu_torch yet (ROADMAP M13)")
-    if args.slo_targets or args.admission:
+    if args.admission:
         raise NotImplementedError(
-            "--slo-targets/--admission: SLO tracking and the admission gate are not "
-            "ported to dynamo_tpu_torch yet (ROADMAP M12, M17)")
+            "--admission: the admission gate is not ported to dynamo_tpu_torch yet "
+            "(ROADMAP M17)")
     if args.attn_backend != "auto":
         raise NotImplementedError(
             f"--attn-backend {args.attn_backend}: the port has one attention path, its "
             "CUDA kernels (and their plain versions on the CPU); use auto")
+
+
+def load_slo_targets(args):
+    """Per-tenant SLO targets: the --slo-targets file, else the
+    DYN_SLO_TARGETS inline JSON, else None (no tracker)."""
+    if getattr(args, "slo_targets", None):
+        with open(args.slo_targets) as f:
+            return json.load(f)
+    inline = os.environ.get("DYN_SLO_TARGETS")
+    if inline:
+        return json.loads(inline)
+    return None
+
+
+def build_slo_tracker(args):
+    from dynamo_tpu_torch.llm.http.metrics import SloTracker
+
+    targets = load_slo_targets(args)
+    return SloTracker(targets) if targets else None
 
 
 def build_engine_config_kwargs(args) -> dict:
@@ -214,6 +240,15 @@ async def serve_http(args, out: str):
     name = args.model_name or (card.display_name if card else "echo")
     svc.manager.add_chat_model(name, pipeline)
     svc.manager.add_completion_model(name, pipeline)
+    if engine is not None:
+        # one scrape covers the service and the engine: its metrics()
+        # gauges and the TTFT/ITL/queue-wait/tokens histograms, labelled
+        # with the instance id, feeding the SLO tracker when targets are set
+        from dynamo_tpu_torch.llm.http.metrics import EngineMetrics
+        from dynamo_tpu_torch.utils import instance
+
+        svc.metrics.extra.append(EngineMetrics(
+            engine, slo=build_slo_tracker(args), worker_id=instance.worker_id()))
     await svc.start(args.http_host, args.http_port)
     log.info("serving OpenAI HTTP on %s:%d", args.http_host, svc.port)
     return svc, engine

@@ -198,11 +198,23 @@ async def test_top_logprobs_without_logprobs_is_served():
 
 
 async def test_unported_request_refused():
+    """Prompt embeddings and the disaggregated paths stay refused; the
+    sampling options refused before (penalties, seed, logprobs, n > 1)
+    are served."""
     eng = TorchEngine(EngineConfig(model="tiny", dtype="float32", num_pages=32), device="cpu")
+    for kw, named in ((dict(prompt_embeds=[[0.0] * 64]), "prompt_embeds"),
+                      (dict(disagg={"mode": "prefill"}), "disagg")):
+        pre = PreprocessedRequest(token_ids=[1, 2, 3], **kw)
+        with pytest.raises(NotImplementedError, match=named):
+            await eng.generate(Context(pre.to_dict()))
     pre = PreprocessedRequest(
-        token_ids=[1, 2, 3],
-        sampling_options=SamplingOptions(frequency_penalty=0.5, logprobs=True),
+        token_ids=[1, 2, 3], stop_conditions=StopConditions(max_tokens=4, ignore_eos=True),
+        sampling_options=SamplingOptions(n=2, frequency_penalty=0.5, presence_penalty=0.2,
+                                         repetition_penalty=1.2, seed=7, temperature=0.7,
+                                         logprobs=True, top_logprobs=2),
     )
-    with pytest.raises(NotImplementedError, match="frequency_penalty, logprobs"):
-        await eng.generate(Context(pre.to_dict()))
+    frames = [f async for f in await eng.generate(Context(pre.to_dict()))]
     await eng.close()
+    toks = [f for f in frames if f.get("token_ids")]
+    assert frames[-1]["finish_reason"] == "length" and len(toks) == 4
+    assert all(len(f["log_probs"]) == 1 and len(f["top_log_probs"][0]) == 2 for f in toks)

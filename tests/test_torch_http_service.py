@@ -12,7 +12,12 @@ attention), both float32 and greedy.
 - Status codes and error bodies equal on bad JSON, an unknown model, an
   invalid and a zero `x-request-timeout`, a prompt over the context
   length, and an engine that raises (`AlwaysFailEngine`).
-- `x-request-id` echo, `/v1/models`, `/health` and the `/metrics` series.
+- `x-request-id` echo, `/v1/models`, `/health` and the `/metrics` series:
+  both sides wire `EngineMetrics` and an `SloTracker` from `--slo-targets`
+  as their run entries do, and the series equal apart from the JAX
+  engine's gauges whose planes the port lacks
+  (`TorchEngine.UNPORTED_METRICS`) and its flight-recorder and KV-ledger
+  families; a tenant whose TTFT target is 0 s shows the same breach.
 - A client that disconnects mid-stream frees its engine slot, and one
   that leaves a non-streamed request stops its generation.
 - The port is driven by aiohttp and by its own raw-socket client
@@ -51,22 +56,35 @@ def _run(loop, coro):
     return loop.run_until_complete(asyncio.wait_for(coro, timeout=60))
 
 
+SLO_TARGETS = {"default": {"ttft_s": 60.0, "itl_s": 10.0, "queue_wait_s": 60.0},
+               "gold": {"ttft_s": 0.0}}
+
+
 @pytest.fixture(scope="module")
-def services(loop):
+def services(loop, tmp_path_factory):
+    from dynamo_tpu.llm.http.metrics import EngineMetrics as JaxEngineMetrics
     from dynamo_tpu.llm.http.service import HttpService as JaxService
     from dynamo_tpu.run import build_output as jax_build_output
     from dynamo_tpu.run import build_parser as jax_parser
+    from dynamo_tpu.run import build_slo_tracker as jax_slo_tracker
+    from dynamo_tpu.utils import instance as jax_instance
     from dynamo_tpu_torch.run import build_parser, serve_http
+
+    slo = tmp_path_factory.mktemp("slo") / "targets.json"
+    slo.write_text(json.dumps(SLO_TARGETS))
 
     async def start():
         args = build_parser().parse_args(
             ["in=http", "out=torch", "--device", "cpu", "--http-host", "127.0.0.1",
-             "--http-port", "0", *COMMON])
+             "--http-port", "0", "--slo-targets", str(slo), *COMMON])
         svc, eng = await serve_http(args, "torch")
         jargs = jax_parser().parse_args(["in=http", "out=jax", "--attn-backend", "gather",
-                                         *COMMON])
+                                         "--slo-targets", str(slo), *COMMON])
         pipe, card, jeng = await jax_build_output(jargs, "jax")
         jsvc = JaxService()
+        # as the JAX run entry wires them (dynamo_tpu/run.py)
+        jsvc.metrics.extra.append(JaxEngineMetrics(
+            jeng, slo=jax_slo_tracker(jargs), worker_id=jax_instance.worker_id()))
         jsvc.manager.add_chat_model(card.display_name, pipe)
         jsvc.manager.add_completion_model(card.display_name, pipe)
         for pkg, service in (("dynamo_tpu", jsvc), ("dynamo_tpu_torch", svc)):
@@ -235,9 +253,58 @@ def test_request_id_models_health_metrics(loop, services):
                         if line.startswith("# TYPE"))
         got[impl] = (headers.get("X-Request-Id"), sheaders.get("X-Request-Id"), models,
                      health, series)
+    jax_only = _jax_only_series()
+    got["jax"] = got["jax"][:4] + ([n for n in got["jax"][4] if n not in jax_only],)
     assert got["torch"] == got["jax"]
     assert got["torch"][:2] == ("rid-42", "rid-43")
-    assert "dynamo_tpu_http_service_requests_total" in got["torch"][4]
+    for name in ("dynamo_tpu_http_service_requests_total", "dynamo_tpu_engine_ttft_seconds",
+                 "dynamo_tpu_engine_kv_pages_used", "dynamo_tpu_slo_attainment"):
+        assert name in got["torch"][4]
+
+
+def _jax_only_series() -> set:
+    """The JAX side's series the port does not render: the engine gauges
+    of unported planes, and the flight recorder's and KV ledger's counter
+    families (M12)."""
+    from dynamo_tpu_torch.engine import TorchEngine
+
+    return {f"dynamo_tpu_engine_{k}" for k in TorchEngine.UNPORTED_METRICS} | {
+        "dynamo_tpu_flight_recorder_dumps_total", "dynamo_tpu_flight_recorder_suppressed_total",
+        "dynamo_tpu_engine_step_anomalies_total", "dynamo_tpu_kv_ledger_transitions_total",
+        "dynamo_tpu_kv_ledger_violations_total", "dynamo_tpu_kv_ledger_audits_total"}
+
+
+def test_engine_metrics_and_slo_on_metrics(loop, services):
+    """A request of the tenant "gold" (TTFT target 0 s) is a breach on both
+    sides, its TTFT lands in the engine's histogram, and the engine gauges
+    that do not depend on timing read the same."""
+    def lines(text, prefix):
+        return sorted(line for line in text.splitlines() if line.startswith(prefix))
+
+    got = {}
+    for impl in ("jax", "torch"):
+        base = _url(services, impl)
+        before = _run(loop, _get(base, "/metrics"))[2].decode()
+        status, _, _ = _run(loop, _post(base, "/v1/completions", COMPLETION,
+                                        headers={"x-tenant-id": "gold"}))
+        assert status == 200
+        after = _run(loop, _get(base, "/metrics"))[2].decode()
+        count = [float(x.split()[-1]) for x in lines(
+            after, "dynamo_tpu_engine_tokens_per_request_count")]
+        count0 = [float(x.split()[-1]) for x in lines(
+            before, "dynamo_tpu_engine_tokens_per_request_count")]
+        got[impl] = (
+            lines(after, 'dynamo_tpu_slo_breaches_total{metric="ttft",tenant="gold"}'),
+            lines(after, 'dynamo_tpu_slo_attainment{metric="ttft",tenant="gold"}'),
+            [c - c0 for c, c0 in zip(count, count0)],
+            # each package labels its gauges with its own instance id
+            [x.split()[-1] for x in lines(after, "dynamo_tpu_engine_kv_total_blocks")],
+            [x.split()[-1] for x in lines(after, "dynamo_tpu_engine_request_total_slots")],
+        )
+    assert got["torch"] == got["jax"]
+    assert got["torch"][0] == ['dynamo_tpu_slo_breaches_total{metric="ttft",tenant="gold"} 1.0']
+    assert got["torch"][1] == ['dynamo_tpu_slo_attainment{metric="ttft",tenant="gold"} 0.0']
+    assert got["torch"][2] == [1.0]
 
 
 def test_disconnect_frees_the_engine_slot(loop, services):

@@ -387,6 +387,7 @@ def test_select_mixed_prefill_policy():
 
     class _Seq:
         num_computed = 0
+        needs_ext_sampling = False
 
         def __init__(self, total):
             self.total_tokens = total
@@ -399,6 +400,10 @@ def test_select_mixed_prefill_policy():
     assert [(s, ch) for s, ch in eng._select_mixed_prefill(40)] == [(a, 30), (b, 8)]
     # a front sequence that cannot take a page stops the scan (strict FIFO)
     assert eng._select_mixed_prefill(7) == []
+    # so does one on the extended sampler (it prefills on the normal path)
+    b.needs_ext_sampling = True
+    assert [(s, ch) for s, ch in eng._select_mixed_prefill(40)] == [(a, 30)]
+    b.needs_ext_sampling = False
     a.ctx.stopped = True
     assert eng._select_mixed_prefill(40) == []
     eng._prefilling.clear()

@@ -3,8 +3,9 @@ same flags with the same defaults (the port adds `--device`), `in=batch:F`
 on the vendored checkpoint writing the same outputs (greedy, float32; the
 JAX side on gather attention), and the refusals of what the port does not
 serve: `dyn://` modes, parallelism above 1, the hub, router, disagg and
-multi-node flags at any value but their default, and no GPU with the default
-device (the engine's own error, never a fallback)."""
+multi-node flags at any value but their default, the admission gate, and no
+GPU with the default device (the engine's own error, never a fallback).
+`--slo-targets` serves (tests/test_torch_http_service.py renders it)."""
 
 from __future__ import annotations
 
@@ -61,7 +62,7 @@ def test_batch_outputs_equal(tmp_path, capsys):
     (["in=http", "out=torch", "--tp", "2"], "M13"),
     (["in=http", "out=torch", "--pp", "2"], "M13"),
     (["in=http", "out=torch", "--num-nodes", "2"], "M13"),
-    (["in=http", "out=torch", "--admission"], "M12"),
+    (["in=http", "out=torch", "--admission"], "M17"),
     (["in=http", "out=torch", "--attn-backend", "gather"], "attn-backend"),
     (["in=http", "out=torch", "--hub", "127.0.0.1:2379"], "M17"),
     (["in=http", "out=torch", "--router-mode", "kv"], "M17"),
@@ -73,6 +74,29 @@ def test_batch_outputs_equal(tmp_path, capsys):
 def test_unported_modes_raise(argv, named):
     with pytest.raises(NotImplementedError, match=named):
         main(argv + ["--model-path", CKPT])
+
+
+def test_slo_targets_load_as_the_jax_run_loads_them(tmp_path, monkeypatch):
+    """`--slo-targets FILE`, else DYN_SLO_TARGETS, else no tracker, as in
+    the JAX run; the flag passes the refusal check."""
+    from dynamo_tpu.run import load_slo_targets as jax_load
+    from dynamo_tpu_torch.run import build_slo_tracker, load_slo_targets, refuse_unported
+
+    path = tmp_path / "slo.json"
+    path.write_text(json.dumps({"default": {"ttft_s": 1.5}, "gold": {"itl_s": 0.05}}))
+    monkeypatch.delenv("DYN_SLO_TARGETS", raising=False)
+    common = ["in=http", "out=torch", "--model-path", CKPT]
+    for extra in (["--slo-targets", str(path)], []):
+        args = build_parser().parse_args(common + extra)
+        assert load_slo_targets(args) == jax_load(jax_parser().parse_args(common + extra))
+        refuse_unported(args, "torch", "http")
+    args = build_parser().parse_args(common + ["--slo-targets", str(path)])
+    assert build_slo_tracker(args).targets == json.loads(path.read_text())
+    assert build_slo_tracker(build_parser().parse_args(common)) is None
+    monkeypatch.setenv("DYN_SLO_TARGETS", '{"default": {"queue_wait_s": 2.0}}')
+    args = build_parser().parse_args(common)
+    assert load_slo_targets(args) == jax_load(jax_parser().parse_args(common))
+    assert build_slo_tracker(args).targets == {"default": {"queue_wait_s": 2.0}}
 
 
 def test_unported_engine_flags_raise():
