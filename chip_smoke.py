@@ -6,10 +6,11 @@ Phases, each printed on its own line; any failure exits non-zero and the
 final result line is printed only when every phase passed:
 
 1. card and versions (nvidia-smi name and power limit, torch, CUDA);
-2. build: the four CUDA sources under dynamo_tpu_torch/csrc (fourteen
+2. build: the five CUDA sources under dynamo_tpu_torch/csrc (sixteen
    kernels: K1-K3 for bf16 KV, K5-K7 in their int8 and their int4 forms;
    K4, the ragged read of mixed and verify steps, enters K2/K6 in each KV
-   format; and in probes.cu the probe kernels K8 page_copy, K9's
+   format; the two W8A8 kernels of w8a8.cu, quantize_rows and w8a8_gemm;
+   and in probes.cu the probe kernels K8 page_copy, K9's
    unpack/pack/inject bitcasts and K10 page_gather, beside an empty
    kernel for the launch floor), one nvcc each, all in parallel;
 3. each kernel against its plain PyTorch version on the same inputs, at
@@ -66,7 +67,16 @@ final result line is printed only when every phase passed:
    writes it without that entry). Every KV write, attention and ragged
    check also runs at page size 3 with K 2 (an int8/int4 scale tile of 24
    bytes, not whole 16-byte vectors: K7 copies it in 4-byte words), the
-   odd page size the engine serves;
+   odd page size the engine serves. The W8A8 kernels (check_w8a8):
+   quantize_rows at [8 | 4096] x [4096 | 14336] bf16, codes and scales
+   byte-equal to the plain version (a zero row, .5 ties); w8a8_gemm at
+   rows 8 and 4096 on the 8B projections (K, N) (4096, 4096), (4096,
+   1024), (4096, 14336), (14336, 4096) in bf16 and on the head (4096,
+   128256) at 8 rows in f32, byte-equal to the plain version; both on edge
+   cases (f32 in and out, K % 64 == 32, ragged N, rows past M); each timed
+   beside its plain version and bound (bytes, or 2MKN over the int8 rate),
+   the GEMM also beside torch._int_mm on rows padded to 32 plus the
+   dequantization as torch ops, and bf16 torch.matmul;
 4. real weights: the vendored trained checkpoint tests/data/tiny-trained-llama
    through the port's safetensors reader in bf16 on the GPU, with bf16,
    int8 and int4 KV; the greedy continuation of "the capital of france is"
@@ -82,7 +92,10 @@ final result line is printed only when every phase passed:
    itself: `python -m dynamo_tpu_torch.run in=http out=torch --model-path
    tests/data/tiny-trained-llama` as a subprocess on the card, whose greedy
    streamed completion of the same prompt must equal the engine's text
-   (a non-zero exit or a timeout fails). Phases 4-8 run
+   (a non-zero exit or a timeout fails). Last, W8A8 weights
+   (quantization="int8") in bf16 and int8 KV: the card's greedy stream
+   must equal the CPU port's bf16 W8A8 stream, through the W8A8 kernels'
+   launches as the dispatch counters imply. Phases 4-8 run
    with the step pipeline on (the default): decode dispatches replay one
    CUDA graph each, N+1 queued behind N;
 5. full width: llama-3.1-8b (32 layers, d 4096) in bf16 from seeded random
@@ -170,14 +183,25 @@ final result line is printed only when every phase passed:
    between the eager run and the replay), each graph's device ms a step
    replayed alone (two passes in turns, CUDA events), the number of
    graphs, the graph pool's bytes and the count buffer's.
+13. W8A8 weights at full width, after phase 12: phase 5's bf16 weights
+   quantized in place layer by layer (each bf16 layer freed once its codes
+   exist), then phase 5's traffic (8 x ISL 512 / OSL 64, greedy, pipeline
+   on) in bf16 KV and then int8 KV, as phase 5 serves it: the launches
+   the dispatch counters imply (quantize_rows 4 a layer and 1 for the head,
+   w8a8_gemm 7 a layer and 1, per model step), no plain call, the graph
+   check on the W8A8 decode graph and the profile. Prints the weight bytes
+   against bf16, the KV pages the auto-sizer would pick with either, and
+   the decode step, prefill dispatch, TTFT and peak memory beside phase
+   5's (6's for int8 KV), and the share of greedy tokens equal to phase
+   5's (not gated).
 With --pairs N, phases 5, 6 and 7 (each a pipeline off/on pair) and
 phase 8's bf16 pipeline off/on pair run N times in turns, to show their
 spread. With --serving N only the build and phase 11 run, N times, and
 no result line is printed (a measurement, not the smoke).
 
-Then a `kernels` JSON line (seventeen kernels: the nine, K4 in three
-forms, and the five probe kernels; and `launch_floor_ms`), the nvidia-smi
-line, and last
+Then the smoke's wall time, a `kernels` JSON line (nineteen kernels: the
+nine, K4 in three forms, the two W8A8 kernels and the five probe kernels;
+and `launch_floor_ms`), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
 
@@ -1324,6 +1348,144 @@ def check_page_gather(peaks, gen, dev):
     return k10
 
 
+# ---------------------------------------------------------------- phase 3: W8A8
+
+# Llama-3.1-8B's projection shapes (K, N): wq/wo, wk/wv, w_gate/w_up,
+# w_down; the head (4096, 128256) at decode rows only. Rows: a decode
+# step's 8 and a prefill of 8 x 512. Edge cases: a K % 64 == 32 tail,
+# ragged N (the checkpoint's head is 68 wide), a row past M in a tile.
+W8A8_ROWS = (8, 4096)
+W8A8_QUANT_K = (4096, 14336)
+W8A8_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+W8A8_HEAD = (4096, 128256)
+W8A8_EDGES = ((17, 96, 68), (1, 128, 68), (40, 160, 200), (100, 4096, 68), (3, 32, 8))
+# the shapes the `kernels` line reports: decode rows into w_gate/w_up
+W8A8_REPORT = {"quantize_rows": (8, 4096), "w8a8_gemm": (8, 4096, 14336)}
+
+
+def _int8_peaks(peaks):
+    """(memory bytes/s, int8 OP/s): the H100 data sheets' int8 dense rate
+    is twice the bf16 one (1,979 TOP/s on the SXM part)."""
+    return peaks[0], 2 * peaks[1]
+
+
+def _w8a8_x(m, k, gen, dev, dtype=torch.bfloat16):
+    """Rows of several magnitudes; row m // 2 all zeros (a padding row:
+    scale 1.0, codes 0); row 0 holding amax 127 (scale 1.0) and the .5
+    ties 2.5, -3.5, 0.5, -0.5, 126.5, which round half to even."""
+    x = torch.randn((m, k), generator=gen, device=dev)
+    x *= torch.rand((m, 1), generator=gen, device=dev) * 8 + 0.01
+    x[m // 2] = 0.0
+    x[0] = torch.randn((k,), generator=gen, device=dev)
+    x[0, :6] = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 126.5], device=dev)
+    return x.to(dtype)
+
+
+def _int_mm_lib(xq, xs, wq, ws, out_dtype):
+    """`torch._int_mm` (cuBLASLt s8 x s8 -> s32; CUDA refuses 16 rows or
+    fewer) on the rows padded to 32, then the dequantization as torch ops:
+    the library yardstick of the W8A8 GEMM, never the port's path."""
+    m = xq.shape[0]
+    pad = torch.zeros((max(m, 32), xq.shape[1]), dtype=torch.int8, device=xq.device)
+    pad[:m] = xq
+    wt = wq.t()
+    return lambda: (torch._int_mm(pad, wt)[:m].float() * xs[:, None] * ws).to(out_dtype)
+
+
+def check_w8a8(peaks, gen, dev):
+    """The W8A8 kernels against their plain versions, byte for byte:
+    `quantize_rows` at [8 | 4096] x [4096 | 14336] bf16 (codes and scales),
+    `w8a8_gemm` at rows 8 and 4096 on the 8B projection shapes (bf16 out)
+    and the head at 8 rows (f32 out), and both on edge cases (f32 input,
+    K % 64 == 32, ragged N). Each 8B shape timed beside its plain version,
+    its bound (bytes over the memory rate or 2MKN over the int8 rate) and,
+    for the GEMM, two library calls: `torch._int_mm` on rows padded to 32
+    plus the dequantization as torch ops, and bf16 `torch.matmul` at the
+    same shape. The `kernels` line carries the decode shapes: quantize_rows
+    [8, 4096], w8a8_gemm 8 x 4096 x 14336."""
+    from dynamo_tpu_torch.ops import w8a8
+
+    i8 = _int8_peaks(peaks)
+    out = {}
+    for m in W8A8_ROWS:
+        for k in W8A8_QUANT_K:
+            x = _w8a8_x(m, k, gen, dev)
+            q, s = w8a8.quantize_rows(x)
+            pq, ps = w8a8.quantize_rows_plain(x)
+            torch.cuda.synchronize()
+            assert _same_bytes(q, pq) and _same_bytes(s, ps.contiguous()), \
+                f"quantize_rows [{m}, {k}]: codes or scales differ from the plain version"
+            assert q[0, :6].tolist() == [127, 2, -4, 0, 0, 126] and s[m // 2].item() == 1.0
+            ms = time_ms(lambda: w8a8.quantize_rows(x))
+            plain_ms = time_ms(lambda: w8a8.quantize_rows_plain(x))
+            b_ms, by = bound_ms(m * k * 2 + m * k + 4 * m, 0.0, peaks)
+            log(f"[kernel] quantize_rows [{m}, {k}] bf16: codes and scales byte-equal; "
+                f"{ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.4f} by {by}, "
+                f"{100 * b_ms / ms:.0f}% of it)")
+            if (m, k) == W8A8_REPORT["quantize_rows"]:
+                out["quantize_rows"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                            library_ms=None, bound_ms=b_ms, bound_by=by)
+    for m, k, n in W8A8_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = _w8a8_x(m, k, gen, dev, dtype)
+            q, s = w8a8.quantize_rows(x)
+            pq, ps = w8a8.quantize_rows_plain(x)
+            wq = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+            ws = torch.rand((n,), generator=gen, device=dev) * 0.02 + 1e-4
+            got = w8a8.w8a8_gemm(q, s, wq, ws, dtype)
+            want = w8a8.w8a8_gemm_plain(pq, ps.contiguous(), wq, ws, dtype)
+            torch.cuda.synchronize()
+            assert _same_bytes(q, pq) and _same_bytes(s, ps.contiguous()), \
+                f"quantize_rows [{m}, {k}] {dtype}: differs from the plain version"
+            assert _same_bytes(got, want), f"w8a8_gemm {m} x {k} x {n} ({dtype}): differs"
+    log(f"[kernel] W8A8 edge cases byte-equal (f32 and bf16 in and out): (M, K, N) in "
+        f"{list(W8A8_EDGES)}")
+    try:
+        torch._int_mm(torch.zeros((8, 4096), dtype=torch.int8, device=dev),
+                      torch.zeros((4096, 4096), dtype=torch.int8, device=dev).t())
+        log("[kernel] torch._int_mm takes 8 rows on this card")
+    except RuntimeError as e:
+        log(f"[kernel] torch._int_mm refuses 8 rows on this card: {str(e).splitlines()[0]}")
+    cases = [(m, k, n, torch.bfloat16) for m in W8A8_ROWS for k, n in W8A8_SHAPES]
+    cases.append((8, *W8A8_HEAD, torch.float32))
+    for m, k, n, od in cases:
+        xq, xs = w8a8.quantize_rows(_w8a8_x(m, k, gen, dev))
+        wq = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        ws = torch.rand((n,), generator=gen, device=dev) * 0.02 + 1e-4
+        got = w8a8.w8a8_gemm(xq, xs, wq, ws, od)
+        want = w8a8.w8a8_gemm_plain(xq, xs, wq, ws, od)
+        torch.cuda.synchronize()
+        assert _same_bytes(got, want), f"w8a8_gemm {m} x {k} x {n}: differs from the plain version"
+        ms = time_ms(lambda: w8a8.w8a8_gemm(xq, xs, wq, ws, od))
+        plain_ms = time_ms(lambda: w8a8.w8a8_gemm_plain(xq, xs, wq, ws, od))
+        int_mm = _int_mm_lib(xq, xs, wq, ws, od)
+        try:
+            lib = int_mm()
+        except RuntimeError as e:  # the yardstick only: the port never calls it
+            log(f"[kernel] torch._int_mm refuses {m} x {k} x {n}: {str(e).splitlines()[0]}")
+            lib_ms = None
+        else:
+            torch.cuda.synchronize()
+            assert _same_bytes(lib, want), f"_int_mm + dequant {m} x {k} x {n}: differs"
+            lib_ms = time_ms(int_mm)
+            del lib
+        xb = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        wb = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+        bf16_ms = time_ms(lambda: torch.matmul(xb, wb))
+        del xb, wb
+        nbytes = m * k + n * k + 4 * (m + n) + m * n * got.element_size()
+        b_ms, by = bound_ms(nbytes, 2.0 * m * n * k, i8)
+        log(f"[kernel] w8a8_gemm {m} x {k} x {n} ({str(od)[6:]} out): byte-equal; {ms:.4f} ms "
+            f"(plain {plain_ms:.4f}, _int_mm + dequant {lib_ms}, bf16 matmul "
+            f"{bf16_ms:.4f}, bound {b_ms:.4f} by {by}, {100 * b_ms / ms:.0f}% of it; "
+            f"{2e-9 * m * n * k / ms:.0f} TOP/s)")
+        if (m, k, n) == W8A8_REPORT["w8a8_gemm"]:
+            out["w8a8_gemm"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                    bound_ms=b_ms, bound_by=by)
+        del xq, xs, wq, ws, got, want
+    return out
+
+
 # ---------------------------------------------------------------- phases 4-7
 
 
@@ -1341,6 +1503,7 @@ def counters():
     from dynamo_tpu_torch.ops import decode_attention as d
     from dynamo_tpu_torch.ops import kv_write as w
     from dynamo_tpu_torch.ops import prefill_attention as p
+    from dynamo_tpu_torch.ops import w8a8 as q
     from dynamo_tpu_torch.scripts import probe_bitcast as pb
     from dynamo_tpu_torch.scripts import profile_dma as pd
     from dynamo_tpu_torch.scripts import proto_page_write as pw
@@ -1372,6 +1535,8 @@ def counters():
         "bitcast_pack": (pb.pack_int8_rows, "launches", pb.pack_int8_rows_plain),
         "bitcast_inject": (pb.inject_int8_row, "launches", pb.inject_int8_row_plain),
         "page_gather": (pd.page_gather, "launches", pd.page_gather_plain),
+        "quantize_rows": (q.quantize_rows, "launches", q.quantize_rows_plain),
+        "w8a8_gemm": (q.w8a8_gemm, "launches", q.w8a8_gemm_plain),
     }
 
 
@@ -1385,11 +1550,14 @@ def read_counts():
     return {n: (getattr(k, attr), p.calls) for n, (k, attr, p) in counters().items()}
 
 
-def path_launches(stats, layers, decode_steps, kv_quant):
+def path_launches(stats, layers, decode_steps, kv_quant, w8a8=False):
     """The launches the engine's own dispatch counters (`phase_stats`
     deltas) imply: K1/K2 (or their quantized forms) once a layer per
     standalone prefill dispatch, K3/K5 once a layer per decode step, K4
-    once a layer per mixed step and per standalone verify dispatch."""
+    once a layer per mixed step and per standalone verify dispatch. With
+    W8A8 weights every model step (each of those, one forward and one
+    head each) quantizes 4 inputs a layer and the head's, and runs 7
+    GEMMs a layer and the head's."""
     write, prefill, decode = PATH_KERNELS[kv_quant]
     want = {
         write: layers * stats["prefill_dispatches"],
@@ -1397,6 +1565,11 @@ def path_launches(stats, layers, decode_steps, kv_quant):
         decode: layers * stats["decode_dispatches"] * decode_steps,
         RAGGED_KERNEL[kv_quant]: layers * (stats["mixed_steps"] + stats["spec_dispatches"]),
     }
+    if w8a8:
+        steps = (stats["prefill_dispatches"] + stats["decode_dispatches"] * decode_steps
+                 + stats["mixed_steps"] + stats["spec_dispatches"])
+        want["quantize_rows"] = (4 * layers + 1) * steps
+        want["w8a8_gemm"] = (7 * layers + 1) * steps
     return {k: n for k, n in want.items() if n}
 
 
@@ -1555,6 +1728,35 @@ def phase_real_weights(dev):
         check_counts(counts, path_launches(st, eng.model_cfg.num_layers, 4, kv_quant),
                      f"real weights, mixed + spec, {kv} KV")
         assert counts[RAGGED_KERNEL[kv_quant]][0] > 0
+
+    # W8A8 weights on the checkpoint (the head is N = 68 wide: a ragged
+    # edge tile), in bf16 and int8 KV: the card's stream must equal the CPU
+    # port's W8A8 stream in bf16 (the row quantization and the GEMMs are
+    # exact, byte-equal to their plain versions), through the launches the
+    # dispatch counters imply and no plain call
+    for kv_quant in (None, "int8"):
+        kv = kv_quant or "bf16"
+        ref = run("cpu", "bfloat16", kv_quant, quantization="int8")
+        ref32 = run("cpu", "float32", kv_quant, quantization="int8")
+        eng = engine(dev, "bfloat16", kv_quant, quantization="int8")
+
+        async def go():
+            (res,), _ = await run_requests(eng, [ids], n)
+            await eng.close()
+            return res[0]
+
+        reset_counts()
+        got = asyncio.run(go())
+        counts = read_counts()
+        text = tok.decode(got)
+        log(f"[real] W8A8 weights, {kv} KV on {dev}: {tok.decode(ids)!r} -> {text!r}; equal to "
+            f"the CPU port's bf16 W8A8 stream: {got == ref}; its f32 W8A8 stream agrees on "
+            f"{sum(a == b for a, b in zip(got, ref32))}/{n}; launches "
+            f"{json.dumps({k: v[0] for k, v in counts.items() if v[0]})}")
+        assert got == ref, f"W8A8 ({kv} KV): card {got} vs CPU {ref}"
+        assert text.startswith("paris"), f"W8A8 ({kv} KV) answered {text!r}"
+        check_counts(counts, path_launches(eng.phase_stats, eng.model_cfg.num_layers, 4, kv_quant,
+                                           w8a8=True), f"real weights, W8A8, {kv} KV")
     return texts[(None, 16)]
 
 
@@ -1775,19 +1977,23 @@ def decode_step_ms(d, steps):
     return 1e3 * wall / max(d["decode_dispatches"] * steps, 1)
 
 
-def phase_full_width(dev, kv_quant=None, params=None, pipe=True):
+def phase_full_width(dev, kv_quant=None, params=None, pipe=True, quantization=None,
+                     streams=None):
     """Serve eight requests at full width, with the step pipeline on or
     off; returns the main path's launch counts, the metrics and the
-    engine's parameters (for the next phase)."""
+    engine's parameters (for the next phase). `quantization="int8"` takes
+    W8A8 params (phase 13); `streams`, when given, receives the measured
+    round's token lists."""
     from dynamo_tpu_torch import EngineConfig, TorchEngine
 
     isl, osl, nreq = 512, 64, 8
     cfg = EngineConfig(
         model="llama-3.1-8b", dtype="bfloat16", page_size=64, num_pages=256,
         max_batch_size=8, max_model_len=2048, prefill_chunk=512, decode_steps=8, seed=0,
-        kv_quantization=kv_quant, step_pipeline=pipe,
+        kv_quantization=kv_quant, step_pipeline=pipe, quantization=quantization,
     )
-    tag = f"[8b {kv_quant or 'bf16'} KV, pipeline {'on' if pipe else 'off'}]"
+    tag = (f"[8b {'W8A8, ' if quantization else ''}{kv_quant or 'bf16'} KV, "
+           f"pipeline {'on' if pipe else 'off'}]")
     t0 = time.perf_counter()
     eng = TorchEngine(cfg, params=params, device=dev)
     torch.cuda.synchronize()
@@ -1826,13 +2032,10 @@ def phase_full_width(dev, kv_quant=None, params=None, pipe=True):
     for toks, _, reason, _ in res:
         assert len(toks) == osl and reason == "length", f"stream of {len(toks)} tokens ({reason})"
         assert all(0 <= t < vocab for t in toks)
-    names = PATH_KERNELS[kv_quant]
-    want = dict(zip(names, (
-        layers * d["prefill_dispatches"],
-        layers * d["prefill_dispatches"],
-        layers * d["decode_dispatches"] * cfg.decode_steps,
-    )))
-    check_counts(counts, want, f"full width, {kv_quant or 'bf16'} KV")
+    if streams is not None:
+        streams.extend(r[0] for r in res)
+    want = path_launches(d, layers, cfg.decode_steps, kv_quant, w8a8=bool(quantization))
+    check_counts(counts, want, tag)
     ttft = sorted(r[1] for r in res)
     first_done = min(r[1] for r in res)
     decode_window = wall - first_done
@@ -1856,9 +2059,10 @@ def phase_full_width(dev, kv_quant=None, params=None, pipe=True):
         **gcp.summary(),
     }
     log(f"{tag} {nreq} x (ISL {isl}, OSL {osl}) through TorchEngine.generate: " + json.dumps(m))
-    log(f"[profile] {kv_quant or 'bf16'} KV, pipeline {'on' if pipe else 'off'}, one more round "
+    ptag = tag[4:-1]
+    log(f"[profile] {ptag}, one more round "
         f"({nreq} x ISL {isl}, OSL 16) under torch.profiler: " + json.dumps(prof))
-    log(f"[profile] {kv_quant or 'bf16'} KV, pipeline {'on' if pipe else 'off'}, summary: "
+    log(f"[profile] {ptag}, summary: "
         + json.dumps({
             "launch_calls": prof["launch_calls"], "decode_step_ms": m["decode_step_ms"],
             "ttft_p50_s": m["ttft_p50_s"], "ttft_max_s": m["ttft_max_s"],
@@ -2897,6 +3101,94 @@ def phase_ext(dev, params, smi="", cfg=None, traffic=None):
     return m, params
 
 
+# ---------------------------------------------------------------- phase 13
+
+W8A8_KV = (None, "int8")
+W8A8_MODEL = "llama-3.1-8b"  # phase 5's model (a CPU rehearsal swaps in a small one)
+
+
+def weight_bytes(params) -> int:
+    """Bytes of a parameter tree, codes and scales of quantized leaves included."""
+    from dynamo_tpu_torch.ops.quant import is_quantized
+
+    def leaf(w):
+        if is_quantized(w):
+            return leaf(w["q"]) + leaf(w["s"])
+        return w.numel() * w.element_size()
+
+    return (sum(leaf(w) for lp in params["layers"] for w in lp.values())
+            + sum(leaf(w) for k, w in params.items() if k != "layers"))
+
+
+def auto_pages(dev, kv_quant):
+    """The KV pages TorchEngine's auto-sizer would pick now (phase 5's
+    engine settings, `num_pages` None, hbm_utilization 0.85)."""
+    from types import SimpleNamespace
+
+    from dynamo_tpu_torch import EngineConfig, TorchEngine
+
+    cfg = EngineConfig(model=W8A8_MODEL, dtype="bfloat16", page_size=64, max_batch_size=8,
+                       max_model_len=2048, prefill_chunk=512, kv_quantization=kv_quant)
+    return TorchEngine._auto_num_pages(SimpleNamespace(
+        config=cfg, model_cfg=cfg.model_config(), _dtype=torch.bfloat16, device=dev))
+
+
+def phase_w8a8(dev, params, ref, smi=""):
+    """Phase 13: W8A8 weights at full width. Phase 5's bf16 weights are
+    quantized in place, layer by layer (each bf16 layer freed once its
+    codes exist), then phase 5's traffic (8 x ISL 512 / OSL 64, greedy,
+    pipeline on) is served with bf16 KV and then int8 KV, through
+    `phase_full_width`: the W8A8 kernels' launches as the dispatch counters
+    imply, no plain call, the graph check on the W8A8 decode graph, the
+    profile. `ref[kv]` is phase 5's (or 6's) pipeline-on (metrics, streams)
+    in that KV format. Returns the main path's launch counts of the bf16
+    KV run and the quantized params."""
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.ops.quant import quantize_params
+
+    mc = get_config(W8A8_MODEL)
+    torch.cuda.empty_cache()
+    dense_bytes = weight_bytes(params)
+    pages_dense = {kv: auto_pages(dev, kv) for kv in W8A8_KV}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = quantize_params(params, mc, inplace=True)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    quant_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    q_bytes = weight_bytes(params)
+    pages_q = {kv: auto_pages(dev, kv) for kv in W8A8_KV}
+    log(f"[w8a8] {W8A8_MODEL} weights quantized in place, layer by layer, in {quant_s:.2f} s "
+        f"(peak {quant_peak:.2f} GB allocated): {q_bytes / 1e9:.3f} GB against "
+        f"{dense_bytes / 1e9:.3f} GB in bf16 ({q_bytes / dense_bytes:.3f}x); KV pages the "
+        f"auto-sizer would pick (page 64, hbm_utilization 0.85): "
+        + ", ".join(f"{kv or 'bf16'} KV {pages_q[kv]} (bf16 weights {pages_dense[kv]})"
+                    for kv in W8A8_KV) + f"; {smi}")
+    launches = None
+    for kv_quant in W8A8_KV:
+        torch.cuda.empty_cache()
+        streams = []
+        counts, m, params = phase_full_width(dev, kv_quant=kv_quant, params=params, pipe=True,
+                                             quantization="int8", streams=streams)
+        ref_m, ref_streams = ref[kv_quant]
+        total = sum(len(r) for r in ref_streams)
+        same = sum(a == b for s, r in zip(streams, ref_streams) for a, b in zip(s, r))
+        kv = kv_quant or "bf16"
+        log(f"[w8a8] {kv} KV, pipeline on: decode step {m['decode_step_ms']:.4f} ms (bf16 "
+            f"weights {ref_m['decode_step_ms']:.4f}), prefill dispatch "
+            f"{m['prefill_step_ms']:.2f} ms (bf16 weights {ref_m['prefill_step_ms']:.2f}), TTFT "
+            f"p50 {m['ttft_p50_s']:.4f} s (bf16 weights {ref_m['ttft_p50_s']:.4f}), peak "
+            f"{m['max_memory_allocated_gb']:.2f} GB allocated (bf16 weights "
+            f"{ref_m['max_memory_allocated_gb']:.2f}); greedy tokens equal to the bf16 "
+            f"weights' streams: {same}/{total} (not gated: int8 weights are another model); "
+            f"{smi}")
+        if launches is None:
+            launches = counts
+    return launches, params
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1,
@@ -2906,6 +3198,7 @@ def main() -> int:
                     help="measurement: build the kernels, run phase 11 alone N times and "
                          "exit, without the result lines")
     args = ap.parse_args()
+    t_smoke = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script needs one GPU", file=sys.stderr)
         return 2
@@ -2929,8 +3222,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.build()
-    log(f"[build] {len(_cuda.SOURCES)} sources (fourteen kernels: nine on the serving path, "
-        f"K4 entering K2/K6, the five probe kernels K8-K10, and an empty one) built in {time.perf_counter() - t0:.1f} s "
+    log(f"[build] {len(_cuda.SOURCES)} sources (sixteen kernels: nine on the serving path, "
+        f"K4 entering K2/K6, the two W8A8 kernels, the five probe kernels K8-K10, and an "
+        f"empty one) built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_cuda.NVCC_FLAGS[:2])})")
     for n, text in _cuda.build_logs.items():
         for line in text.splitlines():
@@ -2966,6 +3260,7 @@ def main() -> int:
         "page_copy": check_page_copy(peaks, gen, dev),
         **check_bitcast(peaks, gen, dev),
         "page_gather": check_page_gather(peaks, gen, dev),
+        **check_w8a8(peaks, gen, dev),
     }
     inject_ms = results["bitcast_inject"]["ms"]
     log(f"[kernel] bitcast_inject against the launch floor: {inject_ms:.4f} ms, floor "
@@ -2974,15 +3269,17 @@ def main() -> int:
     # phases 5, 6 and 7 (bf16, int8 and int4 KV) on one set of weights,
     # each with the step pipeline off then on; --pairs repeats the pairs in
     # turns, for their spread
-    launches, params = {}, None
+    launches, params, dense = {}, None, {}
     for i in range(args.pairs):
         for kv_quant, names in PATH_KERNELS.items():
             for pipe in (False, True):
                 torch.cuda.empty_cache()
-                counts, _, params = phase_full_width(dev, kv_quant=kv_quant, params=params,
-                                                     pipe=pipe)
+                streams = []
+                counts, m, params = phase_full_width(dev, kv_quant=kv_quant, params=params,
+                                                     pipe=pipe, streams=streams)
                 if i == 0 and pipe:
                     launches.update({k: counts[k] for k in names})
+                    dense[kv_quant] = (m, streams)
     # phase 8: the admission wave in bf16 KV with mixed steps and spec off
     # (the held streams' reference), then on with the step pipeline off and
     # on (--pairs times, in turns), then int8 and int4 KV with all three on
@@ -3010,6 +3307,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_sampler(dev)
     _, params = phase_ext(dev, params, smi=smi)
+    # phase 13: W8A8 weights, phase 5's quantized in place, bf16 and int8 KV
+    counts, params = phase_w8a8(dev, params, dense, smi=smi)
+    launches.update({k: counts[k] for k in ("quantize_rows", "w8a8_gemm")})
     del params
     # phase 11: the serving entry at full width (its own engine, seed 0)
     torch.cuda.empty_cache()
@@ -3042,7 +3342,12 @@ def main() -> int:
         "bitcast_pack": ("dynamo_tpu_torch/csrc/probes.cu", "scripts/probe_bitcast.py:60"),
         "bitcast_inject": ("dynamo_tpu_torch/csrc/probes.cu", "scripts/probe_bitcast.py:83"),
         "page_gather": ("dynamo_tpu_torch/csrc/probes.cu", "scripts/profile_dma.py:19"),
+        # XLA ops, no pallas_call: the two halves of quant_matmul
+        "quantize_rows": ("dynamo_tpu_torch/csrc/w8a8.cu", "dynamo_tpu/ops/quant.py:60"),
+        "w8a8_gemm": ("dynamo_tpu_torch/csrc/w8a8.cu", "dynamo_tpu/ops/quant.py:60"),
     }
+    log(f"[smoke] phases 1-13 took {time.perf_counter() - t_smoke:.1f} s of wall time, build "
+        f"included")
     kernels = []
     for k, r in results.items():
         src, rep = meta[k]

@@ -2,9 +2,10 @@
 
 The fields keep their names and meaning. The features the port does not
 run yet keep their fields with the "off" value, and setting one raises
-`NotImplementedError` at construction: a request for weight quantization,
-host offload or TP overlap must never be served by a silent approximation.
-`kv_quantization="int8"` and `"int4"` are ported; int4 with one scale group
+`NotImplementedError` at construction: a request for host offload or TP
+overlap must never be served by a silent approximation. W8A8 weights
+(`quantization="int8"`) are ported; any other value raises `ValueError`,
+as in the JAX engine. `kv_quantization="int8"` and `"int4"` are ported; int4 with one scale group
 per kv head (`kv_quant_group` None or head_dim) only. Speculative decoding
 (`spec_decode`) and stall-free mixed prefill+decode steps
 (`mixed_batching`) are ported, alone and together, with the step pipeline
@@ -20,7 +21,6 @@ from dynamo_tpu_torch.models.config import ModelConfig, get_config
 
 # field -> the value that means "off"; anything else is not ported yet
 _UNPORTED = {
-    "quantization": None,
     "host_kv_pages": 0,
     "tp_overlap": False,
 }
@@ -51,7 +51,7 @@ class EngineConfig:
     priority_scheduling: bool = True
     seed: int = 0
 
-    quantization: Optional[str] = None
+    quantization: Optional[str] = None     # None or "int8" (W8A8 weights)
     kv_quantization: Optional[str] = None  # None, "int8" or "int4"
     # int4 scale-group size in features per kv head; None = head_dim (one
     # scale per token and kv head, what the kernels take). Ignored unless
@@ -99,6 +99,8 @@ class EngineConfig:
                     f"EngineConfig.{name}={getattr(self, name)!r}: not ported "
                     "to dynamo_tpu_torch yet (see ROADMAP.md)"
                 )
+        if self.quantization not in (None, "int8"):
+            raise ValueError(f"unknown quantization {self.quantization!r}")
         if self.kv_quantization not in (None, "int8", "int4"):
             raise NotImplementedError(
                 f"EngineConfig.kv_quantization={self.kv_quantization!r}: only "

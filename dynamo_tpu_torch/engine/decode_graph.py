@@ -30,6 +30,9 @@ What makes the loop capturable:
 - the kernel wrappers' launch counters count in Python, so they move while
   capturing and not on replay: each graph records its counts at capture,
   takes them back, and adds them on every replay, so the counts stay exact;
+- the W8A8 weights (`quantization="int8"`) are static, so a W8A8 dispatch
+  replays one graph per key as a bf16 one does; the activation codes and
+  scales are allocations of the graph's pool;
 - nothing frees a CUDA graph while one is being captured: destroying a
   graph (`CUDAGraph.reset`) is not permitted during a capture and
   invalidates it, and a dead engine's graphs sit in reference cycles that
@@ -48,7 +51,7 @@ from typing import Callable
 
 import torch
 
-from dynamo_tpu_torch.ops import decode_attention, kv_write, prefill_attention
+from dynamo_tpu_torch.ops import decode_attention, kv_write, prefill_attention, w8a8
 
 
 def launch_counters() -> list:
@@ -56,7 +59,8 @@ def launch_counters() -> list:
     wrappers = (kv_write.paged_kv_write, prefill_attention.flash_prefill_attention,
                 decode_attention.fused_paged_decode_attention,
                 decode_attention.ragged_paged_attention)
-    return [(w, a) for w in wrappers for a in ("launches", "launches_q", "launches_q4")]
+    return ([(w, a) for w in wrappers for a in ("launches", "launches_q", "launches_q4")]
+            + [(w8a8.quantize_rows, "launches"), (w8a8.w8a8_gemm, "launches")])
 
 
 def _read_counts() -> list:

@@ -27,6 +27,12 @@ Port of `dynamo_tpu/engine/engine.py::JaxEngine`, main path only:
   scale pools (`kv_quantization="int8"`), or nibble-packed int4 (two codes
   a byte) with the same scale pools (`kv_quantization="int4"`), which the
   int8 and int4 forms of the three kernels read and write;
+- W8A8 weights (`quantization="int8"`): every dense projection and the
+  vocab head hold int8 codes with per-output-channel scales; a checkpoint
+  is quantized layer by layer as it is loaded, a random init as each layer
+  is made, and each projection runs the two W8A8 kernels (ops/w8a8.py:
+  the input quantized per row once for all projections that read it, then
+  the s8 x s8 -> s32 GEMM with its dequantization fused);
 - on-device sampling: greedy, temperature, top-k, top-p, and the
   extended sampler (`ops/sampling.py`): frequency, presence and
   repetition penalties over an int8 count row per slot (the prompt
@@ -109,6 +115,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
 from dynamo_tpu_torch.llm.tokens import TokenBlockSequence, compute_block_hashes
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.ops import quant
+from dynamo_tpu_torch.ops.quant import is_quantized, logical_param_count, quantize_params
 from dynamo_tpu_torch.ops.kv_write import paged_kv_write
 from dynamo_tpu_torch.ops.rope import rope_inv_freq
 from dynamo_tpu_torch.ops.sampling import (
@@ -232,20 +239,45 @@ class TorchEngine:
                     config.checkpoint_dir, self.model_cfg, dtype=self._dtype,
                     device=self.device,
                 )
+                if config.quantization:
+                    # layer by layer: each dense layer is freed once its
+                    # codes exist
+                    params = quantize_params(params, self.model_cfg,
+                                             mode=config.quantization, inplace=True)
             else:
+                # quantized as each layer is made: the device never holds
+                # the whole dense tree
                 params = llama.init_params(
-                    self.model_cfg, config.seed, dtype=self._dtype, device=self.device
+                    self.model_cfg, config.seed, dtype=self._dtype, device=self.device,
+                    quantize=bool(config.quantization),
                 )
         else:
+            if config.quantization and not any(
+                    is_quantized(lp.get("wq")) for lp in params["layers"]):
+                raise ValueError(
+                    "quantization set but caller-provided params are unquantized — "
+                    "pass ops.quant.quantize_params output")
+
+            def to_dev(w):
+                if is_quantized(w):
+                    return {"q": w["q"].to(self.device), "s": w["s"].to(self.device)}
+                return w.to(self.device)
+
             params = {
                 k: (
-                    [{n: w.to(self.device) for n, w in lp.items()} for lp in v]
-                    if k == "layers" else v.to(self.device)
+                    [{n: to_dev(w) for n, w in lp.items()} for lp in v]
+                    if k == "layers" else to_dev(v)
                 )
                 for k, v in params.items()
             }
         self.params = params
-        self.param_count = llama.param_count(params)
+        # logical model size: int8 codes count like their dense originals;
+        # scales and a tied model's int8 head are bookkeeping
+        self.param_count = logical_param_count(params, self.model_cfg)
+        if self.device.type == "cuda" and config.quantization:
+            # hand the dense layers' freed blocks back to the device, where
+            # the KV auto-sizer's free-memory read sees them
+            torch.cuda.empty_cache()
 
         self.page_size = config.page_size
         self.num_pages = config.num_pages or self._auto_num_pages()
@@ -394,6 +426,14 @@ class TorchEngine:
                 f"{m.num_heads // m.num_kv_heads} query heads per kv head: the CUDA "
                 f"decode kernel takes at most {decode_attention.MAX_GROUP}"
             )
+        if self.config.quantization:
+            # the W8A8 kernels' K: hidden (wq/wk/wv, w_gate/w_up, the
+            # head), q_size (wo) and intermediate (w_down)
+            for name, k in (("hidden_size", m.hidden_size), ("q_size", m.q_size),
+                            ("intermediate_size", m.intermediate_size)):
+                if k % 32:
+                    raise ValueError(
+                        f"{name} {k}: the W8A8 kernels take K a multiple of 32")
 
     def _auto_num_pages(self) -> int:
         cfg, m = self.config, self.model_cfg

@@ -4,7 +4,11 @@ Port of `dynamo_tpu/models/llama.py`, dense path. One `forward()` serves
 chunked prefill and decode. Parameters are a plain dict of tensors (a
 per-layer list under "layers") at the JAX package's layout: linear weights
 are [in_features, out_features] so matmuls are `x @ w`, and KV pools are
-per-layer [num_slots, K*Hd] tensors updated in place.
+per-layer [num_slots, K*Hd] tensors updated in place. With W8A8 weights
+(`init_params(quantize=True)`, ops/quant.py `quantize_params`) each dense
+projection and the vocab head is a {"q", "s"} leaf, and every projection
+goes through `mm`: its input is quantized once per row (ops/w8a8.py
+`quantize_rows`) and multiplied by the int8 GEMM (`w8a8_gemm`).
 
 Attention goes through one of the three `AttnSpec` modes below; each runs
 the hand-written kernels on a GPU (page-scatter write + flash prefill for
@@ -35,8 +39,15 @@ from dynamo_tpu_torch.ops.norm import rms_norm
 from dynamo_tpu_torch.ops.prefill_attention import flash_prefill_attention
 from dynamo_tpu_torch.ops.quant import (
     init_kv_scale_pool,
+    is_quantized,
+    logical_param_count,
+    mm,
+    prepare_act,
+    quant_matmul,
     quantize_kv_rows,
     quantize_kv_rows_int4,
+    quantize_layer,
+    quantize_weight,
     scales_to_page_tiles,
 )
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
@@ -159,9 +170,10 @@ def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     quant = kv_ks is not None
     quantize = quantize_kv_rows_int4 if int4 else quantize_kv_rows
-    q = x @ lp["wq"]
-    k = x @ lp["wk"]
-    v = x @ lp["wv"]
+    xa = prepare_act(x, lp["wq"])  # quantized once for the three projections
+    q = mm(xa, lp["wq"])
+    k = mm(xa, lp["wk"])
+    v = mm(xa, lp["wv"])
     if cfg.attn_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -230,7 +242,7 @@ def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
             q.contiguous(), kv_k, kv_v, attn.block_tables, attn.q_pos0,
             attn.lengths, *pools, page_size=ps, int4=int4,
         )
-    return out.reshape(b, t, h * hd) @ lp["wo"]
+    return mm(out.reshape(b, t, h * hd), lp["wo"])
 
 
 _ACTIVATIONS = {
@@ -241,8 +253,9 @@ _ACTIVATIONS = {
 
 
 def _mlp_block(lp: Params, x, act: str = "silu"):
-    gate = _ACTIVATIONS[act](x @ lp["w_gate"])
-    return (gate * (x @ lp["w_up"])) @ lp["w_down"]
+    xa = prepare_act(x, lp["w_gate"])  # quantized once for gate and up
+    gate = _ACTIVATIONS[act](mm(xa, lp["w_gate"]))
+    return mm(gate * mm(xa, lp["w_up"]), lp["w_down"])
 
 
 def layer_step(lp, cfg, x, cos, sin, kv_k, kv_v, attn, kv_ks=None, kv_vs=None,
@@ -288,18 +301,27 @@ def forward(
 
 
 def logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """Vocab projection [..., D] -> [..., V] in float32."""
+    """Vocab projection [..., D] -> [..., V] in float32. A quantized
+    "lm_head" (ops/quant.py adds one even for tied embeddings; the table
+    stays for the gather) runs the W8A8 GEMM with f32 output."""
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
+    if is_quantized(head):
+        return quant_matmul(hidden, head, out_dtype=torch.float32)
     return (hidden @ head).float()
 
 
 def init_params(cfg: ModelConfig, seed: int, *, device,
-                dtype=torch.bfloat16) -> Params:
+                dtype=torch.bfloat16, quantize: bool = False) -> Params:
     """Random-init params from an explicit seed (tests, benchmarks): normal
     weights scaled by fan_in**-0.5, embeddings by 0.02, unit norms — the
-    JAX package's scheme, with torch's generator (so other values)."""
+    JAX package's scheme, with torch's generator (so other values).
+
+    `quantize=True` quantizes each layer's dense projections to int8 as
+    they are made (ops/quant.py scheme, the same result as
+    `quantize_params` on the full tree, with the same draws): the device
+    holds the codes so far and one dense layer, never a whole dense tree."""
     if cfg.num_experts:
         raise NotImplementedError("MoE models are not ported to dynamo_tpu_torch yet")
     gen = torch.Generator(device=device)
@@ -330,7 +352,8 @@ def init_params(cfg: ModelConfig, seed: int, *, device,
         if cfg.attn_bias:
             for name, n in (("bq", qs), ("bk", kvs), ("bv", kvs)):
                 lp[name] = torch.zeros(n, dtype=dtype, device=device)
-        layers.append(lp)
+        layers.append(quantize_layer(lp) if quantize else lp)
+        del lp
     params: Params = {
         "embed": dense((cfg.vocab_size, d), scale=0.02),
         "layers": layers,
@@ -338,21 +361,33 @@ def init_params(cfg: ModelConfig, seed: int, *, device,
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = dense((d, cfg.vocab_size))
+    if quantize:
+        head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+        params["lm_head"] = quantize_weight(head)
     return params
 
 
-def param_count(params: Params) -> int:
-    layers = sum(w.numel() for lp in params["layers"] for w in lp.values())
-    return layers + sum(w.numel() for k, w in params.items() if k != "layers")
+def param_count(params: Params, cfg: ModelConfig) -> int:
+    """Logical parameter count of a dense or a W8A8 tree (ops/quant.py
+    `logical_param_count`: codes count like their dense originals, scales
+    and a tied model's int8 head do not)."""
+    return logical_param_count(params, cfg)
 
 
 def params_from_jax(tree: Params, *, device, dtype=None) -> Params:
     """Carry a JAX parameter tree (leaves as numpy arrays, e.g. from
     `jax.device_get`) over to the port's layout: same keys, same [in, out]
     orientation. bf16 leaves (ml_dtypes) go through float32, which is
-    exact. `dtype` None keeps each leaf's own type."""
+    exact. `dtype` None keeps each leaf's own type. A quantized leaf
+    {"q": int8 [in, out], "s": f32 [out]} keeps its codes and scales as
+    they are (`dtype` never casts them), the codes transposed to the
+    port's [out, in]."""
 
     def conv(a):
+        if is_quantized(a):
+            q = torch.from_numpy(np.ascontiguousarray(np.asarray(a["q"]).T))
+            s = torch.from_numpy(np.array(a["s"], np.float32))
+            return {"q": q.to(device), "s": s.to(device)}
         a = np.array(a)  # a writable copy the tensor may own
         if a.dtype.name == "bfloat16":
             t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)

@@ -1,6 +1,22 @@
-"""int8 and int4 KV cache: the quantization schemes and the scale-pool helpers.
+"""W8A8 int8 weights, and the int8 and int4 KV cache: the quantization
+schemes and the scale-pool helpers.
 
-Port of `dynamo_tpu/ops/quant.py` (`quantize_kv_rows`,
+Weights (M10; `QUANT_KEYS`, `is_quantized`, `quantize_weight`,
+`quant_matmul`, `mm`, `logical_param_count`, `quantize_params` of
+`dynamo_tpu/ops/quant.py`): each dense projection becomes the leaf
+{"q": int8 codes, "s": f32 [out]}, symmetric per output channel with
+s = amax / 127 (1.0 for an all-zero column) and q = clip(round(w / s),
+-127, 127). The codes are stored [out, in], K-contiguous: the transpose of
+the JAX package's [in, out], because the GEMM's s8 B operand is K-major on
+the tensor cores. `quantize_weight` and `params_from_jax` own that
+transpose; the values are the JAX package's, byte for byte. Activations
+are quantized per row at run time the same way (ops/w8a8.py
+`quantize_rows`), the dot is s8 x s8 -> s32 (`w8a8_gemm`) and the output
+(f32(acc) * xs) * ws, cast once to the activation dtype (f32 for the
+vocab head). `quantize_act` quantizes an input once for every projection
+that reads it (wq/wk/wv, w_gate/w_up), as XLA's CSE does in the reference.
+
+KV (`quantize_kv_rows`,
 `dequantize_kv_rows`, `int4_scale_channels`, `quantize_kv_rows_int4`,
 `unpack_int4_kv`, `dequantize_kv_rows_int4`, the scale-pool helpers and
 `scales_to_page_tiles`). int8 rows are quantized symmetrically per token
@@ -28,7 +44,109 @@ read one head's scales for consecutive tokens contiguously.
 
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import torch
+
+from dynamo_tpu_torch.ops.w8a8 import quantize_rows, true_div, w8a8_gemm
+
+# per-layer weight names eligible for quantization (dense Llama family)
+QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def is_quantized(leaf: Any) -> bool:
+    """A quantized-weight leaf is the exact dict {"q", "s"}."""
+    return isinstance(leaf, dict) and len(leaf) == 2 and "q" in leaf and "s" in leaf
+
+
+def quantize_weight(w: torch.Tensor) -> dict:
+    """[in, out] float -> {"q": int8 [out, in] (K-contiguous), "s": f32 [out]}:
+    the JAX package's codes transposed, and its scales."""
+    wf = w.float()
+    amax = wf.abs().amax(dim=0)
+    scale = torch.where(amax > 0, true_div(amax, 127.0), 1.0)
+    q = torch.round(wf / scale).clamp_(-127, 127).to(torch.int8)
+    return {"q": q.T.contiguous(), "s": scale}
+
+
+class QuantizedAct(NamedTuple):
+    """An activation quantized once for the projections that read it:
+    codes [M, K], scales [M], and the input's leading shape and dtype."""
+
+    q: torch.Tensor
+    s: torch.Tensor
+    lead: tuple
+    dtype: torch.dtype
+
+
+def quantize_act(x: torch.Tensor) -> QuantizedAct:
+    q, s = quantize_rows(x.reshape(-1, x.shape[-1]))
+    return QuantizedAct(q, s, tuple(x.shape[:-1]), x.dtype)
+
+
+def quant_matmul(x, w: dict, out_dtype=None) -> torch.Tensor:
+    """x [..., in] (bf16/f32, or a `QuantizedAct`) @ quantized w -> [..., out]
+    in x's dtype (or `out_dtype`; the dequant itself is f32)."""
+    xa = x if isinstance(x, QuantizedAct) else quantize_act(x)
+    out = w8a8_gemm(xa.q, xa.s, w["q"], w["s"], out_dtype or xa.dtype)
+    return out.reshape(*xa.lead, out.shape[-1])
+
+
+def prepare_act(x: torch.Tensor, w):
+    """x as `mm` should take it for weight `w`: quantized once when `w` is
+    (the caller passes the result to every projection of x)."""
+    return quantize_act(x) if is_quantized(w) else x
+
+
+def mm(x, w) -> torch.Tensor:
+    """The model's matmul: quantized or plain depending on the leaf."""
+    if is_quantized(w):
+        return quant_matmul(x, w)
+    if isinstance(x, QuantizedAct):
+        raise TypeError("a quantized activation meets an unquantized weight")
+    return x @ w
+
+
+def _layer_count(lp: dict) -> int:
+    return sum(int(v["q"].numel()) if is_quantized(v) else int(v.numel()) for v in lp.values())
+
+
+def logical_param_count(params: dict, cfg) -> int:
+    """Model parameter count on a quantized OR plain tree: scales are
+    bookkeeping, a tied-embedding int8 head is a duplicate, int8 weights
+    count by element like their bf16 originals."""
+    total = 0
+    for key, sub in params.items():
+        if key == "lm_head" and cfg.tie_word_embeddings and is_quantized(sub):
+            continue
+        if key == "layers":
+            total += sum(_layer_count(lp) for lp in sub)
+        else:
+            total += int(sub["q"].numel()) if is_quantized(sub) else int(sub.numel())
+    return total
+
+
+def quantize_layer(lp: dict) -> dict:
+    return {k: (quantize_weight(v) if k in QUANT_KEYS else v) for k, v in lp.items()}
+
+
+def quantize_params(params: dict, cfg, mode: str = "int8", inplace: bool = False) -> dict:
+    """Quantize a llama.init_params-shaped tree in place of the dense
+    projection weights; adds an int8 "lm_head" (from embed.T when tied).
+    Norms, biases and embeddings stay as they are. `inplace=True` replaces
+    each layer of `params["layers"]` (and an untied head) as it goes, so a
+    bf16 layer can be freed as soon as its codes exist; the returned tree
+    is then `params` itself."""
+    if mode != "int8":
+        raise ValueError(f"unknown quantization mode {mode!r}; expected 'int8'")
+    new = params if inplace else dict(params)
+    layers = params["layers"] if inplace else list(params["layers"])
+    for i, lp in enumerate(layers):
+        layers[i] = quantize_layer(lp)
+    new["layers"] = layers
+    head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+    new["lm_head"] = quantize_weight(head)
+    return new
 
 
 def quantize_kv_rows(rows: torch.Tensor, num_kv_heads: int):

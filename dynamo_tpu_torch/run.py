@@ -25,7 +25,7 @@ default of `--hub`, `--router-mode` (M17), `--disagg-mode`,
 `--max-local-prefill-length` (M11), `--node-rank` and `--coordinator`
 (M13). The engine flags go to
 the port's `EngineConfig`, which refuses what is not ported
-(`--quantization`, `--host-kv-pages`).
+(`--host-kv-pages`); `--quantization int8` serves W8A8 weights.
 
 Examples:
     python -m dynamo_tpu_torch.run in=http out=torch --model-path /models/llama
@@ -77,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "pallas", "gather"],
                    help="auto only: the port has one attention path, its CUDA kernels")
     p.add_argument("--quantization", default=None, choices=["int8"],
-                   help="W8A8 int8 weights (not ported: M10)")
+                   help="W8A8 int8 weights (int8 codes, per-channel scales; the "
+                        "checkpoint is quantized as it loads)")
     p.add_argument("--kv-quantization", default=None, choices=["int8", "int4"],
                    help="int8 or int4 KV cache pages")
     p.add_argument("--host-kv-pages", type=int, default=0,

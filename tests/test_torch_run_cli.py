@@ -101,9 +101,41 @@ def test_slo_targets_load_as_the_jax_run_loads_them(tmp_path, monkeypatch):
 
 def test_unported_engine_flags_raise():
     args = build_parser().parse_args(["in=http", "out=torch", "--model-path", CKPT,
-                                      "--device", "cpu", "--quantization", "int8"])
-    with pytest.raises(NotImplementedError, match="quantization"):
+                                      "--device", "cpu", "--host-kv-pages", "8"])
+    with pytest.raises(NotImplementedError, match="host_kv_pages"):
         asyncio.run(serve_http(args, "torch"))
+
+
+def test_quantization_int8_serves_a_completion():
+    """`--quantization int8` serves W8A8 weights: one /v1/completions
+    request on the checkpoint, through the kernels' plain versions."""
+    from dynamo_tpu_torch.llm.http import client
+    from dynamo_tpu_torch.ops import quant, w8a8
+
+    args = build_parser().parse_args(["in=http", "out=torch", "--model-path", CKPT,
+                                      "--device", "cpu", "--dtype", "float32",
+                                      "--num-pages", "64", "--http-host", "127.0.0.1",
+                                      "--http-port", "0", "--quantization", "int8"])
+    body = {"model": "tiny-trained-llama", "prompt": "the capital of france is",
+            "max_tokens": 8, "temperature": 0}
+
+    async def go():
+        svc, engine = await serve_http(args, "torch")
+        try:
+            calls = w8a8.w8a8_gemm_plain.calls
+            reply = await client.request("127.0.0.1", svc.port, "POST", "/v1/completions", body)
+            out = reply.status, await reply.json()
+            return out, engine, w8a8.w8a8_gemm_plain.calls - calls
+        finally:
+            await svc.stop()
+            await engine.close()
+
+    (status, resp), engine, gemms = asyncio.run(go())
+    assert status == 200, resp
+    assert quant.is_quantized(engine.params["layers"][0]["w_down"])
+    assert gemms > 0
+    assert resp["usage"]["completion_tokens"] == 8
+    assert resp["choices"][0]["text"].strip().startswith("paris"), resp
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a GPU")
