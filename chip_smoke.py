@@ -73,10 +73,23 @@ final result line is printed only when every phase passed:
    rows 8 and 4096 on the 8B projections (K, N) (4096, 4096), (4096,
    1024), (4096, 14336), (14336, 4096) in bf16 and on the head (4096,
    128256) at 8 rows in f32, byte-equal to the plain version; both on edge
-   cases (f32 in and out, K % 64 == 32, ragged N, rows past M); each timed
-   beside its plain version and bound (bytes, or 2MKN over the int8 rate),
-   the GEMM also beside torch._int_mm on rows padded to 32 plus the
-   dequantization as torch ops, and bf16 torch.matmul;
+   cases (f32 in and out, M 64 and 65 either side of the GEMM's variants,
+   K % 128 in {32, 64, 96}, N 8 and N 1024 at K 14336 for the split-K
+   extremes, N 68 and an odd N, rows past M, a 2,048-row mixed rectangle;
+   each GEMM launched twice); each timed beside its plain version and
+   bound (bytes, or 2MKN over the int8 rate), the GEMM also beside
+   torch._int_mm on rows padded to 32 plus the dequantization as torch
+   ops, and bf16 torch.matmul, decode rows also with the L2 evicted by a
+   128 MB read; the GEMM variants' ptxas report and occupancy, the host
+   cost of a call's tensor maps, and the decode chain (8 layers of 8B
+   projections at 8 rows in one CUDA graph, every output byte-equal to
+   the plain versions; `python -m dynamo_tpu_torch.scripts.trace_w8a8`
+   traces it). And the KV quantizer
+   (check_kv_division): quantize_kv_rows and quantize_kv_rows_int4 on the
+   card byte-equal to the CPU in rows and scales at [2, 8, 1024] and
+   [512, 1024], f32 and bf16, on heads whose amax is a division edge
+   (f32 0.143 for / 127 and / 7), with the count of scales the parent's
+   division by a Python scalar gets wrong on the same inputs;
 4. real weights: the vendored trained checkpoint tests/data/tiny-trained-llama
    through the port's safetensors reader in bf16 on the GPU, with bf16,
    int8 and int4 KV; the greedy continuation of "the capital of france is"
@@ -1352,13 +1365,25 @@ def check_page_gather(peaks, gen, dev):
 
 # Llama-3.1-8B's projection shapes (K, N): wq/wo, wk/wv, w_gate/w_up,
 # w_down; the head (4096, 128256) at decode rows only. Rows: a decode
-# step's 8 and a prefill of 8 x 512. Edge cases: a K % 64 == 32 tail,
-# ragged N (the checkpoint's head is 68 wide), a row past M in a tile.
+# step's 8 and a prefill of 8 x 512. Edge cases (M, K, N), each checked in
+# f32 and bf16: a K % 128 == 96 tail in one k tile, one row, K 160 (two k
+# tiles split across blocks, a 32-byte tail), 100 rows over a split "tiles"
+# launch, N 8 at K 32; M 64 and 65, either side of the variants'
+# threshold; K % 128 in {32, 64, 96}, the TMA box's tail past K; the
+# split-K extremes, N 8 at K 4096 (one column tile, K split 32 ways) and N
+# 1024 at K 14336; an odd N (single-element stores); and a mixed step's
+# 2,048-row rectangle (a "tiles" launch split in two). The checkpoint's
+# head is 68 wide.
 W8A8_ROWS = (8, 4096)
 W8A8_QUANT_K = (4096, 14336)
 W8A8_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
 W8A8_HEAD = (4096, 128256)
-W8A8_EDGES = ((17, 96, 68), (1, 128, 68), (40, 160, 200), (100, 4096, 68), (3, 32, 8))
+W8A8_EDGES = ((17, 96, 68), (1, 128, 68), (40, 160, 200), (100, 4096, 68), (3, 32, 8),
+              (64, 4096, 1024), (65, 4096, 1024),
+              (8, 4128, 512), (8, 4160, 300), (130, 4192, 520), (65, 4128, 68),
+              (8, 4096, 8), (8, 14336, 1024), (64, 14336, 1024),
+              (9, 256, 33), (130, 256, 33),
+              (2048, 4096, 1024))
 # the shapes the `kernels` line reports: decode rows into w_gate/w_up
 W8A8_REPORT = {"quantize_rows": (8, 4096), "w8a8_gemm": (8, 4096, 14336)}
 
@@ -1392,20 +1417,82 @@ def _int_mm_lib(xq, xs, wq, ws, out_dtype):
     return lambda: (torch._int_mm(pad, wt)[:m].float() * xs[:, None] * ws).to(out_dtype)
 
 
+# the decode chain (dynamo_tpu_torch/scripts/trace_w8a8.py `Chain`):
+# W8A8_CHAIN_LAYERS layers of an 8B decode step's W8A8 work (the row
+# quantizations and the seven projections at 8 rows), each layer on its own
+# weights (218 MB a layer, so the L2 holds none of the weights a GEMM
+# reads), replayed as one CUDA graph
+W8A8_CHAIN_LAYERS = 8
+
+
+def w8a8_chain(gen, dev):
+    """Device ms a layer of the decode chain, the median of 20 replays of
+    its graph; raises unless every output of every layer equals the plain
+    versions' run eagerly."""
+    from dynamo_tpu_torch.scripts.trace_w8a8 import Chain
+
+    chain = Chain(gen, dev, W8A8_CHAIN_LAYERS)
+    return chain.replay_ms(chain.capture(), replays=20)
+
+
+def w8a8_ptxas():
+    """Registers, spills and shared memory of each w8a8.cu kernel, from
+    this run's ptxas log, the GEMM variants' dynamic shared memory beside
+    (the ring, its barriers and 1 KB of alignment), and any ptxas warning
+    about wgmma."""
+    from dynamo_tpu_torch.ops import _cuda, w8a8
+
+    lines, cur = [], None
+    for line in _cuda.build_logs.get("w8a8", "").splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        if "wgmma" in line.lower() or "warning" in line.lower():
+            lines.append(f"[ptxas] w8a8: {line.strip()}")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            lines.append(f"[ptxas] {cur}: {m.group(1)} B spill stores, {m.group(2)} B spill loads")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            sm = re.search(r"(\d+) bytes smem", line)
+            lines.append(f"[ptxas] {cur}: {m.group(1)} registers, "
+                         f"{sm.group(1) if sm else 0} B static smem")
+    for name, (vid, cons, bn, stages, resident) in w8a8.GEMM_VARIANTS.items():
+        staging = 2 * cons * 8192 if cons == 2 else 0  # the bf16 TMA-store chunks
+        smem = 1024 + stages * (64 * cons + bn) * w8a8.K_TILE + staging + 16 * stages + 16
+        fit = w8a8._launcher().w8a8_occupancy(vid)
+        lines.append(f"[ptxas] w8a8_gemm variant {name} (id {vid}): block {64 * cons} x {bn}, "
+                     f"{stages} stages, {128 * cons + (128 if cons == 2 else 32)} threads, "
+                     f"{smem} B dynamic smem; {fit} block(s) fit an SM, the plan assumes "
+                     f"{resident}")
+        assert fit >= resident, f"w8a8_gemm variant {name}: {fit} blocks fit an SM, not {resident}"
+    return lines
+
+
 def check_w8a8(peaks, gen, dev):
     """The W8A8 kernels against their plain versions, byte for byte:
     `quantize_rows` at [8 | 4096] x [4096 | 14336] bf16 (codes and scales),
     `w8a8_gemm` at rows 8 and 4096 on the 8B projection shapes (bf16 out)
-    and the head at 8 rows (f32 out), and both on edge cases (f32 input,
-    K % 64 == 32, ragged N). Each 8B shape timed beside its plain version,
-    its bound (bytes over the memory rate or 2MKN over the int8 rate) and,
-    for the GEMM, two library calls: `torch._int_mm` on rows padded to 32
-    plus the dequantization as torch ops, and bf16 `torch.matmul` at the
-    same shape. The `kernels` line carries the decode shapes: quantize_rows
-    [8, 4096], w8a8_gemm 8 x 4096 x 14336."""
-    from dynamo_tpu_torch.ops import w8a8
+    and the head at 8 rows (f32 out), and both on the edge cases above (f32
+    and bf16). Each 8B shape timed beside its plain version, its bound
+    (bytes over the memory rate or 2MKN over the int8 rate) and, for the
+    GEMM, two library calls: `torch._int_mm` on rows padded to 32 plus the
+    dequantization as torch ops, and bf16 `torch.matmul` at the same shape;
+    decode rows also flushed (128 MB read before each call: the L2 holds
+    clean lines of another buffer and none of the weights, as behind the
+    previous projection on the engine's path); then the decode chain
+    (`w8a8_chain`) in a CUDA graph. Prints
+    the plan of each shape, the host's cost of encoding a call's two tensor
+    maps, and the ptxas report. The `kernels` line carries the decode
+    shapes: quantize_rows [8, 4096], w8a8_gemm 8 x 4096 x 14336."""
+    from dynamo_tpu_torch.ops import _cuda, w8a8
+    from dynamo_tpu_torch.scripts.profile_dma import l2_flush
 
+    for line in w8a8_ptxas():
+        log(line)
     i8 = _int8_peaks(peaks)
+    sms = _cuda.sm_count(dev)
     out = {}
     for m in W8A8_ROWS:
         for k in W8A8_QUANT_K:
@@ -1433,19 +1520,25 @@ def check_w8a8(peaks, gen, dev):
             wq = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
             ws = torch.rand((n,), generator=gen, device=dev) * 0.02 + 1e-4
             got = w8a8.w8a8_gemm(q, s, wq, ws, dtype)
+            again = w8a8.w8a8_gemm(q, s, wq, ws, dtype)
             want = w8a8.w8a8_gemm_plain(pq, ps.contiguous(), wq, ws, dtype)
             torch.cuda.synchronize()
             assert _same_bytes(q, pq) and _same_bytes(s, ps.contiguous()), \
                 f"quantize_rows [{m}, {k}] {dtype}: differs from the plain version"
-            assert _same_bytes(got, want), f"w8a8_gemm {m} x {k} x {n} ({dtype}): differs"
-    log(f"[kernel] W8A8 edge cases byte-equal (f32 and bf16 in and out): (M, K, N) in "
-        f"{list(W8A8_EDGES)}")
+            plan = w8a8.gemm_plan(m, n, k, sms)
+            assert _same_bytes(got, want) and _same_bytes(again, want), \
+                f"w8a8_gemm {m} x {k} x {n} ({dtype}, {plan.variant}, {plan.splits} splits) differs"
+    log(f"[kernel] W8A8 edge cases byte-equal (f32 and bf16 in and out, each GEMM launched "
+        f"twice): (M, K, N, variant, splits) in "
+        + str([(m, k, n, (p := w8a8.gemm_plan(m, n, k, sms)).variant, p.splits)
+               for m, k, n in W8A8_EDGES]))
     try:
         torch._int_mm(torch.zeros((8, 4096), dtype=torch.int8, device=dev),
                       torch.zeros((4096, 4096), dtype=torch.int8, device=dev).t())
         log("[kernel] torch._int_mm takes 8 rows on this card")
     except RuntimeError as e:
         log(f"[kernel] torch._int_mm refuses 8 rows on this card: {str(e).splitlines()[0]}")
+    flush = l2_flush(dev)
     cases = [(m, k, n, torch.bfloat16) for m in W8A8_ROWS for k, n in W8A8_SHAPES]
     cases.append((8, *W8A8_HEAD, torch.float32))
     for m, k, n, od in cases:
@@ -1456,6 +1549,7 @@ def check_w8a8(peaks, gen, dev):
         want = w8a8.w8a8_gemm_plain(xq, xs, wq, ws, od)
         torch.cuda.synchronize()
         assert _same_bytes(got, want), f"w8a8_gemm {m} x {k} x {n}: differs from the plain version"
+        plan = w8a8.gemm_plan(m, n, k, sms)
         ms = time_ms(lambda: w8a8.w8a8_gemm(xq, xs, wq, ws, od))
         plain_ms = time_ms(lambda: w8a8.w8a8_gemm_plain(xq, xs, wq, ws, od))
         int_mm = _int_mm_lib(xq, xs, wq, ws, od)
@@ -1475,15 +1569,84 @@ def check_w8a8(peaks, gen, dev):
         del xb, wb
         nbytes = m * k + n * k + 4 * (m + n) + m * n * got.element_size()
         b_ms, by = bound_ms(nbytes, 2.0 * m * n * k, i8)
-        log(f"[kernel] w8a8_gemm {m} x {k} x {n} ({str(od)[6:]} out): byte-equal; {ms:.4f} ms "
-            f"(plain {plain_ms:.4f}, _int_mm + dequant {lib_ms}, bf16 matmul "
-            f"{bf16_ms:.4f}, bound {b_ms:.4f} by {by}, {100 * b_ms / ms:.0f}% of it; "
-            f"{2e-9 * m * n * k / ms:.0f} TOP/s)")
+        cold = ""
+        if m <= w8a8.ROWS_MAX:
+            c_ms = time_ms(lambda: w8a8.w8a8_gemm(xq, xs, wq, ws, od), flush=flush)
+            cold = f"; flushed {c_ms:.4f}, {100 * b_ms / c_ms:.0f}% of the bound"
+        log(f"[kernel] w8a8_gemm {m} x {k} x {n} ({str(od)[6:]} out, {plan.variant}, "
+            f"{plan.splits} split(s), {plan.blocks} blocks): byte-equal; {ms:.4f} ms (plain "
+            f"{plain_ms:.4f}, _int_mm + dequant {lib_ms}, bf16 matmul {bf16_ms:.4f}, bound "
+            f"{b_ms:.4f} by {by}, {100 * b_ms / ms:.0f}% of it; {2e-9 * m * n * k / ms:.0f} "
+            f"TOP/s{cold})")
         if (m, k, n) == W8A8_REPORT["w8a8_gemm"]:
             out["w8a8_gemm"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                     bound_ms=b_ms, bound_by=by)
         del xq, xs, wq, ws, got, want
+    ms = w8a8_chain(gen, dev)
+    log(f"[kernel] W8A8 decode chain ({W8A8_CHAIN_LAYERS} layers of 8B projections at 8 rows, "
+        f"4 row quantizations and 7 GEMMs a layer, one CUDA graph, weights past the L2; every "
+        f"output byte-equal to the plain versions'): {ms * 1e3:.1f} us a layer")
+    xq = torch.zeros((4096, 4096), dtype=torch.int8, device=dev)
+    enc = w8a8._launcher().w8a8_encode_us(xq.data_ptr(), xq.data_ptr(), 4096, 4096, 4096, 1000)
+    assert enc >= 0, "the GEMM's tensor maps do not encode"
+    log(f"[kernel] w8a8_gemm host cost of a call's two tensor maps (cuTensorMapEncodeTiled, "
+        f"mean of 1000): {enc:.3f} us")
     return out
+
+
+# ------------------------------------------------------- phase 3: the KV quantizer's division
+
+# f32 amax values at which amax / d and amax * (1 / d) differ in f32, for
+# d = 127 (int8 KV) and d = 7 (int4 KV): 0.143 is one for both
+KV_DIV_EDGES = (0.143, 0.141011, 0.141, 0.00878906)
+
+
+def _kv_quant_parent(rows, kh, int4):
+    """The KV quantizer's scales as the parent commit computed them (a
+    tensor divided by a Python scalar): on CUDA, the reciprocal's product."""
+    hd = rows.shape[-1] // kh
+    d = 7.0 if int4 else 127.0
+    amax = rows.float().reshape(*rows.shape[:-1], kh, hd).abs().amax(dim=-1)
+    return torch.where(amax > 0, amax / d, 1.0)
+
+
+def check_kv_division(dev):
+    """`quantize_kv_rows` and `quantize_kv_rows_int4` on the card against
+    the same calls on the CPU (which divides truly), byte for byte in rows
+    and scales, at the 8B decode shape [2, 8, K * Hd] and a prefill shape
+    [512, K * Hd] (K 8, Hd 128), f32 and bf16, on inputs whose heads have
+    the amax values of KV_DIV_EDGES; prints how many scales the parent's
+    division gets wrong on the same inputs."""
+    from dynamo_tpu_torch.ops import quant
+
+    kh, hd = 8, 128
+    rng = np.random.RandomState(5)
+    for shape in ((2, 8, kh * hd), (512, kh * hd)):
+        x = rng.uniform(-1, 1, size=shape).astype(np.float32)
+        heads = x.reshape(-1, kh, hd)
+        heads *= rng.uniform(0.005, 0.2, size=heads.shape[:2] + (1,)).astype(np.float32)
+        edges = np.array(KV_DIV_EDGES, dtype=np.float32)
+        flat = heads.reshape(-1, hd)
+        for i in range(len(flat)):  # every other head takes an edge amax, at a varying feature
+            if i % 2 == 0:
+                flat[i] *= 0.99 * edges[(i // 2) % len(edges)] / np.abs(flat[i]).max()
+                flat[i, (i * 7) % hd] = edges[(i // 2) % len(edges)] * (1 if i % 4 else -1)
+        for dtype in (torch.float32, torch.bfloat16):
+            rows_cpu = torch.from_numpy(x).to(dtype)
+            rows_dev = rows_cpu.to(dev)
+            for int4 in (False, True):
+                fn = quant.quantize_kv_rows_int4 if int4 else quant.quantize_kv_rows
+                gq, gs = fn(rows_dev, kh)
+                wq, wsc = fn(rows_cpu, kh)
+                torch.cuda.synchronize()
+                assert _same_bytes(gq.cpu(), wq) and _same_bytes(gs.cpu(), wsc), \
+                    f"KV quantizer {'int4' if int4 else 'int8'} {shape} {dtype}: the card's " \
+                    "rows or scales differ from the CPU's"
+                par = _kv_quant_parent(rows_dev, kh, int4).cpu()
+                bad = int((par.view(torch.int32) != wsc.view(torch.int32)).sum())
+                log(f"[kernel] KV quantizer {'int4' if int4 else 'int8'} {list(shape)} "
+                    f"{str(dtype)[6:]}: card == CPU in rows and scales ({gs.numel()} scales); "
+                    f"the parent's division by a Python scalar gets {bad} scales wrong here")
 
 
 # ---------------------------------------------------------------- phases 4-7
@@ -1836,6 +1999,13 @@ MIXED_STATS = ("mixed_steps", "mixed_decode_rows", "mixed_prefill_tokens",
                "decode_dispatches")
 
 
+# the host calls that launch one eager kernel: cudaLaunchKernel* (the
+# port's kernels and torch's; ExC for the W8A8 GEMM's programmatic
+# dependent launches) and cuLaunchKernel* (cuBLAS's GEMMs)
+EAGER_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                  "cuLaunchKernelEx")
+
+
 async def profile_round(engine, prompts):
     """Device busy share, the kernels that take the device time and the
     host ops that take the host's (self CPU time, with the calls that wait
@@ -1861,10 +2031,9 @@ async def profile_round(engine, prompts):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     return {
-        # host launch calls in the round: one cudaLaunchKernel per eager
-        # kernel, one cudaGraphLaunch per replayed decode dispatch
-        "launch_calls": {k: n for _, k, n in host
-                         if k in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch")},
+        # host launch calls in the round: one per eager kernel, one
+        # cudaGraphLaunch per replayed decode dispatch
+        "launch_calls": {k: n for _, k, n in host if k in EAGER_LAUNCHES + ("cudaGraphLaunch",)},
         "window_ms": window_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "device_busy_share": busy / window_us,
@@ -1977,6 +2146,53 @@ def decode_step_ms(d, steps):
     return 1e3 * wall / max(d["decode_dispatches"] * steps, 1)
 
 
+async def profile_prefill(engine, prompts):
+    """One prefill dispatch alone (each prompt asks for one token) traced
+    by torch.profiler. Its kernels are the eagerly launched ones: a decode
+    dispatch the step pipeline starts behind it is one cudaGraphLaunch,
+    and its kernels are told apart by their launch's correlation id.
+    Returns the dispatch's host time as the engine's phase stats count it
+    (its enqueue, under the profiler's cost), the host's span from the
+    first eager launch to the last, their kernels' device busy time and
+    span (busy below span: the device waited for the host), and the
+    kernels that take the most of that busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s0 = engine.phase_stats
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        await run_requests(engine, prompts, 1)
+        torch.cuda.synchronize()
+    s1 = engine.phase_stats
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "prefill.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e.get("name") in EAGER_LAUNCHES and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in launches]
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"]
+    host = [e["ts"] for e in launches.values()]
+    busy = sum(e["dur"] for e in kernels)
+    span = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
+            if kernels else 0.0)
+    return {
+        "prefill_dispatch_ms": 1e3 * (s1["prefill_dispatch_s"] - s0["prefill_dispatch_s"]),
+        "prefill_dispatches": s1["prefill_dispatches"] - s0["prefill_dispatches"],
+        "decode_dispatches": s1["decode_dispatches"] - s0["decode_dispatches"],
+        "eager_launches": len(launches),
+        "host_launch_span_ms": (max(host) - min(host)) / 1e3 if host else 0.0,
+        "device_busy_ms": busy / 1e3,
+        "device_span_ms": span / 1e3,
+        "top": [{"name": k, "ms": v / 1e3} for k, v in
+                sorted(by_name.items(), key=lambda kv: -kv[1])[:6]],
+    }
+
+
 def phase_full_width(dev, kv_quant=None, params=None, pipe=True, quantization=None,
                      streams=None):
     """Serve eight requests at full width, with the step pipeline on or
@@ -2008,6 +2224,7 @@ def phase_full_width(dev, kv_quant=None, params=None, pipe=True, quantization=No
     prompts = [rng.randint(0, vocab, size=isl).tolist() for _ in range(nreq)]
     warm = [rng.randint(0, vocab, size=isl).tolist() for _ in range(nreq)]
     prof_prompts = [rng.randint(0, vocab, size=isl).tolist() for _ in range(nreq)]
+    prefill_prompts = [rng.randint(0, vocab, size=isl).tolist() for _ in range(nreq)]
 
     async def go():
         # warm-up: cuBLAS handles, the allocator, and the decode graph (one
@@ -2022,10 +2239,11 @@ def phase_full_width(dev, kv_quant=None, params=None, pipe=True, quantization=No
         counts = read_counts()
         s1 = eng.phase_stats
         prof = await profile_round(eng, prof_prompts)
+        prefill = await profile_prefill(eng, prefill_prompts)
         await eng.close()
-        return res, wall, counts, s0, s1, prof, gcp
+        return res, wall, counts, s0, s1, prof, prefill, gcp
 
-    res, wall, counts, s0, s1, prof, gcp = asyncio.run(go())
+    res, wall, counts, s0, s1, prof, prefill, gcp = asyncio.run(go())
     graphs = graph_check(eng, tag)
     d = {k: s1[k] - s0[k] for k in s1}
     layers = eng.model_cfg.num_layers
@@ -2057,11 +2275,14 @@ def phase_full_width(dev, kv_quant=None, params=None, pipe=True, quantization=No
         "kv_pool_gb": kv_bytes / 1e9,
         "preemptions": d["preemptions"],
         **gcp.summary(),
+        "traced_prefill": prefill,
     }
     log(f"{tag} {nreq} x (ISL {isl}, OSL {osl}) through TorchEngine.generate: " + json.dumps(m))
     ptag = tag[4:-1]
     log(f"[profile] {ptag}, one more round "
         f"({nreq} x ISL {isl}, OSL 16) under torch.profiler: " + json.dumps(prof))
+    log(f"[profile] {ptag}, one prefill dispatch alone ({nreq} x ISL {isl}, OSL 1) under "
+        "torch.profiler: " + json.dumps(prefill))
     log(f"[profile] {ptag}, summary: "
         + json.dumps({
             "launch_calls": prof["launch_calls"], "decode_step_ms": m["decode_step_ms"],
@@ -3184,6 +3405,15 @@ def phase_w8a8(dev, params, ref, smi=""):
             f"{ref_m['max_memory_allocated_gb']:.2f}); greedy tokens equal to the bf16 "
             f"weights' streams: {same}/{total} (not gated: int8 weights are another model); "
             f"{smi}")
+        tp, rp = m["traced_prefill"], ref_m["traced_prefill"]
+        log(f"[w8a8] {kv} KV, one prefill dispatch alone under torch.profiler (8 x ISL 512, "
+            f"OSL 1), W8A8 (bf16 weights): host dispatch {tp['prefill_dispatch_ms']:.2f} ms "
+            f"({rp['prefill_dispatch_ms']:.2f}), {tp['eager_launches']} eager launches "
+            f"({rp['eager_launches']}) over {tp['host_launch_span_ms']:.2f} ms of the host's "
+            f"time ({rp['host_launch_span_ms']:.2f}); their kernels busy "
+            f"{tp['device_busy_ms']:.2f} ms ({rp['device_busy_ms']:.2f}) of a "
+            f"{tp['device_span_ms']:.2f} ms span on the device ({rp['device_span_ms']:.2f}); "
+            f"{smi}")
         if launches is None:
             launches = counts
     return launches, params
@@ -3262,6 +3492,7 @@ def main() -> int:
         "page_gather": check_page_gather(peaks, gen, dev),
         **check_w8a8(peaks, gen, dev),
     }
+    check_kv_division(dev)
     inject_ms = results["bitcast_inject"]["ms"]
     log(f"[kernel] bitcast_inject against the launch floor: {inject_ms:.4f} ms, floor "
         f"{floor_ms:.4f}, {1e3 * (inject_ms - floor_ms):.2f} us above it")

@@ -20,10 +20,11 @@ What makes the loop capturable:
 - the kernels launch on `torch.cuda.current_stream`, the capture stream
   while capturing; their host plans (`split_plan`, `copy_plan`) read
   shapes only;
-- K3/K5's split scratch and tickets (`ops/decode_attention._scratch`) are
-  grown by the eager run before the capture, and each graph keeps the
-  buffers it captured alive (a later, larger call may replace them in the
-  wrapper's cache); the kernel leaves its tickets at 0 itself;
+- the split kernels' partials and tickets (K3/K5 and the W8A8 GEMM, all
+  in `ops/_cuda.scratch`) are grown by the eager run before the capture,
+  and each graph keeps the buffers it captured alive (a later, larger call
+  may replace them in the registry); the kernels leave their tickets at 0
+  themselves;
 - the sampler's generator is registered with each graph, so every replay
   draws fresh Gumbel noise; seeded rows draw from a stateless hash of
   their seed and position, which has no state to register;
@@ -51,7 +52,7 @@ from typing import Callable
 
 import torch
 
-from dynamo_tpu_torch.ops import decode_attention, kv_write, prefill_attention, w8a8
+from dynamo_tpu_torch.ops import _cuda, decode_attention, kv_write, prefill_attention, w8a8
 
 
 def launch_counters() -> list:
@@ -143,5 +144,5 @@ class DecodeGraphs:
                 gc.enable()
         counts = [b - a for a, b in zip(before, _read_counts())]
         _add_counts(counts, -1)  # capture launches nothing; replays count
-        keep = list(decode_attention._scratch_bufs.values())
+        keep = list(_cuda.scratch_bufs.values())
         return _Captured(graph, out, counts, keep)

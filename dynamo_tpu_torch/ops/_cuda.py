@@ -101,9 +101,17 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw pointer of `device`'s current CUDA stream (the capture
+    stream while a graph is captured), for a launcher. It is read through
+    `torch._C._cuda_getCurrentRawStream`, the call torch's own generated
+    kernels make: `torch.cuda.current_stream(device).cuda_stream` builds a
+    Stream object each time, several microseconds of the host's time a
+    launch (`scripts/trace_w8a8.py` prints both)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 _sm_counts: dict = {}
@@ -117,6 +125,29 @@ def sm_count(device) -> int:
 
         n = _sm_counts[device] = torch.cuda.get_device_properties(device).multi_processor_count
     return n
+
+
+# the split kernels' partials and tickets, by (wrapper, device): a decode
+# graph keeps the buffers it captured alive (engine/decode_graph.py)
+scratch_bufs: dict = {}
+
+
+def scratch(key: str, device, n_part: int, part_dtype, n_tickets: int):
+    """A split kernel's partials (`n_part` of `part_dtype`) and int32
+    tickets: one pair of buffers for each (key, device), allocated when a
+    call first needs more, so a call launches nothing but its kernel.
+    Tickets start at 0 and each launch leaves them 0. Launches that share a
+    device run on one stream (the engine's), so they never use the buffers
+    at once."""
+    import torch
+
+    part, tickets = scratch_bufs.get((key, device), (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=part_dtype, device=device)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
+    scratch_bufs[(key, device)] = (part, tickets)
+    return part, tickets
 
 
 def require(cond: bool, msg: str) -> None:

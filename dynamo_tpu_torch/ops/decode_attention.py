@@ -72,24 +72,6 @@ def split_plan(b, kh, w, page_size, sm_count):
         chunk *= 2
 
 
-_scratch_bufs: dict = {}
-
-
-def _scratch(device, n_part, n_tickets):
-    """The splits' f32 partials and the (sequence, kv head) tickets: one
-    pair of buffers a device, allocated when a call first needs more, so a
-    call launches nothing but the kernel. Tickets start at 0 and each launch
-    leaves them 0. Launches that share a device run on one stream (the
-    engine's), so they never use the buffers at once."""
-    part, tickets = _scratch_bufs.get(device, (None, None))
-    if part is None or part.numel() < n_part:
-        part = torch.empty(n_part, dtype=torch.float32, device=device)
-    if tickets is None or tickets.numel() < n_tickets:
-        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
-    _scratch_bufs[device] = (part, tickets)
-    return part, tickets
-
-
 def _write_rows(k_cache, v_cache, block_tables, write_pos, new_k, new_v, page_size):
     """Store each writing row's new K/V at its position; returns the rows
     that wrote and their flat slots."""
@@ -374,8 +356,9 @@ def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
     chunk, splits = split_plan(b, kh, w, page_size, _cuda.sm_count(q.device))
     part = tickets = None
     if splits > 1:
-        part, tickets = _scratch(
-            q.device, b * kh * splits * (2 * MAX_GROUP + (h // kh) * hd), b * kh)
+        part, tickets = _cuda.scratch(
+            "decode_attention", q.device, b * kh * splits * (2 * MAX_GROUP + (h // kh) * hd),
+            torch.float32, b * kh)
     tail = (ptr(block_tables), ptr(lengths), ptr(write_pos), ptr(out),
             b, h, kh, hd, w, page_size, hd ** -0.5,
             _cuda.stream_ptr(q.device), ptr(part), ptr(tickets), chunk)

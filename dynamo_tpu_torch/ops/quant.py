@@ -26,7 +26,9 @@ group of `group_size` features (default head_dim: one scale per token and
 kv head, the only grouping the kernels take) and q = clip(round(x /
 scale), -7, 7), two codes a byte. `torch.round` rounds half to even like
 `jnp.round`, and the divisions are true divisions as in the reference, so
-rows and scales are byte-equal to the JAX package's.
+rows and scales are byte-equal to the JAX package's (the scales divide
+through `w8a8.true_div`: on CUDA PyTorch divides by a Python scalar as a
+product with its reciprocal).
 
 int4 packing is planar per kv head: a head's Hd features become Hd/2
 bytes, byte j holding feature j in its low nibble and feature j + Hd/2 in
@@ -155,7 +157,7 @@ def quantize_kv_rows(rows: torch.Tensor, num_kv_heads: int):
     hd = shape[-1] // num_kv_heads
     rf = rows.float().reshape(*shape[:-1], num_kv_heads, hd)
     amax = rf.abs().amax(dim=-1)
-    scales = torch.where(amax > 0, amax / 127.0, 1.0)
+    scales = torch.where(amax > 0, true_div(amax, 127.0), 1.0)
     q = torch.round(rf / scales[..., None]).clamp_(-127, 127)
     return q.reshape(shape).to(torch.int8), scales
 
@@ -189,7 +191,7 @@ def quantize_kv_rows_int4(rows: torch.Tensor, num_kv_heads: int,
     s = int4_scale_channels(num_kv_heads, hd, g)
     rf = rows.float().reshape(*shape[:-1], num_kv_heads, hd // g, g)
     amax = rf.abs().amax(dim=-1)
-    scales = torch.where(amax > 0, amax / 7.0, 1.0)
+    scales = torch.where(amax > 0, true_div(amax, 7.0), 1.0)
     q = torch.round(rf / scales[..., None]).clamp_(-7, 7)
     q = q.reshape(*shape[:-1], num_kv_heads, hd)
     # byte = hi * 16 + (lo & 15), the value of (hi << 4) | (lo & 0xF)

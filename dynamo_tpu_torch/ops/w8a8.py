@@ -11,7 +11,10 @@ kernels are in `csrc/w8a8.cu`.
 - `w8a8_gemm(xq, xs, wq, ws, out_dtype)`: codes [M, K] x weight codes
   [N, K] (the port's K-contiguous [out, in] layout, ops/quant.py) -> [M, N]
   as (f32(acc) * xs[m]) * ws[n] rounded once to `out_dtype`; the dot is
-  s8 x s8 -> s32, exact.
+  s8 x s8 -> s32, exact. `gemm_plan` picks the kernel's variant (wgmma
+  block tiles fed by TMA: "tiles" for M > 64, "rows" and "rows_wide" for
+  decode rows) and its split of K across blocks; a split launch merges its
+  partials inside the launch, in scratch kept per device (`_cuda.scratch`).
 
 Each wrapper runs its plain version on CPU tensors, launches its kernel on
 CUDA tensors (counted in `<wrapper>.launches`) and raises for anything the
@@ -23,6 +26,8 @@ in any order, on the CPU and on the card (CUDA has no integer matmul).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -32,12 +37,95 @@ from dynamo_tpu_torch.ops import _cuda
 MAX_K = 131072
 
 
+# csrc/w8a8.cu's GEMM variants: id, consumer warpgroups (block rows 64 x
+# that), block columns, ring stages, blocks resident on an SM
+GEMM_VARIANTS = {
+    "rows": (0, 1, 64, 6, 2),
+    "rows_wide": (1, 1, 128, 4, 2),
+    "tiles": (2, 2, 256, 4, 1),
+}
+# rows up to this take a "rows" variant (decode, verify and head rows)
+ROWS_MAX = 64
+# from this many columns on, decode rows take 128-column tiles ("rows_wide":
+# w_gate/w_up and the head ran a few per cent faster so on the H100)
+WIDE_N = 8192
+K_TILE = 128  # bytes of K a ring stage holds
+
+
+class GemmPlan(NamedTuple):
+    variant: str
+    variant_id: int
+    bm: int  # block tile rows
+    bn: int  # block tile columns
+    k_tiles: int  # 128-byte k tiles of K
+    per_split: int  # k tiles a split takes (the last may take fewer)
+    splits: int  # blocks along K
+    grid: tuple  # work items: (row tiles, column tiles, splits)
+    blocks: int  # persistent blocks launched: the items, at most `resident` an SM
+    workspace_bytes: int  # int32 partials [splits, M, N rounded up to 4]; 0 unsplit
+    counters: int  # int32 tickets, one a block tile; 0 unsplit
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(m: int, n: int, k: int, sm_count: int) -> GemmPlan:
+    """The GEMM's launch for [m, k] x [n, k]: its variant and its split of
+    K. Decode rows (m <= ROWS_MAX) read the weights once and are bound by
+    the memory rate: 64-column tiles (128 from WIDE_N columns on), split
+    along K until one wave of blocks (`resident` an SM) holds the card, so
+    the weight stream keeps every SM busy at any N. Prefill rows are bound
+    by the tensor cores: K is split only when the block tiles would fill
+    less than half the SMs, since each split writes and reads back an
+    int32 tile. The kernel is persistent: `blocks` blocks walk the work
+    items. Reads shapes only, so a graph replay launches what its capture
+    planned; cached, since an eager prefill calls it 224 times."""
+    variant = "tiles" if m > ROWS_MAX else "rows_wide" if n >= WIDE_N else "rows"
+    vid, cons, bn, _stages, resident = GEMM_VARIANTS[variant]
+    bm = 64 * cons
+    tiles = -(-m // bm) * -(-n // bn)
+    k_tiles = -(-k // K_TILE)
+    if m <= ROWS_MAX:
+        splits = max(1, min(k_tiles, resident * sm_count // tiles))
+    elif 2 * tiles > sm_count:
+        splits = 1
+    else:
+        splits = min(k_tiles, sm_count // tiles)
+    per = -(-k_tiles // splits)
+    splits = -(-k_tiles // per)
+    ws = 4 * splits * m * (-(-n // 4) * 4) if splits > 1 else 0
+    return GemmPlan(variant, vid, bm, bn, k_tiles, per, splits,
+                    (-(-m // bm), -(-n // bn), splits), min(tiles * splits, resident * sm_count),
+                    ws, tiles if splits > 1 else 0)
+
+
+# programmatic dependent launch of the GEMM (csrc/w8a8.cu): a launch may
+# start while the kernel before it ends; scripts/trace_w8a8.py turns it off
+# to measure what it saves
+PDL = True
+_FLOATS = (torch.bfloat16, torch.float32)
+
+
+_divisors: dict = {}
+
+
 def true_div(a: torch.Tensor, d: float) -> torch.Tensor:
-    """a / d by IEEE division on every device. On CUDA, PyTorch divides a
-    tensor by a Python scalar as a product with the scalar's reciprocal,
-    which is one ulp off the quotient for some a; a tensor divisor takes
-    the true division, as the JAX package's eager `amax / 127.0` does."""
-    return a / torch.full_like(a, d)
+    """a (f32) / d by IEEE division on every device. On CUDA, PyTorch
+    divides a tensor by a Python scalar (or a 0-dim CPU tensor) as a
+    product with the scalar's reciprocal, which is one ulp off the quotient
+    for some a (f32 0.143 / 127 and / 7); a divisor on a's device takes the
+    true division, as the JAX package's eager `amax / 127.0` does. The
+    divisor is a 0-dim tensor made at the first call for (device, d) and
+    kept, so a captured decode graph gains no fill launch; it is made
+    outside any capture (the engine runs each step eagerly first), since a
+    tensor made while capturing holds its value only once the graph
+    replays."""
+    key = (a.device, d)
+    t = _divisors.get(key)
+    if t is None:
+        if a.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"the divisor {d} on {a.device} is first needed inside a "
+                               "CUDA-graph capture; run the step eagerly first")
+        t = _divisors[key] = torch.full((), d, dtype=torch.float32, device=a.device)
+    return a / t
 
 
 def quantize_rows_plain(x: torch.Tensor):
@@ -67,13 +155,14 @@ def quantize_rows(x: torch.Tensor):
     """x [M, K] bf16/f32 -> (int8 codes [M, K], f32 scales [M])."""
     if x.device.type == "cpu":
         return quantize_rows_plain(x)
-    req = _cuda.require
-    req(x.device.type == "cuda", f"unsupported device {x.device}")
-    req(x.dim() == 2, f"quantize_rows takes [M, K], got {tuple(x.shape)}")
-    req(x.dtype in (torch.bfloat16, torch.float32), f"unsupported dtype {x.dtype}")
+    if not (x.device.type == "cuda" and x.dim() == 2 and x.dtype in _FLOATS
+            and x.shape[1] % 32 == 0 and 0 < x.shape[1] <= MAX_K and x.is_contiguous()
+            and x.data_ptr() % 16 == 0):
+        raise ValueError(
+            f"quantize_rows takes a contiguous, 16-byte aligned [M, K] bf16 or f32 CUDA tensor "
+            f"with K a multiple of 32, at most {MAX_K}: got {tuple(x.shape)} {x.dtype} on "
+            f"{x.device}")
     m, k = x.shape
-    req(k % 32 == 0 and 0 < k <= MAX_K, f"K {k} must be a multiple of 32, at most {MAX_K}")
-    req(x.is_contiguous() and x.data_ptr() % 16 == 0, "x must be contiguous and 16-byte aligned")
     q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     s = torch.empty((m,), dtype=torch.float32, device=x.device)
     err = _launcher().quantize_rows_launch(
@@ -92,27 +181,32 @@ def w8a8_gemm(xq, xs, wq, ws, out_dtype=torch.float32):
     in `out_dtype` (bf16 or f32)."""
     if xq.device.type == "cpu":
         return w8a8_gemm_plain(xq, xs, wq, ws, out_dtype)
-    req = _cuda.require
     dev = xq.device
-    req(dev.type == "cuda", f"unsupported device {dev}")
-    req(out_dtype in (torch.bfloat16, torch.float32), f"unsupported output dtype {out_dtype}")
     m, k = xq.shape
     n = wq.shape[0]
-    req(wq.dim() == 2 and wq.shape[1] == k, f"weight codes must be [N, {k}], got {tuple(wq.shape)}")
-    req(xs.shape == (m,) and ws.shape == (n,), "scales must be [M] and [N]")
-    req(k % 32 == 0 and 0 < k <= MAX_K, f"K {k} must be a multiple of 32, at most {MAX_K}")
-    for t in (xq, wq):
-        req(t.dtype == torch.int8, "codes must be int8")
-    for t in (xs, ws):
-        req(t.dtype == torch.float32, "scales must be float32")
-    for t in (xq, xs, wq, ws):
-        req(t.device == dev, "all tensors must be on one device")
-        req(t.is_contiguous(), "tensors must be contiguous")
-    req(xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0, "codes must be 16-byte aligned")
+    # one test on the host's hot path (an eager prefill makes 224 calls)
+    if not (dev.type == "cuda" and out_dtype in _FLOATS and wq.shape == (n, k)
+            and xs.shape == (m,) and ws.shape == (n,) and k % 32 == 0 and 0 < k <= MAX_K
+            and xq.dtype == wq.dtype == torch.int8 and xs.dtype == ws.dtype == torch.float32
+            and xs.device == wq.device == ws.device == dev
+            and xq.is_contiguous() and xs.is_contiguous() and wq.is_contiguous()
+            and ws.is_contiguous() and xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0):
+        raise ValueError(
+            "w8a8_gemm takes contiguous CUDA tensors on one device: codes xq [M, K] and wq "
+            f"[N, K] int8 (16-byte aligned, K a multiple of 32, at most {MAX_K}), scales xs [M] "
+            "and ws [N] float32, out_dtype bf16 or f32; got "
+            + ", ".join(f"{t.dtype} {tuple(t.shape)} on {t.device}" for t in (xq, xs, wq, ws))
+            + f", {out_dtype}")
+    plan = gemm_plan(m, n, k, _cuda.sm_count(dev))
+    part = tickets = 0  # null: an unsplit launch has no workspace
+    if plan.splits > 1:
+        part, tickets = (t.data_ptr() for t in _cuda.scratch(
+            "w8a8_gemm", dev, plan.workspace_bytes // 4, torch.int32, plan.counters))
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     err = _launcher().w8a8_gemm_launch(
         xq.data_ptr(), xs.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(), m, n, k,
-        int(out_dtype == torch.bfloat16), _cuda.stream_ptr(dev))
+        int(out_dtype == torch.bfloat16), plan.variant_id, plan.splits, plan.blocks, int(PDL),
+        part, tickets, _cuda.stream_ptr(dev))
     _cuda.check(err, "w8a8_gemm")
     w8a8_gemm.launches += 1
     return out
@@ -129,6 +223,11 @@ def _launcher():
         fn.argtypes = [p, p, p, i32, i32, i32, p]
         fn.restype = ctypes.c_int
         fg = lib.w8a8_gemm_launch
-        fg.argtypes = [p] * 5 + [i32] * 4 + [p]
+        fg.argtypes = [p] * 5 + [i32] * 8 + [p] * 3
         fg.restype = ctypes.c_int
+        lib.w8a8_occupancy.argtypes = [i32]
+        lib.w8a8_occupancy.restype = ctypes.c_int
+        fe = lib.w8a8_encode_us
+        fe.argtypes = [p, p] + [i32] * 4
+        fe.restype = ctypes.c_double
     return lib
