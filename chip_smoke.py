@@ -6,10 +6,11 @@ Phases, each printed on its own line; any failure exits non-zero and the
 final result line is printed only when every phase passed:
 
 1. card and versions (nvidia-smi name and power limit, torch, CUDA);
-2. build: the five CUDA sources under dynamo_tpu_torch/csrc (sixteen
+2. build: the five CUDA sources under dynamo_tpu_torch/csrc (eighteen
    kernels: K1-K3 for bf16 KV, K5-K7 in their int8 and their int4 forms;
    K4, the ragged read of mixed and verify steps, enters K2/K6 in each KV
-   format; the two W8A8 kernels of w8a8.cu, quantize_rows and w8a8_gemm;
+   format; the four W8A8 kernels of w8a8.cu, quantize_rows,
+   rms_norm_quantize_rows, silu_mul_quantize_rows and w8a8_gemm;
    and in probes.cu the probe kernels K8 page_copy, K9's
    unpack/pack/inject bitcasts and K10 page_gather, beside an empty
    kernel for the launch floor), one nvcc each, all in parallel;
@@ -68,8 +69,17 @@ final result line is printed only when every phase passed:
    check also runs at page size 3 with K 2 (an int8/int4 scale tile of 24
    bytes, not whole 16-byte vectors: K7 copies it in 4-byte words), the
    odd page size the engine serves. The W8A8 kernels (check_w8a8):
-   quantize_rows at [8 | 4096] x [4096 | 14336] bf16, codes and scales
-   byte-equal to the plain version (a zero row, .5 ties); w8a8_gemm at
+   quantize_rows at [8 | 64 | 4096] x [4096 | 14336] bf16, codes and
+   scales byte-equal to the plain version (a zero row, .5 ties);
+   rms_norm_quantize_rows at [8 | 64 | 4096] x 4096 and
+   silu_mul_quantize_rows at [8 | 64 | 4096] x 14336, and both at M 1, 9,
+   65, 130 by K 32, 4128 in bf16 and f32, with and without y: codes and
+   scales byte-equal to quantize_rows_plain of the kernel's own y, the
+   norm's y within one bf16 ulp of rms_norm (the count of elements one ulp
+   off printed), SiLU x up's y against F.silu(gate) * up (the count that
+   differ printed; byte-equal codes to the composition when none do),
+   each timed beside its bound, its plain version and the composition it
+   replaces (torch ops, then quantize_rows); w8a8_gemm at
    rows 8 and 4096 on the 8B projections (K, N) (4096, 4096), (4096,
    1024), (4096, 14336), (14336, 4096) in bf16 and on the head (4096,
    128256) at 8 rows in f32, byte-equal to the plain version; both on edge
@@ -82,9 +92,12 @@ final result line is printed only when every phase passed:
    ops, and bf16 torch.matmul, decode rows also with the L2 evicted by a
    128 MB read; the GEMM variants' ptxas report and occupancy, the host
    cost of a call's tensor maps, and the decode chain (8 layers of 8B
-   projections at 8 rows in one CUDA graph, every output byte-equal to
-   the plain versions; `python -m dynamo_tpu_torch.scripts.trace_w8a8`
-   traces it). And the KV quantizer
+   projections at 8 rows, with a layer's two norms and SiLU x up, in one
+   CUDA graph: as torch ops then quantize_rows, every output byte-equal to
+   the plain versions, and through the fused kernels, every output
+   byte-equal to their eager run, whose codes equal quantize_rows_plain of
+   their own y; `python -m dynamo_tpu_torch.scripts.trace_w8a8` traces
+   it). And the KV quantizer
    (check_kv_division): quantize_kv_rows and quantize_kv_rows_int4 on the
    card byte-equal to the CPU in rows and scales at [2, 8, 1024] and
    [512, 1024], f32 and bf16, on heads whose amax is a division edge
@@ -200,8 +213,10 @@ final result line is printed only when every phase passed:
    quantized in place layer by layer (each bf16 layer freed once its codes
    exist), then phase 5's traffic (8 x ISL 512 / OSL 64, greedy, pipeline
    on) in bf16 KV and then int8 KV, as phase 5 serves it: the launches
-   the dispatch counters imply (quantize_rows 4 a layer and 1 for the head,
-   w8a8_gemm 7 a layer and 1, per model step), no plain call, the graph
+   the dispatch counters imply (per model step of a SiLU model:
+   rms_norm_quantize_rows 2 a layer, silu_mul_quantize_rows 1 a layer,
+   quantize_rows 1 a layer and 1 for the head, w8a8_gemm 7 a layer and
+   1), no plain call, the graph
    check on the W8A8 decode graph and the profile. Prints the weight bytes
    against bf16, the KV pages the auto-sizer would pick with either, and
    the decode step, prefill dispatch, TTFT and peak memory beside phase
@@ -212,8 +227,9 @@ phase 8's bf16 pipeline off/on pair run N times in turns, to show their
 spread. With --serving N only the build and phase 11 run, N times, and
 no result line is printed (a measurement, not the smoke).
 
-Then the smoke's wall time, a `kernels` JSON line (nineteen kernels: the
-nine, K4 in three forms, the two W8A8 kernels and the five probe kernels;
+Then the smoke's wall time, a `kernels` JSON line (twenty-one kernels:
+the nine, K4 in three forms, the four W8A8 kernels and the five probe
+kernels;
 and `launch_floor_ms`), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -1384,8 +1400,19 @@ W8A8_EDGES = ((17, 96, 68), (1, 128, 68), (40, 160, 200), (100, 4096, 68), (3, 3
               (8, 4096, 8), (8, 14336, 1024), (64, 14336, 1024),
               (9, 256, 33), (130, 256, 33),
               (2048, 4096, 1024))
-# the shapes the `kernels` line reports: decode rows into w_gate/w_up
-W8A8_REPORT = {"quantize_rows": (8, 4096), "w8a8_gemm": (8, 4096, 14336)}
+# the row quantizations' rows (decode, a verify-sized batch at the variants'
+# threshold, a prefill), and the fused kernels' K at the 8B shapes (the
+# norms' d 4096, SiLU x up's 14336), plus their edge shapes (one row, rows
+# either side of the cluster plan's threshold; K of one vector a warp and
+# a slice that does not split evenly), each in bf16 and f32
+W8A8_QUANT_ROWS = (8, 64, 4096)
+W8A8_FUSED_K = {"rms_norm_quantize_rows": 4096, "silu_mul_quantize_rows": 14336}
+W8A8_FUSED_EDGES = tuple((m, k) for m in (1, 9, 65, 130) for k in (32, 4128))
+W8A8_KERNELS = ("quantize_rows", "rms_norm_quantize_rows", "silu_mul_quantize_rows", "w8a8_gemm")
+# the shapes the `kernels` line reports: decode rows (into w_gate/w_up for
+# the GEMM, w_down's input for SiLU x up)
+W8A8_REPORT = {"quantize_rows": (8, 4096), "rms_norm_quantize_rows": (8, 4096),
+               "silu_mul_quantize_rows": (8, 14336), "w8a8_gemm": (8, 4096, 14336)}
 
 
 def _int8_peaks(peaks):
@@ -1417,22 +1444,78 @@ def _int_mm_lib(xq, xs, wq, ws, out_dtype):
     return lambda: (torch._int_mm(pad, wt)[:m].float() * xs[:, None] * ws).to(out_dtype)
 
 
+def _fused_inputs(name, m, k, gen, dev, dtype, w_off=0.0):
+    """The fused kernel's arguments and the composition it replaces (the
+    torch ops, for the rows it quantizes): for the norm x (`_w8a8_x`: a
+    zero row, rows of several magnitudes) and weights in [0.25, 1.75), eps
+    1e-5; for SiLU x up a gate of `_w8a8_x` (its row 0 reaching 127) and
+    an up of N(0, 2)."""
+    from dynamo_tpu_torch.ops.norm import rms_norm
+
+    x = _w8a8_x(m, k, gen, dev, dtype)
+    if name == "rms_norm_quantize_rows":
+        w = (torch.rand((k,), generator=gen, device=dev) * 1.5 + 0.25).to(dtype)
+        return (x, w, 1e-5, w_off), lambda: rms_norm(x, w, 1e-5, w_off)
+    up = (torch.randn((m, k), generator=gen, device=dev) * 2).to(dtype)
+    return (x, up), lambda: torch.nn.functional.silu(x) * up
+
+
+def check_fused(name, args, rows, what):
+    """One fused kernel on `args` against its contract, launched with y
+    (`trace_w8a8.fused_rows`: codes and scales equal to quantize_rows_plain
+    of the kernel's y) and without (the same bytes); the norm's y within
+    one bf16 ulp of rms_norm's; SiLU x up's y equal to torch's in every
+    element, so its codes and scales byte-equal to the composition's.
+    Returns (elements of y off torch's rows, the largest ulp step,
+    elements)."""
+    from dynamo_tpu_torch.ops import w8a8
+    from dynamo_tpu_torch.scripts.trace_w8a8 import fused_rows
+
+    fused = getattr(w8a8, name)
+    q, s = fused(*args)
+    qy, sy, steps = fused_rows(fused, lambda *_: rows(), *args)
+    cq, cs = getattr(w8a8, name + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert _same_bytes(q, qy) and _same_bytes(s, sy), f"{what}: y changes the codes"
+    off, top = int((steps > 0).sum()), int(steps.max())
+    if name == "silu_mul_quantize_rows":
+        assert off == 0, f"{what}: {off} elements of the rows differ from F.silu(gate) * up's"
+    else:
+        # one bf16 ulp: 2**16 steps of an f32
+        limit = 1 if args[0].dtype == torch.bfloat16 else 1 << 16
+        assert top <= limit, f"{what}: the normed rows are off rms_norm's by {top} ulps"
+    if off == 0:
+        assert _same_bytes(q, cq) and _same_bytes(s, cs.contiguous()), \
+            f"{what}: rows equal to torch's, codes not equal to the composition's"
+    return off, top, steps.numel()
+
+
 # the decode chain (dynamo_tpu_torch/scripts/trace_w8a8.py `Chain`):
-# W8A8_CHAIN_LAYERS layers of an 8B decode step's W8A8 work (the row
-# quantizations and the seven projections at 8 rows), each layer on its own
+# W8A8_CHAIN_LAYERS layers of an 8B decode step's W8A8 work (the two norms,
+# SiLU x up, the row quantizations and the seven projections at 8 rows, as
+# torch ops then quantize_rows or through the fused kernels), each layer on its own
 # weights (218 MB a layer, so the L2 holds none of the weights a GEMM
 # reads), replayed as one CUDA graph
 W8A8_CHAIN_LAYERS = 8
 
 
 def w8a8_chain(gen, dev):
-    """Device ms a layer of the decode chain, the median of 20 replays of
-    its graph; raises unless every output of every layer equals the plain
-    versions' run eagerly."""
+    """Device ms a layer of the decode chain in each composition (torch ops
+    then quantize_rows, and the fused kernels), the median of 20 replays of
+    each graph, in turns; raises unless every output of every layer equals
+    the plain versions' run eagerly (the fused chain: its own eager run,
+    checked kernel by kernel). Also returns the fused rows' elements off
+    torch's."""
     from dynamo_tpu_torch.scripts.trace_w8a8 import Chain
 
     chain = Chain(gen, dev, W8A8_CHAIN_LAYERS)
-    return chain.replay_ms(chain.capture(), replays=20)
+    graphs = {mode: chain.capture(mode) for mode in chain.modes}
+    times = {key: [] for key in graphs}
+    for _ in range(2):
+        for key, graph in graphs.items():
+            times[key].append(chain.replay_ms(graph, replays=10))
+    return {**{key: statistics.median(t) for key, t in times.items()},
+            "rows_off": chain.rows_off}
 
 
 def w8a8_ptxas():
@@ -1472,7 +1555,13 @@ def w8a8_ptxas():
 
 def check_w8a8(peaks, gen, dev):
     """The W8A8 kernels against their plain versions, byte for byte:
-    `quantize_rows` at [8 | 4096] x [4096 | 14336] bf16 (codes and scales),
+    `quantize_rows` at [8 | 64 | 4096] x [4096 | 14336] bf16 (codes and
+    scales); `rms_norm_quantize_rows` at [8 | 64 | 4096] x 4096 and
+    `silu_mul_quantize_rows` at [8 | 64 | 4096] x 14336 bf16 and on
+    W8A8_FUSED_EDGES in f32 and bf16, against their contract
+    (`check_fused`), each 8B shape timed beside its bound, its plain
+    version and the composition it replaces (torch ops then
+    `quantize_rows`);
     `w8a8_gemm` at rows 8 and 4096 on the 8B projection shapes (bf16 out)
     and the head at 8 rows (f32 out), and both on the edge cases above (f32
     and bf16). Each 8B shape timed beside its plain version, its bound
@@ -1482,10 +1571,11 @@ def check_w8a8(peaks, gen, dev):
     decode rows also flushed (128 MB read before each call: the L2 holds
     clean lines of another buffer and none of the weights, as behind the
     previous projection on the engine's path); then the decode chain
-    (`w8a8_chain`) in a CUDA graph. Prints
+    (`w8a8_chain`) in CUDA graphs. Prints
     the plan of each shape, the host's cost of encoding a call's two tensor
     maps, and the ptxas report. The `kernels` line carries the decode
-    shapes: quantize_rows [8, 4096], w8a8_gemm 8 x 4096 x 14336."""
+    shapes: quantize_rows and rms_norm_quantize_rows [8, 4096],
+    silu_mul_quantize_rows [8, 14336], w8a8_gemm 8 x 4096 x 14336."""
     from dynamo_tpu_torch.ops import _cuda, w8a8
     from dynamo_tpu_torch.scripts.profile_dma import l2_flush
 
@@ -1494,7 +1584,7 @@ def check_w8a8(peaks, gen, dev):
     i8 = _int8_peaks(peaks)
     sms = _cuda.sm_count(dev)
     out = {}
-    for m in W8A8_ROWS:
+    for m in W8A8_QUANT_ROWS:
         for k in W8A8_QUANT_K:
             x = _w8a8_x(m, k, gen, dev)
             q, s = w8a8.quantize_rows(x)
@@ -1506,12 +1596,42 @@ def check_w8a8(peaks, gen, dev):
             ms = time_ms(lambda: w8a8.quantize_rows(x))
             plain_ms = time_ms(lambda: w8a8.quantize_rows_plain(x))
             b_ms, by = bound_ms(m * k * 2 + m * k + 4 * m, 0.0, peaks)
-            log(f"[kernel] quantize_rows [{m}, {k}] bf16: codes and scales byte-equal; "
-                f"{ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.4f} by {by}, "
-                f"{100 * b_ms / ms:.0f}% of it)")
+            log(f"[kernel] quantize_rows [{m}, {k}] bf16 ({w8a8.quant_plan(m, k, sms)}): codes "
+                f"and scales byte-equal; {ms:.4f} ms (plain {plain_ms:.4f}, bound {b_ms:.4f} by "
+                f"{by}, {100 * b_ms / ms:.0f}% of it)")
             if (m, k) == W8A8_REPORT["quantize_rows"]:
                 out["quantize_rows"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                                             library_ms=None, bound_ms=b_ms, bound_by=by)
+    for name, k in W8A8_FUSED_K.items():
+        fused, plain = getattr(w8a8, name), getattr(w8a8, name + "_plain")
+        for m in W8A8_QUANT_ROWS:
+            args, rows = _fused_inputs(name, m, k, gen, dev, torch.bfloat16)
+            off, top, n = check_fused(name, args, rows, f"{name} [{m}, {k}] bf16")
+            ms = time_ms(lambda: fused(*args))
+            plain_ms = time_ms(lambda: plain(*args))
+            comp_ms = time_ms(lambda: w8a8.quantize_rows(rows()))
+            reads = (2 if name == "silu_mul_quantize_rows" else 1) * m * k * 2
+            b_ms, by = bound_ms(reads + (2 * k if name == "rms_norm_quantize_rows" else 0)
+                                + m * k + 4 * m, 0.0, peaks)
+            plan = w8a8.quant_plan(m, k, sms, 2, w8a8.DECODE_CLUSTER[name])
+            log(f"[kernel] {name} [{m}, {k}] bf16 ({plan}): codes and "
+                f"scales byte-equal to quantize_rows_plain of its own rows, with y and without; "
+                f"its rows against torch's: {off} of {n} elements differ, by at most {top} "
+                f"ulp; {ms:.4f} ms (plain {plain_ms:.4f}, torch ops then quantize_rows "
+                f"{comp_ms:.4f}, bound {b_ms:.4f} by {by}, {100 * b_ms / ms:.0f}% of it)")
+            if (m, k) == W8A8_REPORT[name]:
+                out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                                 bound_ms=b_ms, bound_by=by)
+        edges = []
+        for m, k in W8A8_FUSED_EDGES:
+            for dtype in (torch.float32, torch.bfloat16):
+                args, rows = _fused_inputs(name, m, k, gen, dev, dtype, w_off=float(m % 2))
+                off, top, n = check_fused(name, args, rows, f"{name} [{m}, {k}] {dtype}")
+                edges.append(f"[{m}, {k}] {str(dtype)[6:]} {off}/{n} off by <= {top}")
+        offsets = " (weight offset 1.0 at odd M)" if name == "rms_norm_quantize_rows" else ""
+        log(f"[kernel] {name} edge cases{offsets}: codes and scales "
+            f"byte-equal to quantize_rows_plain of its own rows; rows against torch's: "
+            + "; ".join(edges))
     for m, k, n in W8A8_EDGES:
         for dtype in (torch.float32, torch.bfloat16):
             x = _w8a8_x(m, k, gen, dev, dtype)
@@ -1584,8 +1704,13 @@ def check_w8a8(peaks, gen, dev):
         del xq, xs, wq, ws, got, want
     ms = w8a8_chain(gen, dev)
     log(f"[kernel] W8A8 decode chain ({W8A8_CHAIN_LAYERS} layers of 8B projections at 8 rows, "
-        f"4 row quantizations and 7 GEMMs a layer, one CUDA graph, weights past the L2; every "
-        f"output byte-equal to the plain versions'): {ms * 1e3:.1f} us a layer")
+        f"2 norms, SiLU x up, 4 row quantizations and 7 GEMMs a layer, one CUDA graph, weights "
+        f"past the L2): torch ops then quantize_rows {ms['composed'] * 1e3:.1f} us a layer "
+        f"(every output byte-equal to the plain versions'), the fused kernels "
+        f"{ms['fused'] * 1e3:.1f} us (every output byte-equal to their eager run, whose codes "
+        f"equal quantize_rows_plain of their rows; those rows against torch's: "
+        f"{ms['rows_off']}; the most blocks a decode row is split across, by kernel: "
+        f"{w8a8.DECODE_CLUSTER})")
     xq = torch.zeros((4096, 4096), dtype=torch.int8, device=dev)
     enc = w8a8._launcher().w8a8_encode_us(xq.data_ptr(), xq.data_ptr(), 4096, 4096, 4096, 1000)
     assert enc >= 0, "the GEMM's tensor maps do not encode"
@@ -1699,6 +1824,10 @@ def counters():
         "bitcast_inject": (pb.inject_int8_row, "launches", pb.inject_int8_row_plain),
         "page_gather": (pd.page_gather, "launches", pd.page_gather_plain),
         "quantize_rows": (q.quantize_rows, "launches", q.quantize_rows_plain),
+        "rms_norm_quantize_rows": (q.rms_norm_quantize_rows, "launches",
+                                   q.rms_norm_quantize_rows_plain),
+        "silu_mul_quantize_rows": (q.silu_mul_quantize_rows, "launches",
+                                   q.silu_mul_quantize_rows_plain),
         "w8a8_gemm": (q.w8a8_gemm, "launches", q.w8a8_gemm_plain),
     }
 
@@ -1713,13 +1842,16 @@ def read_counts():
     return {n: (getattr(k, attr), p.calls) for n, (k, attr, p) in counters().items()}
 
 
-def path_launches(stats, layers, decode_steps, kv_quant, w8a8=False):
+def path_launches(stats, layers, decode_steps, kv_quant, w8a8=False, act="silu"):
     """The launches the engine's own dispatch counters (`phase_stats`
     deltas) imply: K1/K2 (or their quantized forms) once a layer per
     standalone prefill dispatch, K3/K5 once a layer per decode step, K4
     once a layer per mixed step and per standalone verify dispatch. With
     W8A8 weights every model step (each of those, one forward and one
-    head each) quantizes 4 inputs a layer and the head's, and runs 7
+    head each) quantizes 4 inputs a layer and the head's: the two norms'
+    outputs by rms_norm_quantize_rows, a SiLU model's SiLU x up by
+    silu_mul_quantize_rows (another activation's by quantize_rows), the
+    attention output and the head's input by quantize_rows; and runs 7
     GEMMs a layer and the head's."""
     write, prefill, decode = PATH_KERNELS[kv_quant]
     want = {
@@ -1731,7 +1863,10 @@ def path_launches(stats, layers, decode_steps, kv_quant, w8a8=False):
     if w8a8:
         steps = (stats["prefill_dispatches"] + stats["decode_dispatches"] * decode_steps
                  + stats["mixed_steps"] + stats["spec_dispatches"])
-        want["quantize_rows"] = (4 * layers + 1) * steps
+        silu = act == "silu"
+        want["rms_norm_quantize_rows"] = 2 * layers * steps
+        want["silu_mul_quantize_rows"] = layers * steps if silu else 0
+        want["quantize_rows"] = ((1 if silu else 2) * layers + 1) * steps
         want["w8a8_gemm"] = (7 * layers + 1) * steps
     return {k: n for k, n in want.items() if n}
 
@@ -1919,7 +2054,8 @@ def phase_real_weights(dev):
         assert got == ref, f"W8A8 ({kv} KV): card {got} vs CPU {ref}"
         assert text.startswith("paris"), f"W8A8 ({kv} KV) answered {text!r}"
         check_counts(counts, path_launches(eng.phase_stats, eng.model_cfg.num_layers, 4, kv_quant,
-                                           w8a8=True), f"real weights, W8A8, {kv} KV")
+                                           w8a8=True, act=eng.model_cfg.hidden_act),
+                     f"real weights, W8A8, {kv} KV")
     return texts[(None, 16)]
 
 
@@ -2252,7 +2388,8 @@ def phase_full_width(dev, kv_quant=None, params=None, pipe=True, quantization=No
         assert all(0 <= t < vocab for t in toks)
     if streams is not None:
         streams.extend(r[0] for r in res)
-    want = path_launches(d, layers, cfg.decode_steps, kv_quant, w8a8=bool(quantization))
+    want = path_launches(d, layers, cfg.decode_steps, kv_quant, w8a8=bool(quantization),
+                         act=eng.model_cfg.hidden_act)
     check_counts(counts, want, tag)
     ttft = sorted(r[1] for r in res)
     first_done = min(r[1] for r in res)
@@ -3452,8 +3589,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.build()
-    log(f"[build] {len(_cuda.SOURCES)} sources (sixteen kernels: nine on the serving path, "
-        f"K4 entering K2/K6, the two W8A8 kernels, the five probe kernels K8-K10, and an "
+    log(f"[build] {len(_cuda.SOURCES)} sources (eighteen kernels: nine on the serving path, "
+        f"K4 entering K2/K6, the four W8A8 kernels, the five probe kernels K8-K10, and an "
         f"empty one) built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_cuda.NVCC_FLAGS[:2])})")
     for n, text in _cuda.build_logs.items():
@@ -3540,7 +3677,7 @@ def main() -> int:
     _, params = phase_ext(dev, params, smi=smi)
     # phase 13: W8A8 weights, phase 5's quantized in place, bf16 and int8 KV
     counts, params = phase_w8a8(dev, params, dense, smi=smi)
-    launches.update({k: counts[k] for k in ("quantize_rows", "w8a8_gemm")})
+    launches.update({k: counts[k] for k in W8A8_KERNELS})
     del params
     # phase 11: the serving entry at full width (its own engine, seed 0)
     torch.cuda.empty_cache()
@@ -3573,8 +3710,14 @@ def main() -> int:
         "bitcast_pack": ("dynamo_tpu_torch/csrc/probes.cu", "scripts/probe_bitcast.py:60"),
         "bitcast_inject": ("dynamo_tpu_torch/csrc/probes.cu", "scripts/probe_bitcast.py:83"),
         "page_gather": ("dynamo_tpu_torch/csrc/probes.cu", "scripts/profile_dma.py:19"),
-        # XLA ops, no pallas_call: the two halves of quant_matmul
+        # XLA ops, no pallas_call: the two halves of quant_matmul, the
+        # quantization also fused with the norm (ops/norm.py:12) and with
+        # SiLU x up (models/llama.py's MLP) that feed it
         "quantize_rows": ("dynamo_tpu_torch/csrc/w8a8.cu", "dynamo_tpu/ops/quant.py:60"),
+        "rms_norm_quantize_rows": ("dynamo_tpu_torch/csrc/w8a8.cu",
+                                   "dynamo_tpu/ops/quant.py:60"),
+        "silu_mul_quantize_rows": ("dynamo_tpu_torch/csrc/w8a8.cu",
+                                   "dynamo_tpu/ops/quant.py:60"),
         "w8a8_gemm": ("dynamo_tpu_torch/csrc/w8a8.cu", "dynamo_tpu/ops/quant.py:60"),
     }
     log(f"[smoke] phases 1-13 took {time.perf_counter() - t_smoke:.1f} s of wall time, build "

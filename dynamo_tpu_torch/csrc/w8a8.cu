@@ -10,14 +10,54 @@
 // (127 * 127 * K < 2**31 for K < 133,144); the output is
 // (f32(acc) * xs[m]) * ws[n], rounded once to the output type.
 //
-// quantize_rows: x [M, K] bf16 or f32 -> codes [M, K] int8, scales [M]
-// f32. One block a row: a pass of 16-byte loads for the absmax (a warp
-// shuffle, then the block's warps), the scale by IEEE division, and a
-// second pass over the same row (an L1/L2 hit) for the codes. The build
-// has no --use_fast_math, so `__fdiv_rn` is the true division and `rintf`
-// rounds half to even, as jnp.round does: codes and scales are the bytes
-// the plain version computes. Bound: bytes (reads x once, writes the
-// codes and a scale a row): 3 * M * K bytes from bf16.
+// The row quantization: one kernel template with three prologues, each with
+// its own C entry and wrapper (ops/w8a8.py), rows [M, K] bf16 or f32 ->
+// codes [M, K] int8 and scales [M] f32 of
+//   - quantize_rows: x itself;
+//   - rms_norm_quantize_rows: y = rms_norm(x, weight, eps, offset) as
+//     ops/norm.py computes it (the sum of squares in f32, var = sum * (1 /
+//     K), r = rsqrtf(var + eps), y = (x * r) * (weight + offset), rounded
+//     once to x's type), which replaces the norm's ~ten torch ops ahead of
+//     the projections of wq/wk/wv and w_gate/w_up;
+//   - silu_mul_quantize_rows: y = silu(gate) * up as torch computes it (the
+//     SiLU in f32 as g / (1 + expf(-g)) rounded to the type, then the
+//     product rounded again), which replaces F.silu and the product ahead
+//     of w_down.
+// The fused prologues may also write y (a null pointer on the main path;
+// the codes are the same either way). Codes and scales are what
+// quantize_rows_plain computes from the rows it quantizes: the scale by
+// IEEE division (__fdiv_rn(amax, 127), 1.0 for an all-zero row), the codes
+// rint of the IEEE quotient (round half to even, as jnp.round) clipped to
+// +-127, computed by a product with the scale's reciprocal wherever that
+// provably rounds alike (`code_bits`); the build has no --use_fast_math.
+// The one sum whose order is the kernel's own is the norm's sum of
+// squares, so its y is within a bf16 ulp of torch's and the codes are
+// exactly quantize_rows_plain(y).
+// Bound: bytes (each input read once, codes and scales written once): 3MK
+// from bf16 rows, 5MK for SiLU x up. A row is read once into registers (16-
+// byte loads, at most kQVec a thread) and its codes written from there:
+//   - a decode row (M <= 64) may be split across a thread block cluster of
+//     C blocks (C <= 8, on neighbouring SMs): each block reduces its slice
+//     (warp shuffles, then its warps in order), publishes its partial in
+//     its own shared memory, and after a cluster barrier reads its peers'
+//     through distributed shared memory (mapa + ld.shared::cluster) in rank
+//     order, so every block of the row computes the same bytes. The norm
+//     exchanges the sum of squares, then every prologue the amax of the
+//     rows it quantizes. The exchange costs a launch more than the spread
+//     saves for the plain and norm prologues at the 8B widths, so their
+//     decode rows take one block (a thread a vector); SiLU x up's expf and
+//     division an element repay 8 SMs a row (ops/w8a8.py DECODE_CLUSTER);
+//   - a prefill row (M > 64) takes one block of four vectors a thread (C =
+//     1 where the row fits 1024 threads x kQVec vectors: 64 KB); the fewer
+//     threads a row, the more rows an SM holds in flight.
+// ops/w8a8.py `quant_plan` picks C, the vectors a block takes and the
+// threads from the shape alone (a graph replay launches what its capture
+// planned). Launches are programmatic dependent launches with the cluster
+// shape as a second attribute: a kernel signals its dependents at once
+// (griddepcontrol.launch_dependents), so the GEMM after it runs its
+// prologue early; it reads the norm's weights (no kernel writes them),
+// then waits (griddepcontrol.wait) for the kernel before it to complete
+// before it reads its rows or writes anything.
 //
 // w8a8_gemm: codes [M, K] int8 (row-major) x weight codes [N, K] int8
 // (K-contiguous: the transpose of the JAX package's [in, out]), xs [M],
@@ -94,9 +134,41 @@
 
 namespace {
 
-// ------------------------------------------------------------ quantize_rows
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-constexpr int kQThreads = 256;
+// Programmatic dependent launch: a kernel launched with the attribute may
+// start while the kernel before it on the stream finishes. It lets the next
+// one start (launch_dependents) at once, and waits (wait) for the one before
+// it to complete, its memory visible, before it reads what that one may
+// write or writes anything itself. Without the attribute both are no-ops.
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------ row quantization
+
+constexpr int kQThreads = 1024;  // a block's threads at most
+constexpr int kQVec = 4;         // 16-byte vectors of a row a thread holds at most
+constexpr int kMaxCluster = 8;   // the portable cluster size
+
+enum Prologue { kPlain = 0, kNorm = 1, kSiluMul = 2 };
+
+struct RowArgs {
+  const void* x;    // [M, K] the rows (the gate's for kSiluMul)
+  const void* aux;  // kNorm: the weight [K]; kSiluMul: the up rows [M, K]
+  int8_t* q;        // [M, K] codes
+  float* scales;    // [M]
+  void* y;          // [M, K] the prologue's rows, or null
+  int K;
+  int cluster;  // blocks a row
+  int per;      // 16-byte vectors of the row each block takes (the last fewer)
+  float eps, w_off, inv_k;  // kNorm
+};
 
 __device__ __forceinline__ void unpack(const uint4& v, float* f, const __nv_bfloat16*) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
@@ -114,79 +186,212 @@ __device__ __forceinline__ void unpack(const uint4& v, float* f, const float*) {
   f[3] = __uint_as_float(v.w);
 }
 
-__device__ __forceinline__ uint32_t code4(const float* f, float s) {
-  uint32_t out = 0;
+// values already rounded to the type, back into a 16-byte vector
+__device__ __forceinline__ uint4 pack(const float* f, const __nv_bfloat16*) {
+  uint32_t w[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float q = fminf(fmaxf(rintf(__fdiv_rn(f[i], s)), -127.f), 127.f);
-    out |= (uint32_t)(uint8_t)(int8_t)(int)q << (8 * i);
-  }
-  return out;
+  for (int i = 0; i < 4; ++i)
+    w[i] = (__float_as_uint(f[2 * i]) >> 16) | (__float_as_uint(f[2 * i + 1]) & 0xffff0000u);
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+__device__ __forceinline__ uint4 pack(const float* f, const float*) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+
+// f32 -> the activation type -> f32 (round to nearest even)
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+
+// The code of f at scale s: clip(rint(__fdiv_rn(f, s)), -127, 127), its
+// value in the low byte of the result. `rs` is __frcp_rn(s) when s > 1e-30
+// (else 0): then t = f * rs is within 2.3e-5 of the IEEE quotient (|f / s|
+// <= 127.00001; two roundings of 2^-24), so where t lies more than 0.499
+// from a half-integer both round to the same integer, which t + 1.5 * 2^23
+// rounds to (half to even) in its low bits; the rare rest, and every f of
+// a row with a tiny scale, divide. The division, rintf and a float-to-int
+// conversion run at a fraction of the FMA rate: at prefill rows they had
+// made the kernel compute-bound.
+__device__ __forceinline__ uint32_t code_bits(float f, float s, float rs) {
+  constexpr float kMagic = 12582912.f;  // 1.5 * 2^23: integers of |t| < 2^22 in the low bits
+  const float t = __fmul_rn(f, rs);
+  float big = __fadd_rn(t, kMagic);
+  if (rs == 0.f || fabsf(__fsub_rn(t, __fsub_rn(big, kMagic))) > 0.499f)
+    big = __fadd_rn(fminf(fmaxf(rintf(__fdiv_rn(f, s)), -127.f), 127.f), kMagic);
+  return __float_as_uint(big);
+}
+
+// four codes, one a byte
+__device__ __forceinline__ uint32_t code4(const float* f, float s, float rs) {
+  const uint32_t lo = __byte_perm(code_bits(f[0], s, rs), code_bits(f[1], s, rs), 0x0040);
+  const uint32_t hi = __byte_perm(code_bits(f[2], s, rs), code_bits(f[3], s, rs), 0x0040);
+  return __byte_perm(lo, hi, 0x5410);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float at `p` in the shared memory of the cluster's block `rank`
+__device__ __forceinline__ float ld_peer(const float* p, int rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(addr)
+               : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// The row's sum (kMax false) or max of every thread's `v`: a warp's xor
+// shuffles, the block's warps in order, then the cluster's blocks in rank
+// order, through `share` (this block's partial) in each block's shared
+// memory. Each thread computes the same bytes, in every block of the row.
+template <bool kMax>
+__device__ __forceinline__ float row_reduce(float v, float* red, float* share, int C) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    const float u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = kMax ? fmaxf(v, u) : v + u;
+  }
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = red[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) t = kMax ? fmaxf(t, red[w]) : t + red[w];
+  if (C == 1) return t;
+  if (threadIdx.x == 0) *share = t;
+  cluster_arrive();
+  cluster_wait();
+  t = ld_peer(share, 0);
+  for (int r = 1; r < C; ++r) {
+    const float u = ld_peer(share, r);
+    t = kMax ? fmaxf(t, u) : t + u;
+  }
+  return t;
+}
+
+// a row's slice into registers: vector t + i nt of `src` for i < kQVec
 template <typename T>
-__global__ void __launch_bounds__(kQThreads) quantize_rows_kernel(
-    const T* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scales, int K) {
+__device__ __forceinline__ void load_slice(uint4 (&v)[kQVec], const void* base, long long at,
+                                           int t, int nt, int n) {
+  const uint4* src = reinterpret_cast<const uint4*>(static_cast<const T*>(base) + at);
+#pragma unroll
+  for (int i = 0; i < kQVec; ++i)
+    if (t + i * nt < n) v[i] = __ldg(src + t + i * nt);
+}
+
+// Block (row, rank) of the grid [M * C] (clusters of C blocks along x)
+// quantizes vectors [rank * per, ...) of row `row`; thread t holds vectors
+// t + i nt (at most kQVec) in registers from the one read to the codes'
+// write.
+template <int P, typename T>
+__global__ void __launch_bounds__(kQThreads) quantize_rows_kernel(const RowArgs a) {
   constexpr int kPer = 16 / sizeof(T);  // elements a 16-byte vector
-  __shared__ float red[kQThreads / 32];
-  __shared__ float scale_s;
-  const long long row = blockIdx.x;
-  const uint4* src = reinterpret_cast<const uint4*>(x + row * K);
-  const int nvec = K / kPer;
-  float amax = 0.f;
-  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
-    float f[kPer];
-    unpack(__ldg(src + v), f, x);
+  __shared__ float red[2][kQThreads / 32];  // [reduction][warp]
+  __shared__ float share[2];  // this block's partials: the sum of squares, the amax
+  const int C = a.cluster;
+  const int rank = blockIdx.x % C;  // the block's rank in its cluster (clusters run along x)
+  const long long row = blockIdx.x / C;
+  const int v0 = rank * a.per;
+  const int n = min(a.per, a.K / kPer - v0);  // vectors this block takes (>= 1: the plan)
+  const long long base = row * a.K + (long long)v0 * kPer;  // the slice's first element
+  const int t = threadIdx.x, nt = blockDim.x;
+  const T* tag = nullptr;  // selects the type's overloads
+  grid_dep_launch();
+  uint4 w[kQVec];
+  if constexpr (P == kNorm)  // the weights: no kernel writes them, so before the wait
+    load_slice<T>(w, a.aux, v0 * kPer, t, nt, n);
+  grid_dep_wait();  // the rows, and every write, after the kernel before
+  uint4 xv[kQVec], uv[kQVec];
+  load_slice<T>(xv, a.x, base, t, nt, n);
+  if constexpr (P == kSiluMul) {
+    load_slice<T>(uv, a.aux, base, t, nt, n);
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) amax = fmaxf(amax, fabsf(f[i]));
-  }
+    for (int i = 0; i < kQVec; ++i) {
+      if (t + i * nt < n) {
+        float g[kPer], u[kPer];
+        unpack(xv[i], g, tag);
+        unpack(uv[i], u, tag);
 #pragma unroll
-  for (int o = 16; o; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = amax;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = red[0];
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, red[w]);
-    const float s = m > 0.f ? __fdiv_rn(m, 127.f) : 1.f;
-    scale_s = s;
-    scales[row] = s;
-  }
-  __syncthreads();
-  const float s = scale_s;
-  int8_t* dst = q + row * K;
-  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
-    float f[kPer];
-    unpack(__ldg(src + v), f, x);
-    if constexpr (kPer == 8) {
-      uint2 out = make_uint2(code4(f, s), code4(f + 4, s));
-      *reinterpret_cast<uint2*>(dst + v * 8) = out;
-    } else {
-      *reinterpret_cast<uint32_t*>(dst + v * 4) = code4(f, s);
+        for (int j = 0; j < kPer; ++j) {
+          const float act = round_to(__fdiv_rn(g[j], __fadd_rn(1.f, expf(-g[j]))), tag);
+          g[j] = round_to(__fmul_rn(act, u[j]), tag);
+        }
+        xv[i] = pack(g, tag);
+      }
+    }
+  } else if constexpr (P == kNorm) {
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < kQVec; ++i) {
+      if (t + i * nt < n) {
+        float f[kPer];
+        unpack(xv[i], f, tag);
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) ss += f[j] * f[j];
+      }
+    }
+    const float sum = row_reduce<false>(ss, red[0], &share[0], C);
+    const float r = rsqrtf(__fadd_rn(__fmul_rn(sum, a.inv_k), a.eps));
+#pragma unroll
+    for (int i = 0; i < kQVec; ++i) {
+      if (t + i * nt < n) {
+        float f[kPer], wf[kPer];
+        unpack(xv[i], f, tag);
+        unpack(w[i], wf, tag);
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          f[j] = round_to(__fmul_rn(__fmul_rn(f[j], r), __fadd_rn(wf[j], a.w_off)), tag);
+        xv[i] = pack(f, tag);
+      }
     }
   }
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kQVec; ++i) {
+    if (t + i * nt < n) {
+      float f[kPer];
+      unpack(xv[i], f, tag);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) amax = fmaxf(amax, fabsf(f[j]));
+    }
+  }
+  const float m = row_reduce<true>(amax, red[1], &share[1], C);
+  // this block has read its peers' partials; it waits for theirs of its
+  // own before it exits (its shared memory must outlive their reads)
+  if (C > 1) cluster_arrive();
+  const float s = m > 0.f ? __fdiv_rn(m, 127.f) : 1.f;
+  const float rs = s > 1e-30f ? __frcp_rn(s) : 0.f;
+  if (rank == 0 && t == 0) a.scales[row] = s;
+  int8_t* dst = a.q + base;
+  uint4* y = a.y ? reinterpret_cast<uint4*>(static_cast<T*>(a.y) + base) : nullptr;
+#pragma unroll
+  for (int i = 0; i < kQVec; ++i) {
+    const int v = t + i * nt;
+    if (v < n) {
+      float f[kPer];
+      unpack(xv[i], f, tag);
+      if constexpr (kPer == 8) {
+        *reinterpret_cast<uint2*>(dst + v * 8) = make_uint2(code4(f, s, rs), code4(f + 4, s, rs));
+      } else {
+        *reinterpret_cast<uint32_t*>(dst + v * 4) = code4(f, s, rs);
+      }
+      if (y) y[v] = xv[i];
+    }
+  }
+  if (C > 1) cluster_wait();
 }
 
 // ------------------------------------------------------------ w8a8_gemm
 
 constexpr int kKTile = 128;  // bytes of K a stage holds: one 128-byte swizzle row a row
 constexpr int kOutChunk = 64 * 128;  // a staged 64 x 64 bf16 output chunk
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Programmatic dependent launch: a kernel launched with the attribute may
-// start while the kernel before it on the stream finishes. It lets the next
-// one start (launch_dependents) at once, and waits (wait) for the one before
-// it to complete, its memory visible, before it reads what that one may
-// write or writes anything itself. Without the attribute both are no-ops.
-__device__ __forceinline__ void grid_dep_launch() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void grid_dep_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -657,22 +862,54 @@ using RowsWide = Tile<1, 128, 4>;  // 1: "rows_wide"
 using Tiles = Tile<2, 256, 4>;     // 2: "tiles"
 
 // a launch that may start while the kernel before it on the stream ends
-// (programmatic stream serialization) when `pdl`, else an ordinary one; the
-// kernels wait for the one before them themselves
+// (programmatic stream serialization) when `pdl`, else an ordinary one, in
+// clusters of `cluster` blocks along x when that is above 1; the kernels
+// wait for the one before them themselves
 template <typename... Params, typename... Args>
 cudaError_t launch_pdl(bool pdl, void (*kernel)(Params...), dim3 grid, int block, int smem,
-                       cudaStream_t stream, Args... args) {
+                       cudaStream_t stream, int cluster, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(block);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchAttribute attr[2];
+  int n = 0;
+  if (pdl) {
+    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n++].val.programmaticStreamSerializationAllowed = 1;
+  }
+  if (cluster > 1) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = cluster;
+    attr[n].val.clusterDim.y = 1;
+    attr[n++].val.clusterDim.z = 1;
+  }
   cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
+  cfg.numAttrs = n;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// one row quantization with prologue P, after checking the plan
+// (ops/w8a8.py quant_plan): C blocks a row cover its K / kPer vectors, each
+// at least one and at most threads * kQVec
+template <int P>
+int launch_rows(RowArgs a, int M, int is_bf16, int threads, int pdl, void* stream) {
+  if (M <= 0) return 0;
+  const int nvec = a.K / (is_bf16 ? 8 : 4);
+  const int C = a.cluster;
+  if (a.K <= 0 || a.K % 32 || C < 1 || C > kMaxCluster || threads < 32 || threads > kQThreads ||
+      threads % 32 || a.per < 1 || a.per > threads * kQVec || (long long)a.per * C < nvec ||
+      (long long)(C - 1) * a.per >= nvec || (long long)M * C > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  a.inv_k = 1.f / (float)a.K;
+  const dim3 grid(M * C);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t e =
+      is_bf16 ? launch_pdl(pdl != 0, quantize_rows_kernel<P, __nv_bfloat16>, grid, threads, 0, s,
+                           C, a)
+              : launch_pdl(pdl != 0, quantize_rows_kernel<P, float>, grid, threads, 0, s, C, a);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -746,7 +983,7 @@ int launch(const void* xq, const void* xs, const void* wq, const void* ws, void*
   }
   const int grid = (int)(items < blocks ? items : blocks);
   const cudaError_t e = launch_pdl(pdl != 0, kernel, dim3(grid), T::kThreads, T::kSmem, stream,
-                                   map_a, map_b, map_out, (const float*)xs, (const float*)ws,
+                                   1, map_a, map_b, map_out, (const float*)xs, (const float*)ws,
                                    (OutT*)out, (int*)part, (int*)counters, M, N, k_tiles, per,
                                    splits, tma_out);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
@@ -790,23 +1027,37 @@ int gemm(int variant, const void* xq, const void* xs, const void* wq, const void
 
 }  // namespace
 
-// x [M, K] (bf16 when is_bf16, else f32), K a multiple of 32, every
-// pointer 16-byte aligned (the Python wrapper checks both). Returns
-// cudaGetLastError().
+// The row quantizations. Rows [M, K] (bf16 when is_bf16, else f32), K a
+// multiple of 32, every pointer 16-byte aligned, the tensors contiguous
+// (the Python wrappers check these); `cluster`, `per` and `threads` from
+// ops/w8a8.py quant_plan; `pdl` makes the launch a programmatic dependent
+// one (ops/w8a8.py PDL). Each returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a plan the kernel does not take.
 extern "C" int quantize_rows_launch(const void* x, void* q, void* scales, int M, int K,
-                                    int is_bf16, void* stream) {
-  if (M <= 0) return 0;
-  const int nvec = K / (is_bf16 ? 8 : 4);
-  int threads = ((nvec + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > kQThreads ? kQThreads : threads);
-  if (is_bf16) {
-    quantize_rows_kernel<__nv_bfloat16><<<M, threads, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)x, (int8_t*)q, (float*)scales, K);
-  } else {
-    quantize_rows_kernel<float><<<M, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (int8_t*)q, (float*)scales, K);
-  }
-  return (int)cudaGetLastError();
+                                    int is_bf16, int cluster, int per, int threads, int pdl,
+                                    void* stream) {
+  RowArgs a = {x, nullptr, (int8_t*)q, (float*)scales, nullptr, K, cluster, per, 0.f, 0.f, 0.f};
+  return launch_rows<kPlain>(a, M, is_bf16, threads, pdl, stream);
+}
+
+// codes and scales of rms_norm(x, weight [K] of x's type, eps, w_off); `y`
+// null, or [M, K] of x's type for the normed rows
+extern "C" int rms_norm_quantize_rows_launch(const void* x, const void* weight, void* q,
+                                             void* scales, void* y, int M, int K, int is_bf16,
+                                             float eps, float w_off, int cluster, int per,
+                                             int threads, int pdl, void* stream) {
+  RowArgs a = {x, weight, (int8_t*)q, (float*)scales, y, K, cluster, per, eps, w_off, 0.f};
+  return launch_rows<kNorm>(a, M, is_bf16, threads, pdl, stream);
+}
+
+// codes and scales of silu(gate) * up, both [M, K] of one type; `y` null, or
+// [M, K] of that type for the product
+extern "C" int silu_mul_quantize_rows_launch(const void* gate, const void* up, void* q,
+                                             void* scales, void* y, int M, int K, int is_bf16,
+                                             int cluster, int per, int threads, int pdl,
+                                             void* stream) {
+  RowArgs a = {gate, up, (int8_t*)q, (float*)scales, y, K, cluster, per, 0.f, 0.f, 0.f};
+  return launch_rows<kSiluMul>(a, M, is_bf16, threads, pdl, stream);
 }
 
 // xq [M, K] int8, wq [N, K] int8, xs [M] and ws [N] f32, out [M, N] (bf16

@@ -61,7 +61,8 @@ def launch_counters() -> list:
                 decode_attention.fused_paged_decode_attention,
                 decode_attention.ragged_paged_attention)
     return ([(w, a) for w in wrappers for a in ("launches", "launches_q", "launches_q4")]
-            + [(w8a8.quantize_rows, "launches"), (w8a8.w8a8_gemm, "launches")])
+            + [(w, "launches") for w in (w8a8.quantize_rows, w8a8.rms_norm_quantize_rows,
+                                         w8a8.silu_mul_quantize_rows, w8a8.w8a8_gemm)])
 
 
 def _read_counts() -> list:

@@ -7,8 +7,11 @@ are [in_features, out_features] so matmuls are `x @ w`, and KV pools are
 per-layer [num_slots, K*Hd] tensors updated in place. With W8A8 weights
 (`init_params(quantize=True)`, ops/quant.py `quantize_params`) each dense
 projection and the vocab head is a {"q", "s"} leaf, and every projection
-goes through `mm`: its input is quantized once per row (ops/w8a8.py
-`quantize_rows`) and multiplied by the int8 GEMM (`w8a8_gemm`).
+goes through `mm`: its input is quantized once per row and multiplied by
+the int8 GEMM (`w8a8_gemm`). The two norms of a layer and, in a SiLU
+model, SiLU x up are computed by the kernel that quantizes them
+(ops/w8a8.py `rms_norm_quantize_rows`, `silu_mul_quantize_rows`); the
+attention output and the head's input go through `quantize_rows`.
 
 Attention goes through one of the three `AttnSpec` modes below; each runs
 the hand-written kernels on a GPU (page-scatter write + flash prefill for
@@ -38,6 +41,7 @@ from dynamo_tpu_torch.ops.kv_write import paged_kv_write
 from dynamo_tpu_torch.ops.norm import rms_norm
 from dynamo_tpu_torch.ops.prefill_attention import flash_prefill_attention
 from dynamo_tpu_torch.ops.quant import (
+    QuantizedAct,
     init_kv_scale_pool,
     is_quantized,
     logical_param_count,
@@ -48,7 +52,9 @@ from dynamo_tpu_torch.ops.quant import (
     quantize_kv_rows_int4,
     quantize_layer,
     quantize_weight,
+    rms_norm_quantize_act,
     scales_to_page_tiles,
+    silu_mul_quantize_act,
 )
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
 
@@ -166,7 +172,7 @@ def init_kv_cache(cfg: ModelConfig, num_slots: int, *, device,
 
 def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
                 attn: AttnSpec, kv_ks=None, kv_vs=None, int4=False):
-    b, t, _ = x.shape
+    b, t = x.lead if isinstance(x, QuantizedAct) else x.shape[:2]
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     quant = kv_ks is not None
     quantize = quantize_kv_rows_int4 if int4 else quantize_kv_rows
@@ -254,18 +260,29 @@ _ACTIVATIONS = {
 
 def _mlp_block(lp: Params, x, act: str = "silu"):
     xa = prepare_act(x, lp["w_gate"])  # quantized once for gate and up
+    if act == "silu" and is_quantized(lp["w_down"]):
+        # SiLU x up computed by the kernel that quantizes it for w_down
+        gate = mm(xa, lp["w_gate"])
+        return mm(silu_mul_quantize_act(gate, mm(xa, lp["w_up"])), lp["w_down"])
     gate = _ACTIVATIONS[act](mm(xa, lp["w_gate"]))
     return mm(gate * mm(xa, lp["w_up"]), lp["w_down"])
+
+
+def _norm_in(x, weight, w, cfg: ModelConfig):
+    """rms_norm(x) as the projections of weight `w` take it: with W8A8
+    weights quantized by the kernel that computes the norm."""
+    if is_quantized(w):
+        return rms_norm_quantize_act(x, weight, cfg.rms_norm_eps, cfg.norm_weight_offset)
+    return rms_norm(x, weight, cfg.rms_norm_eps, weight_offset=cfg.norm_weight_offset)
 
 
 def layer_step(lp, cfg, x, cos, sin, kv_k, kv_v, attn, kv_ks=None, kv_vs=None,
                int4=False):
     """One transformer layer (attention + FFN, pre-norm residuals); the
     layer's pools are updated in place."""
-    w_off = cfg.norm_weight_offset
-    attn_in = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps, weight_offset=w_off)
+    attn_in = _norm_in(x, lp["attn_norm"], lp["wq"], cfg)
     x = x + _attn_block(lp, cfg, attn_in, cos, sin, kv_k, kv_v, attn, kv_ks, kv_vs, int4)
-    mlp_in = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps, weight_offset=w_off)
+    mlp_in = _norm_in(x, lp["mlp_norm"], lp["w_gate"], cfg)
     return x + _mlp_block(lp, mlp_in, act=cfg.hidden_act)
 
 

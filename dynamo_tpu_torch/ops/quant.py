@@ -14,7 +14,9 @@ are quantized per row at run time the same way (ops/w8a8.py
 `quantize_rows`), the dot is s8 x s8 -> s32 (`w8a8_gemm`) and the output
 (f32(acc) * xs) * ws, cast once to the activation dtype (f32 for the
 vocab head). `quantize_act` quantizes an input once for every projection
-that reads it (wq/wk/wv, w_gate/w_up), as XLA's CSE does in the reference.
+that reads it (wq/wk/wv, w_gate/w_up), as XLA's CSE does in the reference;
+`rms_norm_quantize_act` and `silu_mul_quantize_act` do so for the outputs
+of the layer's norms and of SiLU x up in the kernel that computes them.
 
 KV (`quantize_kv_rows`,
 `dequantize_kv_rows`, `int4_scale_channels`, `quantize_kv_rows_int4`,
@@ -50,7 +52,13 @@ from typing import Any, NamedTuple
 
 import torch
 
-from dynamo_tpu_torch.ops.w8a8 import quantize_rows, true_div, w8a8_gemm
+from dynamo_tpu_torch.ops.w8a8 import (
+    quantize_rows,
+    rms_norm_quantize_rows,
+    silu_mul_quantize_rows,
+    true_div,
+    w8a8_gemm,
+)
 
 # per-layer weight names eligible for quantization (dense Llama family)
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -81,9 +89,25 @@ class QuantizedAct(NamedTuple):
     dtype: torch.dtype
 
 
+def _act(x: torch.Tensor, codes) -> QuantizedAct:
+    return QuantizedAct(*codes, tuple(x.shape[:-1]), x.dtype)
+
+
 def quantize_act(x: torch.Tensor) -> QuantizedAct:
-    q, s = quantize_rows(x.reshape(-1, x.shape[-1]))
-    return QuantizedAct(q, s, tuple(x.shape[:-1]), x.dtype)
+    return _act(x, quantize_rows(x.reshape(-1, x.shape[-1])))
+
+
+def rms_norm_quantize_act(x: torch.Tensor, weight, eps: float,
+                          weight_offset: float = 0.0) -> QuantizedAct:
+    """`rms_norm(x, ...)` quantized for the projections that read it."""
+    return _act(x, rms_norm_quantize_rows(x.reshape(-1, x.shape[-1]), weight, eps,
+                                          weight_offset))
+
+
+def silu_mul_quantize_act(gate: torch.Tensor, up: torch.Tensor) -> QuantizedAct:
+    """`F.silu(gate) * up` quantized for the projection that reads it."""
+    k = gate.shape[-1]
+    return _act(gate, silu_mul_quantize_rows(gate.reshape(-1, k), up.reshape(-1, k)))
 
 
 def quant_matmul(x, w: dict, out_dtype=None) -> torch.Tensor:
@@ -94,10 +118,11 @@ def quant_matmul(x, w: dict, out_dtype=None) -> torch.Tensor:
     return out.reshape(*xa.lead, out.shape[-1])
 
 
-def prepare_act(x: torch.Tensor, w):
+def prepare_act(x, w):
     """x as `mm` should take it for weight `w`: quantized once when `w` is
-    (the caller passes the result to every projection of x)."""
-    return quantize_act(x) if is_quantized(w) else x
+    and x is not yet (the caller passes the result to every projection of
+    x)."""
+    return quantize_act(x) if is_quantized(w) and not isinstance(x, QuantizedAct) else x
 
 
 def mm(x, w) -> torch.Tensor:

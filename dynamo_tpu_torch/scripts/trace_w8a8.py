@@ -3,31 +3,39 @@
     python -m dynamo_tpu_torch.scripts.trace_w8a8 [--layers 8] [--replays 5]
 
 The decode chain is what one 8B decode step asks of the W8A8 kernels in
-each layer, at 8 rows: quantize_rows, then wq, wk and wv; quantize_rows and
-wo; quantize_rows, w_gate and w_up; quantize_rows and w_down. Each layer
-has weights of its own (218 MB a layer, so the L2 holds none of what a GEMM
-reads), and the chain is captured as one CUDA graph. With the GEMM's
+each layer, at 8 rows: the attention norm and its row quantization, then
+wq, wk and wv; a row quantization and wo; the MLP norm and its row
+quantization, w_gate and w_up; SiLU x up and its row quantization, and
+w_down (wq's output stands in for the attention's, wo's for the residual
+stream the MLP norm reads). It runs in two compositions: `composed`, the
+norms and SiLU x up as torch ops (ops/norm.py `rms_norm`, `F.silu(gate) *
+up`) then `quantize_rows`, as the model ran before the fusion; and
+`fused`, `rms_norm_quantize_rows` and `silu_mul_quantize_rows` (a package
+without them runs `composed` alone). Each layer has weights of its own
+(218 MB a layer, so the L2 holds none of what a GEMM reads), and each
+composition is captured as one CUDA graph. With the W8A8 kernels'
 programmatic dependent launch on and then off (`ops/w8a8.PDL`; a package
-without that switch is traced as it launches), the script times the graph
-by CUDA events, traces replays with torch.profiler, and prints for each of
-a layer's 11 launches, as medians over layers and replays:
-- `dur`: the kernel's span from start to end (under PDL a GEMM starts
+without that switch is traced as it launches), the script times the
+graphs by CUDA events, traces replays with torch.profiler, and prints for
+each of a layer's 11 W8A8 launches, as medians over layers and replays:
+- `dur`: the kernel's span from start to end (under PDL a kernel starts
   early, and its span includes its wait for the kernel before it);
-- `gap`: its start less the end of the kernel before it (negative: the
-  two overlapped);
-- `step`: its end less the end of the kernel before it, the time the chain
-  moves on by for this launch; a layer's steps sum to its time.
+- `gap`: its start less the end of the W8A8 kernel before it (negative:
+  the two overlapped; in `composed` it holds the torch ops between them);
+- `step`: its end less the end of the W8A8 kernel before it, the time the
+  chain moves on by for this launch and what precedes it; a layer's steps
+  sum to its time.
 Then the host time of one call as the eager prefill pays it: quantize_rows,
-w8a8_gemm, the model's `mm` on a quantized activation and bf16
-`torch.matmul` at the 8B prefill shape 4096 x 4096 -> 1024, and the
-launchers' read of the current stream, each the median of three passes of
-100 calls queued behind a device-side spin.
+the two fused row quantizations, w8a8_gemm, the model's `mm` on a
+quantized activation and bf16 `torch.matmul` at the 8B prefill shape 4096
+x 4096 -> 1024, and the launchers' read of the current stream, each the
+median of three passes of 100 calls queued behind a device-side spin.
 
 The script uses only `dynamo_tpu_torch.ops.w8a8`'s wrappers, `ops.quant`'s
-`mm` and `ops._cuda.stream_ptr`, so a copy of it in another checkout of the
-package traces that checkout's kernels. It prints the card's name and
-power limit first and one JSON object last; it returns 2, and measures
-nothing, when no CUDA device is visible.
+`mm`, `ops.norm`'s `rms_norm` and `ops._cuda.stream_ptr`, so a copy of it
+in another checkout of the package traces that checkout's kernels. It
+prints the card's name and power limit first and one JSON object last; it
+returns 2, and measures nothing, when no CUDA device is visible.
 """
 
 from __future__ import annotations
@@ -41,15 +49,18 @@ import tempfile
 import time
 
 import torch
+import torch.nn.functional as tF
 
 from dynamo_tpu_torch.ops import _cuda, quant, w8a8
+from dynamo_tpu_torch.ops.norm import rms_norm
 from dynamo_tpu_torch.scripts import gpu_or_none
 
 D, F, KV = 4096, 14336, 1024
+EPS = 1e-5  # Llama-3.1's rms_norm_eps
 # the 8B projections, [out, in]
 SHAPES = {"wq": (D, D), "wk": (KV, D), "wv": (KV, D), "wo": (D, D), "w_gate": (F, D),
           "w_up": (F, D), "w_down": (D, F)}
-# a layer's launches in the order the chain makes them
+# a layer's W8A8 launches in the order the chain makes them
 ROLES = ("quant_in", "wq", "wk", "wv", "quant_attn", "wo", "quant_mlp", "w_gate", "w_up",
          "quant_down", "w_down")
 
@@ -70,11 +81,51 @@ def same_bytes(a, b) -> bool:
     return torch.equal(a.view(torch.int8), b.view(torch.int8))
 
 
+def ulp_steps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Per element, the representable values of the (bf16 or f32) dtype
+    from want to got: 0 equal, 1 a rounding flip."""
+    bits = 16 if got.dtype == torch.bfloat16 else 32
+    itype = torch.int16 if bits == 16 else torch.int32
+
+    def ordered(t):
+        i = t.contiguous().view(itype).long()
+        return torch.where(i < 0, -(i & ((1 << (bits - 1)) - 1)), i)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def fused_rows(fused, plain_rows, *args):
+    """A fused row quantization run with y: its codes and scales, held to
+    quantize_rows_plain of its own rows y, and y's ulp steps from torch's
+    rows (`plain_rows(*args)`)."""
+    y = torch.empty_like(args[0])
+    q, s = fused(*args, y=y)
+    pq, ps = w8a8.quantize_rows_plain(y)
+    assert same_bytes(q, pq) and same_bytes(s, ps.contiguous()), \
+        f"{fused.__name__}: codes differ from quantize_rows_plain of its own rows"
+    return q, s, ulp_steps(y, plain_rows(*args))
+
+
+def _counted(off, fused, plain_rows, *args):
+    """fused_rows, adding y's [elements off torch's, elements, largest ulp
+    step] to `off`."""
+    q, s, steps = fused_rows(fused, plain_rows, *args)
+    off[0] += int((steps > 0).sum())
+    off[1] += steps.numel()
+    off[2] = max(off[2], int(steps.max()))
+    return q, s
+
+
 class Chain:
     """`layers` layers of the decode chain on random codes (weight scales
     that keep each output about its input's size, so the activations
-    neither overflow nor vanish over the layers), and their outputs by the
-    plain versions, run eagerly."""
+    neither overflow nor vanish over the layers; norm weights in [0.5,
+    1.5)), and the outputs each composition must give: `composed` by the
+    plain versions, run eagerly; `fused` by an eager run of the fused
+    kernels with y, each held to quantize_rows_plain of its own rows, and
+    the plain GEMMs. Those rows against torch's are counted in `rows_off`:
+    the norm's within one ulp, SiLU x up's equal, or the reference
+    raises."""
 
     def __init__(self, gen, dev, layers):
         self.layers = layers
@@ -84,39 +135,79 @@ class Chain:
                     * (0.013 / nk[1] ** 0.5))
              for name, nk in SHAPES.items()}
             for _ in range(layers)]
+        for w in self.weights:
+            for norm in ("attn_norm", "mlp_norm"):
+                w[norm] = (torch.rand((D,), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
         self.x0 = rows_x(8, D, gen, dev)
         self.captured = []  # each graph's outputs, alive as long as the chain
-        self.want = self.step(w8a8.quantize_rows_plain, w8a8.w8a8_gemm_plain)
-        assert all(bool(torch.isfinite(o).all()) for o in self.want), \
+        self.modes = (("composed", "fused") if hasattr(w8a8, "rms_norm_quantize_rows")
+                      else ("composed",))
+        self.rows_off = {}
+        self.want = {mode: self.step(mode, plain=True) for mode in self.modes}
+        assert all(bool(torch.isfinite(o).all()) for o in self.want["composed"]), \
             "the decode chain overflowed"
 
-    def step(self, quantize, gemm):
+    def step(self, mode, plain=False):
+        """One pass of the chain in `mode`, through the kernels, or (`plain`)
+        as the reference for that mode."""
+        quantize, gemm = ((w8a8.quantize_rows_plain, w8a8.w8a8_gemm_plain) if plain
+                          else (w8a8.quantize_rows, w8a8.w8a8_gemm))
+
+        def silu_mul(g, u):
+            return tF.silu(g) * u
+
+        if mode == "composed":
+            def norm_q(x, w):
+                return quantize(rms_norm(x, w, EPS))
+
+            def silu_q(g, u):
+                return quantize(silu_mul(g, u))
+        elif plain:
+            off = {k: [0, 0, 0] for k in ("rms_norm", "silu_mul")}
+            self.rows_off = off
+
+            def norm_q(x, w):
+                return _counted(off["rms_norm"], w8a8.rms_norm_quantize_rows, rms_norm, x, w, EPS)
+
+            def silu_q(g, u):
+                return _counted(off["silu_mul"], w8a8.silu_mul_quantize_rows, silu_mul, g, u)
+        else:
+            def norm_q(x, w):
+                return w8a8.rms_norm_quantize_rows(x, w, EPS)
+
+            silu_q = w8a8.silu_mul_quantize_rows
         x, outs = self.x0, []
         for w in self.weights:
-            q, s = quantize(x)
+            q, s = norm_q(x, w["attn_norm"])
             outs += [gemm(q, s, *w[name], torch.bfloat16) for name in ("wq", "wk", "wv")]
             q, s = quantize(outs[-3])
             outs.append(gemm(q, s, *w["wo"], torch.bfloat16))
-            q, s = quantize(outs[-1])
+            q, s = norm_q(outs[-1], w["mlp_norm"])
             outs += [gemm(q, s, *w[name], torch.bfloat16) for name in ("w_gate", "w_up")]
-            q, s = quantize(outs[-2])
+            q, s = silu_q(outs[-2], outs[-1])
             x = gemm(q, s, *w["w_down"], torch.bfloat16)
             outs.append(x)
+        if mode == "fused" and plain:
+            assert self.rows_off["rms_norm"][2] <= 1, \
+                f"the fused norm's rows are off rms_norm's by {self.rows_off['rms_norm'][2]} ulps"
+            assert self.rows_off["silu_mul"][0] == 0, \
+                f"SiLU x up's rows differ from torch's in {self.rows_off['silu_mul'][0]} elements"
         return outs
 
-    def capture(self) -> torch.cuda.CUDAGraph:
-        """The chain through the kernels as one CUDA graph, captured after
-        one eager run (which grows the split workspace); raises unless a
-        replay's every output equals the plain versions'."""
-        self.step(w8a8.quantize_rows, w8a8.w8a8_gemm)
+    def capture(self, mode="composed") -> torch.cuda.CUDAGraph:
+        """The chain in `mode` through the kernels as one CUDA graph,
+        captured after one eager run (which grows the split workspace);
+        raises unless a replay's every output equals the mode's
+        reference."""
+        self.step(mode)
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            outs = self.step(w8a8.quantize_rows, w8a8.w8a8_gemm)
+            outs = self.step(mode)
         graph.replay()
         torch.cuda.synchronize()
-        bad = [i for i, (a, b) in enumerate(zip(outs, self.want)) if not same_bytes(a, b)]
-        assert not bad, f"the decode chain differs from the plain versions at outputs {bad}"
+        bad = [i for i, (a, b) in enumerate(zip(outs, self.want[mode])) if not same_bytes(a, b)]
+        assert not bad, f"the {mode} decode chain differs from its reference at outputs {bad}"
         self.captured.append(outs)
         return graph
 
@@ -201,10 +292,11 @@ def host_us(fn, calls=100) -> float:
 
 
 def host_costs(gen, dev) -> dict:
-    """Host us a call of each W8A8 wrapper, the model's `mm` on a quantized
-    activation, bf16 `torch.matmul`, and the two ways to read the current
-    stream (the launchers' `_cuda.stream_ptr`, and the Stream object's
-    `cuda_stream`), each the median of three passes."""
+    """Host us a call of each W8A8 wrapper (the fused ones where the
+    package has them), the model's `mm` on a quantized activation, bf16
+    `torch.matmul`, and the two ways to read the current stream (the
+    launchers' `_cuda.stream_ptr`, and the Stream object's `cuda_stream`),
+    each the median of three passes."""
     m, k, n = 4096, D, KV
     x = rows_x(m, k, gen, dev)
     xa = quant.quantize_act(x)
@@ -213,12 +305,16 @@ def host_costs(gen, dev) -> dict:
     wb = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
     cases = {
         "quantize_rows": lambda: w8a8.quantize_rows(x),
+        "rms_norm_quantize_rows": lambda: w8a8.rms_norm_quantize_rows(x, x[0], EPS),
+        "silu_mul_quantize_rows": lambda: w8a8.silu_mul_quantize_rows(x, x),
         "w8a8_gemm": lambda: w8a8.w8a8_gemm(xa.q, xa.s, w["q"], w["s"], torch.bfloat16),
         "mm_quantized": lambda: quant.mm(xa, w),
         "matmul_bf16": lambda: torch.matmul(x, wb),
         "stream_ptr": lambda: _cuda.stream_ptr(dev),
         "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
     }
+    if not hasattr(w8a8, "rms_norm_quantize_rows"):
+        del cases["rms_norm_quantize_rows"], cases["silu_mul_quantize_rows"]
     return {name: statistics.median(host_us(fn) for _ in range(3)) for name, fn in cases.items()}
 
 
@@ -236,36 +332,41 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     chain = Chain(gen, dev, args.layers)
     has_pdl = hasattr(w8a8, "PDL")
-    modes = (True, False) if has_pdl else (None,)
+    pdls = (True, False) if has_pdl else (None,)
     result = {"package": os.path.dirname(os.path.dirname(os.path.abspath(w8a8.__file__))),
               "layers": args.layers, "chain": {}}
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = args.out or tmp
         os.makedirs(out_dir, exist_ok=True)
         graphs = {}
-        for pdl in modes:
-            if has_pdl:
-                w8a8.PDL = pdl
-            graphs[pdl] = chain.capture()
+        for mode in chain.modes:
+            for pdl in pdls:
+                if has_pdl:
+                    w8a8.PDL = pdl
+                graphs[mode, pdl] = chain.capture(mode)
         if has_pdl:
             w8a8.PDL = True
-        # two passes in turns, so a drift of the card's clock touches both
-        times = {pdl: [] for pdl in modes}
+        # two passes in turns, so a drift of the card's clock touches all
+        times = {key: [] for key in graphs}
         for _ in range(2):
-            for pdl in modes:
-                times[pdl].append(chain.replay_ms(graphs[pdl]))
-        for pdl in modes:
+            for key, graph in graphs.items():
+                times[key].append(chain.replay_ms(graph))
+        for (mode, pdl), graph in graphs.items():
             name = {True: "PDL on", False: "PDL off", None: "as it launches"}[pdl]
-            tag = {True: "pdl_on", False: "pdl_off", None: "as_launched"}[pdl]
-            stats = trace_chain(chain, graphs[pdl], args.replays,
+            tag = f"{mode}_" + {True: "pdl_on", False: "pdl_off", None: "as_launched"}[pdl]
+            stats = trace_chain(chain, graph, args.replays,
                                 os.path.join(out_dir, f"trace_w8a8_{tag}.json"))
-            ms = statistics.median(times[pdl])
+            ms = statistics.median(times[mode, pdl])
             result["chain"][tag] = {"us_a_layer": 1e3 * ms, "launches": stats}
-            print(f"[trace_w8a8] decode chain, {name}: {1e3 * ms:.1f} us a layer (CUDA events); "
-                  "a launch's dur / gap / step in us: "
+            print(f"[trace_w8a8] decode chain, {mode}, {name}: {1e3 * ms:.1f} us a layer (CUDA "
+                  "events); a launch's dur / gap / step in us: "
                   + "; ".join(f"{r} {s['dur']:.1f} / {s['gap']:.1f} / {s['step']:.1f}"
                               for r, s in stats.items())
                   + f"; steps sum to {sum(s['step'] for s in stats.values()):.1f}", flush=True)
+    if "fused" in chain.modes:
+        result["rows_off"] = chain.rows_off
+        print("[trace_w8a8] the fused kernels' rows against torch's (elements off, elements, "
+              f"largest ulp step): {chain.rows_off}", flush=True)
     result["host_us"] = host_costs(gen, dev)
     print("[trace_w8a8] host us a call at 4096 x 4096 -> 1024: "
           + ", ".join(f"{k} {v:.1f}" for k, v in result["host_us"].items()), flush=True)
