@@ -222,6 +222,23 @@ final result line is printed only when every phase passed:
    the decode step, prefill dispatch, TTFT and peak memory beside phase
    5's (6's for int8 KV), and the share of greedy tokens equal to phase
    5's (not gated).
+14. M11's in-process KV movement at full width, after phase 13, on phase
+   5's weights (made again from seed 0) and engine with a host pool of 64
+   pages (16 a gather), pipeline on, in bf16 KV and then int8 KV
+   (`phase_offload`): three rounds of a prompt (a fresh 448-token prefix
+   + 64 tokens, OSL 64) served cold, then, once the host pool holds its 8
+   pages (a bounded 10 s wait; each host buffer byte-equal to its pool
+   page), warm from HBM, then after `clear_cache` restored from the host
+   (7 pages; the stream must equal the HBM-warm one); eight requests over
+   a restored prefix; `prefill_only(device_arrays=True)` on 4 prompts of
+   ISL 512 into `generate_remote` on a second engine on the same weights
+   (64 pages), each stream equal to the first engine's own serve;
+   `device_transfer_kv` of a prompt's pages, byte-equal. No restore may
+   fail, and each window's K1/K7 launches must equal what its prefill
+   dispatches, restores, injections and transfers imply, with no plain
+   call. Prints the copy-out and copy-in GB/s, the transfer's GB/s
+   against the card's memory rate, TTFT p50 cold, HBM-warm and restored,
+   peak memory and the pinned bytes.
 With --pairs N, phases 5, 6 and 7 (each a pipeline off/on pair) and
 phase 8's bf16 pipeline off/on pair run N times in turns, to show their
 spread. With --serving N only the build and phase 11 run, N times, and
@@ -3556,6 +3573,311 @@ def phase_w8a8(dev, params, ref, smi=""):
     return launches, params
 
 
+# ---------------------------------------------------------------- phase 14
+
+# phase 5's engine with the host tier; `phase_offload(cfg=..., traffic=...)`
+# swaps in a small model and shorter prompts for a CPU rehearsal
+OFFLOAD_CFG = dict(PREFIX_CFG, host_kv_pages=64, offload_batch_pages=16)
+OFFLOAD_TRAFFIC = dict(prefix=448, tail=64, osl=64, rounds=3, wave=8, remote=4,
+                       remote_pages=64, repeats=3)
+OFFLOAD_KV = (None, "int8")
+
+
+def _host_layout(kv, pid, page):
+    """Page `pid` of every layer in a host buffer's layout: [2, L, ps, w]
+    K then V (and with scale pools [2, L, ps, K] scales), on the host."""
+    rows = torch.stack([torch.stack([x[pid * page:(pid + 1) * page] for x in pools])
+                        for pools in (kv.k, kv.v)]).cpu()
+    if not kv.quantized:
+        return [rows]
+    scales = torch.stack([torch.stack([x[pid].transpose(0, 1) for x in pools])
+                          for pools in (kv.ks, kv.vs)]).cpu()
+    return [rows, scales]
+
+
+def _buf_parts(buf):
+    return [buf["kv"], buf["scales"]] if isinstance(buf, dict) else [buf]
+
+
+def phase_offload(dev, params, kv_quant=None, smi="", cfg=None, traffic=None):
+    """Phase 14: M11's in-process KV movement at full width, pipeline on,
+    on phase 5's engine with a host pool of 64 pages (16 a gather). Each of
+    `rounds` rounds serves a prompt (a fresh `prefix` + `tail` tokens)
+    cold, waits at most 10 s until the host pool holds its pages (each
+    host buffer byte-equal to the pool page it copied), serves it warm
+    from HBM, clears the HBM cache and serves it again: the host tier must
+    restore all but its last page, and the restored stream must equal the
+    HBM-warm one token for token. Then `wave` requests of round 0's prefix
+    plus tails of their own after another clear (one restore, the rest
+    reuse it). Then a second engine on the first's parameter tree
+    (`remote_pages` pages, no host tier) decodes `remote` prompts of the
+    same length, each alone, from the first engine's `prefill_only`
+    (device_arrays=True) wires through `generate_remote`; each stream must
+    equal the first engine's own cold serve of the prompt, alone. Last,
+    `device_transfer_kv` moves the last prompt's pages to the second
+    engine, byte-equal. Every window checks K1/K7 launches equal to what
+    its prefill dispatches, restores, injections and transfers imply, the
+    other kernels as the dispatch counters imply, no plain call and no
+    failed restore. Measures the copies out (the engine's gather and
+    copy of a prompt's pages into pinned buffers) and in (the restore
+    path's own wall, and a bare copy of the same buffers to the device),
+    the transfer's rate against the card's memory rate, TTFT cold,
+    HBM-warm and restored, peak memory and the pinned bytes. Returns the
+    metrics and the weights."""
+    from dynamo_tpu_torch import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.engine.kv_transfer import device_transfer_kv
+    from dynamo_tpu_torch.engine.offload import HostKvPool
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+    from dynamo_tpu_torch.llm.tokens import compute_block_hashes
+    from dynamo_tpu_torch.runtime.pipeline.context import Context
+
+    tr = dict(OFFLOAD_TRAFFIC, **(traffic or {}))
+    conf = EngineConfig(**dict(OFFLOAD_CFG, **(cfg or {})), kv_quantization=kv_quant)
+    tag = f"[offload {conf.model} {kv_quant or 'bf16'} KV, pipeline on]"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = TorchEngine(conf, params=params, device=dev)
+    page, layers = eng.page_size, eng.model_cfg.num_layers
+    page_bytes = eng.host_pool.page_bytes
+    write = PATH_KERNELS[kv_quant][0]
+    rng = np.random.RandomState(14)
+    vocab = eng.model_cfg.vocab_size
+    isl = tr["prefix"] + tr["tail"]
+
+    def rand(n):
+        return rng.randint(0, vocab, size=n).tolist()
+
+    prefixes = [rand(tr["prefix"]) for _ in range(tr["rounds"])]
+    prompts = [p + rand(tr["tail"]) for p in prefixes]
+    wave = [prefixes[0] + rand(tr["tail"]) for _ in range(tr["wave"])]
+    remote = [rand(isl) for _ in range(tr["remote"])]
+    warmup = [rand(isl) for _ in range(tr["wave"])]
+    n_pref = (isl // page - 1) * page  # the restore leaves the last page to compute
+
+    def window(e, s0, g0, what, writes=0):
+        """Check the launches since `reset_counts` against engine `e`'s
+        dispatch counters, plus one K1/K7 launch a layer for each restore
+        and for each of `writes` other page landings."""
+        d = {k: v - s0[k] for k, v in e.phase_stats.items()}
+        restored = e.offload_gate_stats["restored"] - g0["restored"]
+        assert e.offload_gate_stats["failed"] == g0["failed"], f"{tag}: a restore failed"
+        want = path_launches(d, layers, conf.decode_steps, kv_quant)
+        n = want.get(write, 0) + layers * (restored + writes)
+        if n:
+            want[write] = n
+        check_counts(read_counts(), want, f"{tag} {what}")
+        return d, restored
+
+    async def serve_alone(e, prompt, metas=None):
+        (res,), _ = await run_requests(e, [prompt], tr["osl"], metas)
+        await idle(e)
+        await asyncio.sleep(0.01)  # the restore's calibration fence lands
+        return res
+
+    async def go():
+        m = {"page_mib": page_bytes / 2 ** 20}
+        # warm-up (cuBLAS handles, the decode graphs) with the tier parked
+        eng.offload_paused = True
+        await run_requests(eng, warmup, 24)
+        await idle(eng)
+        eng.allocator.clear_cache()
+        eng.offload_paused = False
+        ttft = {"cold": [], "hbm_warm": [], "restored": []}
+        waits = []
+        for r, prompt in enumerate(prompts):
+            hashes = compute_block_hashes(prompt, page)
+            s0, g0, metas = eng.phase_stats, dict(eng.offload_gate_stats), []
+            reset_counts()
+            cold = await serve_alone(eng, prompt, metas)
+            t0 = time.perf_counter()
+            while not all(h in eng.host_pool for h in hashes):
+                held = sum(h in eng.host_pool for h in hashes)
+                assert time.perf_counter() - t0 < 10.0, \
+                    f"{tag}: the host pool holds {held} of {len(hashes)} pages after 10 s"
+                await asyncio.sleep(0.002)
+            waits.append(time.perf_counter() - t0)
+            pids = [eng.allocator._by_hash[h] for h in hashes]
+            for h, pid in zip(hashes, pids):
+                host = _buf_parts(eng.host_pool.get(h))
+                pool = _host_layout(eng.kv, pid, page)
+                assert all(_same_bytes(a, b) for a, b in zip(host, pool)), \
+                    f"{tag}: a host buffer differs from the pool page it copied"
+            if r == 0:
+                # the copy out, measured alone on the same pages into fresh
+                # pinned buffers, and a bare copy of those buffers in
+                kv = eng.kv
+                meas = HostKvPool(len(pids), layers, page, kv.k[0].shape[1], dtype=kv.k[0].dtype,
+                                  scale_width=kv.ks[0].shape[1] if kv.quantized else None,
+                                  pin_memory=dev.type == "cuda")
+                fresh = [meas.reserve().value for _ in pids]
+                d2h, d2h_dev, h2d = [], [], []
+                for _ in range(tr["repeats"]):
+                    t1 = time.perf_counter()
+                    events = eng._copy_pages_to_host(pids, fresh)
+                    if events is not None:
+                        events[1].synchronize()
+                        d2h_dev.append(events[0].elapsed_time(events[1]) / 1e3)
+                    d2h.append(time.perf_counter() - t1)
+                    parts = [_buf_parts(b) for b in fresh]
+                    dst = [torch.empty((len(fresh), *p.shape), dtype=p.dtype, device=dev)
+                           for p in parts[0]]
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    for j, bp in enumerate(parts):
+                        for x, p in zip(dst, bp):
+                            x[j].copy_(p, non_blocking=True)
+                    torch.cuda.synchronize()
+                    h2d.append(time.perf_counter() - t1)
+                for j, pid in enumerate(pids):
+                    assert all(_same_bytes(a, b) for a, b in zip(
+                        _buf_parts(fresh[j]), _host_layout(eng.kv, pid, page)))
+                nb = len(pids) * page_bytes
+                m["d2h_gb_s"] = nb / statistics.median(d2h) / 1e9
+                if d2h_dev:
+                    m["d2h_device_gb_s"] = nb / statistics.median(d2h_dev) / 1e9
+                m["h2d_bare_gb_s"] = nb / statistics.median(h2d) / 1e9
+                m["pinned_bytes_measure_buffers"] = nb
+                del fresh, dst, meas
+            warm = await serve_alone(eng, prompt, metas)
+            eng.allocator.clear_cache()
+            assert eng.peek_prefix_tokens(prompt) == len(hashes) * page
+            rest = await serve_alone(eng, prompt, metas)
+            d, restored = window(eng, s0, g0, f"round {r}: cold, HBM-warm, restored")
+            cached = [mt["prefix_cached_tokens"] for mt in metas]
+            assert cached == [0, n_pref, n_pref], f"{tag}: cached tokens {cached}"
+            assert restored == 1 and d["prefix_restored_tokens"] == n_pref, (restored, d)
+            assert rest[0] == warm[0], f"{tag}: the restored stream differs from the HBM-warm one"
+            for key, res in (("cold", cold), ("hbm_warm", warm), ("restored", rest)):
+                assert len(res[0]) == tr["osl"] and res[2] == "length", res[2]
+                ttft[key].append(res[1])
+        st = eng.phase_stats
+        m.update({
+            **{f"ttft_{k}_p50_s": statistics.median(v) for k, v in ttft.items()},
+            "host_wait_max_s": max(waits),
+            "offload_gb_s": st["offload_pages"] * page_bytes / st["offload_copy_s"] / 1e9,
+            "restore_gb_s": st["restore_pages"] * page_bytes / st["restore_s"] / 1e9,
+            "restore_ms_per_request": 1e3 * st["restore_s"] / tr["rounds"],
+        })
+
+        # a wave over round 0's prefix, from the host tier
+        eng.allocator.clear_cache()
+        s0, g0, metas = eng.phase_stats, dict(eng.offload_gate_stats), []
+        reset_counts()
+        res, _ = await run_requests(eng, wave, tr["osl"], metas)
+        await idle(eng)
+        await asyncio.sleep(0.01)
+        d, restored = window(eng, s0, g0, "restored wave")
+        assert restored == 1 and all(mt["prefix_cached_tokens"] == n_pref for mt in metas), \
+            (restored, [mt["prefix_cached_tokens"] for mt in metas])
+        m["wave_ttft_p50_s"] = statistics.median(r[1] for r in res)
+        m["host_pages"] = len(eng.host_pool)
+        m["pinned_bytes"] = eng.host_pool.buffer_bytes
+
+        # disaggregation inside one process: the first engine prefills, a
+        # second one on the same weights decodes
+        eng.offload_paused = True
+        eng2 = TorchEngine(EngineConfig(**dict(
+            OFFLOAD_CFG, **{**(cfg or {}), "host_kv_pages": 0, "num_pages": tr["remote_pages"]}),
+            kv_quantization=kv_quant), params=eng.params, device=dev)
+        await run_requests(eng2, warmup[:1], 24)  # its decode graph
+        await idle(eng2)
+        eng2.allocator.clear_cache()
+        s0, g0 = eng.phase_stats, dict(eng.offload_gate_stats)
+        reset_counts()
+        own, wires = [], []
+        for p in remote:
+            eng.allocator.clear_cache()
+            own.append((await serve_alone(eng, p))[0])
+        t_po = []
+        for p in remote:
+            eng.allocator.clear_cache()
+            pre = PreprocessedRequest(
+                token_ids=list(p), stop_conditions=StopConditions(max_tokens=tr["osl"],
+                                                                  ignore_eos=True),
+                sampling_options=SamplingOptions(greedy=True))
+            t1 = time.perf_counter()
+            wires.append(await eng.prefill_only(pre, device_arrays=True))
+            t_po.append(time.perf_counter() - t1)
+            assert eng.allocator.pages_used == 0
+        await idle(eng)
+        window(eng, s0, g0, "own serves and prefill_only")
+        assert [w[0] for w in wires] == [o[0] for o in own], f"{tag}: prefill_only's first tokens"
+        s0, g0 = eng2.phase_stats, dict(eng2.offload_gate_stats)
+        reset_counts()
+        remote_ttft = []
+        for p, (first, *wire) in zip(remote, wires):
+            pre = PreprocessedRequest(
+                token_ids=list(p), stop_conditions=StopConditions(max_tokens=tr["osl"],
+                                                                  ignore_eos=True),
+                sampling_options=SamplingOptions(greedy=True))
+            t1 = time.perf_counter()
+            toks, t_first, meta = [], None, None
+            async for f in await eng2.generate_remote(Context(pre.to_dict()), first, *wire):
+                if f.get("token_ids") and t_first is None:
+                    t_first, meta = time.perf_counter() - t1, f.get("meta")
+                toks.extend(f.get("token_ids") or [])
+            await idle(eng2)
+            assert meta["remote_prefill"] is True
+            remote_ttft.append(t_first)
+            assert toks == own[len(remote_ttft) - 1], \
+                f"{tag}: remote stream {len(remote_ttft) - 1} differs from the own serve"
+        chunks = -(-isl // conf.prefill_chunk)
+        window(eng2, s0, g0, "generate_remote", writes=chunks * len(remote))
+        m.update({"prefill_only_ms_p50": 1e3 * statistics.median(t_po),
+                  "remote_ttft_p50_s": statistics.median(remote_ttft)})
+        del wires
+
+        # the device path: the last prompt's pages, still cached in the first
+        hashes = compute_block_hashes(remote[-1], page)
+        src = [eng.allocator._by_hash[h] for h in hashes]
+        dst = eng2.allocator.allocate(len(src))
+        reset_counts()
+        times, dev_times = [], []
+        for _ in range(tr["repeats"]):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if dev.type == "cuda" \
+                else None
+            if ev:
+                ev[0].record()
+            device_transfer_kv(eng, eng2, src, dst, len(src) * page)
+            if ev:
+                ev[1].record()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            if ev:
+                dev_times.append(ev[0].elapsed_time(ev[1]) / 1e3)
+        check_counts(read_counts(), {write: layers * tr["repeats"]}, f"{tag} device_transfer_kv")
+        assert all(_same_bytes(a, b) for a, b in zip(_pool_pages(eng.kv, src, page),
+                                                      _pool_pages(eng2.kv, dst, page))), \
+            f"{tag}: transferred pages differ"
+        eng2.allocator.release(dst)
+        moved = 2 * len(src) * page_bytes  # each byte read once and written once
+        m["transfer_ms"] = 1e3 * statistics.median(times)
+        m["transfer_gb_s"] = moved / statistics.median(times) / 1e9
+        if dev_times:
+            # the stream's span from before the first launch to after the
+            # last: the host's enqueue gaps between launches included
+            m["transfer_stream_ms"] = 1e3 * statistics.median(dev_times)
+        m["transfer_bound_ms"] = 1e3 * moved / PEAKS["SXM"][0]
+        m["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        await eng2.close()
+        await eng.close()
+        return m
+
+    m = asyncio.run(go())
+    log(f"{tag} host pool {conf.host_kv_pages} pages ({m['page_mib']:.3f} MiB a page), "
+        f"{tr['rounds']} rounds of a cold, an HBM-warm and a restored serve (ISL {isl}, OSL "
+        f"{tr['osl']}; restored == HBM-warm streams), a wave of {tr['wave']} over a restored "
+        f"prefix, {tr['remote']} prefill_only -> generate_remote streams == own serves, "
+        f"device_transfer_kv byte-equal, K1/K7 launches as restores, injections and transfers "
+        f"imply, no plain call; {smi}: " + json.dumps(m))
+    params = eng.params
+    del eng
+    return m, params
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1,
@@ -3679,6 +4001,17 @@ def main() -> int:
     counts, params = phase_w8a8(dev, params, dense, smi=smi)
     launches.update({k: counts[k] for k in W8A8_KERNELS})
     del params
+    # phase 14: the host offload tier, prefill_only -> generate_remote and
+    # the device-path transfer, bf16 then int8 KV, on phase 5's weights
+    # (made again from seed 0: phase 13 quantized phase 5's in place). An
+    # engine's decode graphs hold it in a reference cycle: collect phase
+    # 13's engines first, or their W8A8 weights stay counted in the peak
+    gc.collect()
+    params = None
+    for kv_quant in OFFLOAD_KV:
+        torch.cuda.empty_cache()
+        _, params = phase_offload(dev, params, kv_quant=kv_quant, smi=smi)
+    del params
     # phase 11: the serving entry at full width (its own engine, seed 0)
     torch.cuda.empty_cache()
     phase_serving(dev, smi=smi)
@@ -3720,7 +4053,7 @@ def main() -> int:
                                    "dynamo_tpu/ops/quant.py:60"),
         "w8a8_gemm": ("dynamo_tpu_torch/csrc/w8a8.cu", "dynamo_tpu/ops/quant.py:60"),
     }
-    log(f"[smoke] phases 1-13 took {time.perf_counter() - t_smoke:.1f} s of wall time, build "
+    log(f"[smoke] phases 1-14 took {time.perf_counter() - t_smoke:.1f} s of wall time, build "
         f"included")
     kernels = []
     for k, r in results.items():

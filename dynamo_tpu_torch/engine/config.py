@@ -2,8 +2,10 @@
 
 The fields keep their names and meaning. The features the port does not
 run yet keep their fields with the "off" value, and setting one raises
-`NotImplementedError` at construction: a request for host offload or TP
-overlap must never be served by a silent approximation. W8A8 weights
+`NotImplementedError` at construction: a request for TP overlap must
+never be served by a silent approximation. The host offload tier
+(`host_kv_pages`, `offload_batch_pages`) and the disaggregated prefill's
+page wait (`prefill_wait_s`) are ported. W8A8 weights
 (`quantization="int8"`) are ported; any other value raises `ValueError`,
 as in the JAX engine. `kv_quantization="int8"` and `"int4"` are ported; int4 with one scale group
 per kv head (`kv_quant_group` None or head_dim) only. Speculative decoding
@@ -21,7 +23,6 @@ from dynamo_tpu_torch.models.config import ModelConfig, get_config
 
 # field -> the value that means "off"; anything else is not ported yet
 _UNPORTED = {
-    "host_kv_pages": 0,
     "tp_overlap": False,
 }
 
@@ -57,7 +58,11 @@ class EngineConfig:
     # scale per token and kv head, what the kernels take). Ignored unless
     # kv_quantization == "int4", as in the JAX package.
     kv_quant_group: Optional[int] = None
+    # host-RAM offload tier (engine/offload.py): pages a pool of this many
+    # page buffers holds after HBM evicts them (0 disables), copied out in
+    # background gathers of up to offload_batch_pages pages
     host_kv_pages: int = 0
+    offload_batch_pages: int = 16
     # self-speculative decoding (engine/spec.py): n-gram drafts from the
     # sequence's own history, verified in one multi-query step (greedy
     # acceptance is exact match; sampled rows keep the sampler's
@@ -91,6 +96,10 @@ class EngineConfig:
     # request's own metadata "deadline" takes precedence. Expired requests
     # are shed from the queue or finished mid-flight with "timeout".
     request_timeout_s: float = 0.0
+    # disaggregated prefill (`TorchEngine.prefill_only`): how long a prefill
+    # waits for KV pages before PoolExhaustedError, capped by the request's
+    # own deadline
+    prefill_wait_s: float = 60.0
 
     def __post_init__(self) -> None:
         for name, off in _UNPORTED.items():

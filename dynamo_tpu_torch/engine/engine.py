@@ -65,6 +65,20 @@ Port of `dynamo_tpu/engine/engine.py::JaxEngine`, main path only:
 - the prefix wire: `peek_prefix_tokens`, `export_prefix` (a cached
   prefix's KV rows in the reference's wire format) and `ingest_prefix`
   (whole pages landed through the page-scatter kernel and registered);
+- the host offload tier (`host_kv_pages`, engine/offload.py): a hashed
+  page whose last reference drops is queued for a write-through copy to a
+  host-RAM pool; between prefill waves the loop gathers a batch of them on
+  the device and copies it to the pool's buffers (on a CUDA device a
+  non-blocking copy on a side stream, put in the pool once its event is
+  seen to complete), so a prompt whose pages HBM evicted since restores
+  them from the host (a copy to the device, then the page-scatter kernel)
+  instead of recomputing them, unless the restore gate's measured rates
+  say recomputing is faster;
+- the disaggregation entries: `prefill_only` (the prompt's KV and first
+  token in the prefix wire's format, its pages left cached) and
+  `generate_remote` (decode from such a wire, landed chunk by chunk
+  through the page-scatter kernel in place of the prefill); the
+  in-process device path between two engines is engine/kv_transfer.py;
 - streamed `EngineOutput` frames, finishing on max_tokens or EOS; the
   first frame after an admission carries the prefix hit in its meta.
 
@@ -96,6 +110,7 @@ import torch
 from dynamo_tpu_torch.engine.allocator import PageAllocator
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.decode_graph import DecodeGraphs
+from dynamo_tpu_torch.engine.offload import HostKvPool
 from dynamo_tpu_torch.engine.scheduler import (
     Sequence,
     pick_admission_index,
@@ -110,6 +125,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
     DeadlineExceededError,
     EngineOutput,
     KvQuantMismatchError,
+    PoolExhaustedError,
     PreprocessedRequest,
 )
 from dynamo_tpu_torch.llm.tokens import TokenBlockSequence, compute_block_hashes
@@ -180,6 +196,13 @@ class _Fetch:
                 await asyncio.sleep(0)
             return self._numpy()
         return await asyncio.to_thread(self._numpy)
+
+    async def tensors(self) -> list:
+        """The host tensors, once the copies have landed."""
+        if self.event is not None:
+            while not self.event.query():
+                await asyncio.sleep(0)
+        return self.host
 
 
 class _Dispatch:
@@ -290,8 +313,42 @@ class TorchEngine:
         self._event_subscribers: list = []
         # finish summaries (subscribe_requests) feed EngineMetrics/SloTracker
         self._request_observers: list = []
-        self.allocator = PageAllocator(self.num_pages, self.page_size,
-                                       on_event=self._emit_event)
+        self.allocator = PageAllocator(
+            self.num_pages, self.page_size, on_event=self._emit_event,
+            on_cached=self._on_page_cached if config.host_kv_pages else None,
+        )
+        # int4 scale groups per kv head (one: finer groups are not ported),
+        # 0 on the other tiers; the device-path transfer compares them
+        self._kv_int4_groups = 1 if config.kv_quantization == "int4" else 0
+        # the HBM -> host offload tier (engine/offload.py); None when off.
+        # `offload_paused` parks it (no new copies are queued or started)
+        self.host_pool: Optional[HostKvPool] = None
+        self.offload_paused = False
+        # sequence hash -> (local hash, parent hash) of cached pages waiting
+        # for their copy, oldest first; at most one batch in flight
+        self._pending_offload: dict[int, tuple[int, Optional[int]]] = {}
+        self._offload_task: Optional[asyncio.Task] = None
+        self._offload_stream = None  # the side stream of a CUDA engine's copies
+        # the restore gate: EMAs of the measured restore rate (bytes/s,
+        # host to pool) and of the prefill rate requests see (tokens/s,
+        # admission to first token); a host hit restores only while moving
+        # its pages beats recomputing them (unknown rates restore)
+        self._ema_restore_bps: Optional[float] = None
+        self._ema_prefill_tps: Optional[float] = None
+        self.offload_gate_stats = {"restored": 0, "declined": 0, "failed": 0}
+        self._bg_tasks: set = set()  # strong refs to the calibration fences
+        if config.host_kv_pages:
+            m = self.model_cfg
+            kw = m.num_kv_heads * m.head_dim
+            kv_quant = config.kv_quantization
+            self.host_pool = HostKvPool(
+                config.host_kv_pages, m.num_layers, self.page_size,
+                kw // 2 if kv_quant == "int4" else kw,  # int4 rows: two codes a byte
+                dtype=torch.int8 if kv_quant else self._dtype,
+                on_event=self._emit_event,
+                scale_width=m.num_kv_heads if kv_quant else None,
+                pin_memory=self.device.type == "cuda",
+            )
         self._inv_freq = torch.from_numpy(rope_inv_freq(self.model_cfg)).to(self.device)
 
         self.waiting: deque[Sequence] = deque()
@@ -395,14 +452,21 @@ class TorchEngine:
             "deadline_shed": 0,
             "deadline_timeouts": 0,
             # prefix cache at admission: hits, hits that recompute at most
-            # the last page, tokens reused and tail tokens still computed.
-            # prefix_restored_tokens (host-tier restores) stays 0 until the
-            # host tier is ported
+            # the last page, tokens reused from HBM and restored from the
+            # host tier, and tail tokens still computed
             "prefix_hits": 0,
             "prefix_full_hits": 0,
             "prefix_reused_tokens": 0,
             "prefix_restored_tokens": 0,
             "prefix_tail_tokens": 0,
+            # the host tier: pages copied out and restored, and the time of
+            # their copies (on a CUDA device between events around them, so
+            # work queued before them is not counted; on the CPU the wall),
+            # as the restore gate measures it
+            "offload_pages": 0,
+            "offload_copy_s": 0.0,
+            "restore_pages": 0,
+            "restore_s": 0.0,
         }
 
     def _check_kernel_shapes(self) -> None:
@@ -470,15 +534,14 @@ class TorchEngine:
         self._request_observers.append(cb)
 
     # the reference's `metrics()` keys whose planes the port does not have
-    # yet: the KV custody ledger, the jit-compile telemetry, the offload
-    # restore gate (M11), the degrade ladder with its watchdog and fault
-    # points, the flight recorder (M12), and the tp executor attribution
-    # (M13). Every other key is served with the reference's meaning.
+    # yet: the KV custody ledger, the jit-compile telemetry, the degrade
+    # ladder with its watchdog and fault points, the flight recorder (M12),
+    # and the tp executor attribution (M13). Every other key is served with
+    # the reference's meaning.
     UNPORTED_METRICS = frozenset({
         "kv_ledger_violations", "kv_ledger_orphan_pages", "kv_ledger_audits",
         "kv_ledger_inflight",
         "compile_events", "compile_time_s",
-        "offload_restored", "offload_declined", "offload_restore_failed",
         "degraded_step_pipeline", "degraded_spec", "degraded_mixed",
         "degraded_decode_scan", "degrades_total", "recoveries_total", "mixed_disabled",
         "watchdog_fired", "faults_injected",
@@ -489,8 +552,9 @@ class TorchEngine:
     def metrics(self) -> dict:
         """ForwardPassMetrics equivalent (the reference's `metrics()`, less
         `UNPORTED_METRICS`): slots, queue, KV pool and prefix-cache gauges,
-        the step walls' device/stall split, and the spec, mixed, pipeline
-        and deadline counters. On a CUDA device also the memory gauges
+        the host tier's pages and the restore gate's decisions, the step
+        walls' device/stall split, and the spec, mixed, pipeline and
+        deadline counters. On a CUDA device also the memory gauges
         (`hbm_*`, from the caching allocator's statistics); on the CPU they
         are absent, as the reference's are on a backend without memory
         statistics."""
@@ -520,8 +584,10 @@ class TorchEngine:
             "kv_pages_peak_used": alloc.peak_used,
             "kv_fragmentation": round(alloc.fragmentation(), 4),
             "slot_occupancy": round(active / len(self.slots), 4) if self.slots else 0.0,
-            # no host pool until M11
-            "offload_host_pages": 0,
+            "offload_host_pages": len(self.host_pool) if self.host_pool is not None else 0,
+            "offload_restored": self.offload_gate_stats["restored"],
+            "offload_declined": self.offload_gate_stats["declined"],
+            "offload_restore_failed": self.offload_gate_stats["failed"],
             **self._device_memory_stats(),
             "step_device_s": round(device_s, 4),
             "step_stall_s": round(stall_s, 4),
@@ -591,7 +657,8 @@ class TorchEngine:
     # ------------------------------------------------------------------
     # requests
 
-    async def generate(self, request: Context) -> AsyncIterator[dict]:
+    async def generate(self, request: Context,
+                       _preloaded: Optional[tuple] = None) -> AsyncIterator[dict]:
         if self._closed:
             raise RuntimeError("engine is closed")
         payload = request.payload
@@ -599,7 +666,7 @@ class TorchEngine:
             PreprocessedRequest.from_dict(payload)
             if isinstance(payload, dict) else payload
         )
-        self._refuse_unported(pre)
+        self._refuse_unported(pre, remote=_preloaded is not None)
         if len(pre.token_ids) == 0:
             raise ValueError("empty prompt")
         if len(pre.token_ids) >= self.config.max_model_len:
@@ -618,6 +685,7 @@ class TorchEngine:
             blocks=self._blocks_from_metadata(request, pre),
         )
         seq.t_submit = time.perf_counter()
+        seq.preloaded = _preloaded
         if not seq.deadline and self.config.request_timeout_s > 0:
             seq.deadline = time.time() + self.config.request_timeout_s
         if seq.deadline:
@@ -661,14 +729,16 @@ class TorchEngine:
             return None
 
     @staticmethod
-    def _refuse_unported(pre: PreprocessedRequest) -> None:
+    def _refuse_unported(pre: PreprocessedRequest, remote: bool = False) -> None:
         """Refuse what the port does not serve yet: prompt embeddings (M14)
-        and the disaggregated paths (M11). `n > 1` reaches the engine as
-        one stream per choice, each with `n` kept as the request set it, as
-        in the reference."""
+        and a request asking `generate` for disaggregated routing, which
+        the disagg plane decides (llm/disagg, waiting for the runtime of
+        M17); `generate_remote` (`remote`) takes the plane's requests with
+        their extras. `n > 1` reaches the engine as one stream per choice,
+        each with `n` kept as the request set it, as in the reference."""
         unported = {
             "prompt_embeds": pre.prompt_embeds is not None,
-            "disagg": bool(pre.disagg),
+            "disagg": bool(pre.disagg) and not remote,
         }
         asked = [name for name, on in unported.items() if on]
         if asked:
@@ -689,6 +759,13 @@ class TorchEngine:
                 await self._loop_task
             except asyncio.CancelledError:
                 pass
+        if self._offload_task is not None and not self._offload_task.done():
+            # its finally returns the buffers and the page pins
+            self._offload_task.cancel()
+            try:
+                await self._offload_task
+            except (asyncio.CancelledError, Exception):  # noqa: BLE001
+                pass
         for seq in list(self.waiting) + [s for s in self.slots if s]:
             if seq.first_task is not None and not seq.first_task.done():
                 seq.first_task.cancel()
@@ -702,6 +779,9 @@ class TorchEngine:
     async def _loop(self) -> None:
         try:
             while not self._closed:
+                # offload first: queued write-through copies pin their pages
+                # before this tick's admission can evict them
+                self._maybe_start_offload()
                 # queue members past their deadline leave before they can
                 # claim a slot or pages
                 progressed = self._shed_expired_waiting()
@@ -867,38 +947,74 @@ class TorchEngine:
         count_tokens(counts, seq.slot, self._up(np.asarray(seq.tokens, np.int32)))
 
     def _reserve_pages(self, seq: Sequence) -> bool:
-        """Match the longest cached prefix of the sequence's full pages and
-        allocate fresh pages for the rest of its current tokens. At least
-        one token is always computed (a query position must sample the
-        next token): when every page is cached the last match is released
-        and recomputed into a fresh page, so no write lands in a page
-        other sequences share. On a miss the matches are released."""
+        """Match the longest cached prefix of the sequence's full pages in
+        HBM, then its continuation in the host tier, and allocate fresh
+        pages for the rest of its current tokens; the host run is restored
+        into the first fresh pages, unless the restore gate declines or the
+        restore fails (then those pages recompute, counted). At least one
+        token is always computed (a query position must sample the next
+        token): when every page is cached the last match is given back
+        (a host page first) and recomputed into a fresh page, so no write
+        lands in a page other sequences share. On a miss the matches are
+        released."""
+        ps = self.page_size
         t = seq.total_tokens
+        # this reservation's ledger: a preemption-resume must not carry an
+        # earlier attempt's decline
+        seq.blocks_declined = 0
+        seq.gate_reason = ""
         hashes = seq.blocks.sequence_hashes()
-        cap = seq.cacheable_pages(self.page_size)
+        cap = seq.cacheable_pages(ps)
         if cap is not None:
             hashes = hashes[:cap]
         matched = self.allocator.match_prefix(hashes)
-        while len(matched) * self.page_size >= t:
-            self.allocator.release([matched[-1]])
-            matched = matched[:-1]
-        need = -(-t // self.page_size) - len(matched)
+        host_run: list[int] = []
+        if self.host_pool is not None and hashes:
+            host_run = self.host_pool.match_prefix(hashes[len(matched):])
+        while (len(matched) + len(host_run)) * ps >= t:
+            if host_run:
+                host_run.pop()
+            else:
+                self.allocator.release([matched[-1]])
+                matched = matched[:-1]
+        need = -(-t // ps) - len(matched)
         fresh = self.allocator.allocate(need) if need else []
         if fresh is None:
             self.allocator.release(matched)
             return False
+        if host_run and not self._restore_worthwhile(len(host_run)):
+            # the tier must never make TTFT worse: the pages stay on the
+            # host for a cheaper future hit
+            self.offload_gate_stats["declined"] += 1
+            seq.blocks_declined = len(host_run)
+            seq.gate_reason = "restore_slower_than_recompute"
+            host_run = []
+        if host_run:
+            try:
+                self._restore_from_host(seq, fresh[:len(host_run)], len(matched))
+            except Exception:
+                # a restore is an optimization: recompute, counted as the
+                # reference counts it
+                log.exception("host-tier restore failed; recomputing")
+                self.offload_gate_stats["failed"] += 1
+                seq.blocks_declined = len(host_run)
+                seq.gate_reason = "restore_failed"
+                host_run = []
+        cached = len(matched) + len(host_run)
         seq.page_ids = matched + fresh
-        seq.num_cached = len(matched) * self.page_size
+        seq.num_cached = cached * ps
         seq.num_computed = seq.num_cached
-        seq.registered_pages = len(matched)
+        seq.registered_pages = cached
         seq.blocks_reused = len(matched)
-        if matched:
+        seq.blocks_restored = len(host_run)
+        if cached:
             tail = t - seq.num_cached
             st = self._phase_stats
             st["prefix_hits"] += 1
             # "full": the cache covered every page but the last
-            st["prefix_full_hits"] += tail <= self.page_size
-            st["prefix_reused_tokens"] += seq.num_cached
+            st["prefix_full_hits"] += tail <= ps
+            st["prefix_reused_tokens"] += len(matched) * ps
+            st["prefix_restored_tokens"] += len(host_run) * ps
             st["prefix_tail_tokens"] += tail
         return True
 
@@ -968,6 +1084,22 @@ class TorchEngine:
                 continue
             if self._has_deadlines and self._sweep_expired(seq, time.time()):
                 progressed = True  # expired mid-prefill: no more chunks
+                continue
+            if seq.preloaded is not None:
+                # remotely prefilled: land the next chunk of its wire
+                progressed = True
+                try:
+                    tok = self._inject_chunk(seq)
+                except Exception:
+                    # a malformed wire fails this request, not the loop
+                    log.exception("KV injection of seq %s failed", seq.seq_id)
+                    self._finish(seq, FINISH_REASON_ERROR)
+                    continue
+                if tok is None:
+                    self._prefilling.append(seq)
+                else:
+                    self._mark_decode_ready(seq, ([tok], None, None, None), 0, False)
+                    seq.preloaded = None
                 continue
             chunk = min(seq.total_tokens - seq.num_computed, self.config.prefill_chunk)
             bucket = self._bucket_for(chunk)
@@ -1199,12 +1331,13 @@ class TorchEngine:
         stops at the first sequence that cannot join: skipping it would
         let later arrivals jump the queue. A sequence on the extended
         sampler cannot: its final chunk must sample on the prefill
-        dispatch's extended path."""
+        dispatch's extended path, nor one whose KV arrives remotely (the
+        normal tick injects it)."""
         picks = []
         for seq in self._prefilling:
             if leftover < 1 or seq.ctx.is_stopped():
                 break  # the normal tick's sweep owns cancellation
-            if seq.needs_ext_sampling:
+            if seq.needs_ext_sampling or seq.preloaded is not None:
                 break
             need = seq.total_tokens - seq.num_computed
             chunk = min(need, self.config.prefill_chunk, leftover)
@@ -2084,16 +2217,22 @@ class TorchEngine:
 
     def peek_prefix_tokens(self, token_ids: list[int], max_tokens: Optional[int] = None,
                            hashes: Optional[list[int]] = None) -> int:
-        """Cached-prefix length of a prompt in tokens, taking no reference
-        (what `_reserve_pages` would reuse; the router's and the prefix
-        pull's decision input). Pass `hashes` when the prompt's chained
-        block hashes are at hand. The HBM tier only: the host tier is not
-        ported."""
+        """Cached-prefix length of a prompt in tokens across both tiers (HBM,
+        then its continuation in the host tier), taking no reference: what
+        `_reserve_pages` would reuse, the router's and the prefix pull's
+        decision input. Pass `hashes` when the prompt's chained block hashes
+        are at hand."""
         if hashes is None:
             hashes = compute_block_hashes(token_ids, self.page_size)
         if max_tokens is not None:
             hashes = hashes[:max_tokens // self.page_size]
-        return self.allocator.peek_prefix_tokens(hashes=hashes)
+        n = self.allocator.peek_prefix_tokens(hashes=hashes) // self.page_size
+        if self.host_pool is not None:
+            for h in hashes[n:]:
+                if h not in self.host_pool:
+                    break
+                n += 1
+        return n * self.page_size
 
     def export_prefix(self, token_ids: list[int], hashes: Optional[list[int]] = None):
         """This engine's cached KV for a prompt's longest cached prefix, the
@@ -2113,20 +2252,26 @@ class TorchEngine:
         if not pages:
             return None
         try:
-            ps = self.page_size
-            slots = self._up((np.asarray(pages, np.int64)[:, None] * ps
-                              + np.arange(ps)).reshape(-1))
-            kv = self.kv
-            with torch.inference_mode():
-                k = torch.stack([x.index_select(0, slots) for x in kv.k]).cpu()
-                v = torch.stack([x.index_select(0, slots) for x in kv.v]).cpu()
-                ks = vs = None
-                if kv.quantized:
-                    ks = torch.stack([quant.gather_kv_scales(x, slots) for x in kv.ks]).cpu()
-                    vs = torch.stack([quant.gather_kv_scales(x, slots) for x in kv.vs]).cpu()
+            rows = self._gather_rows(pages, len(pages) * self.page_size)
+            rows = [None if x is None else x.cpu() for x in rows]
         finally:
             self.allocator.release(pages)
-        return len(pages) * ps, k, v, ks, vs
+        return (len(pages) * self.page_size, *rows)
+
+    @torch.inference_mode()
+    def _gather_rows(self, pages: list[int], n_tokens: int) -> list:
+        """The first `n_tokens` positions of `pages` in the wire format, on
+        the device: [k, v, ks, vs], k/v [L, T, row width] and dense scales
+        ks/vs [L, T, K] (None for a model-dtype pool)."""
+        ps = self.page_size
+        slots = self._up((np.asarray(pages, np.int64)[:, None] * ps
+                          + np.arange(ps)).reshape(-1)[:n_tokens])
+        kv = self.kv
+        out = [torch.stack([x.index_select(0, slots) for x in pools]) for pools in (kv.k, kv.v)]
+        if kv.quantized:
+            out += [torch.stack([quant.gather_kv_scales(x, slots) for x in pools])
+                    for pools in (kv.ks, kv.vs)]
+        return out + [None] * (4 - len(out))
 
     def ingest_prefix(self, token_ids: list[int], k, v, ks=None, vs=None) -> int:
         """Land externally computed KV for a token prefix in the pools and
@@ -2160,20 +2305,7 @@ class TorchEngine:
         try:
             t0, t1 = start * ps, full_pages * ps
             wire = [None if a is None else _wire_tensor(a)[:, t0:t1] for a in (k, v, ks, vs)]
-            nk, nv, nks, nvs = self._convert_wire_kv(*wire)
-            n = len(pages)
-            kv = self.kv
-            table = self._up(np.asarray(pages, np.int32))
-            with torch.inference_mode():
-                for i in range(len(kv.k)):
-                    src = (nk[i].reshape(n, ps, -1).contiguous(),
-                           nv[i].reshape(n, ps, -1).contiguous())
-                    if kv.quantized:
-                        src += (kv.ks[i], kv.vs[i],
-                                quant.scales_to_page_tiles(nks[i], ps),
-                                quant.scales_to_page_tiles(nvs[i], ps))
-                    paged_kv_write(kv.k[i], kv.v[i], table, *src, page_size=ps,
-                                   int4=kv.int4)
+            self._write_wire_pages(pages, *self._convert_wire_kv(*wire))
             self.allocator.register(
                 pages, [(b.sequence_hash, b.local_hash) for b in blocks[start:]],
                 parent_hash=blocks[start].parent_sequence_hash,
@@ -2183,6 +2315,34 @@ class TorchEngine:
             # pages free at once
             self.allocator.release(cached + pages)
         return full_pages * ps
+
+    def _write_wire_pages(self, pages: list[int], nk, nv, nks, nvs) -> None:
+        """Land wire rows (on the device, in this pool's format, as
+        `_convert_wire_kv` gives them) of whole pages: k/v [L, n*ps, row
+        width], dense scales [L, n*ps, K] (None for a model-dtype pool)."""
+        n, ps = len(pages), self.page_size
+        k = nk.reshape(nk.shape[0], n, ps, -1)
+        v = nv.reshape(nv.shape[0], n, ps, -1)
+        ks = vs = None
+        if nks is not None:
+            ks = [quant.scales_to_page_tiles(x, ps) for x in nks]
+            vs = [quant.scales_to_page_tiles(x, ps) for x in nvs]
+        self._write_pages(pages, k, v, ks, vs)
+
+    @torch.inference_mode()
+    def _write_pages(self, pages: list[int], k, v, ks=None, vs=None) -> None:
+        """Land whole pages in every layer's pools through the page-scatter
+        write (K1, or K7 in its int8 or int4 form; on a CUDA device the
+        hand-written kernel, whose failed launch raises): `k[i]`/`v[i]`
+        [n, ps, row width] are layer i's pages and, with quantized pools,
+        `ks[i]`/`vs[i]` [n, K, ps] their scale tiles."""
+        kv, ps = self.kv, self.page_size
+        table = self._up(np.asarray(pages, np.int32))
+        for i in range(len(kv.k)):
+            src = (k[i].contiguous(), v[i].contiguous())
+            if kv.quantized:
+                src += (kv.ks[i], kv.vs[i], ks[i].contiguous(), vs[i].contiguous())
+            paged_kv_write(kv.k[i], kv.v[i], table, *src, page_size=ps, int4=kv.int4)
 
     def _convert_wire_kv(self, nk, nv, nks, nvs):
         """A wire's rows in this engine's KV format, on the device: a
@@ -2226,6 +2386,355 @@ class TorchEngine:
             nk, nv = nk.to(self._dtype), nv.to(self._dtype)
         return nk, nv, nks, nvs
 
+    # ---- disaggregation entries ----------------------------------------
+
+    async def generate_remote(self, request: Context, first_token: int, k, v, ks=None,
+                              vs=None) -> AsyncIterator[dict]:
+        """The decode side of disaggregation: `generate`, with the prompt's
+        KV computed elsewhere (by `prefill_only`, here or in JaxEngine)
+        landed instead of computed, and `first_token` (sampled there)
+        seeding decode. `k`/`v` [L, T, K*Hd] (or nibble-packed int4 rows
+        [L, T, K*Hd/2]) and `ks`/`vs` [L, T, K] from a quantized pool, as
+        tensors (on the CPU or this device) or numpy arrays; a locally
+        cached prefix is reused and only the rest lands, chunk by chunk,
+        through `_convert_wire_kv` and the page-scatter write. The first
+        frame's meta carries `remote_prefill: True`."""
+        payload = request.payload
+        pre = (PreprocessedRequest.from_dict(payload)
+               if isinstance(payload, dict) else payload)
+        m = self.model_cfg
+        kw = m.num_kv_heads * m.head_dim
+        # a quantized wire may be int4 nibble-packed: half-width rows
+        int4_wire = ks is not None and k.shape[-1] * 2 == kw
+        want = (m.num_layers, len(pre.token_ids), kw // 2 if int4_wire else kw)
+        for name, arr in (("k", k), ("v", v)):
+            if tuple(arr.shape) != want:
+                raise ValueError(f"remote {name} KV shape {tuple(arr.shape)} != expected {want}")
+        if (ks is None) != (vs is None):
+            raise ValueError("remote KV scales must come as a k/v pair")
+        if ks is not None:
+            want_s = (m.num_layers, len(pre.token_ids), m.num_kv_heads)
+            for name, arr in (("ks", ks), ("vs", vs)):
+                if tuple(arr.shape) != want_s:
+                    raise ValueError(
+                        f"remote {name} scale shape {tuple(arr.shape)} != expected {want_s}")
+        return await self.generate(request, _preloaded=(int(first_token), k, v, ks, vs))
+
+    async def prefill_only(self, pre: PreprocessedRequest, ctx: Optional[Context] = None,
+                           device_arrays: bool = False) -> tuple:
+        """The prefill side of disaggregation: compute the prompt's KV and
+        first token, outside the serving loop, and return (first_token, k,
+        v, ks, vs) in the prefix wire's format (`export_prefix`): k/v [L, T,
+        row width], ks/vs [L, T, K] on a quantized engine, else None; CPU
+        tensors, or with `device_arrays` this engine's device tensors (the
+        send side of the device path, engine/kv_transfer.py). Pages are
+        awaited up to `prefill_wait_s`, capped by the request's deadline,
+        then `PoolExhaustedError`; they are released at the end and stay
+        cached for later hits."""
+        if self._closed:
+            raise RuntimeError("engine is closed")
+        self._refuse_unported(pre, remote=True)
+        ctx = ctx or Context(pre.to_dict())
+        usable_tokens = (self.num_pages - 1) * self.page_size
+        if len(pre.token_ids) + 1 > usable_tokens:
+            raise ValueError(
+                f"prompt of {len(pre.token_ids)} tokens cannot fit the KV pool "
+                f"({self.num_pages - 1} pages x {self.page_size} tokens)")
+        seq = Sequence.from_request(ctx, pre, self.page_size, self.config.max_model_len)
+        if seq.has_penalties:
+            # the penalties read a decode slot's count row, and this sequence
+            # holds no slot (the reference reads and bumps slot 0's row)
+            raise NotImplementedError(
+                "sampling penalties on prefill_only: its sequence holds no decode slot "
+                "whose token counts they read (see ROADMAP.md)")
+        # the page wait fits whatever remains of the request's own budget
+        wait_s = float(self.config.prefill_wait_s)
+        if seq.deadline:
+            wait_s = min(wait_s, max(seq.deadline - time.time(), 0.0))
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + wait_s
+        while not self._reserve_pages(seq):
+            if loop.time() > deadline:
+                raise PoolExhaustedError(f"prefill worker out of KV pages after {wait_s:.1f}s")
+            await asyncio.sleep(0.05)
+        try:
+            while True:
+                chunk = min(seq.total_tokens - seq.num_computed, self.config.prefill_chunk)
+                res = await self._launch(self._prefill_group_dispatch, [seq],
+                                         self._bucket_for(chunk), False)
+                seq.num_computed += chunk
+                self._register_full_pages(seq)
+                if seq.num_computed >= seq.total_tokens:
+                    break
+            rows = self._gather_rows(seq.page_ids, seq.num_computed)
+            fetch = _Fetch(res[:1] + ([] if device_arrays else rows))
+            got = await fetch.tensors()
+            first_token = int(got[0][0])
+            if not device_arrays:
+                rows = got[1:]
+            return (first_token, *rows)
+        finally:
+            self.allocator.release(seq.page_ids)
+
+    def _inject_chunk(self, seq: Sequence) -> Optional[int]:
+        """Land the next chunk (at most `prefill_chunk` tokens, from the
+        sequence's first uncomputed position, page-aligned) of a remotely
+        prefilled sequence's wire in its pages; returns the remote first
+        token once every position is landed, else None. The chunk's last
+        page is padded past its tail (positions not computed yet, which
+        the page-scatter write's contract leaves free)."""
+        first_token, k, v, ks, vs = seq.preloaded
+        t = seq.total_tokens
+        start = seq.num_computed  # a locally cached prefix needs no landing
+        if start < t:
+            ps = self.page_size
+            chunk = min(t - start, self.config.prefill_chunk)
+            p0, p1 = start // ps, -(-(start + chunk) // ps)
+            pad = (p1 - p0) * ps - chunk
+            wire = []
+            for a, fill in ((k, 0.0), (v, 0.0), (ks, 1.0), (vs, 1.0)):
+                if a is not None:
+                    a = _wire_tensor(a)[:, start:start + chunk]
+                    if pad:
+                        a = torch.cat([a, a.new_full((a.shape[0], pad, a.shape[2]), fill)], 1)
+                wire.append(a)
+            self._write_wire_pages(seq.page_ids[p0:p1], *self._convert_wire_kv(*wire))
+            seq.num_computed += chunk
+            self._register_full_pages(seq)
+        if seq.num_computed >= t:
+            seq.first_meta = {**(seq.first_meta or {}), "remote_prefill": True}
+            return int(first_token)
+        return None
+
+    # ---- the host offload tier -----------------------------------------
+
+    def _on_page_cached(self, pid: int, meta) -> None:
+        """Allocator hook: a hashed page's last reference dropped; queue its
+        write-through copy to the host tier. The queue is bounded, newest
+        wins: under churn an unbounded backlog runs far behind the pages'
+        useful life, so old entries are dropped."""
+        if self.offload_paused or meta.sequence_hash in self.host_pool:
+            return
+        cap = max(4 * self.config.offload_batch_pages, 64)
+        self._pending_offload.pop(meta.sequence_hash, None)
+        while len(self._pending_offload) >= cap:
+            self._pending_offload.pop(next(iter(self._pending_offload)))
+        self._pending_offload[meta.sequence_hash] = (meta.local_hash, meta.parent_hash)
+
+    def _maybe_start_offload(self) -> None:
+        """Start one offload batch when copies are queued and none is in
+        flight. Offload yields to prefill work (waiting or prefilling
+        sequences): a gather in the middle of an admission wave takes the
+        bandwidth the wave needs; decode-only and idle ticks absorb the
+        copies. It runs at the top of a loop tick, never inside a decode
+        graph's capture."""
+        if not self._pending_offload or self.offload_paused:
+            return
+        if self.waiting or self._prefilling:
+            return
+        if self._offload_task is not None and not self._offload_task.done():
+            return
+        batch = []
+        # newest first: recently freed pages are the likeliest re-hits
+        for sh in reversed(list(self._pending_offload)):
+            if len(batch) >= self.config.offload_batch_pages:
+                break
+            lh, parent = self._pending_offload.pop(sh)
+            # pin BEFORE reserving a buffer: reserve() may evict a live host
+            # entry, which must not happen for a page HBM no longer holds
+            pid = self.allocator.pin(sh)
+            if pid is None:
+                continue
+            buf = self.host_pool.reserve()
+            if buf is None:
+                self.allocator.release([pid])
+                self._pending_offload[sh] = (lh, parent)
+                break
+            batch.append((sh, lh, parent, pid, buf))
+        if batch:
+            self._offload_task = asyncio.get_running_loop().create_task(
+                self._offload_batch(batch))
+
+    async def _offload_batch(self, batch) -> None:
+        """Copy a batch of pinned pages to their host buffers, then index
+        them in the host pool; the pins and any unused buffers go back at
+        the end, also when the copy fails or the engine closes."""
+        consumed = 0
+        try:
+            t0 = time.perf_counter()
+            events = self._copy_pages_to_host([b[3] for b in batch], [b[4].value for b in batch])
+            if events is None:
+                dt = time.perf_counter() - t0
+            else:
+                # polled on the loop thread: an event sync from another
+                # thread would invalidate a decode graph's capture
+                while not events[1].query():
+                    await asyncio.sleep(0.0002)
+                dt = events[0].elapsed_time(events[1]) / 1e3
+            st = self._phase_stats
+            st["offload_copy_s"] += dt
+            st["offload_pages"] += len(batch)
+            for i, (sh, lh, parent, _pid, buf) in enumerate(batch):
+                self.host_pool.put(sh, lh, parent, buf)  # consumes buf
+                consumed = i + 1
+        except Exception:
+            log.exception("offload copy failed; dropping batch")
+        finally:
+            for *_, buf in batch[consumed:]:
+                buf.release()
+            self.allocator.release([b[3] for b in batch])
+            # re-arm the loop: the rest of the queue must go out before
+            # admissions can evict those pages
+            self._wake.set()
+
+    @torch.inference_mode()
+    def _copy_pages_to_host(self, pids: list[int], bufs: list):
+        """Gather pages `pids` on the device into [n, 2, L, ps, row width]
+        (and [n, 2, L, ps, K] scales), each page one host buffer's layout,
+        and copy page j into `bufs[j]`. On a CUDA device the copies run on
+        a side stream that first waits for the compute stream (the gather
+        and every write before it), without blocking the host; returns
+        timing events recorded before the gather and after the copies. On
+        the CPU the copies are done on return (None)."""
+        kv, ps = self.kv, self.page_size
+        start = None
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        idx = self._up(np.asarray(pids, np.int64))
+        pages = torch.stack([
+            torch.stack([x.view(-1, ps, x.shape[1]).index_select(0, idx) for x in pools], 1)
+            for pools in (kv.k, kv.v)], 1)
+        scales = None
+        if kv.quantized:
+            scales = torch.stack([
+                torch.stack([x.index_select(0, idx).transpose(1, 2) for x in pools], 1)
+                for pools in (kv.ks, kv.vs)], 1)
+
+        def copy(non_blocking):
+            for j, buf in enumerate(bufs):
+                if scales is None:
+                    buf.copy_(pages[j], non_blocking=non_blocking)
+                else:
+                    buf["kv"].copy_(pages[j], non_blocking=non_blocking)
+                    buf["scales"].copy_(scales[j], non_blocking=non_blocking)
+
+        if self.device.type != "cuda":
+            copy(False)
+            return None
+        if self._offload_stream is None:
+            self._offload_stream = torch.cuda.Stream(self.device)
+        side = self._offload_stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            copy(True)
+        for t in (pages, scales):
+            if t is not None:
+                t.record_stream(side)
+        done = torch.cuda.Event(enable_timing=True)
+        done.record(side)
+        return start, done
+
+    def _restore_page_bytes(self) -> int:
+        """Host bytes a restored page moves (K and V rows and scale tiles
+        of every layer): the cost side of the restore gate."""
+        return self.host_pool.page_bytes
+
+    def _reset_offload_ema(self) -> None:
+        """Forget the restore gate's rates: after a change of the engine's
+        configuration (the reference's degrade ladder, M12) they would
+        misprice restoring against recomputing; the next restore and
+        prefill calibrate them again."""
+        self._ema_restore_bps = None
+        self._ema_prefill_tps = None
+
+    def _restore_worthwhile(self, n_pages: int) -> bool:
+        """Restore only when moving the pages beats recomputing their
+        tokens at the measured rates; with a rate unknown, restore (the
+        restore calibrates it)."""
+        if self._ema_restore_bps is None or self._ema_prefill_tps is None:
+            return True
+        restore_s = n_pages * self._restore_page_bytes() / self._ema_restore_bps
+        recompute_s = n_pages * self.page_size / self._ema_prefill_tps
+        return restore_s < recompute_s
+
+    def _note_prefill_rate(self, seq: Sequence) -> None:
+        """Calibrate the gate's recompute side: the prefill rate a request
+        saw, admission to its first token, batching included. Only loaded
+        samples count (at least a page computed over at least 50 ms): an
+        idle engine's apparent rate would bias the gate into declining
+        restores that pay."""
+        fresh = seq.prompt_len - seq.num_cached
+        span = seq.t_first_emit - seq.t_admit
+        if seq.t_admit and fresh >= self.page_size and span > 0.05:
+            tps = fresh / span
+            self._ema_prefill_tps = (tps if self._ema_prefill_tps is None
+                                     else 0.8 * self._ema_prefill_tps + 0.2 * tps)
+
+    def _restore_from_host(self, seq: Sequence, page_ids: list[int], start_block: int) -> None:
+        """Land the host copies of the sequence's blocks from `start_block`
+        in the fresh pages `page_ids` and index them: each page buffer is
+        copied to the device (without blocking, from pinned buffers on a
+        CUDA device), reordered into per-layer pages, and written through
+        the page-scatter kernel. The gate's rate is calibrated from the
+        restore's own time: on a CUDA device between an event recorded
+        before the first copy and one after the last write, read once a
+        task polling off the admission path sees the second complete (a
+        wall until then would also count the prefill enqueued behind the
+        restore in the same tick); on the CPU the wall."""
+        t0 = time.perf_counter()
+        blocks = seq.blocks.blocks[start_block:start_block + len(page_ids)]
+        bufs = [self.host_pool.get(b.sequence_hash) for b in blocks]
+        quantized = isinstance(bufs[0], dict)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        with torch.inference_mode():
+            parts = [[b["kv"] for b in bufs], [b["scales"] for b in bufs]] if quantized \
+                else [bufs]
+            staged = []
+            for host in parts:
+                st = torch.empty((len(host), *host[0].shape), dtype=host[0].dtype,
+                                 device=self.device)
+                for j, h in enumerate(host):
+                    st[j].copy_(h, non_blocking=cuda)
+                staged.append(st)
+            # [n, 2, L, ps, w] -> [2, L, n, ps, w]; scales [n, 2, L, ps, K] -> tiles
+            # [2, L, n, K, ps]
+            kvp = staged[0].permute(1, 2, 0, 3, 4).contiguous()
+            tiles = staged[1].permute(1, 2, 0, 4, 3).contiguous() if quantized else (None, None)
+            self._write_pages(page_ids, kvp[0], kvp[1], tiles[0], tiles[1])
+        self.allocator.register(
+            page_ids, [(b.sequence_hash, b.local_hash) for b in blocks],
+            parent_hash=blocks[0].parent_sequence_hash,
+        )
+        self.offload_gate_stats["restored"] += 1
+        n = len(page_ids)
+
+        def calibrate(dt: float) -> None:
+            dt = max(dt, 1e-6)
+            self._phase_stats["restore_s"] += dt
+            self._phase_stats["restore_pages"] += n
+            bps = n * self._restore_page_bytes() / dt
+            self._ema_restore_bps = (bps if self._ema_restore_bps is None
+                                     else 0.5 * self._ema_restore_bps + 0.5 * bps)
+
+        if not cuda:
+            calibrate(time.perf_counter() - t0)
+            return
+        done = torch.cuda.Event(enable_timing=True)
+        done.record()
+
+        async def fence() -> None:
+            while not done.query():
+                await asyncio.sleep(0.0002)
+            calibrate(start.elapsed_time(done) / 1e3)
+
+        task = asyncio.get_running_loop().create_task(fence())
+        self._bg_tasks.add(task)
+        task.add_done_callback(self._bg_tasks.discard)
+
     # ---- bookkeeping --------------------------------------------------
 
     def _append_token(self, seq: Sequence, token: int, logprob: Optional[float] = None,
@@ -2240,6 +2749,8 @@ class TorchEngine:
         seq.generated += 1
         if seq.generated == 1:
             seq.t_first_emit = time.perf_counter()
+            if seq.preloaded is None:
+                self._note_prefill_rate(seq)
         frame = EngineOutput(token_ids=[token])
         if seq.want_logprobs:
             if logprob is not None:
@@ -2296,8 +2807,7 @@ class TorchEngine:
     def _note_finished(self, seq: Sequence, reason: str) -> None:
         """The finish summary for `subscribe_requests` observers (the
         reference's, less its tracing span and KV-ledger call, which come
-        with M12). The host tier is not ported: no prefix block is
-        restored or declined."""
+        with M12)."""
         if not self._request_observers:
             return
         now = time.perf_counter()
@@ -2307,8 +2817,10 @@ class TorchEngine:
             "prompt_tokens": seq.prompt_len,
             "tokens": seq.generated,
             "tenant": seq.tenant,
-            "prefix": {"reused_blocks": seq.blocks_reused, "restored_blocks": 0,
-                       "declined_blocks": 0, "gate_reason": ""},
+            "prefix": {"reused_blocks": seq.blocks_reused,
+                       "restored_blocks": seq.blocks_restored,
+                       "declined_blocks": seq.blocks_declined,
+                       "gate_reason": seq.gate_reason},
             "queue_wait_s": (seq.t_admit - seq.t_submit
                              if seq.t_admit and seq.t_submit else None),
             "ttft_s": (seq.t_first_emit - seq.t_submit

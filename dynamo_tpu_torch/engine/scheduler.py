@@ -50,9 +50,18 @@ class Sequence:
     num_cached: int = 0        # prefix-cache tokens reused at admission
     num_computed: int = 0      # tokens whose KV is valid in pages
     registered_pages: int = 0  # leading pages whose hashes are registered
-    # prefix pages the last reservation reused (a preemption-resume
-    # restamps it)
+    # prefix pages the last reservation reused from HBM, restored from the
+    # host tier, and found on the host but not restored (the restore gate
+    # declined, or the restore failed: `gate_reason`); a preemption-resume
+    # restamps them
     blocks_reused: int = 0
+    blocks_restored: int = 0
+    blocks_declined: int = 0
+    gate_reason: str = ""
+    # disaggregated decode (`TorchEngine.generate_remote`): (first token,
+    # k, v, ks, vs) of a prompt prefilled elsewhere, injected chunk by
+    # chunk in place of the prefill; None once injected
+    preloaded: Optional[tuple] = None
     slot: int = -1
     generated: int = 0
     prefilling: bool = False   # admitted but prompt KV not yet complete

@@ -22,10 +22,10 @@ and refused with the ROADMAP item that brings them: `in=dyn://...` and
 `out=dyn://...` (M17), `--tp/--pp/--sp` above 1 and `--num-nodes` above 1
 (M13), `--admission` (M17), and any value but the
 default of `--hub`, `--router-mode` (M17), `--disagg-mode`,
-`--max-local-prefill-length` (M11), `--node-rank` and `--coordinator`
-(M13). The engine flags go to
-the port's `EngineConfig`, which refuses what is not ported
-(`--host-kv-pages`); `--quantization int8` serves W8A8 weights.
+`--max-local-prefill-length` (the disagg plane, which waits for the
+runtime of M17), `--node-rank` and `--coordinator` (M13). The engine
+flags go to the port's `EngineConfig`: `--host-kv-pages` serves the host
+offload tier, `--quantization int8` W8A8 weights.
 
 Examples:
     python -m dynamo_tpu_torch.run in=http out=torch --model-path /models/llama
@@ -82,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-quantization", default=None, choices=["int8", "int4"],
                    help="int8 or int4 KV cache pages")
     p.add_argument("--host-kv-pages", type=int, default=0,
-                   help="host KV offload pool size (0 disables; not ported: M11)")
+                   help="HBM->host KV offload pool size (0 disables)")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--extra-engine-args", help="JSON file of EngineConfig overrides")
     p.add_argument("--request-template",
@@ -97,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--admission", action="store_true",
                    help="front-door admission gate (not ported: M17)")
     p.add_argument("--disagg-mode", choices=["agg", "decode", "prefill"],
-                   default="agg", help="worker role in a disaggregated graph (not ported)")
+                   default="agg", help="worker role in a disaggregated graph (refused: the "
+                        "disagg plane waits for the runtime, ROADMAP M17)")
     p.add_argument("--max-local-prefill-length", type=int, default=128)
     p.add_argument("--max-tokens", type=int, default=256,
                    help="default generation budget for text/stdin/batch inputs")
@@ -139,8 +140,11 @@ def refuse_unported(args, out: str, inp: str = "") -> None:
             "which are not ported to dynamo_tpu_torch yet (ROADMAP M17)")
     if args.disagg_mode != "agg" or args.max_local_prefill_length != 128:
         raise NotImplementedError(
-            "--disagg-mode/--max-local-prefill-length: disaggregated prefill and "
-            "decode are not ported to dynamo_tpu_torch yet (ROADMAP M11)")
+            "--disagg-mode/--max-local-prefill-length: M11's disaggregated serving "
+            "plane (the prefill queue, the DisaggRouter, the remote-prefill endpoint) "
+            "runs on the distributed runtime, which is not ported to dynamo_tpu_torch "
+            "yet (ROADMAP M17); TorchEngine.prefill_only and generate_remote are its "
+            "engine side")
     if args.node_rank != 0 or args.coordinator:
         raise NotImplementedError(
             "--node-rank/--coordinator: multi-node serving is not ported to "

@@ -152,6 +152,17 @@ def test_default_device_needs_cuda(monkeypatch):
 def test_unported_config_refused(field, value):
     # kv_quant_group's unported case: int4 scale groups finer than head_dim (32 < 128)
     other = {"kv_quantization": "int4", "model": "llama-3.1-8b"} if field == "kv_quant_group" else {}
+    if field == "host_kv_pages":
+        # the host offload tier is served, with its batch size and the
+        # disaggregated prefill's page wait
+        assert (EngineConfig(model="tiny").offload_batch_pages,
+                EngineConfig(model="tiny").prefill_wait_s) == (16, 60.0)
+        cfg = EngineConfig(model="tiny", dtype="float32", host_kv_pages=value,
+                           offload_batch_pages=4, prefill_wait_s=5.0)
+        assert (cfg.host_kv_pages, cfg.offload_batch_pages, cfg.prefill_wait_s) == (8, 4, 5.0)
+        eng = TorchEngine(cfg, device="cpu")
+        assert eng.host_pool.capacity == 8 and eng.metrics()["offload_host_pages"] == 0
+        return
     if field in ("spec_decode", "mixed_batching"):
         # served with the step pipeline (the default) and without it
         assert EngineConfig(model="tiny").step_pipeline

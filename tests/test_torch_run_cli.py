@@ -5,7 +5,8 @@ JAX side on gather attention), and the refusals of what the port does not
 serve: `dyn://` modes, parallelism above 1, the hub, router, disagg and
 multi-node flags at any value but their default, the admission gate, and no
 GPU with the default device (the engine's own error, never a fallback).
-`--slo-targets` serves (tests/test_torch_http_service.py renders it)."""
+`--slo-targets` serves (tests/test_torch_http_service.py renders it), and so
+does `--host-kv-pages`."""
 
 from __future__ import annotations
 
@@ -100,10 +101,29 @@ def test_slo_targets_load_as_the_jax_run_loads_them(tmp_path, monkeypatch):
 
 
 def test_unported_engine_flags_raise():
+    """`--host-kv-pages` is served now (the engine gets a host pool of that
+    many pages); the disagg flags still raise, naming the runtime (M17)
+    their plane waits for."""
+    from dynamo_tpu_torch.run import build_engine_config_kwargs, refuse_unported
+
     args = build_parser().parse_args(["in=http", "out=torch", "--model-path", CKPT,
-                                      "--device", "cpu", "--host-kv-pages", "8"])
-    with pytest.raises(NotImplementedError, match="host_kv_pages"):
-        asyncio.run(serve_http(args, "torch"))
+                                      "--device", "cpu", "--dtype", "float32",
+                                      "--num-pages", "64", "--http-host", "127.0.0.1",
+                                      "--http-port", "0", "--host-kv-pages", "8"])
+    refuse_unported(args, "torch", "http")
+    assert build_engine_config_kwargs(args)["host_kv_pages"] == 8
+
+    async def go():
+        svc, engine = await serve_http(args, "torch")
+        await svc.stop()
+        await engine.close()
+        return engine
+
+    assert asyncio.run(go()).host_pool.capacity == 8
+    args = build_parser().parse_args(["in=http", "out=torch", "--model-path", CKPT,
+                                      "--disagg-mode", "decode"])
+    with pytest.raises(NotImplementedError, match="M17"):
+        refuse_unported(args, "torch", "http")
 
 
 def test_quantization_int8_serves_a_completion():
