@@ -239,6 +239,25 @@ final result line is printed only when every phase passed:
    call. Prints the copy-out and copy-in GB/s, the transfer's GB/s
    against the card's memory rate, TTFT p50 cold, HBM-warm and restored,
    peak memory and the pinned bytes.
+15. the sparse-MoE family (models/moe.py) at full width, after phase 14's
+   engines are collected: Mixtral-8x7B's widths (d 4096, F 14336, 8
+   experts, top 2, 32 heads over 8 KV heads of 128) at 16 of its 32 layers
+   (the 32 hold 92.9 GB, over the card's 80), bf16 from seeded random
+   weights. First one layer at 8 and 4,096 rows: routing (experts and keep
+   masks) equal to the f64 CPU computation on the same bf16 inputs but at
+   f64 near-ties (MOE_TIE_GAP), the output within MOE_ELEM_RMS of each
+   row's RMS and MOE_NORM_REL overall (every row at 8, every 16th at
+   4,096), two plain versions gone wrong (slot 1 dropped, weights not
+   renormalised) shown to miss it, and each piece's device ms (router +
+   top-k + capacity, dispatch, the gate, up and down bmm, SiLU x up,
+   combine, the block) beside its bound. Then phase 5's traffic on the
+   engine (page 64, 256 pages, prefill_chunk 512, decode_steps 8, batch 8,
+   pipeline on) in bf16, int8 and int4 KV, phase 8's wave with mixed steps
+   and speculative decoding on in bf16 KV, and the attention projections
+   quantized in place (W8A8; router and experts stay bf16) in bf16 KV:
+   each run the attention and KV kernels' launches its dispatch counters
+   imply and no plain call, the graph check, and decode step ms, TTFT p50
+   and max, output tok/s, peak memory and weight bytes.
 With --pairs N, phases 5, 6 and 7 (each a pipeline off/on pair) and
 phase 8's bf16 pipeline off/on pair run N times in turns, to show their
 spread. With --serving N only the build and phase 11 run, N times, and
@@ -1859,7 +1878,7 @@ def read_counts():
     return {n: (getattr(k, attr), p.calls) for n, (k, attr, p) in counters().items()}
 
 
-def path_launches(stats, layers, decode_steps, kv_quant, w8a8=False, act="silu"):
+def path_launches(stats, layers, decode_steps, kv_quant, w8a8=False, act="silu", moe=False):
     """The launches the engine's own dispatch counters (`phase_stats`
     deltas) imply: K1/K2 (or their quantized forms) once a layer per
     standalone prefill dispatch, K3/K5 once a layer per decode step, K4
@@ -1869,6 +1888,10 @@ def path_launches(stats, layers, decode_steps, kv_quant, w8a8=False, act="silu")
     outputs by rms_norm_quantize_rows, a SiLU model's SiLU x up by
     silu_mul_quantize_rows (another activation's by quantize_rows), the
     attention output and the head's input by quantize_rows; and runs 7
+    GEMMs a layer and the head's. An MoE layer (`moe`) launches the same
+    attention and KV kernels; under W8A8 its router and experts stay bf16,
+    so a step quantizes the attention norm's output (rms_norm_quantize_rows)
+    and the attention output a layer and the head's input, and runs 4
     GEMMs a layer and the head's."""
     write, prefill, decode = PATH_KERNELS[kv_quant]
     want = {
@@ -1881,10 +1904,15 @@ def path_launches(stats, layers, decode_steps, kv_quant, w8a8=False, act="silu")
         steps = (stats["prefill_dispatches"] + stats["decode_dispatches"] * decode_steps
                  + stats["mixed_steps"] + stats["spec_dispatches"])
         silu = act == "silu"
-        want["rms_norm_quantize_rows"] = 2 * layers * steps
-        want["silu_mul_quantize_rows"] = layers * steps if silu else 0
-        want["quantize_rows"] = ((1 if silu else 2) * layers + 1) * steps
-        want["w8a8_gemm"] = (7 * layers + 1) * steps
+        if moe:
+            want["rms_norm_quantize_rows"] = layers * steps
+            want["quantize_rows"] = (layers + 1) * steps
+            want["w8a8_gemm"] = (4 * layers + 1) * steps
+        else:
+            want["rms_norm_quantize_rows"] = 2 * layers * steps
+            want["silu_mul_quantize_rows"] = layers * steps if silu else 0
+            want["quantize_rows"] = ((1 if silu else 2) * layers + 1) * steps
+            want["w8a8_gemm"] = (7 * layers + 1) * steps
     return {k: n for k, n in want.items() if n}
 
 
@@ -2347,21 +2375,22 @@ async def profile_prefill(engine, prompts):
 
 
 def phase_full_width(dev, kv_quant=None, params=None, pipe=True, quantization=None,
-                     streams=None):
+                     streams=None, model="llama-3.1-8b", label="8b"):
     """Serve eight requests at full width, with the step pipeline on or
     off; returns the main path's launch counts, the metrics and the
     engine's parameters (for the next phase). `quantization="int8"` takes
     W8A8 params (phase 13); `streams`, when given, receives the measured
-    round's token lists."""
+    round's token lists. `model` is a preset name or a ModelConfig (phase
+    15's Mixtral at 16 layers), `label` its tag in the log."""
     from dynamo_tpu_torch import EngineConfig, TorchEngine
 
     isl, osl, nreq = 512, 64, 8
     cfg = EngineConfig(
-        model="llama-3.1-8b", dtype="bfloat16", page_size=64, num_pages=256,
+        model=model, dtype="bfloat16", page_size=64, num_pages=256,
         max_batch_size=8, max_model_len=2048, prefill_chunk=512, decode_steps=8, seed=0,
         kv_quantization=kv_quant, step_pipeline=pipe, quantization=quantization,
     )
-    tag = (f"[8b {'W8A8, ' if quantization else ''}{kv_quant or 'bf16'} KV, "
+    tag = (f"[{label} {'W8A8, ' if quantization else ''}{kv_quant or 'bf16'} KV, "
            f"pipeline {'on' if pipe else 'off'}]")
     t0 = time.perf_counter()
     eng = TorchEngine(cfg, params=params, device=dev)
@@ -2369,9 +2398,12 @@ def phase_full_width(dev, kv_quant=None, params=None, pipe=True, quantization=No
     kv = eng.kv
     kv_bytes = sum(x.numel() * x.element_size()
                    for pools in (kv.k, kv.v, kv.ks or (), kv.vs or ()) for x in pools)
-    log(f"{tag} llama-3.1-8b random init (seed 0): {eng.param_count / 1e9:.3f} B params, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, KV pools {kv_bytes / 1e9:.3f} GB "
-        f"({eng.num_pages} pages of {eng.page_size}), {time.perf_counter() - t0:.1f} s")
+    mc = eng.model_cfg
+    log(f"{tag} {mc.name} ({mc.num_layers} layers) random init (seed 0): "
+        f"{eng.param_count / 1e9:.3f} B params, {weight_bytes(eng.params) / 1e9:.3f} GB of "
+        f"weights, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, KV pools "
+        f"{kv_bytes / 1e9:.3f} GB ({eng.num_pages} pages of {eng.page_size}), "
+        f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.RandomState(0)
     vocab = eng.model_cfg.vocab_size
     prompts = [rng.randint(0, vocab, size=isl).tolist() for _ in range(nreq)]
@@ -2406,7 +2438,7 @@ def phase_full_width(dev, kv_quant=None, params=None, pipe=True, quantization=No
     if streams is not None:
         streams.extend(r[0] for r in res)
     want = path_launches(d, layers, cfg.decode_steps, kv_quant, w8a8=bool(quantization),
-                         act=eng.model_cfg.hidden_act)
+                         act=eng.model_cfg.hidden_act, moe=bool(eng.model_cfg.num_experts))
     check_counts(counts, want, tag)
     ttft = sorted(r[1] for r in res)
     first_done = min(r[1] for r in res)
@@ -2513,7 +2545,8 @@ def phase_wave(dev, params, kv_quant=None, on=True, cfg=None, traffic=None, ref_
     tr = dict(WAVE_TRAFFIC, **(traffic or {}))
     conf = EngineConfig(**dict(WAVE_CFG, **(cfg or {})), kv_quantization=kv_quant,
                         mixed_batching=on, spec_decode=on, step_pipeline=pipe)
-    tag = (f"[wave {conf.model} {kv_quant or 'bf16'} KV, mixed + spec {'on' if on else 'off'}, "
+    tag = (f"[wave {getattr(conf.model, 'name', conf.model)} {kv_quant or 'bf16'} KV, "
+           f"mixed + spec {'on' if on else 'off'}, "
            f"pipeline {'on' if pipe else 'off'}]")
     eng = TorchEngine(conf, params=params, device=dev)
     rng = np.random.RandomState(1)
@@ -2540,7 +2573,8 @@ def phase_wave(dev, params, kv_quant=None, on=True, cfg=None, traffic=None, ref_
     d = {k: s1[k] - s0[k] for k in s1}
     d["mixed_step_tokens_max"] = s1["mixed_step_tokens_max"]
     layers = eng.model_cfg.num_layers
-    check_counts(counts, path_launches(d, layers, conf.decode_steps, kv_quant), tag)
+    check_counts(counts, path_launches(d, layers, conf.decode_steps, kv_quant,
+                                       moe=bool(eng.model_cfg.num_experts)), tag)
     if on:
         assert d["mixed_steps"] > 0, f"{tag}: no mixed step ran"
     t_end = max(times[-1] for _, times, _ in wave_res)
@@ -3878,6 +3912,230 @@ def phase_offload(dev, params, kv_quant=None, smi="", cfg=None, traffic=None):
     return m, params
 
 
+# ---------------------------------------------------------------- phase 15
+
+# Mixtral-8x7B at full width: a layer holds 2.818 GB of experts, so its 32
+# layers (92.9 GB) exceed the card's 80 GB; the card runs 16
+MOE_MODEL, MOE_LAYERS = "mixtral-8x7b", 16
+MOE_ROWS = (8, 4096)   # a decode step's rows (batch 8) and an 8 x 512 prefill's
+MOE_SAMPLE = 256       # rows of the 4,096-row output held against the f64 computation
+# the bf16 layer against the f64 computation on the same bf16 inputs: each
+# element within 2**-4 of its row's RMS (8-16 bf16 ulps of the RMS) and the
+# error's RMS within 2**-6 of the output's. Seven bf16 roundings on the way
+# (gate, up, SiLU, SiLU x up, down, the weight and the slot sum), each off
+# by about 0.4 * 2**-8 (RMS, relative), put the error's RMS near 2**-8 of
+# the output's; a dropped slot or unnormalised weights are off by about
+# half the output's RMS
+MOE_ELEM_RMS, MOE_NORM_REL = 2.0 ** -4, 2.0 ** -6
+# f32 routing may order two experts whose f64 probabilities are this close
+# (relative) either way; any other difference fails
+MOE_TIE_GAP = 1e-5
+# published float32 rates outside the tensor cores (NVIDIA data sheets)
+F32_PEAKS = {"SXM": 67e12, "PCIe": 51e12, "NVL": 60e12}
+
+
+def moe_model():
+    from dynamo_tpu_torch.models.config import get_config
+
+    return get_config(MOE_MODEL).with_(num_layers=MOE_LAYERS)
+
+
+def _moe_f64(lp, cfg, x, rows):
+    """The f64 CPU computation of an MoE layer on the card's bf16 inputs x
+    [N, D]: the routing of every row (models/moe.py `route` in float64)
+    and the outputs of `rows`, each the sum over its kept slots of the
+    weight times its expert's SwiGLU, one expert's weights in f64 at a time."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.models import moe
+
+    xc = x.cpu().double()
+    r = moe.route({"router": lp["router"].cpu()}, cfg, xc)
+    out = torch.zeros(len(rows), xc.shape[1], dtype=torch.float64)
+    k = cfg.num_experts_per_tok
+    for e in range(cfg.num_experts):
+        sel = [(j, s) for j, i in enumerate(rows) for s in range(k)
+               if r.keep[s, i] and r.expert[s, i] == e]
+        if not sel:
+            continue
+        w = {n: lp[n][e].cpu().double() for n in ("we_gate", "we_up", "we_down")}
+        xs = xc[[rows[j] for j, _ in sel]]
+        y = (F.silu(xs @ w["we_gate"]) * (xs @ w["we_up"])) @ w["we_down"]
+        for (j, s), yy in zip(sel, y):
+            out[j] += r.weight[s, rows[j]] * yy
+    return r, out
+
+
+def _moe_err(got, want):
+    """(largest |error| over its row's RMS, the error's RMS over the output's)."""
+    got, want = got.double(), want.double()
+    rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    err = got - want
+    return float((err.abs() / rms).max()), float(err.pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+
+
+def check_moe_layer(peaks, part, dev, smi="", cfg=None, rows=MOE_ROWS, sample=MOE_SAMPLE):
+    """One MoE layer on the card at each of `rows` token counts, bf16, on
+    seeded random weights and inputs: the routing (experts and keep masks)
+    equal to the f64 CPU computation's but at near-ties, the output within
+    MOE_ELEM_RMS / MOE_NORM_REL of it (all rows at the small count, every
+    16th at the large), and plain versions gone wrong (slot 1 dropped, the
+    top-k weights not renormalised) shown to miss it; then each piece's
+    device ms (router + top-k + capacity, dispatch, the three bmm, SiLU x
+    up, combine, and the whole block) beside its bound."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.models import moe
+
+    cfg = cfg or moe_model()
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 is on: routing must run in f32"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    lp = moe.init_moe_params(cfg, gen, device=dev, dtype=torch.bfloat16)
+    d, f, e, k = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts, cfg.num_experts_per_tok
+    bw, bf16 = peaks
+    f32 = F32_PEAKS[part]
+    for n in rows:
+        x = torch.randn((n, d), generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
+        r = moe.route(lp, cfg, x)
+        xe = moe.dispatch(x, r, e)
+        ye = moe.experts(lp, xe)
+        got = moe.combine(ye, r)
+        assert torch.equal(got, moe.moe_block(lp, cfg, x[None])[0]), "moe_block != its pieces"
+        assert torch.isfinite(got).all()
+        picked = list(range(n)) if n <= sample else list(range(0, n, n // sample))
+        t0 = time.perf_counter()
+        ref, want = _moe_f64(lp, cfg, x, picked)
+        ref_s = time.perf_counter() - t0
+        # routing: equal experts but where f64 puts two of the k + 1 best
+        # within MOE_TIE_GAP of each other; equal keep masks
+        probs = torch.softmax(x.cpu().double() @ lp["router"].cpu().double(), dim=-1)
+        top = probs.sort(dim=-1, descending=True).values[:, :k + 1]
+        near = ((top[:, :-1] - top[:, 1:]) < MOE_TIE_GAP * top[:, 1:]).any(dim=-1)
+        differ = (r.expert.cpu() != ref.expert).any(dim=0)
+        assert not (differ & ~near).any(), \
+            f"MoE n={n}: routing differs from f64 at {int((differ & ~near).sum())} tokens"
+        assert torch.equal(r.keep.cpu(), ref.keep), f"MoE n={n}: keep masks differ from f64"
+        w_err = float((r.weight.cpu().double() - ref.weight).abs().max())
+        ok_rows = [j for j, i in enumerate(picked) if not differ[i]]
+        g = got[picked].cpu()[ok_rows]
+        elem, norm = _moe_err(g, want[ok_rows])
+        assert elem <= MOE_ELEM_RMS and norm <= MOE_NORM_REL, \
+            f"MoE n={n}: output off the f64 computation ({elem:.3e} of a row's RMS, " \
+            f"{norm:.3e} overall)"
+        # the check's power: plain versions gone wrong miss it
+        wrong = {}
+        rows_idx = torch.where(r.keep, r.expert * r.capacity + r.pos, 0)
+        flat = ye.reshape(-1, d)
+        w0 = torch.where(r.keep[0], r.weight[0], 0.0).to(ye.dtype)
+        wrong["slot 1 dropped"] = flat[rows_idx[0]] * w0[:, None]
+        raw = torch.softmax(x.float() @ lp["router"].float(), dim=-1).sort(
+            dim=-1, descending=True, stable=True).values[:, :k].T
+        wrong["weights not renormalised"] = moe.combine(ye, r._replace(weight=raw))
+        for name, bad in wrong.items():
+            be, bn = _moe_err(bad[picked].cpu()[ok_rows], want[ok_rows])
+            assert be > MOE_ELEM_RMS or bn > MOE_NORM_REL, f"MoE n={n}: {name} passes the check"
+            wrong[name] = f"{be:.3f} of a row's RMS, {bn:.4f} overall"
+        kept = int(r.keep.sum())
+        used = int(torch.zeros(e, dtype=torch.bool, device=dev).index_fill_(
+            0, r.expert[r.keep], True).sum())
+        cap_rows = e * r.capacity
+        log(f"[moe] n={n} ({cfg.name} layer, bf16, capacity {r.capacity} a expert): routing == "
+            f"f64 ({int(differ.sum())} tokens at f64 near-ties of {MOE_TIE_GAP:g} ordered "
+            f"otherwise; keep masks equal, {kept} of {k * n} slots kept; weights within "
+            f"{w_err:.2e}); output vs f64 on {len(ok_rows)} rows: max |err| {elem:.4f} of its "
+            f"row's RMS (limit {MOE_ELEM_RMS:g}), error RMS {norm:.5f} of the output's "
+            f"(limit {MOE_NORM_REL:g}); gone wrong: " + json.dumps(wrong)
+            + f"; f64 CPU computation {ref_s:.1f} s")
+        # pieces: device ms beside bounds (each input read once, each output
+        # written once; the expert products count the kept rows' work and
+        # the weights of the experts that hold any)
+        gate = torch.bmm(xe, lp["we_gate"])
+        up = torch.bmm(xe, lp["we_up"])
+        h = F.silu(gate) * up
+        wmat = d * f * 2 * used
+        pieces = {
+            "route": (lambda: moe.route(lp, cfg, x), n * d * 2 + d * e * 2 + k * n * 21,
+                      2 * n * d * e, f32),
+            "dispatch": (lambda: moe.dispatch(x, r, e), n * d * 2 + cap_rows * d * 2, 0, bf16),
+            "bmm_gate": (lambda: torch.bmm(xe, lp["we_gate"]),
+                         wmat + kept * (d + f) * 2, 2 * kept * d * f, bf16),
+            "bmm_up": (lambda: torch.bmm(xe, lp["we_up"]),
+                       wmat + kept * (d + f) * 2, 2 * kept * d * f, bf16),
+            "silu_mul": (lambda: F.silu(gate) * up, 3 * kept * f * 2, 0, bf16),
+            "bmm_down": (lambda: torch.bmm(h, lp["we_down"]),
+                         wmat + kept * (f + d) * 2, 2 * kept * f * d, bf16),
+            "combine": (lambda: moe.combine(ye, r), kept * d * 2 + n * d * 2, 0, bf16),
+            "moe_block": (lambda: moe.moe_block(lp, cfg, x[None]),
+                          n * d * 4 + 3 * wmat, 6 * kept * d * f, bf16),
+        }
+        times = {}
+        for name, (fn, nbytes, flops, rate) in pieces.items():
+            ms = time_ms(fn)
+            b, by = bound_ms(nbytes, flops, (bw, rate))
+            times[name] = {"ms": ms, "bound_ms": b, "bound_by": by, "x_bound": ms / b}
+        cap_bound = bound_ms(3 * wmat + cap_rows * (2 * d + 3 * f) * 2,
+                             6 * cap_rows * d * f, (bw, bf16))[0]
+        log(f"[moe] n={n} pieces, device ms (CUDA events, median of 20) beside their bounds "
+            f"({kept} kept rows of {cap_rows} capacity rows, {used} experts used; the three "
+            f"bmm over every capacity row would bound at {cap_bound} ms; {smi}): "
+            + json.dumps(times))
+
+
+def phase_moe(dev, peaks, part, smi="", cfg=None, layer_cfg=None, rows=MOE_ROWS,
+              sample=MOE_SAMPLE):
+    """Phase 15: the sparse-MoE family at full width, Mixtral-8x7B's widths
+    at 16 of its 32 layers from seeded random weights, bf16: first one
+    layer against the f64 computation and timed by piece
+    (`check_moe_layer`); then phase 5's traffic (8 x ISL 512 / OSL 64,
+    greedy, pipeline on) in bf16, int8 and int4 KV through
+    `phase_full_width` (the attention and KV kernels' launches the
+    dispatch counters imply, no plain call, the graph check); phase 8's
+    wave (4 held, a wave of 4) with mixed steps and speculative decoding
+    on in bf16 KV; and the attention projections quantized in place
+    (W8A8; router and experts stay bf16) served in bf16 KV. Returns the
+    launch counts of each run."""
+    cfg = cfg or moe_model()
+    t0 = time.perf_counter()
+    check_moe_layer(peaks, part, dev, smi=smi, cfg=layer_cfg or cfg, rows=rows, sample=sample)
+    log(f"[moe] layer check {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, params = {}, None
+    for kv_quant in PATH_KERNELS:
+        torch.cuda.empty_cache()
+        counts, m, params = phase_full_width(dev, kv_quant=kv_quant, params=params, pipe=True,
+                                             model=cfg, label="mixtral16")
+        launches[kv_quant or "bf16"] = {n: c for n, c in counts.items() if c}
+        log(f"[moe] {kv_quant or 'bf16'} KV: decode step {m['decode_step_ms']:.4f} ms, TTFT "
+            f"p50 {m['ttft_p50_s']:.4f} s, max {m['ttft_max_s']:.4f} s, output "
+            f"{m['output_tok_s_wall']:.1f} tok/s over the wall, peak "
+            f"{m['max_memory_allocated_gb']:.2f} GB allocated, weights "
+            f"{weight_bytes(params) / 1e9:.3f} GB; {smi}")
+    torch.cuda.empty_cache()
+    counts, m, _, params = phase_wave(dev, params, on=True, cfg=dict(model=cfg))
+    launches["wave"] = {n: c for n, c in counts.items() if c}
+    log(f"[moe] wave, mixed + spec on, bf16 KV: " + json.dumps(
+        {k: m[k] for k in ("wave_ttft_p50_s", "wave_ttft_max_s", "held_max_gap_in_wave_s",
+                           "held_tok_s_in_wave", "mixed_steps", "spec_dispatches")})
+        + f"; {smi}")
+    from dynamo_tpu_torch.ops.quant import quantize_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = quantize_params(params, cfg, inplace=True)
+    counts, m, params = phase_full_width(dev, params=params, pipe=True, quantization="int8",
+                                         model=cfg, label="mixtral16")
+    launches["w8a8"] = {n: c for n, c in counts.items() if c}
+    log(f"[moe] W8A8 attention (experts bf16), bf16 KV: decode step "
+        f"{m['decode_step_ms']:.4f} ms, TTFT p50 {m['ttft_p50_s']:.4f} s, weights "
+        f"{weight_bytes(params) / 1e9:.3f} GB; {smi}")
+    log(f"[moe] launches on the main path by run: {json.dumps(launches)}")
+    del params
+    gc.collect()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1,
@@ -4012,6 +4270,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         _, params = phase_offload(dev, params, kv_quant=kv_quant, smi=smi)
     del params
+    # phase 15: the sparse-MoE family, Mixtral-8x7B's widths at 16 layers;
+    # phase 14's engines collected first (their weights leave the card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_moe(dev, peaks, part, smi=smi)
     # phase 11: the serving entry at full width (its own engine, seed 0)
     torch.cuda.empty_cache()
     phase_serving(dev, smi=smi)
@@ -4053,7 +4316,7 @@ def main() -> int:
                                    "dynamo_tpu/ops/quant.py:60"),
         "w8a8_gemm": ("dynamo_tpu_torch/csrc/w8a8.cu", "dynamo_tpu/ops/quant.py:60"),
     }
-    log(f"[smoke] phases 1-14 took {time.perf_counter() - t_smoke:.1f} s of wall time, build "
+    log(f"[smoke] phases 1-15 took {time.perf_counter() - t_smoke:.1f} s of wall time, build "
         f"included")
     kernels = []
     for k, r in results.items():

@@ -92,6 +92,14 @@ class EngineConfig:
     # dispatch -> fetch -> sync baseline (same streams, other scheduling)
     step_pipeline: bool = True
     tp_overlap: bool = False
+    # the batching window for paced arrivals: while decode runs and fewer
+    # than `prefill_batch_min_rows` sequences wait for prefill, their first
+    # chunks wait up to this many seconds so trickling arrivals share one
+    # dispatch (each small group pays a fixed dispatch and fetch cost
+    # against the decode plane). 0 disables; keep it well under the TTFT
+    # budget
+    prefill_batch_window_s: float = 0.0
+    prefill_batch_min_rows: int = 8
     # default end-to-end deadline per request, seconds (0 = none); a
     # request's own metadata "deadline" takes precedence. Expired requests
     # are shed from the queue or finished mid-flight with "timeout".

@@ -7,7 +7,13 @@ Port of `dynamo_tpu/engine/engine.py::JaxEngine`, main path only:
   pool runs dry; it re-prefills on re-admission);
 - bucketed chunked prefill: same-bucket chunks of several sequences share
   one [n, bucket] dispatch; each layer writes the chunk's KV pages with
-  the page-scatter kernel, then runs flash attention over the pool;
+  the page-scatter kernel, then runs flash attention over the pool. With
+  `prefill_batch_window_s` fresh first chunks wait while decode is live
+  (never behind the pipeline's overshoot dispatch) so paced arrivals
+  share one dispatch;
+- dense and sparse-MoE models (models/moe.py): an MoE step's padding rows
+  take no expert capacity, its genuine tokens read off each step's
+  attention spec as the reference reads them off its write slots;
 - multi-step decode: `decode_steps` tokens per dispatch in a device-side
   loop (sampled tokens feed the next step without a host sync); each
   layer runs the fused write + decode attention kernel. On a CUDA device
@@ -130,6 +136,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
 )
 from dynamo_tpu_torch.llm.tokens import TokenBlockSequence, compute_block_hashes
 from dynamo_tpu_torch.models import llama
+from dynamo_tpu_torch.models.moe import expert_capacity
 from dynamo_tpu_torch.ops import quant
 from dynamo_tpu_torch.ops.quant import is_quantized, logical_param_count, quantize_params
 from dynamo_tpu_torch.ops.kv_write import paged_kv_write
@@ -240,8 +247,6 @@ class TorchEngine:
     def __init__(self, config: EngineConfig, params=None, device=None):
         self.config = config
         self.model_cfg = config.model_config()
-        if self.model_cfg.num_experts:
-            raise NotImplementedError("MoE models are not ported to dynamo_tpu_torch yet")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -492,9 +497,12 @@ class TorchEngine:
             )
         if self.config.quantization:
             # the W8A8 kernels' K: hidden (wq/wk/wv, w_gate/w_up, the
-            # head), q_size (wo) and intermediate (w_down)
-            for name, k in (("hidden_size", m.hidden_size), ("q_size", m.q_size),
-                            ("intermediate_size", m.intermediate_size)):
+            # head), q_size (wo) and a dense FFN's intermediate (w_down;
+            # MoE experts stay bf16)
+            ks = [("hidden_size", m.hidden_size), ("q_size", m.q_size)]
+            if not m.num_experts:
+                ks.append(("intermediate_size", m.intermediate_size))
+            for name, k in ks:
                 if k % 32:
                     raise ValueError(
                         f"{name} {k}: the W8A8 kernels take K a multiple of 32")
@@ -515,6 +523,15 @@ class TorchEngine:
         if self.device.type != "cuda":
             return fallback
         free, _total = torch.cuda.mem_get_info(self.device)
+        if m.num_experts:
+            # the weights are resident already; what an MoE step adds is its
+            # experts' buffers at the largest step: [E, C] rows of the
+            # dispatched input and the output (D wide), gate, up and their
+            # product (F wide)
+            rows = m.num_experts * expert_capacity(
+                m, max(cfg.prefill_group_tokens, cfg.mixed_step_tokens))
+            itemsize = torch.empty((), dtype=self._dtype).element_size()
+            free -= rows * (2 * m.hidden_size + 3 * m.intermediate_size) * itemsize
         n = int(free * cfg.hbm_utilization // page_bytes)
         return max(n, 2) if n > 0 else fallback
 
@@ -1069,6 +1086,21 @@ class TorchEngine:
         waves."""
         if not self._prefilling:
             return False
+        win = self.config.prefill_batch_window_s
+        if win > 0 and len(self._prefilling) < self.config.prefill_batch_min_rows:
+            # the batching window for paced arrivals: while decode runs,
+            # fresh first chunks wait (up to `win` from the oldest one's
+            # admission) so trickling arrivals share one dispatch. A
+            # prefix hit's first chunk is fresh too; continuations and
+            # remote prefills never wait
+            now = time.perf_counter()
+            fresh = all(s.num_computed == s.num_cached and s.preloaded is None
+                        for s in self._prefilling)
+            oldest = min(s.t_admit for s in self._prefilling)
+            if fresh and self._any_mid_decode() and now - oldest < win:
+                asyncio.get_running_loop().call_later(
+                    max(win - (now - oldest), 0.001), self._wake.set)
+                return False
         progressed = False
         groups: dict[int, list[Sequence]] = {}
 
@@ -1135,6 +1167,26 @@ class TorchEngine:
                 self._start_first_emit(finals, res)
         await asyncio.sleep(0)
         return progressed
+
+    def _any_mid_decode(self) -> bool:
+        """Is decode running? A live dispatch is in flight, or a stream has
+        emitted past its first token (the gap between a sync and the next
+        build). A wave's members at their first token do not count alone."""
+        if self._inflight_live():
+            return True
+        return any(s is not None and not s.prefilling and s.generated > 1
+                   for s in self.slots)
+
+    def _inflight_live(self) -> bool:
+        """Does the in-flight dispatch carry a row whose sequence still holds
+        its slot? False for the step pipeline's overshoot dispatch, queued
+        behind a wave's last sync after every stream it carries finished."""
+        d = self._inflight
+        if d is None:
+            return False
+        if d.mixed:
+            return any(self.slots[slot] is seq for _, slot, seq, _ in d.bld["entries"])
+        return any(self.slots[i] is s for i, s in d.snapshot)
 
     @torch.inference_mode()
     def _prefill_group_dispatch(self, seqs: list[Sequence], bucket: int, fetch: bool):

@@ -1,7 +1,8 @@
 """Llama-family forward over a paged KV cache, in PyTorch.
 
-Port of `dynamo_tpu/models/llama.py`, dense path. One `forward()` serves
-chunked prefill and decode. Parameters are a plain dict of tensors (a
+Port of `dynamo_tpu/models/llama.py`: the dense family and the sparse-MoE
+one (models/moe.py, whose router reads each step's genuine-token mask,
+`genuine_tokens`). One `forward()` serves chunked prefill and decode. Parameters are a plain dict of tensors (a
 per-layer list under "layers") at the JAX package's layout: linear weights
 are [in_features, out_features] so matmuls are `x @ w`, and KV pools are
 per-layer [num_slots, K*Hd] tensors updated in place. With W8A8 weights
@@ -32,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.moe import init_moe_params, moe_block
 from dynamo_tpu_torch.ops.attention import write_kv_rows
 from dynamo_tpu_torch.ops.decode_attention import (
     fused_paged_decode_attention,
@@ -277,13 +279,33 @@ def _norm_in(x, weight, w, cfg: ModelConfig):
 
 
 def layer_step(lp, cfg, x, cos, sin, kv_k, kv_v, attn, kv_ks=None, kv_vs=None,
-               int4=False):
+               int4=False, real_mask=None):
     """One transformer layer (attention + FFN, pre-norm residuals); the
-    layer's pools are updated in place."""
+    layer's pools are updated in place. An MoE layer's FFN is
+    `moe_block`, whose router reads the plain norm (experts and router
+    stay bf16 under W8A8); `real_mask` marks its genuine tokens."""
     attn_in = _norm_in(x, lp["attn_norm"], lp["wq"], cfg)
     x = x + _attn_block(lp, cfg, attn_in, cos, sin, kv_k, kv_v, attn, kv_ks, kv_vs, int4)
+    if cfg.num_experts:
+        mlp_in = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps,
+                          weight_offset=cfg.norm_weight_offset)
+        return x + moe_block(lp, cfg, mlp_in, real_mask)
     mlp_in = _norm_in(x, lp["mlp_norm"], lp["w_gate"], cfg)
     return x + _mlp_block(lp, mlp_in, act=cfg.hidden_act)
+
+
+def genuine_tokens(attn: AttnSpec, b: int, t: int) -> torch.Tensor:
+    """[B, T] bool: the step's real tokens, the rows that take MoE
+    capacity. Paged decode marks idle rows by write_pos -1, the ragged
+    write sends padding to slot 0 (the trash page), and a page-write
+    prefill's valid rows are the first `lengths` of each row: the rows
+    whose write slots the reference sets non-zero."""
+    if attn.write_pos is not None:
+        return (attn.write_pos >= 0)[:, None].expand(b, t)
+    if attn.write_slots is not None:
+        return attn.write_slots.reshape(b, t) != 0
+    cols = torch.arange(t, device=attn.lengths.device)
+    return cols[None, :] < attn.lengths[:, None]
 
 
 def forward(
@@ -300,8 +322,6 @@ def forward(
     the (usually sliced) hidden states. Callers that step repeatedly pass
     `inv_freq` already on the device: uploading it from the host on every
     step would make the host wait for the device each time."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE models are not ported to dynamo_tpu_torch yet")
     x = params["embed"][tokens.long()]
     if cfg.scale_embeddings:
         # gemma: embedding outputs scaled by sqrt(d), rounded to x's dtype
@@ -309,9 +329,11 @@ def forward(
     if inv_freq is None:
         inv_freq = torch.from_numpy(rope_inv_freq(cfg)).to(x.device)
     cos, sin = rope_cos_sin(inv_freq, positions)  # [B, T, Hd]
+    real_mask = genuine_tokens(attn, *tokens.shape) if cfg.num_experts else None
     for l, lp in enumerate(params["layers"]):
         scales = (kv.ks[l], kv.vs[l]) if kv.quantized else ()
-        x = layer_step(lp, cfg, x, cos, sin, kv.k[l], kv.v[l], attn, *scales, int4=kv.int4)
+        x = layer_step(lp, cfg, x, cos, sin, kv.k[l], kv.v[l], attn, *scales, int4=kv.int4,
+                       real_mask=real_mask)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps,
                  weight_offset=cfg.norm_weight_offset)
     return x, kv
@@ -338,9 +360,9 @@ def init_params(cfg: ModelConfig, seed: int, *, device,
     `quantize=True` quantizes each layer's dense projections to int8 as
     they are made (ops/quant.py scheme, the same result as
     `quantize_params` on the full tree, with the same draws): the device
-    holds the codes so far and one dense layer, never a whole dense tree."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE models are not ported to dynamo_tpu_torch yet")
+    holds the codes so far and one dense layer, never a whole dense tree.
+    An MoE layer draws its router and experts (models/moe.py
+    `init_moe_params`) in place of the dense FFN; they stay unquantized."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, f = cfg.hidden_size, cfg.intermediate_size
@@ -362,10 +384,11 @@ def init_params(cfg: ModelConfig, seed: int, *, device,
             "wv": dense((d, kvs)),
             "wo": dense((qs, d)),
             "mlp_norm": ones(d),
-            "w_gate": dense((d, f)),
-            "w_up": dense((d, f)),
-            "w_down": dense((f, d)),
         }
+        if cfg.num_experts:
+            lp.update(init_moe_params(cfg, gen, device=device, dtype=dtype))
+        else:
+            lp.update(w_gate=dense((d, f)), w_up=dense((d, f)), w_down=dense((f, d)))
         if cfg.attn_bias:
             for name, n in (("bq", qs), ("bk", kvs), ("bv", kvs)):
                 lp[name] = torch.zeros(n, dtype=dtype, device=device)

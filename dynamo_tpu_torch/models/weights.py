@@ -7,7 +7,7 @@ data section, then the raw little-endian bytes, viewed with
 `torch.frombuffer`.
 
 HF stores linear weights [out, in]; the port keeps the JAX package's
-[in, out] (x @ w).
+[in, out] (x @ w), the experts stacked [E, in, out].
 """
 
 from __future__ import annotations
@@ -98,12 +98,18 @@ _HF_LAYER_MAP = {
 }
 
 
+# Mixtral's expert matrices -> the stacked [E, ...] leaves
+_MOE_MAP = {"w1": "we_gate", "w3": "we_up", "w2": "we_down"}
+
+
 def load_params(model_dir: str, cfg: ModelConfig, *, device,
                 dtype=torch.bfloat16) -> Params:
-    """Load a dense Llama-family HF checkpoint dir onto `device`, one
-    tensor at a time."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE checkpoints are not ported to dynamo_tpu_torch yet")
+    """Load a Llama-family HF checkpoint dir onto `device`, one tensor at a
+    time. A Mixtral checkpoint's `block_sparse_moe.gate.weight` becomes the
+    layer's router [D, E], and its `block_sparse_moe.experts.{e}.{w1,w3,w2}`
+    matrices are staged on the host per (layer, matrix) until all E have
+    arrived, then stacked into we_gate/we_up [E, D, F] and we_down
+    [E, F, D] on the device: the host holds at most one group at a time."""
 
     def convert(t: torch.Tensor, transpose: bool) -> torch.Tensor:
         t = t.to(dtype)
@@ -111,6 +117,7 @@ def load_params(model_dir: str, cfg: ModelConfig, *, device,
 
     layers: list[dict] = [dict() for _ in range(cfg.num_layers)]
     params: Params = {"layers": layers}
+    moe_stage: dict[tuple[int, str], dict[int, torch.Tensor]] = {}
     for name, tensor in _iter_safetensors(model_dir):
         if name == "model.embed_tokens.weight":
             params["embed"] = convert(tensor, False)
@@ -121,13 +128,37 @@ def load_params(model_dir: str, cfg: ModelConfig, *, device,
                 params["lm_head"] = convert(tensor, True)
         elif name.startswith("model.layers."):
             idx_s, _, sub = name[len("model.layers."):].partition(".")
+            idx = int(idx_s)
+            if sub == "block_sparse_moe.gate.weight":
+                layers[idx]["router"] = convert(tensor, True)
+                continue
+            if sub.startswith("block_sparse_moe.experts."):
+                e_s, _, w_name = sub[len("block_sparse_moe.experts."):].partition(".")
+                ours = _MOE_MAP.get(w_name.split(".")[0])
+                if ours is not None:
+                    group = moe_stage.setdefault((idx, ours), {})
+                    group[int(e_s)] = tensor.to(dtype).T  # HF stores [out, in]
+                    if len(group) == cfg.num_experts:
+                        layers[idx][ours] = torch.stack(
+                            [group[e] for e in sorted(group)]).to(device)
+                        del moe_stage[(idx, ours)]
+                continue
             mapped = _HF_LAYER_MAP.get(sub)
             if mapped is None:
                 continue  # rotary inv_freq etc.
             ours, transpose = mapped
-            layers[int(idx_s)][ours] = convert(tensor, transpose)
+            layers[idx][ours] = convert(tensor, transpose)
+    if moe_stage:
+        short = sorted(
+            f"layers[{i}].{ours}({len(g)}/{cfg.num_experts} experts)"
+            for (i, ours), g in moe_stage.items()
+        )
+        raise ValueError(f"checkpoint {model_dir} has incomplete expert groups: {short[:5]}")
+    required = ["wq"]
+    if cfg.num_experts:
+        required += ["router", "we_gate", "we_up", "we_down"]
     missing = [k for k in ("embed", "final_norm") if k not in params] + [
-        f"layers[{i}].wq" for i, lp in enumerate(layers) if "wq" not in lp
+        f"layers[{i}].{r}" for i, lp in enumerate(layers) for r in required if r not in lp
     ]
     if missing:
         raise ValueError(f"checkpoint {model_dir} missing tensors: {missing[:5]}")

@@ -61,6 +61,8 @@ from dynamo_tpu_torch.ops.w8a8 import (
 )
 
 # per-layer weight names eligible for quantization (dense Llama family)
+# MoE experts and the router stay unquantized, as in the reference: 3-D
+# batched weights, and routing is accuracy-critical
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
@@ -160,7 +162,8 @@ def quantize_layer(lp: dict) -> dict:
 def quantize_params(params: dict, cfg, mode: str = "int8", inplace: bool = False) -> dict:
     """Quantize a llama.init_params-shaped tree in place of the dense
     projection weights; adds an int8 "lm_head" (from embed.T when tied).
-    Norms, biases and embeddings stay as they are. `inplace=True` replaces
+    Norms, biases, embeddings, MoE experts and the router stay as they
+    are. `inplace=True` replaces
     each layer of `params["layers"]` (and an untied head) as it goes, so a
     bf16 layer can be freed as soon as its codes exist; the returned tree
     is then `params` itself."""

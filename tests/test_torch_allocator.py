@@ -11,6 +11,7 @@ import pytest
 from dynamo_tpu.engine.allocator import PageAllocator as JaxPageAllocator
 from dynamo_tpu.llm import tokens as jtokens
 from dynamo_tpu_torch.engine.allocator import PageAllocator
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 PAGE = 4
 

@@ -27,6 +27,7 @@ from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
 from dynamo_tpu_torch.llm.protocols import common as tcommon
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.runtime.pipeline.context import Context
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 ENGINE_KW = dict(
     model="tiny", dtype="float32", page_size=16, num_pages=32, max_batch_size=1,

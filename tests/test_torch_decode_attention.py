@@ -18,6 +18,7 @@ from dynamo_tpu_torch.ops.decode_attention import (
     fused_paged_decode_attention,
     paged_decode_attention,
 )
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 PAGE = 16
 

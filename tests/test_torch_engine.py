@@ -18,6 +18,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
     StopConditions,
 )
 from dynamo_tpu_torch.runtime.pipeline.context import Context
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "tiny-trained-llama")
 ENGINE_KW = dict(
@@ -229,3 +230,78 @@ async def test_unported_request_refused():
     toks = [f for f in frames if f.get("token_ids")]
     assert frames[-1]["finish_reason"] == "length" and len(toks) == 4
     assert all(len(f["log_probs"]) == 1 and len(f["top_log_probs"][0]) == 2 for f in toks)
+
+
+async def test_prefill_batch_window_holds_trickling_arrivals():
+    """The batching window for paced arrivals (the JAX engine's
+    test_prefill_batch_window_serves_trickling_arrivals): an idle engine
+    dispatches at once; fresh arrivals while a stream decodes are held and
+    batched into fewer prefill dispatches than arrivals, and all served;
+    the step pipeline's overshoot dispatch, queued behind a finished
+    stream, holds nothing."""
+    assert (EngineConfig(model="tiny").prefill_batch_window_s,
+            EngineConfig(model="tiny").prefill_batch_min_rows) == (0.0, 8)
+    eng = _port_engine(prefill_batch_window_s=2.0, prefill_batch_min_rows=4,
+                       max_batch_size=8, num_pages=96)
+    assert eng.config.step_pipeline
+    held = []  # one entry each time a fresh first chunk met the window
+    live = eng._any_mid_decode
+
+    def spy():
+        held.append(live())
+        return held[-1]
+
+    eng._any_mid_decode = spy
+    assert len(await _greedy(eng, [5, 6, 7], 12)) == 12
+    # right behind the finished stream (its overshoot dispatch may still be
+    # in flight): neither arrival waits
+    assert len(await _greedy(eng, [8, 9, 10], 4)) == 4
+    assert held and not any(held)
+    held.clear()
+
+    decoding = asyncio.create_task(_greedy(eng, [11, 12, 13, 14], 240))
+    while not any(s is not None and s.generated > 1 for s in eng.slots):
+        await asyncio.sleep(0.005)
+    before = eng.phase_stats["prefill_dispatches"]
+    prompts = [[20, 21, 22], [30, 31, 32, 33, 34], [40, 41], [50, 51, 52, 53]]
+    # the first arrival alone, until the engine holds it; then the rest
+    # trickle in behind it
+    first = asyncio.create_task(_greedy(eng, prompts[0], 4))
+    for _ in range(1000):
+        if any(held):
+            break
+        await asyncio.sleep(0.005)
+
+    async def late(delay, prompt):
+        await asyncio.sleep(delay)
+        return await _greedy(eng, prompt, 4)
+
+    rest = await asyncio.gather(*[late(0.01 * i, p) for i, p in enumerate(prompts[1:])])
+    got = [await first] + list(rest)
+    dispatched = eng.phase_stats["prefill_dispatches"] - before
+    assert len(await decoding) == 240
+    await eng.close()
+    assert [len(t) for t in got] == [4] * 4
+    assert any(held) and dispatched < len(prompts)
+
+    # the liveness test itself: a dispatch whose rows left their slots
+    # (decode or mixed) is the overshoot; a first token alone is no decode
+    from types import SimpleNamespace
+
+    from dynamo_tpu_torch.engine.engine import _Dispatch
+
+    eng = TorchEngine(EngineConfig(model="tiny", dtype="float32", num_pages=16), device="cpu")
+    seq = SimpleNamespace(prefilling=False, generated=1)
+    assert not eng._any_mid_decode()
+    eng._inflight = _Dispatch(None, [(0, seq)], 1)
+    assert not eng._inflight_live()  # the stream left its slot: the overshoot
+    eng.slots[0] = seq
+    assert eng._inflight_live() and eng._any_mid_decode()
+    eng._inflight = _Dispatch(None, [], 1, mixed=True, bld={"entries": [("dec", 1, seq, 1)]})
+    assert not eng._inflight_live()
+    eng.slots[1] = seq
+    assert eng._inflight_live()
+    eng._inflight = None
+    assert not eng._any_mid_decode()  # a first token alone is no decode
+    seq.generated = 2
+    assert eng._any_mid_decode()

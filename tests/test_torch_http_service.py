@@ -38,6 +38,7 @@ import pytest
 
 from dynamo_tpu_torch.llm.http import client
 from dynamo_tpu_torch.llm.protocols.codec import decode_sse_lines
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "tests", "data", "tiny-trained-llama")

@@ -3,7 +3,8 @@ chip_smoke.py, imports jax, jaxlib or the JAX package dynamo_tpu, nor the
 packages the card's machine does not promise (tokenizers, jinja2, aiohttp,
 msgpack, safetensors, xxhash); building a CPU TorchEngine (with
 speculative decoding and mixed steps, so the copied n-gram proposer loads
-too) loads none of them, and with all of them made unimportable the whole
+too, and one of the tiny-moe model, so models/moe.py does) loads none of
+them, and with all of them made unimportable the whole
 `out=torch` HTTP pipeline builds on the CPU from the vendored checkpoint
 and serves a streamed chat request. The test process itself has jax
 loaded (tests/conftest.py), so those checks run in a fresh interpreter."""
@@ -15,6 +16,7 @@ import json
 import os
 import subprocess
 import sys
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu", "tokenizers", "jinja2", "aiohttp", "msgpack",
@@ -59,12 +61,14 @@ import dynamo_tpu_torch
 from dynamo_tpu_torch import EngineConfig, TorchEngine
 eng = TorchEngine(EngineConfig(model="tiny", dtype="float32", num_pages=16, spec_decode=True,
                                mixed_batching=True), device="cpu")
+moe = TorchEngine(EngineConfig(model="tiny-moe", dtype="float32", num_pages=16), device="cpu")
 new = set(sys.modules) - before
 print(json.dumps({{
     "dynamo_tpu": sorted(m for m in sys.modules if m.split(".")[0] == "dynamo_tpu"),
     "jax": sorted(m for m in new if m.split(".")[0] in ("jax", "jaxlib")),
     "port": "dynamo_tpu_torch.engine.engine" in new,
     "spec": "dynamo_tpu_torch.engine.spec" in new,
+    "moe": "dynamo_tpu_torch.models.moe" in new and "we_gate" in moe.params["layers"][0],
 }}))
 """
     out = subprocess.run(
@@ -73,7 +77,7 @@ print(json.dumps({{
     )
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {"dynamo_tpu": [], "jax": [], "port": True, "spec": True}
+    assert got == {"dynamo_tpu": [], "jax": [], "port": True, "spec": True, "moe": True}
 
 
 def test_http_pipeline_serves_with_the_packages_blocked():

@@ -45,6 +45,7 @@ from tests.test_torch_model import (
     _jax_tree,
     port_prefill_then_decode,
 )
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 
 def jax_scales(pool: np.ndarray) -> jnp.ndarray:

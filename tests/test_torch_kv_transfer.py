@@ -27,6 +27,7 @@ from dynamo_tpu_torch.engine.kv_transfer import device_transfer_kv
 from dynamo_tpu_torch.llm.protocols.common import KvQuantMismatchError
 from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
 from tests.test_torch_prefix_cache import PAGE, Impl, _line, _port_engine, _run
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 KV_FORMATS = [None, "int8", "int4"]
 

@@ -15,6 +15,7 @@ import torch
 from dynamo_tpu.ops.pallas_kv_write import paged_kv_write as jax_paged_kv_write
 from dynamo_tpu_torch.ops import kv_write as m
 from dynamo_tpu_torch.ops.kv_write import paged_kv_write
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 PAGE = 16
 

@@ -47,6 +47,7 @@ from dynamo_tpu_torch.ops.sampling import sample_tokens, verify_draft_tokens
 from tests.test_torch_engine import _greedy, _port_engine, _tokenizer
 from tests.test_torch_kv_int4 import _int4_pools
 from tests.test_torch_kv_quant import _int8_pools, jax_scales
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 PAGE = 16
 FORMATS = ("f32", "int8", "int4")

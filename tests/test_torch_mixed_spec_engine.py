@@ -29,6 +29,7 @@ import pytest
 
 from tests.test_torch_engine import CKPT, ENGINE_KW, _greedy, _port_engine
 from tests.test_torch_mixed_spec import _traffic
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 MIXED = dict(mixed_batching=True, mixed_step_tokens=64)
 SPEC = dict(spec_decode=True)

@@ -20,6 +20,7 @@ from dynamo_tpu.models.weights import load_params as jax_load_params
 from dynamo_tpu_torch.models import config as tcfg
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.weights import load_params, read_safetensors
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 PAGE = 16
 CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "tiny-trained-llama")

@@ -42,6 +42,7 @@ from dynamo_tpu_torch.engine.offload import HostKvPool
 from dynamo_tpu_torch.llm.tokens import compute_block_hashes
 from dynamo_tpu_torch.utils.pool import Pool
 from tests.test_torch_prefix_cache import PAGE, Impl, _jax_engine, _line, _np, _port_engine, _run
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 KV_FORMATS = [None, "int8", "int4"]
 HOST_KW = dict(host_kv_pages=16, offload_batch_pages=4)

@@ -20,6 +20,7 @@ from dynamo_tpu_torch.models.config import get_config
 from dynamo_tpu_torch.ops.norm import rms_norm
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rope_inv_freq
 from dynamo_tpu_torch.ops.sampling import sample_tokens, shortlist_mask
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 
 @pytest.mark.parametrize("offset", [0.0, 1.0])

@@ -11,6 +11,7 @@ import torch
 
 from dynamo_tpu.ops.pallas_prefill import flash_prefill_attention as jax_flash
 from dynamo_tpu_torch.ops.prefill_attention import flash_prefill_attention
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 PAGE = 16
 

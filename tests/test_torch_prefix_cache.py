@@ -32,6 +32,7 @@ from dynamo_tpu_torch.llm.protocols import common as tcommon
 from dynamo_tpu_torch.llm.tokens import TokenBlockSequence, compute_block_hashes
 from dynamo_tpu_torch.runtime.pipeline.context import Context
 from tests.test_torch_engine import CKPT, _tokenizer
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 PAGE = 16
 ENGINE_KW = dict(page_size=PAGE, num_pages=40, max_batch_size=2, max_model_len=256,

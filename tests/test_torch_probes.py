@@ -34,6 +34,7 @@ import dynamo_tpu
 import dynamo_tpu_torch
 from dynamo_tpu.ops import quant as jquant
 from dynamo_tpu_torch.scripts import probe_bitcast, profile_dma, proto_page_write
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

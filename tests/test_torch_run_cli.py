@@ -20,6 +20,7 @@ import torch
 from dynamo_tpu.run import build_parser as jax_parser
 from dynamo_tpu.run import run_batch as jax_run_batch
 from dynamo_tpu_torch.run import build_parser, main, run_batch, serve_http
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "tests", "data", "tiny-trained-llama")

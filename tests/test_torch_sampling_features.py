@@ -48,6 +48,7 @@ from tests.test_torch_engine import CKPT
 from tests.test_torch_mixed_spec import _traffic
 from tests.test_torch_mixed_spec_engine import COUNTERS
 from tests.test_torch_step_pipeline import MIXED, PIPE_STATS, _jax_engine
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 KW = dict(page_size=16, num_pages=24, max_batch_size=4, max_model_len=256,
           prefill_chunk=32, decode_steps=4, seed=0)

@@ -37,6 +37,7 @@ from dynamo_tpu_torch.engine import spec as port_spec
 from tests.test_torch_engine import CKPT, ENGINE_KW, _greedy, _port_engine
 from tests.test_torch_mixed_spec import _traffic
 from tests.test_torch_mixed_spec_engine import COUNTERS
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 MIXED = dict(mixed_batching=True, mixed_step_tokens=64)
 REPETITIVE = [5, 17, 42, 9] * 6

@@ -12,6 +12,7 @@ import xxhash
 from dynamo_tpu.llm import tokens as jtokens
 from dynamo_tpu_torch.llm import tokens
 from dynamo_tpu_torch.llm._xxh3 import xxh3_64_intdigest
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 # xxh3_64's code paths by input length: empty, 1-3, 4-8, 9-16, 17-128,
 # 129-240 bytes, then the striped long-input loop (64-byte stripes, 1024-byte

@@ -33,6 +33,7 @@ from dynamo_tpu_torch.ops import quant, w8a8
 from tests.test_torch_engine import CKPT, ENGINE_KW, _greedy, _port_engine
 from tests.test_torch_mixed_spec import _traffic
 from tests.test_torch_model import PAGE, _configs, _jax_tree, port_prefill_then_decode
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 
 def _bytes(a) -> bytes:

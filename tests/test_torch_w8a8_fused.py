@@ -44,6 +44,7 @@ from dynamo_tpu_torch.models.config import get_config
 from dynamo_tpu_torch.ops import quant, w8a8
 from dynamo_tpu_torch.ops.norm import rms_norm
 from tests.test_torch_model import port_prefill_then_decode
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 SMS = 132  # the H100 SXM's SM count
 CSRC = os.path.join(os.path.dirname(w8a8.__file__), os.pardir, "csrc", "w8a8.cu")

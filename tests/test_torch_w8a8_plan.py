@@ -25,6 +25,7 @@ from dynamo_tpu.ops import quant as jquant
 from dynamo_tpu_torch.models.config import get_config
 from dynamo_tpu_torch.ops import _cuda, quant, w8a8
 from dynamo_tpu_torch.scripts import trace_w8a8
+from tests import torch_fixtures  # noqa: F401  (caps torch's intra-op threads)
 
 SMS = 132  # the H100 SXM's SM count
 CSRC = os.path.join(os.path.dirname(w8a8.__file__), os.pardir, "csrc", "w8a8.cu")

@@ -1,5 +1,11 @@
-"""The fixture BPE model dir of tests/fixtures.py, built into a directory
-the caller owns.
+"""What the port's tests share: torch's thread cap, and the fixture BPE
+model dir of tests/fixtures.py built into a directory the caller owns.
+
+Every `tests/test_torch_*.py` imports this module, which caps torch's
+intra-op threads at `TORCH_THREADS` for the process: the suite runs in
+six xdist workers on one machine, and each worker's torch would otherwise
+start a thread per core and contend with the others (the port's tests
+run at tiny widths, where more threads buy nothing).
 
 `tests.fixtures.tiny_model_dir()` writes one shared directory under the
 system temp dir again in every process that calls it, so test files run in
@@ -13,7 +19,12 @@ from __future__ import annotations
 import json
 import os
 
+import torch
+
 from .fixtures import _CORPUS, CHAT_TEMPLATE
+
+TORCH_THREADS = 1
+torch.set_num_threads(TORCH_THREADS)
 
 
 def bpe_model_dir(path: str) -> str:
