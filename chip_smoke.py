@@ -6,8 +6,9 @@ Phases, each printed on its own line; any failure exits non-zero and the
 final result line is printed only when every phase passed:
 
 1. card and versions (nvidia-smi name and power limit, torch, CUDA);
-2. build: the five CUDA sources under dynamo_tpu_torch/csrc (eighteen
-   kernels: K1-K3 for bf16 KV, K5-K7 in their int8 and their int4 forms;
+2. build: the five CUDA sources under dynamo_tpu_torch/csrc (twenty-one
+   kernels: K1-K3 for bf16 KV, K5-K7 in their int8, int4 and grouped int4
+   forms;
    K4, the ragged read of mixed and verify steps, enters K2/K6 in each KV
    format; the four W8A8 kernels of w8a8.cu, quantize_rows,
    rms_norm_quantize_rows, silu_mul_quantize_rows and w8a8_gemm;
@@ -258,14 +259,48 @@ final result line is printed only when every phase passed:
    each run the attention and KV kernels' launches its dispatch counters
    imply and no plain call, the graph check, and decode step ms, TTFT p50
    and max, output tok/s, peak memory and weight bytes.
+16. prompt embeddings at full width, after phase 15, on phase 5's engine
+   and weights (made again from seed 0): first the vision encoder
+   (models/vision.py) at LLaVA-1.5's vision tower widths (CLIP ViT-L/14 at
+   336 px: 576 patches, hidden 1024, 24 layers, 16 heads, projected to
+   4096; the reference's block), seeded random weights in bf16, against
+   the port's f32 encoder on the CPU on the same weights for two images
+   (relative error and least patch cosine, VISION_REL_ERR and
+   VISION_MIN_COS), and its time for 8 images beside its bound. Then, in
+   bf16 and int8 KV: the oracle (a request whose embeds are the embed-table
+   rows of its own 576 placeholder tokens streams exactly the plain
+   request's 64 tokens, each served alone), 8 requests at once of 64
+   shared text tokens + an image of its own + 64 text tokens (ISL 704: the
+   span crosses the 512-token chunk boundary), OSL 64, each reusing only
+   the shared text page, then 8 text-only prompts of the same ISL; the
+   launches the dispatch counters imply and no plain call. Prints the
+   encoder's ms, the host ms to take one request's embeds as lists and as
+   an array, TTFT p50 beside the text-only prompts', decode step ms and
+   output tok/s.
+17. int4 KV in scale groups finer than head_dim, after phase 16 on its
+   weights: the grouped forms of K7, K6, K5 and K4 against their plain
+   versions at groups 32 and 64 (check_groups: K7 byte-exact with its
+   S-channel scale tiles, at 8B page 64 and 128, small and page-3 cases;
+   K6 at the 8B chunk and small cases, its plain version equal to K2's over
+   the pools dequantized beforehand; K5 at 8B page 64 and W 32 and the
+   split-edge, page-24 and page-3 cases, pools equal after the write, two
+   launches bit-equal; K4 on RAGGED_CASES; attention within one bf16 ulp,
+   each check's power shown by the probabilities rounded once to bf16, a
+   high nibble scaled by its low nibble's group, one scale a head and, for
+   K5, the new row attended in bf16), each timed beside its bound (codes
+   plus S scale bytes) and SDPA over the KV dequantized beforehand; then
+   phase 5's traffic with int4 KV in groups of 32 (pipeline on: exact
+   launches, the graph check; decode step, TTFT p50 and the KV pool's bytes
+   beside one-group int4's) and phase 8's wave with mixed steps and
+   speculative decoding on in the same format (K4's grouped form).
 With --pairs N, phases 5, 6 and 7 (each a pipeline off/on pair) and
 phase 8's bf16 pipeline off/on pair run N times in turns, to show their
 spread. With --serving N only the build and phase 11 run, N times, and
 no result line is printed (a measurement, not the smoke).
 
-Then the smoke's wall time, a `kernels` JSON line (twenty-one kernels:
-the nine, K4 in three forms, the four W8A8 kernels and the five probe
-kernels;
+Then the smoke's wall time, a `kernels` JSON line (twenty-five kernels:
+the nine, K4 in three forms, the four W8A8 kernels, the five probe
+kernels and the grouped int4 forms of K7, K6, K5 and K4;
 and `launch_floor_ms`), the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -1817,9 +1852,22 @@ BF16_KERNELS = ("kv_write", "prefill_attention", "decode_attention")
 INT8_KERNELS = ("kv_write_q", "prefill_attention_q", "decode_attention_q")
 INT4_KERNELS = ("kv_write_q4", "prefill_attention_q4", "decode_attention_q4")
 PATH_KERNELS = {None: BF16_KERNELS, "int8": INT8_KERNELS, "int4": INT4_KERNELS}
+# int4 with scale groups finer than head_dim (phase 17): the grouped forms
+INT4G_KERNELS = ("kv_write_q4g", "prefill_attention_q4g", "decode_attention_q4g")
+LAUNCH_KERNELS = {**PATH_KERNELS, "int4g": INT4G_KERNELS}
 # K4, the ragged read of mixed and verify steps, in each KV format
 RAGGED_KERNEL = {None: "ragged_attention", "int8": "ragged_attention_q",
-                 "int4": "ragged_attention_q4"}
+                 "int4": "ragged_attention_q4", "int4g": "ragged_attention_q4g"}
+
+
+def kv_fmt(conf) -> str:
+    """An engine config's KV format as the launch tables name it: None,
+    "int8", "int4", or "int4g" for int4 with scale groups finer than
+    head_dim."""
+    q = conf.kv_quantization
+    if q == "int4" and conf.kv_quant_group and conf.kv_quant_group < conf.model_config().head_dim:
+        return "int4g"
+    return q
 
 
 def counters():
@@ -1854,6 +1902,13 @@ def counters():
                                d.ragged_paged_attention_q_plain),
         "ragged_attention_q4": (d.ragged_paged_attention, "launches_q4",
                                 d.ragged_paged_attention_q4_plain),
+        "kv_write_q4g": (w.paged_kv_write, "launches_q4g", w.paged_kv_write_q4g_plain),
+        "prefill_attention_q4g": (p.flash_prefill_attention, "launches_q4g",
+                                  p.flash_prefill_attention_q4g_plain),
+        "decode_attention_q4g": (d.fused_paged_decode_attention, "launches_q4g",
+                                 d.fused_paged_decode_attention_q4g_plain),
+        "ragged_attention_q4g": (d.ragged_paged_attention, "launches_q4g",
+                                 d.ragged_paged_attention_q4g_plain),
         "page_copy": (pw.page_copy, "launches", pw.page_copy_plain),
         "bitcast_unpack": (pb.unpack_int8_rows, "launches", pb.unpack_int8_rows_plain),
         "bitcast_pack": (pb.pack_int8_rows, "launches", pb.pack_int8_rows_plain),
@@ -1893,7 +1948,7 @@ def path_launches(stats, layers, decode_steps, kv_quant, w8a8=False, act="silu",
     so a step quantizes the attention norm's output (rms_norm_quantize_rows)
     and the attention output a layer and the head's input, and runs 4
     GEMMs a layer and the head's."""
-    write, prefill, decode = PATH_KERNELS[kv_quant]
+    write, prefill, decode = LAUNCH_KERNELS[kv_quant]
     want = {
         write: layers * stats["prefill_dispatches"],
         prefill: layers * stats["prefill_dispatches"],
@@ -1926,20 +1981,23 @@ def check_counts(counts, want, what):
         assert plain == 0, f"{what}: the plain version of {name} ran {plain} times"
 
 
-async def run_requests(engine, prompts, osl, metas=None):
+async def run_requests(engine, prompts, osl, metas=None, embeds=None):
     """Serve `prompts` at once (greedy, `osl` tokens each). Returns each
     request's (tokens, TTFT s, finish reason, end time) and the wall;
     `metas`, when given, receives each request's first-frame meta, in
-    prompt order."""
+    prompt order; `embeds`, when given, each prompt's (prompt_embeds,
+    embeds_offset) or None (phase 16)."""
     from dynamo_tpu_torch.llm.protocols.common import (
         PreprocessedRequest, SamplingOptions, StopConditions)
     from dynamo_tpu_torch.runtime.pipeline.context import Context
 
-    async def one(ids):
+    async def one(ids, emb):
         pre = PreprocessedRequest(
             token_ids=list(ids),
             stop_conditions=StopConditions(max_tokens=osl, ignore_eos=True),
             sampling_options=SamplingOptions(greedy=True),
+            prompt_embeds=None if emb is None else emb[0],
+            embeds_offset=0 if emb is None else emb[1],
         )
         t0 = time.perf_counter()
         toks, t_first, reason, meta = [], None, None, None
@@ -1952,7 +2010,7 @@ async def run_requests(engine, prompts, osl, metas=None):
         return toks, t_first - t0, reason, time.perf_counter(), meta
 
     t0 = time.perf_counter()
-    res = await asyncio.gather(*[one(p) for p in prompts])
+    res = await asyncio.gather(*[one(p, e) for p, e in zip(prompts, embeds or [None] * len(prompts))])
     if metas is not None:
         metas.extend(r[4] for r in res)
     return [r[:4] for r in res], time.perf_counter() - t0
@@ -2375,13 +2433,14 @@ async def profile_prefill(engine, prompts):
 
 
 def phase_full_width(dev, kv_quant=None, params=None, pipe=True, quantization=None,
-                     streams=None, model="llama-3.1-8b", label="8b"):
+                     streams=None, model="llama-3.1-8b", label="8b", kv_quant_group=None):
     """Serve eight requests at full width, with the step pipeline on or
     off; returns the main path's launch counts, the metrics and the
     engine's parameters (for the next phase). `quantization="int8"` takes
     W8A8 params (phase 13); `streams`, when given, receives the measured
     round's token lists. `model` is a preset name or a ModelConfig (phase
-    15's Mixtral at 16 layers), `label` its tag in the log."""
+    15's Mixtral at 16 layers), `label` its tag in the log;
+    `kv_quant_group` int4's scale group (phase 17)."""
     from dynamo_tpu_torch import EngineConfig, TorchEngine
 
     isl, osl, nreq = 512, 64, 8
@@ -2389,8 +2448,10 @@ def phase_full_width(dev, kv_quant=None, params=None, pipe=True, quantization=No
         model=model, dtype="bfloat16", page_size=64, num_pages=256,
         max_batch_size=8, max_model_len=2048, prefill_chunk=512, decode_steps=8, seed=0,
         kv_quantization=kv_quant, step_pipeline=pipe, quantization=quantization,
+        kv_quant_group=kv_quant_group,
     )
-    tag = (f"[{label} {'W8A8, ' if quantization else ''}{kv_quant or 'bf16'} KV, "
+    group = f" group {kv_quant_group}" if kv_fmt(cfg) == "int4g" else ""
+    tag = (f"[{label} {'W8A8, ' if quantization else ''}{kv_quant or 'bf16'}{group} KV, "
            f"pipeline {'on' if pipe else 'off'}]")
     t0 = time.perf_counter()
     eng = TorchEngine(cfg, params=params, device=dev)
@@ -2437,7 +2498,7 @@ def phase_full_width(dev, kv_quant=None, params=None, pipe=True, quantization=No
         assert all(0 <= t < vocab for t in toks)
     if streams is not None:
         streams.extend(r[0] for r in res)
-    want = path_launches(d, layers, cfg.decode_steps, kv_quant, w8a8=bool(quantization),
+    want = path_launches(d, layers, cfg.decode_steps, kv_fmt(cfg), w8a8=bool(quantization),
                          act=eng.model_cfg.hidden_act, moe=bool(eng.model_cfg.num_experts))
     check_counts(counts, want, tag)
     ttft = sorted(r[1] for r in res)
@@ -2545,7 +2606,8 @@ def phase_wave(dev, params, kv_quant=None, on=True, cfg=None, traffic=None, ref_
     tr = dict(WAVE_TRAFFIC, **(traffic or {}))
     conf = EngineConfig(**dict(WAVE_CFG, **(cfg or {})), kv_quantization=kv_quant,
                         mixed_batching=on, spec_decode=on, step_pipeline=pipe)
-    tag = (f"[wave {getattr(conf.model, 'name', conf.model)} {kv_quant or 'bf16'} KV, "
+    group = f" group {conf.kv_quant_group}" if kv_fmt(conf) == "int4g" else ""
+    tag = (f"[wave {getattr(conf.model, 'name', conf.model)} {kv_quant or 'bf16'}{group} KV, "
            f"mixed + spec {'on' if on else 'off'}, "
            f"pipeline {'on' if pipe else 'off'}]")
     eng = TorchEngine(conf, params=params, device=dev)
@@ -2573,7 +2635,7 @@ def phase_wave(dev, params, kv_quant=None, on=True, cfg=None, traffic=None, ref_
     d = {k: s1[k] - s0[k] for k in s1}
     d["mixed_step_tokens_max"] = s1["mixed_step_tokens_max"]
     layers = eng.model_cfg.num_layers
-    check_counts(counts, path_launches(d, layers, conf.decode_steps, kv_quant,
+    check_counts(counts, path_launches(d, layers, conf.decode_steps, kv_fmt(conf),
                                        moe=bool(eng.model_cfg.num_experts)), tag)
     if on:
         assert d["mixed_steps"] > 0, f"{tag}: no mixed step ran"
@@ -4136,6 +4198,632 @@ def phase_moe(dev, peaks, part, smi="", cfg=None, layer_cfg=None, rows=MOE_ROWS,
     return launches
 
 
+# ---------------------------------------------------------------- phase 17
+
+# the scale groups phase 17 holds the grouped int4 kernels at (features a
+# scale, of the 8B head_dim 128), and the one its traffic serves
+GROUPS = (32, 64)
+GROUP_MAIN = 32
+# a plain version gone wrong for grouped int4: the high nibble of a byte
+# (feature j + Hd/2) scaled by its low nibble's group, or every feature by
+# its head's first group
+G_WRONG = {"high nibble in its low nibble's group": "byte",
+           "one scale a head (the first group's)": "first"}
+
+
+def _q4g_pools(num_pages, page, kh, hd, group, gen, dev):
+    """Nibble-packed int4 pools with scale pools [P, K * Hd / group, page]
+    quantized from random bf16 rows in groups of `group` features."""
+    from dynamo_tpu_torch.ops.quant import quantize_kv_rows_int4, scales_to_page_tiles
+
+    k, v = _pools(num_pages, page, kh * hd, gen, dev)
+    (kq, ks), (vq, vs) = (quantize_kv_rows_int4(x, kh, group) for x in (k, v))
+    return kq, vq, scales_to_page_tiles(ks, page), scales_to_page_tiles(vs, page)
+
+
+def _dequant_g(pool, scales, kh, wrong=None):
+    """A whole grouped int4 pool as bf16 [N, K*Hd]: each code times its
+    group's scale in f32, rounded once (`wrong`: a G_WRONG mapping of
+    features to groups instead)."""
+    from dynamo_tpu_torch.ops.quant import unpack_int4_kv
+
+    s_ch = scales.shape[1]
+    dense = scales.transpose(1, 2).reshape(-1, s_ch)
+    codes = unpack_int4_kv(pool, kh).float()
+    n, hd = codes.shape[0], codes.shape[1] // kh
+    gph = s_ch // kh
+    f = torch.arange(hd, device=pool.device)
+    if wrong == "byte":
+        f = f % (hd // 2)
+    grp = f // (hd // gph)
+    if wrong == "first":
+        grp = torch.zeros_like(grp)
+    sc = dense.reshape(n, kh, gph)[:, :, grp]
+    return (codes.reshape(n, kh, hd) * sc).to(torch.bfloat16).reshape(n, -1)
+
+
+def _g_bytes(kh, hd, s_ch):
+    """Bytes of one token's K or V row in a grouped int4 pool: the codes
+    and the S scales."""
+    return kh * hd // 2 + 4 * s_ch
+
+
+def check_kv_write_q4g(peaks, gen, dev, group):
+    """K7's grouped int4 form against its plain version: pools and scale
+    pools byte-exact (trash page aside), two launches the same bytes, an id
+    equal to num_pages skipped; timed at 8B page 64 beside index_copy_."""
+    from dynamo_tpu_torch.ops import kv_write as m
+    from dynamo_tpu_torch.scripts import l2_evict
+
+    name = "kv_write_q4g"
+
+    flush = l2_evict(dev)
+    times = {}
+    for label, (num_pages, page, kh, hd, n, g) in {
+        "8b-p64": (200, 64, 8, 128, 64, group), "8b-p128": (100, 128, 8, 128, 32, group),
+        "small": (40, 16, 2, 32, 7, 8),
+        # K 1 at page 3 in groups of 16: a 24-byte scale tile, in 4-byte words
+        "k1-p3": (40, 3, 1, 32, 7, 16),
+    }.items():
+        groups = hd // g
+
+        def write(p, table, s, page=page, groups=groups):
+            return m.paged_kv_write(p[0], p[1], table, s[0], s[1], p[2], p[3], s[2], s[3],
+                                    page_size=page, int4=True, groups=groups)
+
+        def plain(p, table, s, page=page):
+            return m.paged_kv_write_q4g_plain(p[0], p[1], table, s[0], s[1], p[2], p[3], s[2],
+                                              s[3], page_size=page)
+
+        k, v, ks, vs = _q4g_pools(num_pages, page, kh, hd, g, gen, dev)
+        kw, s_ch = k.shape[1], ks.shape[1]
+        table = torch.randperm(num_pages - 1, generator=gen, device=dev)[:n].to(torch.int32) + 1
+        table[-1] = 0  # a padding page into the trash page
+        nk, nv, nks, nvs = _q4g_pools(n, page, kh, hd, g, gen, dev)
+        nk, nv = nk.view(n, page, kw), nv.view(n, page, kw)
+        mine = [x.clone() for x in (k, v, ks, vs)]
+        plain_p = [x.clone() for x in (k, v, ks, vs)]
+        out = write(mine, table, (nk, nv, nks, nvs))
+        assert all(a is b for a, b in zip(out, mine))
+        plain(plain_p, table, (nk, nv, nks, nvs))
+        torch.cuda.synchronize()
+        for x, y, per_page in zip(mine, plain_p, (page, page, 1, 1)):
+            assert _same_bytes(x[per_page:], y[per_page:]), f"{name} {label}: differs from plain"
+        assert not torch.equal(mine[0], k) and not torch.equal(mine[2], ks), \
+            f"{name} {label}: pools not updated in place"
+        _write_repeats(name, label, write, plain, (k, v, ks, vs), table, (nk, nv, nks, nvs),
+                       num_pages)
+        if label.startswith("8b"):
+            nbytes = 2 * 2 * n * page * _g_bytes(kh, hd, s_ch) + n * 4
+            b_ms, by = bound_ms(nbytes, 0.0, peaks)
+            times[label] = _write_times(
+                lambda: write(mine, table, (nk, nv, nks, nvs)), flush, b_ms) + (b_ms, by)
+        if label == "8b-p64":
+            plain_ms = time_ms(lambda: plain(plain_p, table, (nk, nv, nks, nvs)))
+            idx = table.long()
+            dst = [x.view(num_pages, -1) for x in mine]
+            src = [nk.view(n, -1), nv.view(n, -1), nks.view(n, -1), nvs.view(n, -1)]
+
+            def lib():
+                for d_, s_ in zip(dst, src):
+                    d_.index_copy_(0, idx, s_)
+
+            lib_ms = time_ms(lib)
+    ms, _, p64, b_ms, by = times["8b-p64"]
+    p128 = times["8b-p128"]
+    log(f"[kernel] {name} group {group}: pools and scale pools (S = K * {128 // group}) "
+        f"byte-exact at 8B page 64/128, small (group 8) and K 1 at page 3 (group 16: "
+        f"24-byte scale tiles, in 4-byte words), two launches the same bytes, an id equal to "
+        f"num_pages skipped; page 64: {p64} (plain {plain_ms:.4f}, index_copy_ {lib_ms:.4f}, "
+        f"bound {b_ms:.4f} by {by}); page 128: {p128[2]} (bound {p128[3]:.4f})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=by)
+
+
+def check_prefill_q4g(peaks, gen, dev, group):
+    """K6's grouped int4 form against its plain version (and the plain
+    version against K2's over the pools dequantized beforehand: the same
+    arithmetic), within one bf16 ulp; its power shown by G_WRONG and by the
+    probabilities rounded once to bf16; timed at 8B page 64."""
+    from dynamo_tpu_torch.ops import prefill_attention as m
+
+    name = "prefill_attention_q4g"
+    cases = {
+        # B, T, H, K, Hd, page, W, pos0, t_valid, group
+        "8b-p64": (8, 512, 32, 8, 128, 64, 9, [64] * 8, [512] * 8, group),
+        "8b-p128": (8, 512, 32, 8, 128, 128, 5, [64] * 8, [512] * 8, group),
+        "small": (4, 48, 4, 2, 32, 16, 6, [0, 16, 7, 40], [48, 20, 1, 0], 8),
+        "g8": (2, 24, 16, 2, 64, 16, 4, [8, 0], [24, 5], 16),
+        "p3": (4, 48, 4, 2, 32, 3, 30, [0, 15, 7, 40], [48, 20, 1, 0], 16),
+    }
+    errs = {}
+    for label, (b, t, h, kh, hd, page, w, pos0, tlen, g) in cases.items():
+        num_pages = b * w + 3
+        k, v, ks, vs = _q4g_pools(num_pages, page, kh, hd, g, gen, dev)
+        tables = _tables(b, w, num_pages, gen, dev)
+        q = torch.randn((b, t, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+        p0 = torch.tensor(pos0, dtype=torch.int32, device=dev)
+        tl = torch.tensor(tlen, dtype=torch.int32, device=dev)
+
+        def kernel(q=q, k=k, v=v, tables=tables, p0=p0, tl=tl, ks=ks, vs=vs, page=page):
+            return m.flash_prefill_attention(q, k, v, tables, p0, tl, ks, vs, page_size=page,
+                                             int4=True)
+
+        got = kernel()
+        want = m.flash_prefill_attention_q4g_plain(q, k, v, tables, p0, tl, ks, vs,
+                                                   page_size=page)
+        kd, vd = _dequant_g(k, ks, kh), _dequant_g(v, vs, kh)
+        same = m.flash_prefill_attention_plain(q, kd, vd, tables, p0, tl, page_size=page)
+        torch.cuda.synchronize()
+        assert torch.equal(same, want), f"{name} {label}: the plain version is not K2's over " \
+            "the pools dequantized beforehand"
+        valid = torch.arange(t, device=dev)[None] < tl[:, None]
+        assert torch.all(got[~valid] == 0), f"{name} {label}: rows past t_valid not 0"
+        c = compare_bf16(got[valid], want[valid])
+        msg = f"[kernel] {name} {label} (group {g}): {fmt(c)}"
+        if label.startswith("8b"):
+            msg += _check_power(want, valid, name, {
+                "probabilities rounded once to bf16": _p_bf16_once(
+                    q, kd, vd, tables, p0, tl, page=page),
+                **{lab: m.flash_prefill_attention_plain(
+                    q, _dequant_g(k, ks, kh, mode), _dequant_g(v, vs, kh, mode), tables, p0,
+                    tl, page_size=page) for lab, mode in G_WRONG.items()}})
+        log(msg)
+        assert c["ok"], f"{name} {label}: outside one bf16 ulp + {ATOL_F32}"
+        errs[label] = c["max_abs_err"]
+        if label == "8b-p128":
+            p128_ms = time_ms(kernel)
+        if label == "8b-p64":
+            ms = time_ms(kernel)
+            plain_ms = time_ms(lambda: m.flash_prefill_attention_q4g_plain(
+                q, k, v, tables, p0, tl, ks, vs, page_size=page))
+            qq, kk, vv, mask = _sdpa_prefill_inputs(q, kd, vd, tables, p0, tl, page)
+            lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask))
+            kv_rows = sum(p + n for p, n in zip(pos0, tlen))
+            nbytes = (2 * q.numel() * 2 + 2 * kv_rows * _g_bytes(kh, hd, ks.shape[1])
+                      + (tables.numel() + 2 * b) * 4)
+            flops = sum(4 * h * hd * sum(p + j + 1 for j in range(n)) for p, n in zip(pos0, tlen))
+            b_ms, by = bound_ms(nbytes, flops, peaks)
+    log(f"[kernel] {name} group {group}: every case within one bf16 ulp + 2**-16; {ms:.4f} ms "
+        f"at page 64 (page 128: {p128_ms:.4f}; plain {plain_ms:.4f}, sdpa over KV dequantized "
+        f"to bf16 beforehand {lib_ms:.4f}, bound {b_ms:.4f} by {by}); "
+        + prefill_rates(ms, lib_ms, flops, 128, 3))
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=by)
+
+
+def check_decode_q4g(peaks, gen, dev, group):
+    """K5's grouped int4 form against its plain version: pools and scale
+    pools byte-equal after the write, attention within one bf16 ulp, the
+    read-only use too, two launches the same bits; its power shown by the
+    new row attended in bf16 and by G_WRONG; timed at 8B page 64, at the
+    engine's W 32 and beside SDPA over KV dequantized beforehand."""
+    from dynamo_tpu_torch.ops import decode_attention as m
+    from dynamo_tpu_torch.ops.quant import quantize_kv_rows_int4
+
+    name = "decode_attention_q4g"
+    plain_fn = m.fused_paged_decode_attention_q4g_plain
+    lens8 = [576, 570, 590, 600, 512, 577, 583, 560]
+    cases = {
+        # B, H, K, Hd, page, W, lengths (write_pos = length - 1; 0 = idle row), group
+        "8b-p64": (8, 32, 8, 128, 64, 10, lens8, group),
+        "8b-w32": (8, 32, 8, 128, 64, 32, lens8, group),
+        "small": (4, 4, 2, 32, 16, 6, [37, 0, 1, 80], 8),
+        "g8": (2, 16, 2, 64, 16, 6, [50, 96], 16),
+        "edges": (7, 8, 2, 64, 16, 12, [64, 65, 128, 129, 1, 0, 192], 32),
+        "page24": (3, 8, 2, 64, 24, 8, [25, 129, 192], 16),
+        "page3": (4, 4, 2, 32, 3, 20, [37, 0, 1, 58], 16),
+    }
+    errs = {}
+    for label, (b, h, kh, hd, page, w, lengths, g) in cases.items():
+        num_pages = b * w + 3
+        k, v, ks, vs = _q4g_pools(num_pages, page, kh, hd, g, gen, dev)
+        tables = _tables(b, w, num_pages, gen, dev)
+        q = torch.randn((b, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+        nk_bf = torch.randn((b, kh * hd), generator=gen, device=dev).to(torch.bfloat16)
+        nv_bf = torch.randn((b, kh * hd), generator=gen, device=dev).to(torch.bfloat16)
+        (nk, nks), (nv, nvs) = (quantize_kv_rows_int4(x, kh, g) for x in (nk_bf, nv_bf))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        wpos = torch.tensor([n - 1 if n else -1 for n in lengths], dtype=torch.int32, device=dev)
+        mine = [x.clone() for x in (k, v, ks, vs)]
+        plain = [x.clone() for x in (k, v, ks, vs)]
+
+        def fused(q=q, nk=nk, nv=nv, tables=tables, lens=lens, wpos=wpos, nks=nks, nvs=nvs,
+                  mine=mine, page=page):
+            return m.fused_paged_decode_attention(
+                q, nk, nv, mine[0], mine[1], tables, lens, wpos, mine[2], mine[3], nks, nvs,
+                page_size=page, int4=True)
+
+        got, *rp = fused()
+        assert all(a is b for a, b in zip(rp, mine))
+        want = plain_fn(q, nk, nv, plain[0], plain[1], tables, lens, wpos, plain[2], plain[3],
+                        nks, nvs, page_size=page)[0]
+        ro = m.paged_decode_attention(q, mine[0], mine[1], tables, lens, mine[2], mine[3],
+                                      page_size=page, int4=True)
+        torch.cuda.synchronize()
+        for x, y in zip(mine, plain):
+            assert _same_bytes(x, y), f"{name} {label}: pools differ after the write"
+        again = fused()[0]
+        ro2 = m.paged_decode_attention(q, mine[0], mine[1], tables, lens, mine[2], mine[3],
+                                       page_size=page, int4=True)
+        assert _same_bytes(again, got) and _same_bytes(ro2, ro), f"{name} {label}: launches differ"
+        assert not torch.equal(mine[0], k) and not torch.equal(mine[2], ks), \
+            f"{name} {label}: pools not updated in place"
+        idle = lens == 0
+        assert torch.all(got[idle] == 0) and torch.all(ro[idle] == 0), \
+            f"{name} {label}: idle rows not 0"
+        c, c_ro = compare_bf16(got, want), compare_bf16(ro, want)
+        msg = f"[kernel] {name} {label} (group {g}): {fmt(c)}; read-only: {fmt(c_ro)}"
+        if label in ("8b-p64", "small"):
+            no_write = wpos.new_full((b,), -1)
+            kd, vd = _dequant_g(plain[0], plain[2], kh), _dequant_g(plain[1], plain[3], kh)
+            variants = {"new row in bf16": m.fused_paged_decode_attention_plain(
+                q, nk_bf, nv_bf, kd.clone(), vd.clone(), tables, lens, wpos, page_size=page)[0]}
+            for lab, mode in G_WRONG.items():
+                variants[lab] = m.fused_paged_decode_attention_plain(
+                    q, nk_bf, nv_bf, _dequant_g(plain[0], plain[2], kh, mode),
+                    _dequant_g(plain[1], plain[3], kh, mode), tables, lens, no_write,
+                    page_size=page)[0]
+            msg += _check_power(want, None, name, variants)
+        log(msg)
+        assert c["ok"] and c_ro["ok"], f"{name} {label}: outside one bf16 ulp + {ATOL_F32}"
+        errs[label] = max(c["max_abs_err"], c_ro["max_abs_err"])
+        if label == "8b-w32":
+            w32_ms = time_ms(fused)
+        if label == "8b-p64":
+            ms = time_ms(fused)
+            plain_ms = time_ms(lambda: plain_fn(
+                q, nk, nv, plain[0], plain[1], tables, lens, wpos, plain[2], plain[3], nks, nvs,
+                page_size=page))
+            kd, vd = _dequant_g(mine[0], mine[2], kh), _dequant_g(mine[1], mine[3], kh)
+            qq, kk, vv, _ = _sdpa_prefill_inputs(q[:, None], kd, vd, tables, lens - 1, lens, page)
+            mask = (torch.arange(kk.shape[2], device=dev)[None] < lens[:, None].long())[:, None, None]
+            lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask))
+            total = sum(lengths)
+            s_ch = ks.shape[1]
+            nbytes = (2 * q.numel() * 2 + 2 * 2 * nk.numel() + 2 * 2 * nks.numel() * 4
+                      + 2 * total * _g_bytes(kh, hd, s_ch) + (tables.numel() + 2 * b) * 4)
+            b_ms, by = bound_ms(nbytes, 4 * h * hd * total, peaks)
+    log(f"[kernel] {name} group {group}: every case within one bf16 ulp + 2**-16, pools and "
+        f"scale pools equal after the write, two launches bit-equal; {ms:.4f} ms at page 64 "
+        f"(W 32: {w32_ms:.4f}; plain {plain_ms:.4f}, sdpa over KV dequantized to bf16 "
+        f"beforehand {lib_ms:.4f}, bound {b_ms:.4f} by {by}; {ms / lib_ms:.2f}x sdpa's time, "
+        f"{b_ms / ms:.1%} of the bound); {ptxas_report(128, 3, 'decode_attention', 4)}")
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=by)
+
+
+# K4's grouped form on RAGGED_CASES' rectangles, with the group of each
+# small case (the 8B ones take the group checked)
+RAGGED_G_GROUPS = {"hd32-g2": 8, "hd64-g1": 16, "hd64-g8": 32, "hd32-p3": 16}
+
+
+def check_ragged_q4g(peaks, gen, dev, group):
+    """K4 over grouped int4 pools (K6's grouped form) against its plain
+    version on RAGGED_CASES, within one bf16 ulp, rows past q_len 0; its
+    power shown on the 8B mixed and verify rectangles (a causal edge one
+    key late, the probabilities rounded once to bf16, G_WRONG); timed on
+    the 8B mixed rectangle."""
+    from dynamo_tpu_torch.ops import decode_attention as m
+    from dynamo_tpu_torch.ops import prefill_attention as p
+
+    name = "ragged_attention_q4g"
+    plain_fn = m.ragged_paged_attention_q4g_plain
+    errs = {}
+    for label, (h, kh, hd, page, t, w, rows) in RAGGED_CASES.items():
+        g = group if label.startswith("8b") else RAGGED_G_GROUPS[label]
+        b = len(rows)
+        num_pages = b * w + 3
+        k, v, ks, vs = _q4g_pools(num_pages, page, kh, hd, g, gen, dev)
+        tables = _tables(b, w, num_pages, gen, dev)
+        q = torch.randn((b, t, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+        p0 = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=dev)
+        ql = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+
+        def kernel(q=q, k=k, v=v, tables=tables, p0=p0, ql=ql, ks=ks, vs=vs, page=page):
+            return m.ragged_paged_attention(q, k, v, tables, p0, ql, ks, vs, page_size=page,
+                                            int4=True)
+
+        got = kernel()
+        want = plain_fn(q, k, v, tables, p0, ql, ks, vs, page_size=page)
+        torch.cuda.synchronize()
+        valid = torch.arange(t, device=dev)[None] < ql[:, None]
+        assert torch.all(got[~valid] == 0), f"{name} {label}: rows past q_len not 0"
+        c = compare_bf16(got[valid], want[valid])
+        msg = f"[kernel] {name} {label} (group {g}): {fmt(c)}"
+        if label in ("8b", "8b-verify"):
+            kd, vd = _dequant_g(k, ks, kh), _dequant_g(v, vs, kh)
+            msg += _check_power(want, valid, name, {
+                "causal edge one key late": plain_fn(q, k, v, tables, p0 + 1, ql, ks, vs,
+                                                     page_size=page),
+                "probabilities rounded once to bf16": _p_bf16_once(
+                    q, kd, vd, tables, p0, ql, page=page),
+                **{lab: p.flash_prefill_attention_plain(
+                    q, _dequant_g(k, ks, kh, mode), _dequant_g(v, vs, kh, mode), tables, p0,
+                    ql, page_size=page) for lab, mode in G_WRONG.items()}})
+        log(msg)
+        assert c["ok"], f"{name} {label}: outside one bf16 ulp + {ATOL_F32}"
+        errs[label] = c["max_abs_err"]
+        if label != "8b":
+            continue
+        ms = time_ms(kernel)
+        plain_ms = time_ms(lambda: plain_fn(q, k, v, tables, p0, ql, ks, vs, page_size=page))
+        kd, vd = _dequant_g(k, ks, kh), _dequant_g(v, vs, kh)
+        qq, kk, vv, mask = _sdpa_prefill_inputs(q, kd, vd, tables, p0, ql, page)
+        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask))
+        kv_rows = sum(p_ + n for p_, n in rows if n)
+        n_q = sum(n for _, n in rows)
+        nbytes = (n_q * h * hd * 2 + q.numel() * 2 + 2 * kv_rows * _g_bytes(kh, hd, ks.shape[1])
+                  + (tables.numel() + 2 * b) * 4)
+        flops = sum(4 * h * hd * sum(p_ + j + 1 for j in range(n)) for p_, n in rows)
+        b_ms, by = bound_ms(nbytes, flops, peaks)
+    log(f"[kernel] {name} group {group}: every case within one bf16 ulp + 2**-16, rows past "
+        f"q_len 0; {ms:.4f} ms on the 8B rectangle (plain {plain_ms:.4f}, sdpa over KV "
+        f"dequantized to bf16 beforehand {lib_ms:.4f}, bound {b_ms:.4f} by {by}); "
+        + prefill_rates(ms, lib_ms, flops, 128, 3))
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=by)
+
+
+GROUP_CHECKS = {"kv_write_q4g": check_kv_write_q4g, "prefill_attention_q4g": check_prefill_q4g,
+                "decode_attention_q4g": check_decode_q4g, "ragged_attention_q4g": check_ragged_q4g}
+
+
+def check_groups(peaks, gen, dev, groups=GROUPS):
+    """Phase 17's kernel checks: each grouped form at each group; returns
+    GROUP_MAIN's results for the kernels line."""
+    out = {}
+    for g in groups:
+        for name, check in GROUP_CHECKS.items():
+            r = check(peaks, gen, dev, g)
+            if g == GROUP_MAIN:
+                out[name] = r
+    return out
+
+
+# ---------------------------------------------------------------- phase 16
+
+# LLaVA-1.5's vision tower at its widths: CLIP ViT-L/14 at 336 px (576
+# patches, hidden 1024, 24 layers, 16 heads, MLP 4 x 1024), projected into
+# Llama-3.1-8B's hidden 4096. Only the widths are CLIP's: the block is the
+# reference's own (RMSNorm, no biases, no CLS token).
+VISION_CFG = dict(image_size=336, patch_size=14, hidden_size=1024, num_layers=24,
+                  num_heads=16, out_size=4096)
+# 8 requests of 64 text tokens (the same for all: one page), an image's 576
+# positions and 64 text tokens of their own (ISL 704: the span crosses the
+# 512-token chunk boundary), OSL 64, greedy
+VISION_TRAFFIC = dict(n=8, text=64, tail=64, osl=64)
+VISION_KV = (None, "int8")
+# phase 5's engine
+VISION_ENGINE = dict(model="llama-3.1-8b", dtype="bfloat16", page_size=64, num_pages=256,
+                     max_batch_size=8, max_model_len=2048, prefill_chunk=512, decode_steps=8,
+                     seed=0)
+# the card's bf16 encoder against the port's f32 encoder on the CPU (the
+# same weights, their bf16 values, and the same images): the output's
+# relative Frobenius error, and the least cosine similarity of one patch's
+# embedding. bf16 keeps 8 bits of each product and of the residual stream
+# after every one of the 24 blocks, so a few 2**-8 add up; a wrong layout,
+# a missing block or an f32-vs-bf16 softmax slip moves whole patches
+VISION_REL_ERR = 0.05
+VISION_MIN_COS = 0.995
+VISION_CPU_IMAGES = 2
+
+
+def check_vision(dev, peaks, vcfg, images):
+    """The encoder on the card in bf16 against the port's encoder in f32 on
+    the CPU for VISION_CPU_IMAGES images; its time for all of `images`.
+    Returns the card's embeddings [n, patches, out] (bf16) and a summary."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.models import vision
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = vision.init_vision_params(vcfg, gen, dtype=torch.bfloat16)
+    out = vision.encode(params, vcfg, images)
+    torch.cuda.synchronize()
+    n_cpu = VISION_CPU_IMAGES
+
+    def f32_cpu(x):
+        return [f32_cpu(y) for y in x] if isinstance(x, list) else (
+            {k: f32_cpu(v) for k, v in x.items()} if isinstance(x, dict) else x.float().cpu())
+
+    t0 = time.perf_counter()
+    want = vision.encode(f32_cpu(params), vcfg, images[:n_cpu].float().cpu())
+    cpu_s = time.perf_counter() - t0
+    got = out[:n_cpu].float().cpu()
+    d = vcfg.out_size
+    assert out.shape == (len(images), vcfg.num_patches, d) and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all()), "vision: non-finite embeddings"
+    rel = ((got - want).norm() / want.norm()).item()
+    cos = F.cosine_similarity(got.reshape(-1, d), want.reshape(-1, d), dim=-1).min().item()
+    ms = time_ms(lambda: vision.encode(params, vcfg, images))
+    t, dh = vcfg.num_patches, vcfg.hidden_size
+    per_image = (2 * t * vcfg.patch_dim * dh + 2 * t * dh * d + vcfg.num_layers * (
+        2 * t * dh * 3 * dh + 4 * t * t * dh + 2 * t * dh * dh + 2 * 2 * t * dh * 4 * dh))
+    n_par = sum(x.numel() for x in [params["patch_proj"], params["pos_embed"], params["out_proj"]]
+                ) + sum(x.numel() for lp in params["layers"] for x in lp.values())
+    b_ms, by = bound_ms(2 * n_par + images.numel() * 4 + out.numel() * 2,
+                        len(images) * per_image, peaks)
+    summary = dict(rel_err=rel, min_cos=cos, encode_ms=ms, bound_ms=b_ms, bound_by=by,
+                   images=len(images), params_b=n_par / 1e9, cpu_f32_s=cpu_s)
+    log(f"[vision] encoder {vcfg} ({n_par / 1e9:.3f} B params, bf16) on the card against the "
+        f"port's f32 encoder on the CPU for {n_cpu} images: relative error {rel:.3e} (gate "
+        f"{VISION_REL_ERR}), least patch cosine {cos:.6f} (gate {VISION_MIN_COS}); "
+        f"{len(images)} images in {ms:.4f} ms (bound {b_ms:.4f} by {by}, "
+        f"{len(images) * per_image / (ms * 1e-3) / 1e12:.1f} TFLOP/s)")
+    assert rel <= VISION_REL_ERR and cos >= VISION_MIN_COS, \
+        f"vision: the card's encoder is off the CPU's (rel {rel:.3e}, cos {cos:.6f})"
+    del params
+    return out, summary
+
+
+def _embeds_host_ms(eng, embeds, offset, n_tokens):
+    """Host ms to take one request's embeds (Sequence.from_request, then
+    the engine's device copy in the model dtype, synchronized): given as
+    nested lists and as a numpy array."""
+    from dynamo_tpu_torch.engine.scheduler import Sequence
+    from dynamo_tpu_torch.llm.protocols.common import PreprocessedRequest
+    from dynamo_tpu_torch.runtime.pipeline.context import Context
+
+    host = embeds.float().cpu().numpy()
+    out = {}
+    for label, e in (("lists", host.tolist()), ("array", host)):
+        pre = PreprocessedRequest(token_ids=list(range(n_tokens)), prompt_embeds=e,
+                                  embeds_offset=offset)
+        t0 = time.perf_counter()
+        seq = Sequence.from_request(Context({}), pre, eng.page_size, eng.config.max_model_len)
+        eng._take_embeds(seq)
+        torch.cuda.synchronize()
+        out[label] = 1e3 * (time.perf_counter() - t0)
+        assert torch.equal(seq.prompt_embeds, embeds.to(eng._dtype))
+    return out
+
+
+def phase_vision(dev, params, peaks, smi="", cfg=None, vcfg=None, traffic=None):
+    """Phase 16: the vision encoder at LLaVA-1.5's widths (check_vision),
+    then image requests through TorchEngine on phase 5's engine in bf16 and
+    int8 KV: the lookup oracle (a request whose embeds are the embed-table
+    rows of its own placeholder tokens streams exactly the plain request's
+    tokens), eight image requests at once (each reusing only the shared
+    64-token text page), text-only prompts of the same ISL beside them, the
+    launches the dispatch counters imply and no plain call. Returns the
+    weights."""
+    from dynamo_tpu_torch import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.models import vision
+
+    vc = vision.VisionConfig(**dict(VISION_CFG, **(vcfg or {})))
+    tr = dict(VISION_TRAFFIC, **(traffic or {}))
+    n, text, tail, osl, p = tr["n"], tr["text"], tr["tail"], tr["osl"], vc.num_patches
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    images = torch.rand((n, vc.image_size, vc.image_size, 3), generator=gen, device=dev)
+    embeds, vsum = check_vision(dev, peaks, vc, images)
+    for kv_quant in VISION_KV:
+        torch.cuda.empty_cache()
+        conf = EngineConfig(**dict(VISION_ENGINE, **(cfg or {})), kv_quantization=kv_quant)
+        tag = f"[vision {kv_quant or 'bf16'} KV]"
+        eng = TorchEngine(conf, params=params, device=dev)
+        assert eng.model_cfg.hidden_size == vc.out_size
+        rng = np.random.RandomState(7)
+        vocab = eng.model_cfg.vocab_size
+        shared = rng.randint(0, vocab, size=text).tolist()
+
+        def prompt():
+            return (shared + rng.randint(0, vocab, size=p).tolist()
+                    + rng.randint(0, vocab, size=tail).tolist())
+
+        warm, first, oracle = prompt(), prompt(), prompt()
+        prompts = [prompt() for _ in range(n)]
+        plain_prompts = [rng.randint(0, vocab, size=text + p + tail).tolist() for _ in range(n)]
+        spans = [(embeds[i], text) for i in range(n)]
+        lookup = eng.params["embed"][torch.tensor(oracle[text:text + p], device=dev)]
+        host_ms = _embeds_host_ms(eng, embeds[0], text, text + p + tail)
+
+        async def go():
+            # warm-up: the embed path, a chunk across the span, the graphs
+            await run_requests(eng, [warm] * 2, 16, embeds=spans[:2])
+            await run_requests(eng, plain_prompts[:2], 16)
+            # the oracle, each request alone (the same dispatch shapes)
+            eng.allocator.clear_cache()
+            ref, _ = await run_requests(eng, [oracle], osl)
+            eng.allocator.clear_cache()
+            got, _ = await run_requests(eng, [oracle], osl, embeds=[(lookup, text)])
+            assert got[0][0] == ref[0][0] and got[0][2] == "length", \
+                f"{tag} the lookup embeds' stream differs from the plain request's"
+            # one image request registers the shared text page; then eight
+            # distinct images at once each reuse exactly that page
+            eng.allocator.clear_cache()
+            await run_requests(eng, [first], 4, embeds=spans[:1])
+            torch.cuda.synchronize()
+            s0 = eng.phase_stats
+            reset_counts()
+            metas = []
+            with GcPauses() as gcp:
+                res, wall = await run_requests(eng, prompts, osl, metas, embeds=spans)
+            counts = read_counts()
+            s1 = eng.phase_stats
+            # the text-only round starts as the image round did: nothing
+            # queued on the device (the pipeline's overshoot dispatch done)
+            eng.allocator.clear_cache()
+            torch.cuda.synchronize()
+            res_t, wall_t = await run_requests(eng, plain_prompts, osl)
+            await eng.close()
+            return res, wall, metas, counts, s0, s1, res_t, wall_t, gcp
+
+        res, wall, metas, counts, s0, s1, res_t, wall_t, gcp = asyncio.run(go())
+        d = {k: s1[k] - s0[k] for k in s1}
+        cached = [m_["prefix_cached_tokens"] for m_ in metas]
+        assert cached == [text] * n, f"{tag} prefix hits {cached}: each should reuse only the " \
+            f"shared {text}-token text page"
+        for toks, _, reason, _ in res + res_t:
+            assert len(toks) == osl and reason == "length"
+            assert all(0 <= t < vocab for t in toks)
+        check_counts(counts, path_launches(d, eng.model_cfg.num_layers, conf.decode_steps,
+                                           kv_fmt(conf)), tag)
+        step_ms = decode_step_ms(d, conf.decode_steps)
+        m = {
+            "encode_ms_8_images": vsum["encode_ms"],
+            "embeds_host_ms": host_ms,
+            "ttft_p50_s": statistics.median(r[1] for r in res),
+            "ttft_p50_text_only_s": statistics.median(r[1] for r in res_t),
+            "ttft_max_s": max(r[1] for r in res),
+            "decode_step_ms": step_ms,
+            "output_tok_s_wall": n * osl / wall,
+            "output_tok_s_wall_text_only": n * osl / wall_t,
+            "prefill_dispatches": d["prefill_dispatches"],
+            "prefix_cached_tokens": cached[0],
+            **gcp.summary(),
+        }
+        log(f"{tag} oracle: the lookup embeds stream the plain request's {osl} tokens; "
+            f"{n} x (text {text} + image {p} + text {tail}, OSL {osl}), each reusing only the "
+            f"shared text page: " + json.dumps(m) + f"; {smi}")
+        log(f"{tag} launches: {json.dumps({k: v[0] for k, v in counts.items() if v[0]})}; "
+            f"plain calls: {sum(v[1] for v in counts.values())}")
+        params = eng.params
+        del eng
+    return params
+
+
+# ---------------------------------------------------------------- phase 17, serving
+
+
+def phase_groups(dev, params, peaks, smi="", cfg=None, groups=GROUPS):
+    """Phase 17: the grouped int4 kernels against their plain versions at
+    each of `groups` (check_groups), then phase 5's traffic with int4 KV in
+    groups of GROUP_MAIN (pipeline on; decode step, TTFT and the KV pool's
+    bytes beside one-group int4's on the same pages) and phase 8's wave with
+    mixed steps and speculative decoding on (K4's grouped form). Returns
+    GROUP_MAIN's kernel results, the main path's launches and the weights."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    results = check_groups(peaks, gen, dev, groups)
+    torch.cuda.empty_cache()
+    counts, m, params = phase_full_width(dev, kv_quant="int4", kv_quant_group=GROUP_MAIN,
+                                         params=params, pipe=True, **(cfg or {}))
+    launches = {k: counts[k] for k in INT4G_KERNELS}
+    from dynamo_tpu_torch.models.config import get_config
+
+    mc = get_config((cfg or {}).get("model", "llama-3.1-8b"))
+    one_group = 2 * mc.num_layers * 256 * 64 * (mc.kv_size // 2 + 4 * mc.num_kv_heads)
+    log(f"[groups] int4 in groups of {GROUP_MAIN}: decode step {m['decode_step_ms']:.4f} ms, TTFT "
+        f"p50 {m['ttft_p50_s']:.4f} s, KV pools {m['kv_pool_gb']:.3f} GB against one-group "
+        f"int4's {one_group / 1e9:.3f} GB on the same 256 pages "
+        f"({2 * 4 * (mc.head_dim // GROUP_MAIN - 1) * mc.num_kv_heads} B a token and layer more "
+        f"scales); {smi}")
+    torch.cuda.empty_cache()
+    counts, mw, _, params = phase_wave(dev, params, kv_quant="int4",
+                                       cfg=dict(kv_quant_group=GROUP_MAIN, **(cfg or {})))
+    launches["ragged_attention_q4g"] = counts["ragged_attention_q4g"]
+    log(f"[groups] wave, mixed + spec on, int4 in groups of {GROUP_MAIN}: " + json.dumps(
+        {k: mw[k] for k in ("wave_ttft_p50_s", "held_max_gap_in_wave_s", "held_tok_s_in_wave",
+                            "mixed_steps", "spec_dispatches", "decode_step_ms")}) + f"; {smi}")
+    return results, launches, params
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1,
@@ -4169,9 +4857,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.build()
-    log(f"[build] {len(_cuda.SOURCES)} sources (eighteen kernels: nine on the serving path, "
-        f"K4 entering K2/K6, the four W8A8 kernels, the five probe kernels K8-K10, and an "
-        f"empty one) built in {time.perf_counter() - t0:.1f} s "
+    log(f"[build] {len(_cuda.SOURCES)} sources (twenty-one kernels: twelve on the serving "
+        f"path, the grouped int4 forms of K5-K7 among them, K4 entering K2/K6, the four W8A8 "
+        f"kernels, the five probe kernels K8-K10, and an empty one) built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_cuda.NVCC_FLAGS[:2])})")
     for n, text in _cuda.build_logs.items():
         for line in text.splitlines():
@@ -4275,6 +4963,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_moe(dev, peaks, part, smi=smi)
+    # phase 16: the vision encoder at LLaVA-1.5's widths and image requests
+    # on phase 5's engine and weights (made again from seed 0), bf16 then
+    # int8 KV; phase 17: the grouped int4 kernels, then int4 KV in groups of
+    # 32 on the same weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = phase_vision(dev, None, peaks, smi=smi)
+    g_results, g_launches, params = phase_groups(dev, params, peaks, smi=smi)
+    results.update(g_results)
+    launches.update(g_launches)
+    del params
+    gc.collect()
     # phase 11: the serving entry at full width (its own engine, seed 0)
     torch.cuda.empty_cache()
     phase_serving(dev, smi=smi)
@@ -4315,8 +5015,18 @@ def main() -> int:
         "silu_mul_quantize_rows": ("dynamo_tpu_torch/csrc/w8a8.cu",
                                    "dynamo_tpu/ops/quant.py:60"),
         "w8a8_gemm": ("dynamo_tpu_torch/csrc/w8a8.cu", "dynamo_tpu/ops/quant.py:60"),
+        # int4 in scale groups finer than head_dim: the reference serves it
+        # on its gather backend, XLA ops and no pallas_call (the row write
+        # of models/llama.py, the dequantizing gather attention)
+        "kv_write_q4g": ("dynamo_tpu_torch/csrc/kv_write.cu", "dynamo_tpu/models/llama.py:316"),
+        "prefill_attention_q4g": ("dynamo_tpu_torch/csrc/prefill_attention.cu",
+                                  "dynamo_tpu/ops/attention.py:75"),
+        "decode_attention_q4g": ("dynamo_tpu_torch/csrc/decode_attention.cu",
+                                 "dynamo_tpu/ops/attention.py:75"),
+        "ragged_attention_q4g": ("dynamo_tpu_torch/csrc/prefill_attention.cu",
+                                 "dynamo_tpu/ops/attention.py:75"),
     }
-    log(f"[smoke] phases 1-15 took {time.perf_counter() - t_smoke:.1f} s of wall time, build "
+    log(f"[smoke] phases 1-17 took {time.perf_counter() - t_smoke:.1f} s of wall time, build "
         f"included")
     kernels = []
     for k, r in results.items():

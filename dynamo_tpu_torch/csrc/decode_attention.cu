@@ -23,6 +23,21 @@
 // Codes are widened in registers (low ((b & 15) ^ 8) - 8, high b >> 4 on
 // the signed byte), exactly.
 //
+// K5's grouped int4 form takes scale pools of S = K * groups channels
+// [num_pages, S, page_size] and new scales [B, S] (groups of `group`
+// features, a power of two from 8 to Hd / 2). A scale that varies across a
+// head's features cannot be folded into the score or the probability, so,
+// as the reference's gather path does (dynamo_tpu/ops/attention.py
+// paged_attention over dequantize_kv_rows_int4 rows), each code times its
+// group's scale in f32 is rounded once to bf16 and that value is the
+// operand: in the score's A fragments, and in P.V's f32 V features. A
+// packed byte's two nibbles (features j and j + Hd/2) may lie in different
+// groups; each takes its own. A tile's scales are staged beside its rows,
+// one 4-byte copy each, [key][group]. Bound: bytes, as the int4 form's,
+// with S scales a row where it reads K (group 32 at the 8B shape: 1,280
+// bytes a token and layer against 1,088); the per-element products and
+// roundings cost the CUDA cores what the fold saved them.
+//
 // Bound on the H100: bytes. Each step streams every live K/V row once
 // (2 * sum(lengths) * K * Hd bytes per element size, plus 8 bytes of
 // scales per row and kv head for K5) for ~4 FLOPs per byte (~8 at int8,
@@ -94,7 +109,7 @@ constexpr int kSplitKeys = kStages * kWarps * kTileKeys;  // a split's keys are 
 constexpr float kNegInf = -0.7f * FLT_MAX;
 constexpr float kLog2e = 1.4426950408889634f;
 
-enum class KvFmt { kBf16, kInt8, kInt4 };
+enum class KvFmt { kBf16, kInt8, kInt4, kInt4G };
 
 // bytes of one kv head's row in the pool
 template <int HD, KvFmt F>
@@ -103,14 +118,16 @@ __host__ __device__ constexpr int row_bytes() {
 }
 
 // Shared memory: each warp's ring (two stages of 16 K rows, padded, 16 V
-// rows and, for K5, their 16 K and 16 V scales), then each warp's
+// rows and, for K5, their 16 K and 16 V scales, or kMaxS a key each in the
+// grouped form), then each warp's
 // probabilities [16 keys][8 heads] and rescale factors [8]. The warps'
 // merge reuses it from the start.
 template <int HD, KvFmt F>
 struct Smem {
   static constexpr int RB = row_bytes<HD, F>();
   static constexpr int KSTR = RB % 128 == 0 ? RB + 64 : RB;
-  static constexpr int kScales = F == KvFmt::kBf16 ? 0 : 2 * kTileKeys * 4;
+  static constexpr int kMaxS = F == KvFmt::kInt4G ? HD / 8 : 1;  // scales a key, at most
+  static constexpr int kScales = F == KvFmt::kBf16 ? 0 : 2 * kTileKeys * 4 * kMaxS;
   static constexpr int kStage = kTileKeys * (KSTR + RB) + kScales;
   static constexpr int kPs = (kTileKeys + 1) * kMaxG * 4;
   static constexpr int kWarpMerge = (2 * kWarps * kMaxG + kWarps * kMaxG * HD) * 4;
@@ -237,6 +254,27 @@ __device__ __forceinline__ void row_frag(const uint32_t* wd, uint32_t (*a)[4], i
   }
 }
 
+// the grouped int4 form's rows: each code times its group's scale (sc: the
+// key's scales, one a group; 1 << gshift features a group, >= 8, so a
+// word's four low or four high nibbles share one), in f32, rounded to bf16
+template <int HD>
+__device__ __forceinline__ void row_frag_g(const uint32_t* wd, uint32_t (*a)[4], int rsel,
+                                           const float* sc, int c4, int gshift) {
+  using Fr = Frag<HD, KvFmt::kInt4G>;
+#pragma unroll
+  for (int w = 0; w < Fr::NW; ++w) {
+    const uint32_t x = wd[w];
+    const int off = Fr::word_off(w, c4);  // the low nibbles' first feature
+    const float sl = sc[off >> gshift];
+    const float sh = sc[(HD / 2 + off) >> gshift];
+    const int b0 = sbyte(x, 0), b1 = sbyte(x, 1), b2 = sbyte(x, 2), b3 = sbyte(x, 3);
+    a[2 * w][rsel] = pack_bf16(__fmul_rn(nib_lo(b0), sl), __fmul_rn(nib_lo(b1), sl));
+    a[2 * w][rsel + 2] = pack_bf16(__fmul_rn(nib_lo(b2), sl), __fmul_rn(nib_lo(b3), sl));
+    a[2 * w + 1][rsel] = pack_bf16(__fmul_rn(nib_hi(b0), sh), __fmul_rn(nib_hi(b1), sh));
+    a[2 * w + 1][rsel + 2] = pack_bf16(__fmul_rn(nib_hi(b2), sh), __fmul_rn(nib_hi(b3), sh));
+  }
+}
+
 // head g8's B fragments: qh = its q row (null past G: zeros)
 template <int HD, KvFmt F>
 __device__ __forceinline__ void q_frag(const __nv_bfloat16* qh, float scale, int c4,
@@ -272,7 +310,7 @@ __device__ __forceinline__ void q_frag(const __nv_bfloat16* qh, float scale, int
 template <int HD, KvFmt F>
 __device__ __forceinline__ int feat(int lane, int dd) {
   constexpr int DPL = HD / 32;
-  if constexpr (F != KvFmt::kInt4) {
+  if constexpr (F != KvFmt::kInt4 && F != KvFmt::kInt4G) {
     return lane * DPL + dd;
   } else if constexpr (HD == 32) {
     return lane;
@@ -338,7 +376,8 @@ __global__ void __launch_bounds__(kThreads, 4) fused_decode_kernel(
     unsigned char* __restrict__ v_pool,
     const float* __restrict__ new_ks,          // [B, K] (K5; unused when no write)
     const float* __restrict__ new_vs,
-    float* __restrict__ ks_pool,               // [num_pages, K, page_size] (K5)
+    float* __restrict__ ks_pool,               // [num_pages, S, page_size] (K5; S = K, or
+                                               // K * groups in the grouped form)
     float* __restrict__ vs_pool,
     const int32_t* __restrict__ tables,        // [B, W]
     const int32_t* __restrict__ lengths,       // [B]
@@ -346,10 +385,14 @@ __global__ void __launch_bounds__(kThreads, 4) fused_decode_kernel(
     __nv_bfloat16* __restrict__ out,           // [B, H, HD]
     float* __restrict__ part,                  // [B, K, splits, 2 * kMaxG + G * HD] (splits > 1)
     int* __restrict__ tickets,                 // [B, K], 0 between launches
-    int H, int K, int W, int page_size, int chunk, float scale) {
+    int H, int K, int W, int page_size, int chunk, float scale,
+    int gshift) {  // grouped form: a scale group is 1 << gshift features
   using S = Smem<HD, F>;
   using Fr = Frag<HD, F>;
   constexpr bool kQuant = F != KvFmt::kBf16;
+  constexpr bool kGrouped = F == KvFmt::kInt4G;
+  constexpr bool kFold = kQuant && !kGrouped;  // scales folded into scores and probabilities
+  const int gph = kGrouped ? HD >> gshift : 1;  // scale groups a kv head
   constexpr int RB = S::RB;
   constexpr int KSTR = S::KSTR;
   constexpr int DPL = HD / 32;
@@ -407,10 +450,23 @@ __global__ void __launch_bounds__(kThreads, 4) fused_decode_kernel(
         *reinterpret_cast<uint4*>(v_pool + dst) = *reinterpret_cast<const uint4*>(new_v + src);
       }
     }
-    if constexpr (kQuant) {
+    if constexpr (kFold) {
       const long long si = (page * K + kh) * page_size + pmod(wpos);
       if (tid == kThreads - 2) ks_pool[si] = new_ks[(long long)b * K + kh];
       if (tid == kThreads - 1) vs_pool[si] = new_vs[(long long)b * K + kh];
+    }
+    if constexpr (kGrouped) {
+      const int x = tid - (kThreads - 2 * gph);  // the last 2 * gph threads
+      if (x >= 0) {
+        const int grp = x % gph;
+        const long long ch = ((long long)b * K + kh) * gph + grp;
+        const long long si = ((page * K + kh) * gph + grp) * page_size + pmod(wpos);
+        if (x < gph) {
+          ks_pool[si] = new_ks[ch];
+        } else {
+          vs_pool[si] = new_vs[ch];
+        }
+      }
     }
   }
   if (split >= n_act) {  // no keys here
@@ -456,7 +512,28 @@ __global__ void __launch_bounds__(kThreads, 4) fused_decode_kernel(
         cp_async16(dv, v_pool + off, ok);
       }
     }
-    if constexpr (kQuant) {
+    if constexpr (kGrouped) {
+      // [key][group] K scales, then V scales; lanes on consecutive keys
+      float* ds0 = reinterpret_cast<float*>(st + kTileKeys * (KSTR + RB));
+      for (int x = lane; x < 2 * kTileKeys * gph; x += 32) {
+        const int r = x % kTileKeys;
+        const int grp = (x / kTileKeys) % gph;
+        const bool isv = x >= kTileKeys * gph;
+        const int pos = key0 + r;
+        const bool ok = pos < end;
+        const long long page = ok ? (one_page ? tpage : page_of(pos)) : 0;
+        const long long si = ok ? ((page * K + kh) * gph + grp) * page_size + pmod(pos) : 0;
+        float* ds = ds0 + (isv ? kTileKeys * S::kMaxS : 0) + r * gph + grp;
+        float* pool_s = isv ? vs_pool : ks_pool;
+        if (own_write && pos == wpos) {
+          const float sv = (isv ? new_vs : new_ks)[((long long)b * K + kh) * gph + grp];
+          pool_s[si] = sv;
+          *ds = sv;
+        } else {
+          cp_async4(ds, pool_s + si, ok);
+        }
+      }
+    } else if constexpr (kQuant) {
       const int r = lane & 15;
       const bool isv = lane >= 16;
       const int pos = key0 + r;
@@ -507,21 +584,29 @@ __global__ void __launch_bounds__(kThreads, 4) fused_decode_kernel(
 
     // scores of keys g8 and g8 + 8 for heads 2*c4 and 2*c4 + 1
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* ksc = reinterpret_cast<const float*>(st + kTileKeys * (KSTR + RB));
     {
       uint32_t a[KS][4];
       uint32_t wd[Fr::NW];
       load_words<HD, F>(st + g8 * KSTR, c4, wd);
-      row_frag<HD, F>(wd, a, 0);
+      if constexpr (kGrouped) {
+        row_frag_g<HD>(wd, a, 0, ksc + g8 * gph, c4, gshift);
+      } else {
+        row_frag<HD, F>(wd, a, 0);
+      }
       load_words<HD, F>(st + (g8 + 8) * KSTR, c4, wd);
-      row_frag<HD, F>(wd, a, 1);
+      if constexpr (kGrouped) {
+        row_frag_g<HD>(wd, a, 1, ksc + (g8 + 8) * gph, c4, gshift);
+      } else {
+        row_frag<HD, F>(wd, a, 1);
+      }
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) mma_bf16(acc, a[ks], qb[ks][0], qb[ks][1]);
     }
-    const float* ksc = reinterpret_cast<const float*>(st + kTileKeys * (KSTR + RB));
     const bool ok0 = key0 + g8 < end;
     const bool ok1 = key0 + g8 + 8 < end;
-    const float f0 = kQuant ? ksc[g8] * kLog2e : kLog2e;
-    const float f1 = kQuant ? ksc[g8 + 8] * kLog2e : kLog2e;
+    const float f0 = kFold ? ksc[g8] * kLog2e : kLog2e;
+    const float f1 = kFold ? ksc[g8 + 8] * kLog2e : kLog2e;
     const float s0 = ok0 ? acc[0] * f0 : kNegInf;
     const float s1 = ok0 ? acc[1] * f0 : kNegInf;
     const float s2 = ok1 ? acc[2] * f1 : kNegInf;
@@ -542,8 +627,8 @@ __global__ void __launch_bounds__(kThreads, 4) fused_decode_kernel(
     l1 = l1 * al1 + p1 + p3;
     m0 = mn0;
     m1 = mn1;
-    const float vs0 = kQuant ? ksc[kTileKeys + g8] : 1.f;
-    const float vs1 = kQuant ? ksc[kTileKeys + g8 + 8] : 1.f;
+    const float vs0 = kFold ? ksc[kTileKeys + g8] : 1.f;
+    const float vs1 = kFold ? ksc[kTileKeys + g8 + 8] : 1.f;
     *reinterpret_cast<float2*>(ps + g8 * kMaxG + 2 * c4) = make_float2(p0 * vs0, p1 * vs0);
     *reinterpret_cast<float2*>(ps + (g8 + 8) * kMaxG + 2 * c4) = make_float2(p2 * vs1, p3 * vs1);
     if (g8 == 0) *reinterpret_cast<float2*>(pal + 2 * c4) = make_float2(al0, al1);
@@ -565,6 +650,13 @@ __global__ void __launch_bounds__(kThreads, 4) fused_decode_kernel(
       for (int r = 0; r < kTileKeys; ++r) {
         float vf[DPL];
         v_feats<HD, F>(vrows + r * RB, lane, vf);
+        if constexpr (kGrouped) {
+          const float* vsc = ksc + kTileKeys * S::kMaxS + r * gph;
+#pragma unroll
+          for (int dd = 0; dd < DPL; ++dd)
+            vf[dd] = __bfloat162float(
+                __float2bfloat16_rn(__fmul_rn(vf[dd], vsc[feat<HD, F>(lane, dd) >> gshift])));
+        }
         const float4 pa = *reinterpret_cast<const float4*>(ps + r * kMaxG);
         const float4 pb = GP > 4 ? *reinterpret_cast<const float4*>(ps + r * kMaxG + 4) : pa;
         const float pr[kMaxG] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
@@ -700,7 +792,7 @@ int launch(const void* q, const void* new_k, const void* new_v, void* k_pool, vo
            const void* new_ks, const void* new_vs, void* ks_pool, void* vs_pool,
            const void* tables, const void* lengths, const void* write_pos, void* out,
            int B, int H, int K, int W, int page_size, float scale, cudaStream_t stream,
-           void* part, void* tickets, int chunk) {
+           void* part, void* tickets, int chunk, int gshift) {
   if (chunk <= 0 || chunk % kSplitKeys != 0) return -1;
   const long long span = (long long)W * page_size;
   const int nsplit = span > chunk ? (int)((span + chunk - 1) / chunk) : 1;
@@ -725,7 +817,7 @@ int launch(const void* q, const void* new_k, const void* new_v, void* k_pool, vo
       (unsigned char*)k_pool, (unsigned char*)v_pool, (const float*)new_ks, (const float*)new_vs,
       (float*)ks_pool, (float*)vs_pool, (const int32_t*)tables, (const int32_t*)lengths,
       (const int32_t*)write_pos, (__nv_bfloat16*)out, (float*)part, (int*)tickets, H, K, W,
-      page_size, chunk, scale);
+      page_size, chunk, scale, gshift);
   return (int)cudaGetLastError();
 }
 
@@ -734,22 +826,22 @@ int dispatch(const void* q, const void* new_k, const void* new_v, void* k_pool, 
              const void* new_ks, const void* new_vs, void* ks_pool, void* vs_pool,
              const void* tables, const void* lengths, const void* write_pos, void* out,
              int B, int H, int K, int HD, int W, int page_size, float scale, void* stream,
-             void* part, void* tickets, int chunk) {
+             void* part, void* tickets, int chunk, int gshift = 0) {
   if (B <= 0) return 0;
   if (K <= 0 || H % K != 0 || H / K > kMaxG) return -1;
   cudaStream_t s = (cudaStream_t)stream;
   if (H / K > 4) {
     switch (HD) {
-      case 32: return launch<32, F, 8>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s, part, tickets, chunk);
-      case 64: return launch<64, F, 8>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s, part, tickets, chunk);
-      case 128: return launch<128, F, 8>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s, part, tickets, chunk);
+      case 32: return launch<32, F, 8>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s, part, tickets, chunk, gshift);
+      case 64: return launch<64, F, 8>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s, part, tickets, chunk, gshift);
+      case 128: return launch<128, F, 8>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s, part, tickets, chunk, gshift);
       default: return -1;
     }
   }
   switch (HD) {
-    case 32: return launch<32, F, 4>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s, part, tickets, chunk);
-    case 64: return launch<64, F, 4>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s, part, tickets, chunk);
-    case 128: return launch<128, F, 4>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s, part, tickets, chunk);
+    case 32: return launch<32, F, 4>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s, part, tickets, chunk, gshift);
+    case 64: return launch<64, F, 4>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s, part, tickets, chunk, gshift);
+    case 128: return launch<128, F, 4>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool, vs_pool, tables, lengths, write_pos, out, B, H, K, W, page_size, scale, s, part, tickets, chunk, gshift);
     default: return -1;
   }
 }
@@ -802,4 +894,22 @@ extern "C" int fused_decode_q4_launch(
   return dispatch<KvFmt::kInt4>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool,
                                 vs_pool, tables, lengths, write_pos, out, B, H, K, HD, W,
                                 page_size, scale, stream, part, tickets, chunk);
+}
+
+// K5, grouped int4 form: nibble-packed pools and new rows [*, K*HD/2], f32
+// scale pools [num_pages, S, page_size] and new scales [B, S] of S = K * HD
+// / group channels, `group` features a scale (a power of two, 8 <= group <
+// HD; -1 otherwise); the same rules as K5.
+extern "C" int fused_decode_q4g_launch(
+    const void* q, const void* new_k, const void* new_v, void* k_pool, void* v_pool,
+    const void* new_ks, const void* new_vs, void* ks_pool, void* vs_pool,
+    const void* tables, const void* lengths, const void* write_pos, void* out,
+    int B, int H, int K, int HD, int W, int page_size, float scale, void* stream,
+    void* part, void* tickets, int chunk, int group) {
+  if (group < 8 || group >= HD || (group & (group - 1))) return -1;
+  int gshift = 0;
+  while ((1 << gshift) < group) ++gshift;
+  return dispatch<KvFmt::kInt4G>(q, new_k, new_v, k_pool, v_pool, new_ks, new_vs, ks_pool,
+                                 vs_pool, tables, lengths, write_pos, out, B, H, K, HD, W,
+                                 page_size, scale, stream, part, tickets, chunk, gshift);
 }

@@ -35,7 +35,10 @@
 // flushed (PERF.md §6): a copy this small pays the bulk unit's
 // latency twice and gains nothing from freeing the threads. The same code
 // serves bf16, int8 and int4 (a packed int4 row is bytes like any other);
-// the three instantiations differ in their name and their scale items.
+// the instantiations differ in their name and their scale items. The
+// grouped int4 form (scale groups finer than head_dim: S = K * groups
+// channels a row) copies scale tiles [S, page_size], S / K times K7's; its
+// instantiation of its own keeps its launches apart in a profile.
 // A scale tile that is not whole 16-byte vectors (K * page_size not a
 // multiple of 4, e.g. K 2 at page 3) lies at 4-byte offsets in its pool, so
 // its items go in 4-byte words, four a thread (at most 4 KB an item).
@@ -50,7 +53,7 @@ constexpr int kVecs = 4;  // 16-byte vectors a thread keeps in flight
 constexpr int kMaxChunk = kThreads * kVecs * 16;
 constexpr int kMaxWordChunk = kThreads * kVecs * 4;
 
-enum class KvFmt { kBf16, kInt8, kInt4 };
+enum class KvFmt { kBf16, kInt8, kInt4, kInt4G };
 
 struct Args {
   unsigned char* k_pool;
@@ -217,4 +220,18 @@ extern "C" int paged_kv_write_q4_launch(
   return launch<KvFmt::kInt4>(k_pool, v_pool, page_table, new_k, new_v, ks_pool, vs_pool,
                               new_ks, new_vs, n_pages, num_pages, page_bytes,
                               4LL * tile_floats, chunk, tile_chunk, grid, stream);
+}
+
+// K7, grouped int4 form: nibble-packed pages and scale tiles [S, page_size]
+// f32 of S = K * groups channels (tile_floats = S * page_size); the same
+// rules.
+extern "C" int paged_kv_write_q4g_launch(
+    void* k_pool, void* v_pool, const void* page_table,
+    const void* new_k, const void* new_v,
+    void* ks_pool, void* vs_pool, const void* new_ks, const void* new_vs,
+    long long n_pages, long long num_pages, long long page_bytes, int tile_floats,
+    void* stream, int chunk, int tile_chunk, int grid) {
+  return launch<KvFmt::kInt4G>(k_pool, v_pool, page_table, new_k, new_v, ks_pool, vs_pool,
+                               new_ks, new_vs, n_pages, num_pages, page_bytes,
+                               4LL * tile_floats, chunk, tile_chunk, grid, stream);
 }

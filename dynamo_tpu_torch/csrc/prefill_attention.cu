@@ -18,6 +18,21 @@
 // . v_codes == p . dequant(v)), and the denominator sums the unscaled
 // probabilities.
 //
+// K6's grouped int4 form reads int4 pools whose scale pools carry S = K *
+// groups channels [num_pages, S, page_size] (scale groups of `group`
+// features, a power of two from 8 to Hd / 2). A scale that varies across a
+// head's features cannot be folded into the score or the probability, so
+// this form does what the reference's gather path does there
+// (dynamo_tpu/ops/attention.py paged_attention over
+// dequantize_kv_rows_int4 rows): each code times its group's scale in
+// f32, rounded once to bf16, is the operand; the products are then K2's
+// (scores scaled in f32, probabilities split in two bf16 terms). A packed
+// byte's two nibbles are features j and j + Hd/2, so they may lie in
+// different groups: each half of a row takes its own group's scale. The
+// block's scales are staged beside its codes, one 4-byte copy each. Bound:
+// as K6's int4 form (the products and the row reads), the widening pass
+// now a multiply and a rounding an element.
+//
 // Bound on the H100: at the engine's shapes (chunks of 512 over a prompt)
 // its ~2 * 2 * B * H * Hd * T * T / 2 FLOPs at the bf16 tensor-core rate
 // take about as long as one read of q/K/V and one write of the output
@@ -76,7 +91,7 @@ constexpr int kPad = 8;       // bf16 elements (16 bytes) of padding per operand
 constexpr float kNegInf = -0.7f * FLT_MAX;
 constexpr float kLog2e = 1.4426950408889634f;
 
-enum class KvFmt { kBf16, kInt8, kInt4 };
+enum class KvFmt { kBf16, kInt8, kInt4, kInt4G };
 
 // bytes of one kv head's row in the pool
 template <int HD, KvFmt F>
@@ -86,17 +101,19 @@ __host__ __device__ constexpr int row_bytes() {
 
 // Shared memory: for bf16 pools, two stages each holding a K and a V
 // operand tile; for int8/int4, two bf16 operand tiles, then two stages each
-// holding the raw K and V codes and the block's K and V scales. The q tile
+// holding the raw K and V codes and the block's K and V scales (kScales a
+// key: one, or up to Hd / 8 groups for the grouped form). The q tile
 // (before the key loop) and the output tile (after it) borrow an operand
 // tile that is not yet or no longer in use.
 template <int HD, KvFmt F>
 struct Smem {
   static constexpr bool kQuant = F != KvFmt::kBf16;
+  static constexpr int kScales = F == KvFmt::kInt4G ? HD / 8 : 1;  // scales a key, at most
   static constexpr int kStride = HD + kPad;                   // operand row, bf16 elements
   static constexpr int kTile = kKeys * kStride * 2;           // operand tile, bytes
   static constexpr int kRaw = kKeys * row_bytes<HD, F>();     // raw K or V block, bytes
   static constexpr int kOps = kQuant ? 2 * kTile : 0;
-  static constexpr int kStage = kQuant ? 2 * kRaw + 2 * kKeys * 4 : 2 * kTile;
+  static constexpr int kStage = kQuant ? 2 * kRaw + 2 * kKeys * 4 * kScales : 2 * kTile;
   static constexpr size_t kBytes = (size_t)kOps + 2 * (size_t)kStage;
   static_assert(kRows * kStride * 2 <= kTile, "q and output tiles fit an operand tile");
 };
@@ -216,6 +233,41 @@ __device__ __forceinline__ void widen16_nib(const uint4& raw, __nv_bfloat16* lo,
   reinterpret_cast<uint4*>(hi)[1] = make_uint4(wh[4], wh[5], wh[6], wh[7]);
 }
 
+// 16 packed int4 bytes -> their 16 low nibbles times their groups' scales at
+// lo, the 16 high ones at hi, each product in f32 rounded once to bf16 (the
+// reference's dequantization to the working type). sc: the key's scales
+// (one a group), f_lo / f_hi: the features of the first low / high nibble,
+// 1 << gshift: a group's features (>= 8, so four consecutive features
+// share a scale). Codes as in widen16: nibble n ^ 8 = code + 8 in the low
+// mantissa bits of 2**23, and 2**23 + 8 taken off in f32, exactly.
+__device__ __forceinline__ void widen16_nib_g(const uint4& raw, __nv_bfloat16* lo,
+                                              __nv_bfloat16* hi, const float* sc, int f_lo,
+                                              int f_hi, int gshift) {
+  const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t wl[8], wh[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t u = in[i] ^ 0x88888888u;
+    float l[4], h[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t byte = (u >> (8 * e)) & 0xFFu;
+      l[e] = __int_as_float(0x4B000000u | (byte & 15u)) - 8388616.f;
+      h[e] = __int_as_float(0x4B000000u | (byte >> 4)) - 8388616.f;
+    }
+    const float sl = sc[(f_lo + 4 * i) >> gshift];
+    const float sh = sc[(f_hi + 4 * i) >> gshift];
+    wl[2 * i] = pack_bf16(__fmul_rn(l[0], sl), __fmul_rn(l[1], sl));
+    wl[2 * i + 1] = pack_bf16(__fmul_rn(l[2], sl), __fmul_rn(l[3], sl));
+    wh[2 * i] = pack_bf16(__fmul_rn(h[0], sh), __fmul_rn(h[1], sh));
+    wh[2 * i + 1] = pack_bf16(__fmul_rn(h[2], sh), __fmul_rn(h[3], sh));
+  }
+  reinterpret_cast<uint4*>(lo)[0] = make_uint4(wl[0], wl[1], wl[2], wl[3]);
+  reinterpret_cast<uint4*>(lo)[1] = make_uint4(wl[4], wl[5], wl[6], wl[7]);
+  reinterpret_cast<uint4*>(hi)[0] = make_uint4(wh[0], wh[1], wh[2], wh[3]);
+  reinterpret_cast<uint4*>(hi)[1] = make_uint4(wh[4], wh[5], wh[6], wh[7]);
+}
+
 // The minimum of one block an SM is stated: without it ptxas holds the bf16
 // Hd 128 form to 199 registers instead of 222, and that form was slower
 // (PERF.md §6); smem and 222 registers still fit two blocks an SM.
@@ -224,15 +276,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
     const __nv_bfloat16* __restrict__ q,       // [B, T, H, HD]
     const int8_t* __restrict__ k_pool,         // [slots, K * row_bytes] (bytes of any format)
     const int8_t* __restrict__ v_pool,
-    const float* __restrict__ ks_pool,         // [num_pages, K, page_size] (K6)
+    const float* __restrict__ ks_pool,         // [num_pages, S, page_size] (K6; S = K, or
+                                               // K * groups in the grouped form)
     const float* __restrict__ vs_pool,
     const int32_t* __restrict__ tables,        // [B, W]
     const int32_t* __restrict__ pos0,          // [B]
     const int32_t* __restrict__ t_valid,       // [B]
     __nv_bfloat16* __restrict__ out,           // [B, T, H, HD]
-    int T, int H, int K, int W, int page_size, float scale) {
+    int T, int H, int K, int W, int page_size, float scale,
+    int gshift) {  // grouped form: a scale group is 1 << gshift features
   using S = Smem<HD, F>;
   constexpr bool kQuant = S::kQuant;
+  constexpr bool kGrouped = F == KvFmt::kInt4G;
+  constexpr bool kFold = kQuant && !kGrouped;  // scales folded into scores and probabilities
+  const int gph = kGrouped ? HD >> gshift : 1;  // scale groups a kv head
   constexpr int RB = row_bytes<HD, F>();
   constexpr int VPR = RB / 16;        // 16-byte vectors of a pool row
   constexpr int QV = HD / 8;          // 16-byte vectors of a q or output row
@@ -305,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
 #pragma unroll
     for (int i = 0; i < NK; ++i) {
       const int key = my_key + KPP * i;
-      if (KPP > kKeys && key >= kKeys) return;
+      if (KPP > kKeys && key >= kKeys) break;
       const int pos = j * kKeys + key;
       const bool ok = pos < kend;
       const int po = pshift >= 0 ? pos & (page_size - 1) : pos % page_size;
@@ -318,7 +375,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
         cp_async16(st + dst + vb, k_pool + off + vb, ok);
         cp_async16(st + (kQuant ? S::kRaw : S::kTile) + dst + vb, v_pool + off + vb, ok);
       }
-      if constexpr (kQuant) {
+      if constexpr (kFold) {
         const long long si = ok ? (page * K + kh) * page_size + po : 0;
         float* sc_s = reinterpret_cast<float*>(st + 2 * S::kRaw);
         if constexpr (TPK >= 2) {
@@ -328,6 +385,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
           cp_async4(sc_s + key, ks_pool + si, ok);
           cp_async4(sc_s + kKeys + key, vs_pool + si, ok);
         }
+      }
+    }
+    if constexpr (kGrouped) {
+      // the block's K and V scales, [key][group] each, consecutive threads
+      // on consecutive keys (consecutive floats of a page's channel)
+      float* sc_s = reinterpret_cast<float*>(st + 2 * S::kRaw);
+      for (int x = tid; x < 2 * kKeys * gph; x += kThreads) {
+        const int key = x % kKeys;
+        const int grp = (x / kKeys) % gph;
+        const int which = x / (kKeys * gph);
+        const int pos = j * kKeys + key;
+        const int pi = pshift >= 0 ? pos >> pshift : pos / page_size;
+        const bool ok = pos < kend && pi < W;
+        const int po = pshift >= 0 ? pos & (page_size - 1) : pos % page_size;
+        const long long page = ok ? __ldg(tables + (long long)b * W + pi) : 0;
+        const long long si = ok ? ((page * K + kh) * gph + grp) * page_size + po : 0;
+        cp_async4(sc_s + which * kKeys * S::kScales + key * gph + grp,
+                  (which ? vs_pool : ks_pool) + si, ok);
       }
     }
   };
@@ -398,6 +473,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
         __nv_bfloat16* row = (which ? vo : ko) + key * ST;
         if constexpr (F == KvFmt::kInt8) {
           widen16(raw, row + vi * 16);
+        } else if constexpr (kGrouped) {
+          const float* sc = ks_s + which * kKeys * S::kScales + key * gph;
+          widen16_nib_g(raw, row + vi * 16, row + HD / 2 + vi * 16, sc, vi * 16,
+                        HD / 2 + vi * 16, gshift);
         } else {
           widen16_nib(raw, row + vi * 16, row + HD / 2 + vi * 16);
         }
@@ -426,15 +505,16 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
       }
     }
 
-    // mask by absolute position, online softmax in log2 units. bf16: the
-    // max is taken on the raw scores and hd**-0.5 * log2(e) folded into the
+    // mask by absolute position, online softmax in log2 units. bf16 (and
+    // grouped int4, whose operands are dequantized already): the max is
+    // taken on the raw scores and hd**-0.5 * log2(e) folded into the
     // exponent's fma; int8/int4: each score first times its key's K scale
     // and that factor.
     const int kb = j * kKeys;
     const bool masked = kb + kKeys - 1 > qpos_min;
-    const float post = kQuant ? 1.f : sc;
+    const float post = kFold ? 1.f : sc;
     float mx[2] = {kNegInf, kNegInf};
-    if constexpr (kQuant) {
+    if constexpr (kFold) {
 #pragma unroll
       for (int n = 0; n < KT; ++n) {
 #pragma unroll
@@ -478,7 +558,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_kernel(
       for (int e = 0; e < 4; ++e) {
         const float p = ex2(fmaf(s[n][e], post, -m_i[e >> 1]));
         l_i[e >> 1] += p;
-        s[n][e] = kQuant ? p * vs_s[n * 8 + (lane & 3) * 2 + (e & 1)] : p;
+        s[n][e] = kFold ? p * vs_s[n * 8 + (lane & 3) * 2 + (e & 1)] : p;
       }
     }
 
@@ -536,7 +616,7 @@ template <int HD, KvFmt F>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* ks_pool, const void* vs_pool,
            const void* tables, const void* pos0, const void* t_valid, void* out,
-           int B, int T, int H, int K, int W, int page_size, float scale,
+           int B, int T, int H, int K, int W, int page_size, float scale, int gshift,
            cudaStream_t stream) {
   constexpr size_t smem = Smem<HD, F>::kBytes;
   static bool configured = false;
@@ -553,7 +633,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       (const __nv_bfloat16*)q, (const int8_t*)k_pool, (const int8_t*)v_pool,
       (const float*)ks_pool, (const float*)vs_pool,
       (const int32_t*)tables, (const int32_t*)pos0, (const int32_t*)t_valid,
-      (__nv_bfloat16*)out, T, H, K, W, page_size, scale);
+      (__nv_bfloat16*)out, T, H, K, W, page_size, scale, gshift);
   return (int)cudaGetLastError();
 }
 
@@ -562,15 +642,23 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
              const void* ks_pool, const void* vs_pool,
              const void* tables, const void* pos0, const void* t_valid, void* out,
              int B, int T, int H, int K, int HD, int W, int page_size, float scale,
-             void* stream) {
+             void* stream, int gshift = 0) {
   if (B <= 0 || T <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (HD) {
-    case 32: return launch<32, F>(q, k_pool, v_pool, ks_pool, vs_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, s);
-    case 64: return launch<64, F>(q, k_pool, v_pool, ks_pool, vs_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, s);
-    case 128: return launch<128, F>(q, k_pool, v_pool, ks_pool, vs_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, s);
+    case 32: return launch<32, F>(q, k_pool, v_pool, ks_pool, vs_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, gshift, s);
+    case 64: return launch<64, F>(q, k_pool, v_pool, ks_pool, vs_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, gshift, s);
+    case 128: return launch<128, F>(q, k_pool, v_pool, ks_pool, vs_pool, tables, pos0, t_valid, out, B, T, H, K, W, page_size, scale, gshift, s);
     default: return -1;
   }
+}
+
+// log2 of a scale group's features: a power of two from 8 to HD / 2, else -1
+inline int group_shift(int group, int HD) {
+  if (group < 8 || group >= HD || (group & (group - 1))) return -1;
+  int sh = 0;
+  while ((1 << sh) < group) ++sh;
+  return sh;
 }
 
 }  // namespace
@@ -608,4 +696,19 @@ extern "C" int flash_prefill_q4_launch(
     void* stream) {
   return dispatch<KvFmt::kInt4>(q, k_pool, v_pool, ks_pool, vs_pool, tables, pos0, t_valid,
                                 out, B, T, H, K, HD, W, page_size, scale, stream);
+}
+
+// K6, grouped int4 form: nibble-packed pools [slots, K*HD/2] with f32 scale
+// pools [num_pages, K * HD / group, page_size], `group` features a scale (a
+// power of two, 8 <= group < HD; -1 otherwise); the same shape rules as K2.
+extern "C" int flash_prefill_q4g_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* ks_pool, const void* vs_pool,
+    const void* tables, const void* pos0, const void* t_valid, void* out,
+    int B, int T, int H, int K, int HD, int W, int page_size, float scale,
+    void* stream, int group) {
+  const int gshift = group_shift(group, HD);
+  if (gshift < 0) return -1;
+  return dispatch<KvFmt::kInt4G>(q, k_pool, v_pool, ks_pool, vs_pool, tables, pos0, t_valid,
+                                 out, B, T, H, K, HD, W, page_size, scale, stream, gshift);
 }

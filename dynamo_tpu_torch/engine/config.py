@@ -7,8 +7,11 @@ never be served by a silent approximation. The host offload tier
 (`host_kv_pages`, `offload_batch_pages`) and the disaggregated prefill's
 page wait (`prefill_wait_s`) are ported. W8A8 weights
 (`quantization="int8"`) are ported; any other value raises `ValueError`,
-as in the JAX engine. `kv_quantization="int8"` and `"int4"` are ported; int4 with one scale group
-per kv head (`kv_quant_group` None or head_dim) only. Speculative decoding
+as in the JAX engine. `kv_quantization="int8"` and `"int4"` are ported, int4
+with one scale group per kv head (`kv_quant_group` None or head_dim) and with
+finer groups (`kv_quant_group` a power of two from 8 to head_dim / 2, which
+the kernels' grouped int4 forms read; a group under 8 features is refused by
+name: its scales would outweigh its codes). Speculative decoding
 (`spec_decode`) and stall-free mixed prefill+decode steps
 (`mixed_batching`) are ported, alone and together, with the step pipeline
 (`step_pipeline`, on by default as in the JAX package) and without it.
@@ -20,6 +23,11 @@ from dataclasses import dataclass
 from typing import Optional, Union
 
 from dynamo_tpu_torch.models.config import ModelConfig, get_config
+from dynamo_tpu_torch.ops.prefill_attention import MIN_GROUP
+
+# the smallest int4 scale group the kernels' grouped forms take (a divisor
+# of head_dim in {32, 64, 128} at least this large is a power of two)
+MIN_KV_QUANT_GROUP = MIN_GROUP
 
 # field -> the value that means "off"; anything else is not ported yet
 _UNPORTED = {
@@ -55,7 +63,8 @@ class EngineConfig:
     quantization: Optional[str] = None     # None or "int8" (W8A8 weights)
     kv_quantization: Optional[str] = None  # None, "int8" or "int4"
     # int4 scale-group size in features per kv head; None = head_dim (one
-    # scale per token and kv head, what the kernels take). Ignored unless
+    # scale per token and kv head); smaller groups give head_dim / group
+    # scales a kv head (a power of two, at least 8). Ignored unless
     # kv_quantization == "int4", as in the JAX package.
     kv_quant_group: Optional[int] = None
     # host-RAM offload tier (engine/offload.py): pages a pool of this many
@@ -128,13 +137,13 @@ class EngineConfig:
             grp = self.kv_quant_group
             if grp <= 0 or hd % grp:
                 raise ValueError(f"kv_quant_group={grp} must divide head_dim={hd}")
-            if grp != hd:
-                # the JAX package serves finer groups on its gather backend
-                # only, which the port does not have
+            if grp < MIN_KV_QUANT_GROUP:
+                # the kernels stage at most head_dim / 8 scales a key; a
+                # group that small stores more scale bytes than code bytes
                 raise NotImplementedError(
-                    f"EngineConfig.kv_quant_group={grp} (< head_dim {hd}): the "
-                    "int4 kernels take one scale group per kv head; finer groups "
-                    "are not ported to dynamo_tpu_torch yet (see ROADMAP.md)"
+                    f"EngineConfig.kv_quant_group={grp}: int4 scale groups of fewer "
+                    f"than {MIN_KV_QUANT_GROUP} features are not served by dynamo_tpu_torch "
+                    "(each scale's 4 bytes would outweigh its codes)"
                 )
         if self.spec_decode and self.spec_k_max < 1:
             raise ValueError("spec_k_max must be >= 1")

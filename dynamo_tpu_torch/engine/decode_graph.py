@@ -60,7 +60,8 @@ def launch_counters() -> list:
     wrappers = (kv_write.paged_kv_write, prefill_attention.flash_prefill_attention,
                 decode_attention.fused_paged_decode_attention,
                 decode_attention.ragged_paged_attention)
-    return ([(w, a) for w in wrappers for a in ("launches", "launches_q", "launches_q4")]
+    return ([(w, a) for w in wrappers
+             for a in ("launches", "launches_q", "launches_q4", "launches_q4g")]
             + [(w, "launches") for w in (w8a8.quantize_rows, w8a8.rms_norm_quantize_rows,
                                          w8a8.silu_mul_quantize_rows, w8a8.w8a8_gemm)])
 

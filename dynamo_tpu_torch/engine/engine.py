@@ -31,8 +31,16 @@ Port of `dynamo_tpu/engine/engine.py::JaxEngine`, main path only:
   sync): the same streams, other scheduling;
 - KV pools in the model's dtype, or int8 with per-token-per-kv-head f32
   scale pools (`kv_quantization="int8"`), or nibble-packed int4 (two codes
-  a byte) with the same scale pools (`kv_quantization="int4"`), which the
-  int8 and int4 forms of the three kernels read and write;
+  a byte) with the same scale pools (`kv_quantization="int4"`), or with
+  head_dim / `kv_quant_group` scale channels a kv head, which the int8,
+  int4 and grouped int4 forms of the three kernels read and write;
+- prompt embeddings (`prompt_embeds`, `embeds_offset`: the LLaVA-style
+  injection of image patches, models/vision.py's output): the span is
+  validated before any device work, held on the device from admission in
+  the model dtype, and injected by the prefill dispatches whose chunks
+  overlap it (a span across chunks splits across them); the prefix cache
+  matches and registers only the text pages before the span, and an embed
+  sequence prefills through the normal dispatch, never a mixed step;
 - W8A8 weights (`quantization="int8"`): every dense projection and the
   vocab head hold int8 codes with per-output-channel scales; a checkpoint
   is quantized layer by layer as it is loaded, a random init as each layer
@@ -307,11 +315,18 @@ class TorchEngine:
             # the KV auto-sizer's free-memory read sees them
             torch.cuda.empty_cache()
 
+        # int4 scale groups per kv head (head_dim // kv_quant_group), 0 on
+        # the other tiers; the KV auto-sizer counts their scales and the
+        # device-path transfer compares them
+        hd = self.model_cfg.head_dim
+        self._kv_int4_groups = (
+            hd // (config.kv_quant_group or hd) if config.kv_quantization == "int4" else 0)
         self.page_size = config.page_size
         self.num_pages = config.num_pages or self._auto_num_pages()
         self.kv = llama.init_kv_cache(
             self.model_cfg, self.num_pages * self.page_size, dtype=self._dtype,
             device=self.device, kv_quant=config.kv_quantization, page_size=self.page_size,
+            kv_quant_group=config.kv_quant_group if self._kv_int4_groups else None,
         )
         # KV events (stored/removed) feed the KV-aware router
         self._event_seq = 0
@@ -322,9 +337,6 @@ class TorchEngine:
             self.num_pages, self.page_size, on_event=self._emit_event,
             on_cached=self._on_page_cached if config.host_kv_pages else None,
         )
-        # int4 scale groups per kv head (one: finer groups are not ported),
-        # 0 on the other tiers; the device-path transfer compares them
-        self._kv_int4_groups = 1 if config.kv_quantization == "int4" else 0
         # the HBM -> host offload tier (engine/offload.py); None when off.
         # `offload_paused` parks it (no new copies are queued or started)
         self.host_pool: Optional[HostKvPool] = None
@@ -351,7 +363,7 @@ class TorchEngine:
                 kw // 2 if kv_quant == "int4" else kw,  # int4 rows: two codes a byte
                 dtype=torch.int8 if kv_quant else self._dtype,
                 on_event=self._emit_event,
-                scale_width=m.num_kv_heads if kv_quant else None,
+                scale_width=self._kv_scale_channels() if kv_quant else None,
                 pin_memory=self.device.type == "cuda",
             )
         self._inv_freq = torch.from_numpy(rope_inv_freq(self.model_cfg)).to(self.device)
@@ -507,14 +519,20 @@ class TorchEngine:
                     raise ValueError(
                         f"{name} {k}: the W8A8 kernels take K a multiple of 32")
 
+    def _kv_scale_channels(self) -> int:
+        """Scale channels a token and layer (S): K on the int8 tier, K *
+        groups on the int4 tier, K (unused) otherwise."""
+        kh = self.model_cfg.num_kv_heads
+        return kh * self._kv_int4_groups if self._kv_int4_groups else kh
+
     def _auto_num_pages(self) -> int:
         cfg, m = self.config, self.model_cfg
         if cfg.kv_quantization == "int8":
             # 1-byte K and V rows plus one f32 K and V scale per kv head
             token_bytes = 2 * m.num_kv_heads * (m.head_dim + 4)
         elif cfg.kv_quantization == "int4":
-            # two codes a byte, plus the same scales
-            token_bytes = 2 * m.num_kv_heads * (m.head_dim // 2 + 4)
+            # two codes a byte, plus an f32 K and V scale per channel
+            token_bytes = 2 * (m.num_kv_heads * m.head_dim // 2 + 4 * self._kv_scale_channels())
         else:
             token_bytes = (2 * m.num_kv_heads * m.head_dim
                            * torch.empty((), dtype=self._dtype).element_size())
@@ -686,6 +704,7 @@ class TorchEngine:
         self._refuse_unported(pre, remote=_preloaded is not None)
         if len(pre.token_ids) == 0:
             raise ValueError("empty prompt")
+        self._check_embeds(pre)
         if len(pre.token_ids) >= self.config.max_model_len:
             raise ValueError(
                 f"prompt of {len(pre.token_ids)} tokens exceeds "
@@ -702,6 +721,7 @@ class TorchEngine:
             blocks=self._blocks_from_metadata(request, pre),
         )
         seq.t_submit = time.perf_counter()
+        self._take_embeds(seq)
         seq.preloaded = _preloaded
         if not seq.deadline and self.config.request_timeout_s > 0:
             seq.deadline = time.time() + self.config.request_timeout_s
@@ -747,22 +767,48 @@ class TorchEngine:
 
     @staticmethod
     def _refuse_unported(pre: PreprocessedRequest, remote: bool = False) -> None:
-        """Refuse what the port does not serve yet: prompt embeddings (M14)
-        and a request asking `generate` for disaggregated routing, which
-        the disagg plane decides (llm/disagg, waiting for the runtime of
-        M17); `generate_remote` (`remote`) takes the plane's requests with
-        their extras. `n > 1` reaches the engine as one stream per choice,
-        each with `n` kept as the request set it, as in the reference."""
-        unported = {
-            "prompt_embeds": pre.prompt_embeds is not None,
-            "disagg": bool(pre.disagg) and not remote,
-        }
-        asked = [name for name, on in unported.items() if on]
-        if asked:
+        """Refuse what the port does not serve yet: a request asking
+        `generate` for disaggregated routing, which the disagg plane
+        decides (llm/disagg, waiting for the runtime of M17);
+        `generate_remote` (`remote`) takes the plane's requests with their
+        extras. Prompt embeddings are served (`_check_embeds`). `n > 1`
+        reaches the engine as one stream per choice, each with `n` kept as
+        the request set it, as in the reference."""
+        if pre.disagg and not remote:
             raise NotImplementedError(
-                f"request asks for {', '.join(asked)}: not ported to "
-                "dynamo_tpu_torch yet (see ROADMAP.md)"
+                "request asks for disagg: not ported to dynamo_tpu_torch yet "
+                "(see ROADMAP.md)"
             )
+
+    def _check_embeds(self, pre: PreprocessedRequest) -> None:
+        """Refuse a prompt-embeds span that does not fit, before any device
+        work, with the reference's errors: a silently dropped or misaligned
+        span would give plausible but image-blind output."""
+        if pre.prompt_embeds is None:
+            return
+        n_emb = len(pre.prompt_embeds)
+        off = pre.embeds_offset
+        if n_emb == 0:
+            raise ValueError("prompt_embeds is empty")
+        if off < 0 or off + n_emb > len(pre.token_ids):
+            raise ValueError(
+                f"embed span [{off}, {off + n_emb}) outside the "
+                f"{len(pre.token_ids)}-token prompt"
+            )
+        width = len(pre.prompt_embeds[0])
+        if width != self.model_cfg.hidden_size:
+            raise ValueError(
+                f"prompt_embeds width {width} != model hidden size "
+                f"{self.model_cfg.hidden_size}"
+            )
+
+    def _take_embeds(self, seq: Sequence) -> None:
+        """Hold a sequence's prompt embeds on this engine's device in the
+        model dtype, rounded once from f32, as the reference's prefill
+        buffer rounds them: once, so that every chunk (and a re-prefill
+        after a preemption) that overlaps the span copies device rows."""
+        if seq.prompt_embeds is not None:
+            seq.prompt_embeds = seq.prompt_embeds.to(self.device).to(self._dtype)
 
     def _ensure_loop(self) -> None:
         if self._loop_task is None or self._loop_task.done():
@@ -1217,6 +1263,15 @@ class TorchEngine:
         last_pos = np.zeros(n, np.int32)
         finals = []  # rows whose chunk is final: their sample is counted
         wtables = np.zeros((n, -(-bucket // ps)), np.int32)
+        # multimodal: only a chunk that overlaps some sequence's embed span
+        # pays for the [n, bucket, D] rows and the mask
+        spans = [s.embeds_overlap(s.num_computed, min(s.total_tokens - s.num_computed, bucket))
+                 for s in seqs]
+        emb = emb_mask = None
+        if any(spans):
+            emb = torch.zeros((n, bucket, self.model_cfg.hidden_size), dtype=self._dtype,
+                              device=self.device)
+            emb_mask = np.zeros((n, bucket), bool)
         # attention table width: pages actually attended this chunk,
         # bucketed to a power of two
         w_need = max(
@@ -1237,6 +1292,11 @@ class TorchEngine:
             wtables[j, :n_used] = pages[start // ps:start // ps + n_used]
             npg = min(len(pages), w_b)
             btables[j, :npg] = pages[:npg]
+            if spans[j]:
+                lo, hi = spans[j]
+                e0 = seq.embeds_offset
+                emb[j, lo - start:hi - start] = seq.prompt_embeds[lo - e0:hi - e0]
+                emb_mask[j, lo - start:hi - start] = True
             last_idx[j] = chunk - 1
             t_valid[j] = chunk
             temp[j] = seq.temperature
@@ -1260,7 +1320,8 @@ class TorchEngine:
         )
         hidden, _ = llama.forward(
             self.params, self.model_cfg, self._up(tok_arr), pos_t,
-            self.kv, attn, inv_freq=self._inv_freq,
+            self.kv, attn, inv_freq=self._inv_freq, embeds=emb,
+            embeds_mask=None if emb_mask is None else self._up(emb_mask),
         )
         last_h = hidden[torch.arange(n, device=dev), self._up(last_idx)]
         lg = llama.logits(self.params, self.model_cfg, last_h)
@@ -1384,12 +1445,14 @@ class TorchEngine:
         let later arrivals jump the queue. A sequence on the extended
         sampler cannot: its final chunk must sample on the prefill
         dispatch's extended path, nor one whose KV arrives remotely (the
-        normal tick injects it)."""
+        normal tick injects it), nor one with prompt embeds (the normal
+        dispatch injects them), as in the reference."""
         picks = []
         for seq in self._prefilling:
             if leftover < 1 or seq.ctx.is_stopped():
                 break  # the normal tick's sweep owns cancellation
-            if seq.needs_ext_sampling or seq.preloaded is not None:
+            if (seq.needs_ext_sampling or seq.preloaded is not None
+                    or seq.prompt_embeds is not None):
                 break
             need = seq.total_tokens - seq.num_computed
             chunk = min(need, self.config.prefill_chunk, leftover)
@@ -2293,8 +2356,9 @@ class TorchEngine:
         reference's arrays byte for byte; a bf16 wire's bits through
         `.view(torch.int16)`): k/v [L, T, K*Hd] in the model dtype, or
         int8 rows, or nibble-packed int4 rows [L, T, K*Hd/2], with dense
-        f32 scales ks/vs [L, T, K] (None for a model-dtype pool). None
-        when no full page of the prompt is cached. The matched pages stay
+        f32 scales ks/vs [L, T, S] (S = K, or K * groups for grouped int4;
+        None for a model-dtype pool). None when no full page of the prompt
+        is cached. The matched pages stay
         pinned for the gather (no eviction can race it) and are released
         after it; they stay cached. Blocking: the rows are copied to the
         host."""
@@ -2314,7 +2378,7 @@ class TorchEngine:
     def _gather_rows(self, pages: list[int], n_tokens: int) -> list:
         """The first `n_tokens` positions of `pages` in the wire format, on
         the device: [k, v, ks, vs], k/v [L, T, row width] and dense scales
-        ks/vs [L, T, K] (None for a model-dtype pool)."""
+        ks/vs [L, T, S] (None for a model-dtype pool)."""
         ps = self.page_size
         slots = self._up((np.asarray(pages, np.int64)[:, None] * ps
                           + np.arange(ps)).reshape(-1)[:n_tokens])
@@ -2329,7 +2393,7 @@ class TorchEngine:
         """Land externally computed KV for a token prefix in the pools and
         the prefix cache: the receiving side of a prefix pull. `k`/`v`
         [L, T, K*Hd] (or nibble-packed [L, T, K*Hd/2]) and `ks`/`vs`
-        [L, T, K] as `export_prefix` gives them, as tensors or numpy arrays
+        [L, T, S] as `export_prefix` gives them, as tensors or numpy arrays
         (a bf16 array of the ml_dtypes type is read by its bits). Only
         whole pages are ingested, and the run already cached is skipped;
         returns the tokens now cached. A following `generate` with the
@@ -2371,7 +2435,7 @@ class TorchEngine:
     def _write_wire_pages(self, pages: list[int], nk, nv, nks, nvs) -> None:
         """Land wire rows (on the device, in this pool's format, as
         `_convert_wire_kv` gives them) of whole pages: k/v [L, n*ps, row
-        width], dense scales [L, n*ps, K] (None for a model-dtype pool)."""
+        width], dense scales [L, n*ps, S] (None for a model-dtype pool)."""
         n, ps = len(pages), self.page_size
         k = nk.reshape(nk.shape[0], n, ps, -1)
         v = nv.reshape(nv.shape[0], n, ps, -1)
@@ -2387,14 +2451,15 @@ class TorchEngine:
         write (K1, or K7 in its int8 or int4 form; on a CUDA device the
         hand-written kernel, whose failed launch raises): `k[i]`/`v[i]`
         [n, ps, row width] are layer i's pages and, with quantized pools,
-        `ks[i]`/`vs[i]` [n, K, ps] their scale tiles."""
+        `ks[i]`/`vs[i]` [n, S, ps] their scale tiles."""
         kv, ps = self.kv, self.page_size
         table = self._up(np.asarray(pages, np.int32))
         for i in range(len(kv.k)):
             src = (k[i].contiguous(), v[i].contiguous())
             if kv.quantized:
                 src += (kv.ks[i], kv.vs[i], ks[i].contiguous(), vs[i].contiguous())
-            paged_kv_write(kv.k[i], kv.v[i], table, *src, page_size=ps, int4=kv.int4)
+            paged_kv_write(kv.k[i], kv.v[i], table, *src, page_size=ps, int4=kv.int4,
+                           groups=max(1, self._kv_int4_groups))
 
     def _convert_wire_kv(self, nk, nv, nks, nvs):
         """A wire's rows in this engine's KV format, on the device: a
@@ -2402,10 +2467,11 @@ class TorchEngine:
         quantized wire of the pool's own tier passes byte for byte, an
         int8 wire entering a model-dtype pool is dequantized. Any other
         pair would requantize bytes that were quantized once already, and
-        raises `KvQuantMismatchError`, as does a wire whose scale channels
-        are not the pool's (one scale per token and kv head)."""
+        raises `KvQuantMismatchError`, as does an int4 wire whose scale
+        channels are not the pool's (K * groups: its kv_quant_group)."""
         m = self.model_cfg
         kh = m.num_kv_heads
+        s_ch = self._kv_scale_channels()
         tier = self.config.kv_quantization
         wire = None  # the wire's tier, from its row width
         if nks is not None:
@@ -2416,18 +2482,22 @@ class TorchEngine:
                 f"{tier or self.config.dtype}: cross-tier injection would requantize "
                 "already-quantized bytes; both sides need matching kv_quantization"
             )
-        if wire is not None and nks.shape[-1] != kh:
+        if wire is not None and nks.shape[-1] != s_ch:
             raise KvQuantMismatchError(
                 f"{wire} wire KV carries {nks.shape[-1]} scale channels but this "
-                f"engine's pools use {kh} (kv_quant_group mismatch): both sides need "
+                f"engine's pools use {s_ch} (kv_quant_group mismatch): both sides need "
                 "matching kv_quantization grouping"
             )
         dev = self.device
         nk, nv = nk.to(dev), nv.to(dev)
         if tier and nks is None:
-            qz = quant.quantize_kv_rows_int4 if tier == "int4" else quant.quantize_kv_rows
-            nk, nks = qz(nk, kh)
-            nv, nvs = qz(nv, kh)
+            if tier == "int4":
+                group = m.head_dim // self._kv_int4_groups
+                nk, nks = quant.quantize_kv_rows_int4(nk, kh, group)
+                nv, nvs = quant.quantize_kv_rows_int4(nv, kh, group)
+            else:
+                nk, nks = quant.quantize_kv_rows(nk, kh)
+                nv, nvs = quant.quantize_kv_rows(nv, kh)
         elif tier:
             nks, nvs = nks.to(dev, torch.float32), nvs.to(dev, torch.float32)
         elif nks is not None:
@@ -2446,7 +2516,7 @@ class TorchEngine:
         KV computed elsewhere (by `prefill_only`, here or in JaxEngine)
         landed instead of computed, and `first_token` (sampled there)
         seeding decode. `k`/`v` [L, T, K*Hd] (or nibble-packed int4 rows
-        [L, T, K*Hd/2]) and `ks`/`vs` [L, T, K] from a quantized pool, as
+        [L, T, K*Hd/2]) and `ks`/`vs` [L, T, S] from a quantized pool, as
         tensors (on the CPU or this device) or numpy arrays; a locally
         cached prefix is reused and only the rest lands, chunk by chunk,
         through `_convert_wire_kv` and the page-scatter write. The first
@@ -2465,7 +2535,8 @@ class TorchEngine:
         if (ks is None) != (vs is None):
             raise ValueError("remote KV scales must come as a k/v pair")
         if ks is not None:
-            want_s = (m.num_layers, len(pre.token_ids), m.num_kv_heads)
+            s_ch = self._kv_scale_channels() if int4_wire else m.num_kv_heads
+            want_s = (m.num_layers, len(pre.token_ids), s_ch)
             for name, arr in (("ks", ks), ("vs", vs)):
                 if tuple(arr.shape) != want_s:
                     raise ValueError(
@@ -2477,7 +2548,7 @@ class TorchEngine:
         """The prefill side of disaggregation: compute the prompt's KV and
         first token, outside the serving loop, and return (first_token, k,
         v, ks, vs) in the prefix wire's format (`export_prefix`): k/v [L, T,
-        row width], ks/vs [L, T, K] on a quantized engine, else None; CPU
+        row width], ks/vs [L, T, S] on a quantized engine, else None; CPU
         tensors, or with `device_arrays` this engine's device tensors (the
         send side of the device path, engine/kv_transfer.py). Pages are
         awaited up to `prefill_wait_s`, capped by the request's deadline,
@@ -2486,6 +2557,9 @@ class TorchEngine:
         if self._closed:
             raise RuntimeError("engine is closed")
         self._refuse_unported(pre, remote=True)
+        if len(pre.token_ids) == 0:
+            raise ValueError("empty prompt")
+        self._check_embeds(pre)
         ctx = ctx or Context(pre.to_dict())
         usable_tokens = (self.num_pages - 1) * self.page_size
         if len(pre.token_ids) + 1 > usable_tokens:
@@ -2493,6 +2567,7 @@ class TorchEngine:
                 f"prompt of {len(pre.token_ids)} tokens cannot fit the KV pool "
                 f"({self.num_pages - 1} pages x {self.page_size} tokens)")
         seq = Sequence.from_request(ctx, pre, self.page_size, self.config.max_model_len)
+        self._take_embeds(seq)
         if seq.has_penalties:
             # the penalties read a decode slot's count row, and this sequence
             # holds no slot (the reference reads and bumps slot 0's row)
@@ -2642,7 +2717,7 @@ class TorchEngine:
     @torch.inference_mode()
     def _copy_pages_to_host(self, pids: list[int], bufs: list):
         """Gather pages `pids` on the device into [n, 2, L, ps, row width]
-        (and [n, 2, L, ps, K] scales), each page one host buffer's layout,
+        (and [n, 2, L, ps, S] scales), each page one host buffer's layout,
         and copy page j into `bufs[j]`. On a CUDA device the copies run on
         a side stream that first waits for the compute stream (the gather
         and every write before it), without blocking the host; returns

@@ -56,8 +56,9 @@ class HostKvPool:
         scale_width: Optional[int] = None,
         pin_memory: bool = False,
     ):
-        """`scale_width` (= num_kv_heads) makes quantized-KV buffers: {"kv":
-        int8 [2, L, ps, kv_width], "scales": f32 [2, L, ps, scale_width]}.
+        """`scale_width` (the scale channels S: K, or K * groups for grouped
+        int4) makes quantized-KV buffers: {"kv": int8 [2, L, ps, kv_width],
+        "scales": f32 [2, L, ps, scale_width]}.
         `pin_memory` page-locks each buffer (a CUDA engine's pool)."""
         self.capacity = capacity_pages
         self.scale_width = scale_width

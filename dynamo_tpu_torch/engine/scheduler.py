@@ -24,6 +24,9 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional
 
+import numpy as np
+import torch
+
 from dynamo_tpu_torch.engine.spec import NgramProposer
 from dynamo_tpu_torch.llm.protocols.common import (
     FINISH_REASON_CANCELLED,
@@ -58,6 +61,13 @@ class Sequence:
     blocks_restored: int = 0
     blocks_declined: int = 0
     gate_reason: str = ""
+    # multimodal: [T_img, D] embeddings replacing the token lookups at
+    # positions [embeds_offset, embeds_offset + T_img), f32 as the request
+    # gave them until the engine holds them on its device in the model
+    # dtype (`TorchEngine._take_embeds`); the prefix cache serves only the
+    # text before them (`cacheable_pages`)
+    prompt_embeds: Optional[torch.Tensor] = None
+    embeds_offset: int = 0
     # disaggregated decode (`TorchEngine.generate_remote`): (first token,
     # k, v, ks, vs) of a prompt prefilled elsewhere, injected chunk by
     # chunk in place of the prefill; None once injected
@@ -151,6 +161,13 @@ class Sequence:
             list(pre.eos_token_ids) + list(pre.stop_conditions.stop_token_ids)
         )
         seq.ignore_eos = pre.stop_conditions.ignore_eos
+        if pre.prompt_embeds is not None:
+            # the reference's np.asarray(..., np.float32): nested lists and
+            # arrays; a tensor (the reference's jax array) stays where it is
+            e = pre.prompt_embeds
+            seq.prompt_embeds = (e.detach().float() if isinstance(e, torch.Tensor)
+                                 else torch.from_numpy(np.asarray(e, np.float32)))
+            seq.embeds_offset = int(pre.embeds_offset)
         try:
             seq.priority = int(ctx.metadata.get("priority") or 0)
         except (TypeError, ValueError):
@@ -191,11 +208,29 @@ class Sequence:
             return False
         return (now if now is not None else time.time()) > self.deadline
 
+    @property
+    def no_cache(self) -> bool:
+        """Prefix caching is unsound from the first embed position on: the
+        block hashes cover the placeholder token ids, not the image. The
+        text before `embeds_offset` stays cacheable (`cacheable_pages`)."""
+        return self.prompt_embeds is not None
+
+    def embeds_overlap(self, start: int, n: int) -> Optional[tuple[int, int]]:
+        """[lo, hi) of positions [start, start + n) that take embeds rows,
+        or None when the span misses them (or there are none)."""
+        if self.prompt_embeds is None:
+            return None
+        lo = max(start, self.embeds_offset)
+        hi = min(start + n, self.embeds_offset + len(self.prompt_embeds))
+        return (lo, hi) if lo < hi else None
+
     def cacheable_pages(self, page_size: int) -> Optional[int]:
         """Pages eligible for prefix-cache match and registration; None is
-        no limit. The reference limits sequences with prompt embeds to the
-        text before them; the port refuses embeds (`_refuse_unported`)."""
-        return None
+        no limit. A sequence with prompt embeds: the whole pages before
+        `embeds_offset`, as in the reference."""
+        if self.prompt_embeds is None:
+            return None
+        return self.embeds_offset // page_size
 
     @property
     def tokens(self) -> list[int]:

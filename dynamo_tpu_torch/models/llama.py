@@ -45,6 +45,7 @@ from dynamo_tpu_torch.ops.prefill_attention import flash_prefill_attention
 from dynamo_tpu_torch.ops.quant import (
     QuantizedAct,
     init_kv_scale_pool,
+    int4_scale_channels,
     is_quantized,
     logical_param_count,
     mm,
@@ -121,8 +122,9 @@ class KVCache(NamedTuple):
     view the kernels take is free. With int8 KV, k/v hold int8 and ks/vs
     the per-token-per-kv-head f32 scale pools [num_pages, K, page_size]
     (ops/quant.py); with int4 KV (`int4` True) k/v are int8 pools of
-    nibble-packed rows [num_slots, K*Hd/2] beside the same scale pools;
-    ks/vs are None with bf16/f32 pools."""
+    nibble-packed rows [num_slots, K*Hd/2] beside scale pools of S = K *
+    `groups` channels [num_pages, S, page_size] (groups per kv head: 1,
+    or head_dim / kv_quant_group); ks/vs are None with bf16/f32 pools."""
 
     k: tuple
     v: tuple
@@ -137,11 +139,13 @@ class KVCache(NamedTuple):
 
 def init_kv_cache(cfg: ModelConfig, num_slots: int, *, device,
                   dtype=torch.bfloat16, kv_quant: Optional[str] = None,
-                  page_size: Optional[int] = None) -> KVCache:
+                  page_size: Optional[int] = None,
+                  kv_quant_group: Optional[int] = None) -> KVCache:
     """Zeroed pools; `kv_quant="int8"` makes int8 pools plus scale pools of
     1.0 (the scale pools are page-blocked, so `page_size` is required),
-    `kv_quant="int4"` int8 pools of half the width (two codes a byte, one
-    scale group per kv head) plus the same scale pools."""
+    `kv_quant="int4"` int8 pools of half the width (two codes a byte) plus
+    scale pools of one channel per group of `kv_quant_group` features of a
+    kv head (None: head_dim, one a kv head)."""
     shape = (num_slots, cfg.num_kv_heads * cfg.head_dim)
     n = cfg.num_layers
     if kv_quant is None:
@@ -159,8 +163,12 @@ def init_kv_cache(cfg: ModelConfig, num_slots: int, *, device,
             raise ValueError("int4 KV needs an even K*Hd")
         shape = (num_slots, shape[1] // 2)
 
+    channels = cfg.num_kv_heads
+    if int4:
+        channels = int4_scale_channels(cfg.num_kv_heads, cfg.head_dim, kv_quant_group)
+
     def scales():
-        return init_kv_scale_pool(num_slots // page_size, page_size, cfg.num_kv_heads,
+        return init_kv_scale_pool(num_slots // page_size, page_size, channels,
                                   device=device)
 
     return KVCache(
@@ -177,7 +185,12 @@ def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
     b, t = x.lead if isinstance(x, QuantizedAct) else x.shape[:2]
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     quant = kv_ks is not None
-    quantize = quantize_kv_rows_int4 if int4 else quantize_kv_rows
+    s_ch = kv_ks.shape[1] if quant else kh  # scale channels a row: K, or K * groups
+
+    def quantize(rows):
+        if int4:
+            return quantize_kv_rows_int4(rows, kh, hd * kh // s_ch)
+        return quantize_kv_rows(rows, kh)
     xa = prepare_act(x, lp["wq"])  # quantized once for the three projections
     q = mm(xa, lp["wq"])
     k = mm(xa, lp["wk"])
@@ -193,7 +206,7 @@ def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
     if attn.write_slots is not None:
         pools = (kv_ks, kv_vs) if quant else ()
         write_kv_rows(kv_k, kv_v, attn.write_slots, k.reshape(b * t, kh * hd),
-                      v.reshape(b * t, kh * hd), *pools, int4=int4)
+                      v.reshape(b * t, kh * hd), *pools, int4=int4, num_kv_heads=kh)
         out = ragged_paged_attention(
             q.contiguous(), kv_k, kv_v, attn.block_tables, attn.q_pos0,
             attn.lengths, *pools, page_size=attn.page_size, int4=int4,
@@ -206,7 +219,7 @@ def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
             # the kernel stores the quantized rows and their scales and
             # attends the new token through them; K and V rows quantize in
             # one call (one set of eager launches on a host-bound step)
-            rows, sc = quantize(torch.stack((new_k, new_v)), kh)
+            rows, sc = quantize(torch.stack((new_k, new_v)))
             new_k, new_v = rows
             scales = (kv_ks, kv_vs, sc[0], sc[1])
         out = fused_paged_decode_attention(
@@ -226,7 +239,7 @@ def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
         k2 = k.reshape(b, t, kh * hd)
         v2 = v.reshape(b, t, kh * hd)
         if quant:
-            (k2, v2), (ks2, vs2) = quantize(torch.stack((k2, v2)), kh)
+            (k2, v2), (ks2, vs2) = quantize(torch.stack((k2, v2)))
         if t_pad != t:
             k2 = F.pad(k2, (0, 0, 0, t_pad - t))
             v2 = F.pad(v2, (0, 0, 0, t_pad - t))
@@ -237,14 +250,14 @@ def _attn_block(lp: Params, cfg: ModelConfig, x, cos, sin, kv_k, kv_v,
         row_w = k2.shape[-1]  # K*Hd, or K*Hd/2 for packed int4 rows
         scale_pages = pools = ()
         if quant:
-            scale_pages = (scales_to_page_tiles(ks2.reshape(b * t_pad, kh), ps),
-                           scales_to_page_tiles(vs2.reshape(b * t_pad, kh), ps))
+            scale_pages = (scales_to_page_tiles(ks2.reshape(b * t_pad, s_ch), ps),
+                           scales_to_page_tiles(vs2.reshape(b * t_pad, s_ch), ps))
             pools = (kv_ks, kv_vs)
         paged_kv_write(
             kv_k, kv_v, attn.write_tables,
             k2.reshape(n_pg, ps, row_w).contiguous(),
             v2.reshape(n_pg, ps, row_w).contiguous(),
-            *pools, *scale_pages, page_size=ps, int4=int4,
+            *pools, *scale_pages, page_size=ps, int4=int4, groups=s_ch // kh,
         )
         out = flash_prefill_attention(
             q.contiguous(), kv_k, kv_v, attn.block_tables, attn.q_pos0,
@@ -316,16 +329,23 @@ def forward(
     kv: KVCache,
     attn: AttnSpec,
     inv_freq: torch.Tensor | None = None,  # rope_inv_freq(cfg) on x's device
+    embeds: torch.Tensor | None = None,       # [B, T, D] multimodal injections
+    embeds_mask: torch.Tensor | None = None,  # [B, T] bool: take the embeds row
 ) -> tuple[torch.Tensor, KVCache]:
     """One model step. Returns (hidden [B, T, D] after the final norm, kv);
     the pools in `kv` are updated in place. Logits come from `logits()` on
     the (usually sliced) hidden states. Callers that step repeatedly pass
     `inv_freq` already on the device: uploading it from the host on every
-    step would make the host wait for the device each time."""
+    step would make the host wait for the device each time. With `embeds`,
+    the positions `embeds_mask` marks take those rows (cast to x's dtype)
+    in place of the token lookups, after any embedding scale: the
+    LLaVA-style injection of image patches, as in the reference."""
     x = params["embed"][tokens.long()]
     if cfg.scale_embeddings:
         # gemma: embedding outputs scaled by sqrt(d), rounded to x's dtype
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype)
+    if embeds is not None:
+        x = torch.where(embeds_mask[..., None], embeds.to(x.dtype), x)
     if inv_freq is None:
         inv_freq = torch.from_numpy(rope_inv_freq(cfg)).to(x.device)
     cos, sin = rope_cos_sin(inv_freq, positions)  # [B, T, Hd]

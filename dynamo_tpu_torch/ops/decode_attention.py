@@ -18,7 +18,12 @@ are int8 and `new_ks`/`new_vs` [B, K] are the new rows' scales: they are
 stored beside the row, and the new token is attended through its
 quantized row, as in the reference. With `int4=True` the pools and new rows
 are nibble-packed, K*Hd/2 bytes a row (ops/quant.py planar layout); the
-width then no longer tells the number of kv heads, hence the flag.
+width then no longer tells the number of kv heads, hence the flag. int4
+scale pools (and new scales) may carry S = K * groups channels, scale
+groups finer than head_dim: the grouped int4 form, which attends rows
+dequantized to q's dtype (code times group scale in f32, then rounded), as
+the reference's gather path does (ops/prefill_attention.py
+`dequantize_gathered`).
 
 K4, `ragged_paged_attention`, is the port of
 `pallas_attention.py::ragged_paged_attention`: read-only attention with
@@ -26,7 +31,7 @@ per-row query lengths over KV already written (row-scattered by the
 caller, ops/attention.write_kv_rows). Decode rows have q_len 1 at any
 (mid-page) position, verify rows 1 + k, chunk rows are causal inside the
 chunk, q_len 0 rows are 0. As in the reference it has no kernel body of
-its own: it enters the flash prefill kernels (K2, K6 and K6's int4 form,
+its own: it enters the flash prefill kernels (K2, K6 and K6's int4 forms,
 `csrc/prefill_attention.cu`), whose rows already take any pos0 and any
 t_valid, and counts its launches apart from theirs.
 """
@@ -39,12 +44,13 @@ import torch
 
 from dynamo_tpu_torch.ops import _cuda, prefill_attention
 from dynamo_tpu_torch.ops.attention import slots_from_pages
-from dynamo_tpu_torch.ops.quant import (
-    dequantize_kv_rows,
-    dequantize_kv_rows_int4,
-    gather_kv_scales,
-    scatter_kv_scales,
+from dynamo_tpu_torch.ops.prefill_attention import (
+    MIN_GROUP,
+    dequantize_gathered,
+    is_grouped,
+    num_kv_heads,
 )
+from dynamo_tpu_torch.ops.quant import gather_kv_scales, scatter_kv_scales
 
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8
@@ -129,7 +135,7 @@ def fused_paged_decode_attention_q_plain(
     fused_paged_decode_attention_q_plain.calls += 1
     return _write_and_attend_quantized(
         q, new_k, new_v, k_cache, v_cache, block_tables, lengths, write_pos,
-        k_scales, v_scales, new_ks, new_vs, page_size, dequantize_kv_rows,
+        k_scales, v_scales, new_ks, new_vs, page_size, False,
     )
 
 
@@ -145,27 +151,49 @@ def fused_paged_decode_attention_q4_plain(
     fused_paged_decode_attention_q4_plain.calls += 1
     return _write_and_attend_quantized(
         q, new_k, new_v, k_cache, v_cache, block_tables, lengths, write_pos,
-        k_scales, v_scales, new_ks, new_vs, page_size,
-        lambda x, s: dequantize_kv_rows_int4(x, s, s.shape[-1]),
+        k_scales, v_scales, new_ks, new_vs, page_size, True,
     )
 
 
 fused_paged_decode_attention_q4_plain.calls = 0
 
 
+def fused_paged_decode_attention_q4g_plain(
+    q, new_k, new_v, k_cache, v_cache, block_tables, lengths, write_pos,
+    k_scales, v_scales, new_ks, new_vs, *, page_size,
+):
+    """Plain PyTorch version of K5's grouped int4 form: scale pools and new
+    scales [B, S] of S = K * groups channels; the gathered rows are each
+    code times its group's scale, rounded to q's dtype, then attended."""
+    fused_paged_decode_attention_q4g_plain.calls += 1
+    return _write_and_attend_quantized(
+        q, new_k, new_v, k_cache, v_cache, block_tables, lengths, write_pos,
+        k_scales, v_scales, new_ks, new_vs, page_size, True,
+    )
+
+
+fused_paged_decode_attention_q4g_plain.calls = 0
+
+
+def _plain_q(int4, grouped):
+    if grouped:
+        return fused_paged_decode_attention_q4g_plain
+    return fused_paged_decode_attention_q4_plain if int4 else fused_paged_decode_attention_q_plain
+
+
 def _write_and_attend_quantized(q, new_k, new_v, k_cache, v_cache, block_tables,
                                 lengths, write_pos, k_scales, v_scales, new_ks,
-                                new_vs, page_size, dequantize):
+                                new_vs, page_size, int4):
     b, _, hd = q.shape
-    kh = k_scales.shape[1]
+    kh = num_kv_heads(k_cache, hd, int4)
     rows, slots = _write_rows(
         k_cache, v_cache, block_tables, write_pos, new_k, new_v, page_size)
     scatter_kv_scales(k_scales, slots, new_ks[rows])
     scatter_kv_scales(v_scales, slots, new_vs[rows])
     flat = slots_from_pages(block_tables, page_size).long().reshape(-1)
     c = flat.shape[0] // b
-    k = dequantize(k_cache[flat], gather_kv_scales(k_scales, flat))
-    v = dequantize(v_cache[flat], gather_kv_scales(v_scales, flat))
+    k = dequantize_gathered(k_cache[flat], gather_kv_scales(k_scales, flat), kh, int4, q.dtype)
+    v = dequantize_gathered(v_cache[flat], gather_kv_scales(v_scales, flat), kh, int4, q.dtype)
     out = _attend(q, k.reshape(b, c, kh, hd), v.reshape(b, c, kh, hd), lengths)
     return out, k_cache, v_cache, k_scales, v_scales
 
@@ -179,7 +207,9 @@ def fused_paged_decode_attention(
     pools [num_slots, K*Hd]; block_tables [B, W], lengths and write_pos [B]
     int32. With scale pools `k_scales`/`v_scales` [num_pages, K, page_size]
     f32, the pools and new rows are int8 (K*Hd/2 nibble-packed bytes a row
-    with `int4=True`) and `new_ks`/`new_vs` [B, K] f32. Returns
+    with `int4=True`) and `new_ks`/`new_vs` [B, K] f32 (int4 scale pools
+    [num_pages, S, page_size] and new scales [B, S] of S = K * groups
+    channels take the grouped form). Returns
     (out [B, H, Hd], k_cache, v_cache[, k_scales, v_scales]) with the pools
     updated in place. CPU tensors take the plain version; CUDA tensors
     launch the kernel (bf16 q, head_dim in {32, 64, 128}, H/K <= 8)."""
@@ -187,8 +217,8 @@ def fused_paged_decode_attention(
     _cuda.require(quant or not int4, "int4 KV needs scale pools")
     if q.device.type == "cpu":
         if quant:
-            plain = (fused_paged_decode_attention_q4_plain if int4
-                     else fused_paged_decode_attention_q_plain)
+            kh = num_kv_heads(k_cache, q.shape[-1], int4)
+            plain = _plain_q(int4, int4 and is_grouped(k_scales, kh))
             return plain(
                 q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
                 write_pos, k_scales, v_scales, new_ks, new_vs, page_size=page_size,
@@ -215,8 +245,8 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths,
         zeros = torch.zeros((b, k_cache.shape[1]), dtype=k_cache.dtype)
         if k_scales is not None:
             ones = torch.ones((b, k_scales.shape[1]))
-            plain = (fused_paged_decode_attention_q4_plain if int4
-                     else fused_paged_decode_attention_q_plain)
+            kh = num_kv_heads(k_cache, q.shape[-1], int4)
+            plain = _plain_q(int4, int4 and is_grouped(k_scales, kh))
             return plain(
                 q, zeros, zeros, k_cache, v_cache, block_tables, lengths,
                 no_write, k_scales, v_scales, ones, ones, page_size=page_size,
@@ -266,6 +296,19 @@ def ragged_paged_attention_q4_plain(q, k_cache, v_cache, block_tables, q_pos0,
 ragged_paged_attention_q4_plain.calls = 0
 
 
+def ragged_paged_attention_q4g_plain(q, k_cache, v_cache, block_tables, q_pos0,
+                                     q_lens, k_scales, v_scales, *, page_size):
+    """Plain PyTorch version of K4 over int4 pools with scale groups finer
+    than head_dim: the rows dequantized to q's dtype, then attended."""
+    ragged_paged_attention_q4g_plain.calls += 1
+    return prefill_attention.attend_paged(
+        q, k_cache, v_cache, block_tables, q_pos0, q_lens, k_scales, v_scales,
+        page_size=page_size, int4=True)
+
+
+ragged_paged_attention_q4g_plain.calls = 0
+
+
 def ragged_paged_attention(q, k_cache, v_cache, block_tables, q_pos0, q_lens,
                            k_scales=None, v_scales=None, *, page_size, int4=False):
     """q [n, T, H, Hd] (rope applied, unscaled); pools [num_slots, K*Hd]
@@ -277,9 +320,11 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, q_pos0, q_lens,
     raise for what it does not take."""
     quant = k_scales is not None
     _cuda.require(quant or not int4, "int4 KV needs scale pools")
+    grouped = int4 and is_grouped(k_scales, num_kv_heads(k_cache, q.shape[-1], int4))
     if q.device.type == "cpu":
         if quant:
-            plain = ragged_paged_attention_q4_plain if int4 else ragged_paged_attention_q_plain
+            plain = (ragged_paged_attention_q4g_plain if grouped else
+                     ragged_paged_attention_q4_plain if int4 else ragged_paged_attention_q_plain)
             return plain(q, k_cache, v_cache, block_tables, q_pos0, q_lens, k_scales,
                          v_scales, page_size=page_size)
         return ragged_paged_attention_plain(q, k_cache, v_cache, block_tables, q_pos0,
@@ -288,6 +333,8 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, q_pos0, q_lens,
                                    k_scales, v_scales, page_size=page_size, int4=int4)
     if not quant:
         ragged_paged_attention.launches += 1
+    elif grouped:
+        ragged_paged_attention.launches_q4g += 1
     elif int4:
         ragged_paged_attention.launches_q4 += 1
     else:
@@ -298,6 +345,7 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, q_pos0, q_lens,
 ragged_paged_attention.launches = 0     # K4 over bf16 pools (K2's kernel)
 ragged_paged_attention.launches_q = 0   # K4 over int8 pools (K6's kernel)
 ragged_paged_attention.launches_q4 = 0  # K4 over int4 pools (K6's int4 form)
+ragged_paged_attention.launches_q4g = 0  # K4 over grouped int4 pools (K6's grouped form)
 
 
 def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
@@ -327,16 +375,25 @@ def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
     req(q.dtype == torch.bfloat16, "q must be bfloat16")
     for x in (k_cache, v_cache):
         req(x.dtype == pool_dtype, f"pools must be {pool_dtype}")
+    s_ch = kh
     if quant:
         req(v_scales is not None, "quantized KV needs both scale pools")
-        req(k_scales.shape == (num_slots // page_size, kh, page_size)
+        s_ch = k_scales.shape[1]
+        req(s_ch == kh or int4, "int8 KV takes one scale a kv head")
+        group = kh * hd // s_ch
+        req(s_ch % kh == 0 and (s_ch == kh or (MIN_GROUP <= group < hd
+                                                and group & (group - 1) == 0)),
+            f"{s_ch} scale channels over {kh} kv heads: groups of a power of two of "
+            f"{MIN_GROUP} to {hd // 2} features, or one a kv head")
+        req(k_scales.shape == (num_slots // page_size, s_ch, page_size)
             and v_scales.shape == k_scales.shape,
-            f"scale pools must be [{num_slots // page_size}, {kh}, {page_size}]")
+            f"scale pools must be [{num_slots // page_size}, {s_ch}, {page_size}]")
         tensors += [k_scales, v_scales]
         scales = [k_scales, v_scales]
         if new_k is not None:
             req(new_ks is not None and new_vs is not None, "quantized rows need their scales")
-            req(new_ks.shape == (b, kh) and new_vs.shape == (b, kh), "new scales must be [B, K]")
+            req(new_ks.shape == (b, s_ch) and new_vs.shape == (b, s_ch),
+                f"new scales must be [B, {s_ch}]")
             tensors += [new_ks, new_vs]
             scales += [new_ks, new_vs]
         for x in scales:
@@ -362,6 +419,14 @@ def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
     tail = (ptr(block_tables), ptr(lengths), ptr(write_pos), ptr(out),
             b, h, kh, hd, w, page_size, hd ** -0.5,
             _cuda.stream_ptr(q.device), ptr(part), ptr(tickets), chunk)
+    if s_ch != kh:
+        err = lib.fused_decode_q4g_launch(
+            ptr(q), ptr(new_k), ptr(new_v), ptr(k_cache), ptr(v_cache),
+            ptr(new_ks), ptr(new_vs), ptr(k_scales), ptr(v_scales), *tail, kh * hd // s_ch,
+        )
+        _cuda.check(err, f"fused_paged_decode_attention (int4, {s_ch // kh} groups)")
+        fused_paged_decode_attention.launches_q4g += 1
+        return out
     if quant:
         launch = lib.fused_decode_q4_launch if int4 else lib.fused_decode_q_launch
         err = launch(
@@ -385,6 +450,7 @@ def _launch(q, new_k, new_v, k_cache, v_cache, block_tables, lengths,
 fused_paged_decode_attention.launches = 0    # K3 (bf16 pools)
 fused_paged_decode_attention.launches_q = 0  # K5 (int8 pools + scale pools)
 fused_paged_decode_attention.launches_q4 = 0  # K5, int4 form (nibble-packed pools)
+fused_paged_decode_attention.launches_q4g = 0  # K5, grouped int4 (K * groups scale channels)
 
 
 def _launcher():
@@ -406,4 +472,7 @@ def _launcher():
         f4 = lib.fused_decode_q4_launch
         f4.argtypes = fq.argtypes
         f4.restype = ctypes.c_int
+        fg = lib.fused_decode_q4g_launch
+        fg.argtypes = fq.argtypes + [ctypes.c_int]  # the group's features
+        fg.restype = ctypes.c_int
     return lib

@@ -9,7 +9,10 @@ pools (int8 or int4 KV) the page's scale tiles `new_ks[i]`/`new_vs[i]`
 ([K, page_size] f32, ops/quant.py layout) ride the same page-table
 routing. int4 rows are nibble-packed, K*Hd/2 bytes; the copy is the same,
 but the wrapper takes `int4=True` so the launch is counted as K7's int4
-form. Page 0 is the trash page.
+form. With scale groups finer than head_dim (`groups` > 1 per kv head) a
+page's scale tiles are [S, page_size], S = K * groups: the grouped int4
+form, the same copy of wider tiles, counted apart. Page 0 is the trash
+page.
 
 The kernel copies a flat list of work items (chunks of the source pages
 and of their scale tiles) in 16-byte vectors, or, for scale tiles that are
@@ -149,6 +152,18 @@ def paged_kv_write_q4_plain(k_cache, v_cache, page_table, new_k, new_v,
 paged_kv_write_q4_plain.calls = 0
 
 
+def paged_kv_write_q4g_plain(k_cache, v_cache, page_table, new_k, new_v,
+                             ks_cache, vs_cache, new_ks, new_vs, *, page_size):
+    """Plain PyTorch version of K7's grouped int4 form: the same copies,
+    with scale tiles of S = K * groups channels."""
+    paged_kv_write_q4g_plain.calls += 1
+    return _copy_q_pages(k_cache, v_cache, page_table, new_k, new_v,
+                         ks_cache, vs_cache, new_ks, new_vs, page_size)
+
+
+paged_kv_write_q4g_plain.calls = 0
+
+
 def _copy_q_pages(k_cache, v_cache, page_table, new_k, new_v,
                   ks_cache, vs_cache, new_ks, new_vs, page_size):
     _copy_pages(k_cache, v_cache, page_table, new_k, new_v, page_size)
@@ -168,21 +183,25 @@ def _copy_pages(k_cache, v_cache, page_table, new_k, new_v, page_size):
 
 def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
                    ks_cache=None, vs_cache=None, new_ks=None, new_vs=None, *,
-                   page_size, int4=False):
+                   page_size, int4=False, groups=1):
     """Scatter whole pages into the slot pools [num_slots, row width], in
     place. `page_table` [n_pages] int32 destination page ids,
     `new_k`/`new_v` [n_pages, page_size, row width] source blocks. With
     scale pools `ks_cache`/`vs_cache` [num_pages, K, page_size] f32 the
     pools are int8 (rows K*Hd wide, or K*Hd/2 nibble-packed with
     `int4=True`) and `new_ks`/`new_vs` [n_pages, K, page_size] are the
-    pages' scale tiles. Returns the (same) pools: (k, v), or (k, v, ks, vs)
-    with scales. CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
+    pages' scale tiles ([n_pages, K * groups, page_size] with int4 scale
+    groups finer than head_dim, `groups` > 1). Returns the (same) pools:
+    (k, v), or (k, v, ks, vs) with scales. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     quant = ks_cache is not None
+    grouped = groups > 1
     _cuda.require(quant or not int4, "int4 KV needs scale pools")
+    _cuda.require(int4 or not grouped, "scale groups finer than head_dim are int4's")
     if k_cache.device.type == "cpu":
         if quant:
-            plain = paged_kv_write_q4_plain if int4 else paged_kv_write_q_plain
+            plain = (paged_kv_write_q4g_plain if grouped else
+                     paged_kv_write_q4_plain if int4 else paged_kv_write_q_plain)
             return plain(
                 k_cache, v_cache, page_table, new_k, new_v, ks_cache, vs_cache,
                 new_ks, new_vs, page_size=page_size,
@@ -207,10 +226,11 @@ def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
         req(k_cache.dtype == torch.int8, "pools with scale pools must be int8")
         for t in (vs_cache, new_ks, new_vs):
             req(t is not None, "quantized KV needs both scale pools and both scale tiles")
-        kh = ks_cache.shape[1]
-        req(kw % kh == 0, "pool row width must be whole kv heads")
+        kh = ks_cache.shape[1]  # scale channels: K, or K * groups
+        req(kh % groups == 0 and kw % (kh // groups) == 0,
+            "pool row width must be whole kv heads, scale channels whole groups")
         req(ks_cache.shape == (num_pages, kh, page_size) and vs_cache.shape == ks_cache.shape,
-            f"scale pools must be [{num_pages}, K, {page_size}]")
+            f"scale pools must be [{num_pages}, S, {page_size}]")
         req(new_ks.shape == (n, kh, page_size) and new_vs.shape == new_ks.shape,
             f"scale tiles must be [{n}, {kh}, {page_size}]")
         for t in (ks_cache, vs_cache, new_ks, new_vs):
@@ -231,7 +251,8 @@ def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
     lib = _launcher()
     stream = _cuda.stream_ptr(dev)
     if quant:
-        launch = lib.paged_kv_write_q4_launch if int4 else lib.paged_kv_write_q_launch
+        launch = (lib.paged_kv_write_q4g_launch if grouped else
+                  lib.paged_kv_write_q4_launch if int4 else lib.paged_kv_write_q_launch)
         err = launch(
             k_cache.data_ptr(), v_cache.data_ptr(), page_table.data_ptr(),
             new_k.data_ptr(), new_v.data_ptr(), ks_cache.data_ptr(),
@@ -239,8 +260,11 @@ def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
             n, num_pages, page_bytes, kh * page_size, stream, plan.chunk,
             plan.tile_chunk, plan.grid,
         )
-        _cuda.check(err, f"paged_kv_write ({'int4' if int4 else 'int8'})")
-        if int4:
+        _cuda.check(err, f"paged_kv_write ({'int4' if int4 else 'int8'}"
+                         f"{f', {groups} groups' if grouped else ''})")
+        if grouped:
+            paged_kv_write.launches_q4g += 1
+        elif int4:
             paged_kv_write.launches_q4 += 1
         else:
             paged_kv_write.launches_q += 1
@@ -258,6 +282,7 @@ def paged_kv_write(k_cache, v_cache, page_table, new_k, new_v,
 paged_kv_write.launches = 0    # K1 (bf16 pools)
 paged_kv_write.launches_q = 0  # K7 (int8 pools + scale tiles)
 paged_kv_write.launches_q4 = 0  # K7, int4 form (nibble-packed pools + scale tiles)
+paged_kv_write.launches_q4g = 0  # K7, grouped int4 (scale tiles of K * groups channels)
 
 
 def _launcher():
@@ -271,7 +296,7 @@ def _launcher():
         # stream, chunk, tile chunk, grid
         fq.argtypes = [p] * 9 + [i64] * 3 + [i32] + [p, i32, i32, i32]
         fq.restype = ctypes.c_int
-        f4 = lib.paged_kv_write_q4_launch
-        f4.argtypes = fq.argtypes
-        f4.restype = ctypes.c_int
+        for f4 in (lib.paged_kv_write_q4_launch, lib.paged_kv_write_q4g_launch):
+            f4.argtypes = fq.argtypes
+            f4.restype = ctypes.c_int
     return lib

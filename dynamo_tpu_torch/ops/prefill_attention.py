@@ -11,7 +11,12 @@ are int8: the K scale multiplies the scores and the V scale the
 probabilities, in f32, as in the reference. With `int4=True` the int8
 pools are nibble-packed (K*Hd/2 bytes a row, ops/quant.py planar layout):
 the pool's width no longer tells the number of kv heads, hence the flag,
-as in the reference.
+as in the reference. With int4 scale groups finer than head_dim (scale
+pools of S = K * groups channels) a scale varies across a head's features,
+so it cannot be folded into the score or the probability: the grouped int4
+form computes what the reference's gather path computes there
+(`dynamo_tpu/ops/attention.py` `paged_attention`): each code times its
+group's scale in f32, rounded to q's dtype, then attention over those rows.
 
 The plain versions compute in f32 throughout. The kernel runs both
 products on the tensor cores: bf16 operands that are exact for q, bf16 K
@@ -62,25 +67,45 @@ def _attend(q, k, v, pos0, t_valid):
     return out.reshape(b, t, h, hd).to(q.dtype)
 
 
+def num_kv_heads(k_cache, hd: int, int4: bool) -> int:
+    """K of a pool [slots, K*Hd] (K*Hd/2 nibble-packed with `int4`)."""
+    return (2 if int4 else 1) * k_cache.shape[1] // hd
+
+
+def is_grouped(k_scales, kh: int) -> bool:
+    """Scale pools of more than one channel a kv head: int4 with scale
+    groups finer than head_dim."""
+    return k_scales is not None and k_scales.shape[1] != kh
+
+
+def dequantize_gathered(rows, scales, kh: int, int4: bool, dtype):
+    """Gathered pool rows and their dense scales [M, S] as f32 [M, K*Hd]:
+    int8 and one-group int4 dequantized in f32 (what K5/K6 fold into the
+    scores and probabilities); grouped int4 rounded to `dtype` (the working
+    type) after the f32 product, as the reference's gather path does."""
+    if not int4:
+        return dequantize_kv_rows(rows, scales)
+    if scales.shape[-1] == kh:
+        return dequantize_kv_rows_int4(rows, scales, kh)
+    return dequantize_kv_rows_int4(rows, scales, kh, out_dtype=dtype).float()
+
+
 def attend_paged(q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales=None,
                  v_scales=None, *, page_size, int4=False):
     """The plain computation behind K2/K6 (and the ragged read K4): gather
-    the rows' slots (dequantized to f32 with scale pools) and attend."""
+    the rows' slots (dequantized with scale pools, `dequantize_gathered`)
+    and attend."""
     b, _, _, hd = q.shape
     flat = slots_from_pages(block_tables, page_size).long().reshape(-1)
     c = flat.shape[0] // b
+    kh = num_kv_heads(k_cache, hd, int4)
     if k_scales is None:
-        kh = k_cache.shape[1] // hd
         k, v = k_cache[flat].float(), v_cache[flat].float()
     else:
-        kh = k_scales.shape[1]
-        if int4:
-            def dequantize(x, s):
-                return dequantize_kv_rows_int4(x, s, s.shape[-1])
-        else:
-            dequantize = dequantize_kv_rows
-        k = dequantize(k_cache[flat], gather_kv_scales(k_scales, flat))
-        v = dequantize(v_cache[flat], gather_kv_scales(v_scales, flat))
+        k = dequantize_gathered(k_cache[flat], gather_kv_scales(k_scales, flat), kh, int4,
+                                q.dtype)
+        v = dequantize_gathered(v_cache[flat], gather_kv_scales(v_scales, flat), kh, int4,
+                                q.dtype)
     return _attend(q, k.reshape(b, c, kh, hd), v.reshape(b, c, kh, hd), pos0, t_valid)
 
 
@@ -124,6 +149,26 @@ def flash_prefill_attention_q4_plain(
 flash_prefill_attention_q4_plain.calls = 0
 
 
+def flash_prefill_attention_q4g_plain(
+    q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales, v_scales, *,
+    page_size,
+):
+    """Plain PyTorch version of K6's grouped int4 form: nibble-packed rows
+    times their groups' scales, rounded to q's dtype, then attended."""
+    flash_prefill_attention_q4g_plain.calls += 1
+    return attend_paged(q, k_cache, v_cache, block_tables, pos0, t_valid,
+                        k_scales, v_scales, page_size=page_size, int4=True)
+
+
+flash_prefill_attention_q4g_plain.calls = 0
+
+
+def _plain_q(int4, grouped):
+    if grouped:
+        return flash_prefill_attention_q4g_plain
+    return flash_prefill_attention_q4_plain if int4 else flash_prefill_attention_q_plain
+
+
 def flash_prefill_attention(
     q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales=None,
     v_scales=None, *, page_size, int4=False
@@ -131,14 +176,16 @@ def flash_prefill_attention(
     """q [B, T, H, Hd] (rope applied, unscaled); pools [num_slots, K*Hd];
     block_tables [B, W], pos0 and t_valid [B] int32; with scale pools
     `k_scales`/`v_scales` [num_pages, K, page_size] f32 the pools are int8,
-    [num_slots, K*Hd/2] nibble-packed with `int4=True`. Returns
+    [num_slots, K*Hd/2] nibble-packed with `int4=True`, whose scale pools
+    may carry K * groups channels (the grouped form). Returns
     [B, T, H, Hd] in q.dtype. CPU tensors take the plain version; CUDA
     tensors launch the kernel (bf16 q, head_dim in {32, 64, 128})."""
     quant = k_scales is not None
     _cuda.require(quant or not int4, "int4 KV needs scale pools")
+    grouped = int4 and is_grouped(k_scales, num_kv_heads(k_cache, q.shape[-1], int4))
     if q.device.type == "cpu":
         if quant:
-            plain = flash_prefill_attention_q4_plain if int4 else flash_prefill_attention_q_plain
+            plain = _plain_q(int4, grouped)
             return plain(
                 q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales,
                 v_scales, page_size=page_size,
@@ -150,6 +197,8 @@ def flash_prefill_attention(
                  v_scales, page_size=page_size, int4=int4)
     if not quant:
         flash_prefill_attention.launches += 1
+    elif grouped:
+        flash_prefill_attention.launches_q4g += 1
     elif int4:
         flash_prefill_attention.launches_q4 += 1
     else:
@@ -160,6 +209,11 @@ def flash_prefill_attention(
 flash_prefill_attention.launches = 0    # K2 (bf16 pools)
 flash_prefill_attention.launches_q = 0  # K6 (int8 pools + scale pools)
 flash_prefill_attention.launches_q4 = 0  # K6, int4 form (nibble-packed pools)
+flash_prefill_attention.launches_q4g = 0  # K6, grouped int4 (K * groups scale channels)
+
+# scale groups the grouped forms take: at least 8 features (a kernel stages
+# at most head_dim / 8 scales a key), a power of two below head_dim
+MIN_GROUP = 8
 
 
 def launch(q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales=None,
@@ -186,11 +240,19 @@ def launch(q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales=None,
     for x in (k_cache, v_cache):
         req(x.dtype == pool_dtype, f"pools must be {pool_dtype}")
     tensors = [q, k_cache, v_cache, block_tables, pos0, t_valid]
+    s_ch = kh
     if quant:
         req(v_scales is not None, "quantized KV needs both scale pools")
-        req(k_scales.shape == (num_slots // page_size, kh, page_size)
+        s_ch = k_scales.shape[1]
+        req(s_ch == kh or int4, "int8 KV takes one scale a kv head")
+        group = kh * hd // s_ch
+        req(s_ch % kh == 0 and (s_ch == kh or (MIN_GROUP <= group < hd
+                                                and group & (group - 1) == 0)),
+            f"{s_ch} scale channels over {kh} kv heads: groups of a power of two of "
+            f"{MIN_GROUP} to {hd // 2} features, or one a kv head")
+        req(k_scales.shape == (num_slots // page_size, s_ch, page_size)
             and v_scales.shape == k_scales.shape,
-            f"scale pools must be [{num_slots // page_size}, {kh}, {page_size}]")
+            f"scale pools must be [{num_slots // page_size}, {s_ch}, {page_size}]")
         for x in (k_scales, v_scales):
             req(x.dtype == torch.float32, "scale pools must be float32")
         tensors += [k_scales, v_scales]
@@ -206,6 +268,13 @@ def launch(q, k_cache, v_cache, block_tables, pos0, t_valid, k_scales=None,
     tail = (block_tables.data_ptr(), pos0.data_ptr(), t_valid.data_ptr(),
             out.data_ptr(), b, t, h, kh, hd, block_tables.shape[1], page_size,
             hd ** -0.5, _cuda.stream_ptr(q.device))
+    if s_ch != kh:
+        err = lib.flash_prefill_q4g_launch(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(), *tail, kh * hd // s_ch,
+        )
+        _cuda.check(err, f"flash_prefill_attention (int4, {s_ch // kh} groups)")
+        return out
     if quant:
         fn = lib.flash_prefill_q4_launch if int4 else lib.flash_prefill_q_launch
         err = fn(
@@ -239,4 +308,7 @@ def _launcher():
         f4 = lib.flash_prefill_q4_launch
         f4.argtypes = fq.argtypes
         f4.restype = ctypes.c_int
+        fg = lib.flash_prefill_q4g_launch
+        fg.argtypes = fq.argtypes + [ctypes.c_int]  # the group's features
+        fg.restype = ctypes.c_int
     return lib

@@ -25,8 +25,9 @@ KV (`quantize_kv_rows`,
 row and kv head: scale = amax / 127 (1.0 for an all-zero head), q =
 clip(round(x / scale), -127, 127). int4 rows use scale = amax / 7 per
 group of `group_size` features (default head_dim: one scale per token and
-kv head, the only grouping the kernels take) and q = clip(round(x /
-scale), -7, 7), two codes a byte. `torch.round` rounds half to even like
+kv head; finer groups give each kv head head_dim / group_size scales, S =
+K * groups channels a row, which the kernels' grouped int4 forms read) and
+q = clip(round(x / scale), -7, 7), two codes a byte. `torch.round` rounds half to even like
 `jnp.round`, and the divisions are true divisions as in the reference, so
 rows and scales are byte-equal to the JAX package's (the scales divide
 through `w8a8.true_div`: on CUDA PyTorch divides by a Python scalar as a
@@ -38,12 +39,13 @@ its high nibble (not adjacent pairs). A low nibble sign-extends as
 ((b & 15) ^ 8) - 8, a high one as the arithmetic shift b >> 4 of the
 signed byte.
 
-Scale pools are per layer [num_pages, K, page_size] f32, initialised to
-1.0: the JAX layout [num_pages, SUBL, page_size] without its sublane
-padding rows (`jax_pool[:, _scale_rows(K, 1), :]` is this pool). A page's
-scales are one contiguous K * page_size * 4-byte tile, head-major, so the
+Scale pools are per layer [num_pages, S, page_size] f32 (S = K, or K *
+groups for grouped int4), initialised to 1.0: the JAX layout [num_pages,
+SUBL, page_size] without its sublane padding rows (`jax_pool[:,
+_scale_rows(S, 1), :]` is this pool). A page's scales are one contiguous
+S * page_size * 4-byte tile, channel-major (kv head, then group), so the
 page-scatter write copies it beside the page and the attention kernels
-read one head's scales for consecutive tokens contiguously.
+read one channel's scales for consecutive tokens contiguously.
 """
 
 from __future__ import annotations
@@ -251,14 +253,25 @@ def dequantize_kv_rows_int4(packed: torch.Tensor, scales: torch.Tensor,
     return f.reshape(*shape[:-1], 2 * shape[-1]).to(out_dtype)
 
 
-def init_kv_scale_pool(num_pages: int, page_size: int, num_kv_heads: int, *,
+def int4_group_size(scale_channels: int, num_kv_heads: int, head_dim: int) -> int:
+    """The features a scale covers in an int4 pool of `scale_channels`
+    channels a row (head_dim for one scale group per kv head)."""
+    if scale_channels % num_kv_heads:
+        raise ValueError(f"{scale_channels} scale channels are not whole groups of "
+                         f"{num_kv_heads} kv heads")
+    return head_dim * num_kv_heads // scale_channels
+
+
+def init_kv_scale_pool(num_pages: int, page_size: int, channels: int, *,
                        device) -> torch.Tensor:
-    return torch.ones((num_pages, num_kv_heads, page_size), dtype=torch.float32,
+    """[num_pages, channels, page_size] f32 of 1.0: `channels` is K, or K *
+    groups for grouped int4."""
+    return torch.ones((num_pages, channels, page_size), dtype=torch.float32,
                       device=device)
 
 
 def scatter_kv_scales(pool: torch.Tensor, slots: torch.Tensor, scales: torch.Tensor):
-    """Write dense per-row scales [M, K] at flat slot ids [M], in place."""
+    """Write dense per-row scales [M, S] at flat slot ids [M], in place."""
     s = pool.shape[2]
     sl = slots.long()
     heads = torch.arange(pool.shape[1], device=pool.device)
@@ -267,7 +280,7 @@ def scatter_kv_scales(pool: torch.Tensor, slots: torch.Tensor, scales: torch.Ten
 
 
 def gather_kv_scales(pool: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
-    """[M, K] dense scales of the given flat slot ids."""
+    """[M, S] dense scales of the given flat slot ids."""
     s = pool.shape[2]
     sl = slots.long()
     heads = torch.arange(pool.shape[1], device=pool.device)
@@ -275,7 +288,7 @@ def gather_kv_scales(pool: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
 
 
 def scales_to_page_tiles(dense: torch.Tensor, page_size: int) -> torch.Tensor:
-    """Dense per-row scales [N*page_size, K] -> page tiles [N, K, page_size],
+    """Dense per-row scales [N*page_size, S] -> page tiles [N, S, page_size],
     the source format of the page-scatter write's scale copy."""
     n = dense.shape[0] // page_size
     return dense.reshape(n, page_size, dense.shape[1]).transpose(1, 2).contiguous()

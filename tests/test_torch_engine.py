@@ -151,8 +151,15 @@ def test_default_device_needs_cuda(monkeypatch):
      ("kv_quant_group", 32)],
 )
 def test_unported_config_refused(field, value):
-    # kv_quant_group's unported case: int4 scale groups finer than head_dim (32 < 128)
-    other = {"kv_quantization": "int4", "model": "llama-3.1-8b"} if field == "kv_quant_group" else {}
+    if field == "kv_quant_group":
+        # int4 scale groups finer than head_dim (32 < 128) are served: S = K * 4
+        # scale channels a row, read by the kernels' grouped int4 forms
+        cfg = EngineConfig(model="llama-3.1-8b", kv_quantization="int4", kv_quant_group=value)
+        assert cfg.kv_quant_group == value
+        eng = TorchEngine(EngineConfig(model="tiny", dtype="float32", num_pages=8,
+                                       kv_quantization="int4", kv_quant_group=8), device="cpu")
+        assert eng.kv.ks[0].shape[1] == eng.model_cfg.num_kv_heads * 16 // 8
+        return
     if field == "host_kv_pages":
         # the host offload tier is served, with its batch size and the
         # disaggregated prefill's page wait
@@ -172,7 +179,7 @@ def test_unported_config_refused(field, value):
             assert getattr(cfg, field) == value and cfg.step_pipeline == pipe
         return
     with pytest.raises(NotImplementedError, match=field):
-        EngineConfig(**{"model": "tiny", **other, field: value})
+        EngineConfig(**{"model": "tiny", field: value})
 
 
 def test_int4_group_must_divide_head_dim():
@@ -210,15 +217,19 @@ async def test_top_logprobs_without_logprobs_is_served():
 
 
 async def test_unported_request_refused():
-    """Prompt embeddings and the disaggregated paths stay refused; the
-    sampling options refused before (penalties, seed, logprobs, n > 1)
-    are served."""
+    """A request asking `generate` for disaggregated routing stays refused;
+    prompt embeddings and the sampling options refused before (penalties,
+    seed, logprobs, n > 1) are served."""
     eng = TorchEngine(EngineConfig(model="tiny", dtype="float32", num_pages=32), device="cpu")
-    for kw, named in ((dict(prompt_embeds=[[0.0] * 64]), "prompt_embeds"),
-                      (dict(disagg={"mode": "prefill"}), "disagg")):
-        pre = PreprocessedRequest(token_ids=[1, 2, 3], **kw)
-        with pytest.raises(NotImplementedError, match=named):
-            await eng.generate(Context(pre.to_dict()))
+    pre = PreprocessedRequest(token_ids=[1, 2, 3], disagg={"mode": "prefill"})
+    with pytest.raises(NotImplementedError, match="disagg"):
+        await eng.generate(Context(pre.to_dict()))
+    pre = PreprocessedRequest(
+        token_ids=[1, 2, 3], prompt_embeds=[[0.0] * 64], embeds_offset=1,
+        stop_conditions=StopConditions(max_tokens=2, ignore_eos=True),
+        sampling_options=SamplingOptions(greedy=True))
+    frames = [f async for f in await eng.generate(Context(pre.to_dict()))]
+    assert frames[-1]["finish_reason"] == "length"
     pre = PreprocessedRequest(
         token_ids=[1, 2, 3], stop_conditions=StopConditions(max_tokens=4, ignore_eos=True),
         sampling_options=SamplingOptions(n=2, frequency_penalty=0.5, presence_penalty=0.2,

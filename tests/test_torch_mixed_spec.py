@@ -413,6 +413,7 @@ def test_select_mixed_prefill_policy():
         num_computed = 0
         needs_ext_sampling = False
         preloaded = None  # no remotely prefilled KV to land
+        prompt_embeds = None  # no image span to inject
 
         def __init__(self, total):
             self.total_tokens = total
@@ -429,6 +430,10 @@ def test_select_mixed_prefill_policy():
     b.needs_ext_sampling = True
     assert [(s, ch) for s, ch in eng._select_mixed_prefill(40)] == [(a, 30)]
     b.needs_ext_sampling = False
+    # and one with prompt embeds (the normal dispatch injects them)
+    b.prompt_embeds = object()
+    assert [(s, ch) for s, ch in eng._select_mixed_prefill(40)] == [(a, 30)]
+    b.prompt_embeds = None
     a.ctx.stopped = True
     assert eng._select_mixed_prefill(40) == []
     eng._prefilling.clear()
