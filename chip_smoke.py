@@ -279,7 +279,7 @@ final result line is printed only when every phase passed:
    output tok/s.
 17. int4 KV in scale groups finer than head_dim, after phase 16 on its
    weights: the grouped forms of K7, K6, K5 and K4 against their plain
-   versions at groups 32 and 64 (check_groups: K7 byte-exact with its
+   versions at groups 8, 16, 32 and 64 (check_groups: K7 byte-exact with its
    S-channel scale tiles, at 8B page 64 and 128, small and page-3 cases;
    K6 at the 8B chunk and small cases, its plain version equal to K2's over
    the pools dequantized beforehand; K5 at 8B page 64 and W 32 and the
@@ -293,6 +293,29 @@ final result line is printed only when every phase passed:
    launches, the graph check; decode step, TTFT p50 and the KV pool's bytes
    beside one-group int4's) and phase 8's wave with mixed steps and
    speculative decoding on in the same format (K4's grouped form).
+18. the robustness and observability planes (M12) at the serving preset's
+   width (llama-3.1-8b, random bf16 weights, phase 8's engine with the step
+   pipeline, mixed steps and speculative decoding on), after phase 17 on its
+   weights (`phase_planes`): phase 8's wave and a round of 8 (ISL 512, OSL
+   64) at the defaults (flight recorder on, the 5 s KV audit) with tracing
+   armed and with `flight_recorder=False, kv_audit_s=0` and tracing off,
+   in turns (on, off, off, on):
+   wave TTFT, the decode step's host walls and its device ms a token
+   between two CUDA events, and the launches the dispatch counters imply
+   with every plane on; one custody audit's host ms at the auto-sized pool
+   (every page held; and at int4's page count on a host-only ledger); the
+   watchdog (armed after the warm-up, 1 s budget) on an injected 4 s
+   decode-enqueue stall: fired once, `step_pipeline` tripped, a crash
+   artifact with digests and the trace ring, every stream whole, recovered
+   after the 6 s re-probe; a failed mixed step contained in the wave
+   (`mixed` disabled for good, no request failed); a skipped release found
+   by the audit with one kv_leak artifact; and on the vendored checkpoint
+   in bf16 the wave's greedy streams equal with and without the failed
+   mixed step. Phase 11 ends with the four `/debug/*` routes through its
+   server: a 3 s profile while eight streamed requests run (its Chrome
+   trace must hold the `prefill`/`decode` annotations and name the KV
+   write and the decode attention kernels), then the trace ring, a flight
+   recorder snapshot and the KV ledger.
 With --pairs N, phases 5, 6 and 7 (each a pipeline off/on pair) and
 phase 8's bf16 pipeline off/on pair run N times in turns, to show their
 spread. With --serving N only the build and phase 11 run, N times, and
@@ -310,6 +333,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import gc
+import glob
 import json
 import os
 import re
@@ -3249,6 +3273,7 @@ def phase_serving(dev, smi="", preset=SERVE_PRESET, flags=None, traffic=None):
         direct, _, direct1 = await measured("direct")
         _, _, http2 = await measured("http")
         _, _, direct2 = await measured("direct")
+        await debug_routes(svc, [body(t) for t in warm_text], smi)
         return t_up, res, counts, chat, direct, [http1, http2], [direct1, direct2]
 
     model_name = lm.card.display_name
@@ -3295,6 +3320,95 @@ def phase_serving(dev, smi="", preset=SERVE_PRESET, flags=None, traffic=None):
         f"{json.dumps({k: v[0] for k, v in counts.items() if v[0]})}; plain calls: "
         f"{sum(v[1] for v in counts.values())}")
     return m, {k: v[0] for k, v in counts.items()}
+
+# kernels a profile of serving traffic must name: the decode attention
+# (K3, inside the decode graphs' replays) and the KV write (K1, in the eager
+# prefill); the prefill attention (K2) when replays list only their launch
+PROFILE_DECODE = "fused_decode_kernel"
+PROFILE_KV_WRITE = "paged_kv_write_kernel"
+PROFILE_PREFILL = "flash_prefill_kernel"
+
+
+async def debug_routes(svc, bodies, smi=""):
+    """Phase 11's server, tracing armed: `POST /debug/profile` (3 s) while
+    the streamed requests `bodies` run, then `GET /debug/trace`,
+    `/debug/snapshot` and `/debug/kv`. Each must answer 200 with the JAX
+    service's keys; the profile's Chrome trace must hold the dispatch
+    phases' annotations and name the KV write kernel and the decode
+    attention kernel (kernels a graph replay launched), or, where replays
+    list only their `cudaGraphLaunch`, the prefill's kernels, as logged."""
+    from dynamo_tpu_torch.llm.http import client
+    from dynamo_tpu_torch.utils import tracing
+
+    prof_dir = tempfile.TemporaryDirectory()
+    old = os.environ.get("DYN_PROFILE_DIR")
+    os.environ["DYN_PROFILE_DIR"] = prof_dir.name
+    tracing.clear()
+    tracing.enable()
+
+    async def call(method, path):
+        reply = await client.request("127.0.0.1", svc.port, method, path,
+                                     {} if method == "POST" else None)
+        return reply.status, json.loads(await reply.read())
+
+    async def traffic():
+        await asyncio.sleep(0.3)  # inside the capture
+        return await asyncio.gather(*[sse_completion(svc.port, b) for b in bodies])
+
+    try:
+        t0 = time.perf_counter()
+        (pst, pinfo), res = await asyncio.gather(call("POST", "/debug/profile?duration_ms=3000"),
+                                                 traffic())
+        t_prof = time.perf_counter() - t0
+        routes = {"/debug/profile": (pst, pinfo)}
+        for path in ("/debug/trace?limit=2000", "/debug/snapshot", "/debug/kv?top=3"):
+            routes[path] = await call("GET", path)
+    finally:
+        tracing.disable()
+        tracing.clear()
+        if old is None:
+            os.environ.pop("DYN_PROFILE_DIR", None)
+        else:
+            os.environ["DYN_PROFILE_DIR"] = old
+    want = {"/debug/profile": {"dir", "duration_ms"},
+            "/debug/trace?limit=2000": {"traceEvents", "displayTimeUnit"},
+            "/debug/snapshot": {"recorders", "artifacts"}, "/debug/kv?top=3": {"ledgers", "kv"}}
+    for path, (status, body) in routes.items():
+        assert status == 200, f"[debug] {path}: HTTP {status} {body}"
+        assert want[path] <= set(body), f"[debug] {path}: keys {sorted(body)}"
+    for st, *_ in res:
+        assert st == 200, f"[debug] a request during the profile: HTTP {st}"
+    with open(os.path.join(pinfo["dir"], "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    prof_dir.cleanup()
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    notes = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    graph_launches = sum(1 for e in events if e.get("name") == "cudaGraphLaunch")
+    in_replay = any(PROFILE_DECODE in k for k in kernels)
+    assert {"prefill", "decode"} <= notes, f"[debug] annotations {sorted(notes)[:20]}"
+    assert any(PROFILE_KV_WRITE in k for k in kernels), f"[debug] no {PROFILE_KV_WRITE}"
+    if not in_replay:
+        log(f"[debug] the profile lists only cudaGraphLaunch ({graph_launches}) for the decode "
+            f"graphs' replays, not their kernels; held to the eager prefill's instead")
+        assert any(PROFILE_PREFILL in k for k in kernels), f"[debug] no {PROFILE_PREFILL}"
+    trace_ev = [e for e in routes["/debug/trace?limit=2000"][1]["traceEvents"] if e["ph"] != "M"]
+    summary = {
+        "profile_ms": pinfo["duration_ms"], "profile_wall_s": t_prof,
+        "kernels_named": sorted(k[:40] for k in kernels
+                                if any(w in k for w in (PROFILE_DECODE, PROFILE_KV_WRITE,
+                                                        PROFILE_PREFILL))),
+        "decode_kernels_inside_replays": in_replay, "graph_launches": graph_launches,
+        "annotations": sorted(n for n in notes if not n.startswith("engine.step"))[:8],
+        "step_markers": sum(1 for n in notes if n.startswith("engine.step")),
+        "trace_events": len(trace_ev),
+        "trace_names": sorted({e["name"] for e in trace_ev})[:24],
+        "snapshot_recorders": routes["/debug/snapshot"][1]["recorders"],
+        "kv_ledgers": routes["/debug/kv?top=3"][1]["ledgers"],
+    }
+    log("[debug] /debug/profile, /debug/trace, /debug/snapshot and /debug/kv through phase "
+        "11's server: " + json.dumps(summary) + f"; {smi}")
+    return summary
+
 
 # ---------------------------------------------------------------- phase 12
 
@@ -4201,8 +4315,9 @@ def phase_moe(dev, peaks, part, smi="", cfg=None, layer_cfg=None, rows=MOE_ROWS,
 # ---------------------------------------------------------------- phase 17
 
 # the scale groups phase 17 holds the grouped int4 kernels at (features a
-# scale, of the 8B head_dim 128), and the one its traffic serves
-GROUPS = (32, 64)
+# scale, of the 8B head_dim 128: every group the engine serves there, from
+# MIN_KV_QUANT_GROUP up), and the one its traffic serves
+GROUPS = (8, 16, 32, 64)
 GROUP_MAIN = 32
 # a plain version gone wrong for grouped int4: the high nibble of a byte
 # (feature j + Hd/2) scaled by its low nibble's group, or every feature by
@@ -4824,6 +4939,446 @@ def phase_groups(dev, params, peaks, smi="", cfg=None, groups=GROUPS):
     return results, launches, params
 
 
+# ---------------------------------------------------------------- phase 18
+
+# the robustness and observability planes at the serving preset's width:
+# phase 8's engine (8B, page 64, 256 pages, batch 8, pipeline on) with mixed
+# steps and speculative decoding on; `phase_planes(cfg=..., traffic=...)`
+# swaps in a small model for a CPU rehearsal
+PLANES_CFG = dict(WAVE_CFG, model=SERVE_PRESET, mixed_batching=True, spec_decode=True)
+PLANES_TRAFFIC = dict(WAVE_TRAFFIC, n=8, isl=512, osl=64)
+PLANES_WATCHDOG_S = 1.0   # the budget, armed once the warm-up captured its graphs
+PLANES_STALL_S = 4.0      # the injected stall: four budgets
+PLANES_REPROBE_S = 6.0    # outlasts the stalled round, so the trip is read after it
+PLANES_AUDIT_S = 0.1      # the leak check's audit period
+# the vendored checkpoint's wave (tests/test_torch_step_pipeline.py's):
+# a held stream, then three 45-token prompts once it has 9 tokens
+CKPT_WAVE = dict(page_size=16, num_pages=64, max_batch_size=4, max_model_len=256,
+                 prefill_chunk=32, decode_steps=4, seed=0, mixed_batching=True,
+                 mixed_step_tokens=64)
+
+
+async def events_round(engine, prompts, osl, steps):
+    """Serve `prompts` at once (greedy, `osl` tokens each) and time decode
+    on the device's clock: a CUDA event recorded on the compute stream
+    when every stream has its first token, another when the slowest one
+    reaches `osl - steps` tokens (before the last dispatches, so both sit
+    one queued dispatch behind the host, as in steady state). Returns
+    (device ms a token between them, each stream's tokens, TTFTs)."""
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+    from dynamo_tpu_torch.runtime.pipeline.context import Context
+
+    n = len(prompts)
+    toks = [[] for _ in range(n)]
+    ttft = [None] * n
+    ev = [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
+    at = [None, None]  # tokens a stream had at each event (the slowest's)
+    t0 = time.perf_counter()
+
+    def mark(k):
+        if at[k] is None:
+            ev[k].record()
+            at[k] = min(len(t) for t in toks)
+
+    async def one(i, ids):
+        pre = PreprocessedRequest(
+            token_ids=list(ids), stop_conditions=StopConditions(max_tokens=osl, ignore_eos=True),
+            sampling_options=SamplingOptions(greedy=True))
+        async for f in await engine.generate(Context(pre.to_dict())):
+            got = f.get("token_ids") or []
+            if got and ttft[i] is None:
+                ttft[i] = time.perf_counter() - t0
+            toks[i].extend(got)
+            if all(toks):
+                mark(0)
+            if min(len(t) for t in toks) >= osl - steps:
+                mark(1)
+            if f.get("finish_reason"):
+                assert f["finish_reason"] == "length" and len(toks[i]) == osl, \
+                    f"stream of {len(toks[i])} tokens ({f['finish_reason']})"
+
+    await asyncio.gather(*[one(i, p) for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    per_tok = ev[0].elapsed_time(ev[1]) / max(at[1] - at[0], 1)
+    return per_tok, toks, ttft
+
+
+def _audit_ms(ledger, reps=5):
+    """Median host ms of one audit pass (the second and later passes see
+    the suspects of the one before, as steady audits do)."""
+    ledger.audit()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ledger.audit()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ts)
+
+
+def _fill_pool(alloc, ledger, owners=64):
+    """Hold every free page of the pool for `owners` request-shaped owners,
+    a registered hash on every other page (a pool at its fullest: every
+    page active, the audit's holdings walk at its longest). Returns the
+    holds, for `_drain_pool`."""
+    pages = alloc.allocate(alloc.pages_free)
+    holds = {}
+    for i, pid in enumerate(pages):
+        holds.setdefault(f"req-{i % owners}", []).append(pid)
+    for owner, pids in holds.items():
+        ledger.hold(pids, owner)
+    half = pages[::2]
+    alloc.register(half, [(10_000_000 + p, 10_000_000 + p) for p in half], None)
+    return holds
+
+
+def _drain_pool(alloc, ledger, holds):
+    for owner, pids in holds.items():
+        ledger.drop(pids, owner)
+        alloc.release(pids)
+    alloc.clear_cache()
+
+
+def planes_audit(eng, smi):
+    """The custody audit's host ms at an auto-sized pool: idle, and with
+    every page held; then on a host-only allocator and ledger of the page
+    count int4 KV's auto-sizer would give (the same bytes, four times the
+    pages), held the same way."""
+    from dynamo_tpu_torch.engine.allocator import PageAllocator
+    from dynamo_tpu_torch.engine.kv_ledger import KvLedger
+
+    alloc, ledger = eng.allocator, eng.kv_ledger
+    idle_ms = _audit_ms(ledger)
+    holds = _fill_pool(alloc, ledger)
+    full_ms = _audit_ms(ledger)
+    _drain_pool(alloc, ledger, holds)
+    m = eng.model_cfg
+    bf16_token = 2 * m.num_kv_heads * m.head_dim * 2
+    int4_token = 2 * (m.num_kv_heads * m.head_dim // 2 + 4 * m.num_kv_heads)
+    int4_pages = int(eng.num_pages * bf16_token // int4_token)
+    led4 = KvLedger()
+    alloc4 = PageAllocator(int4_pages, eng.page_size, ledger=led4)
+    led4.allocator = alloc4
+    holds4 = _fill_pool(alloc4, led4)
+    int4_ms = _audit_ms(led4)
+    out = {"auto_pages": eng.num_pages, "page_mb": m.num_layers * eng.page_size * bf16_token / 2**20,
+           "audit_idle_ms": idle_ms, "audit_full_ms": full_ms,
+           "int4_auto_pages": int4_pages, "audit_full_int4_ms": int4_ms}
+    _drain_pool(alloc4, led4, holds4)
+    log(f"[planes] KV custody audit on the loop thread at the auto-sized pool "
+        f"(hbm_utilization {eng.config.hbm_utilization}, bf16 KV): " + json.dumps(out)
+        + f"; {smi}")
+    return out
+
+
+def phase_planes(dev, params, smi="", cfg=None, traffic=None):
+    """Phase 18: the robustness and observability planes at the serving
+    preset's width (random bf16 weights, seed 0), pipeline, mixed steps and
+    speculative decoding on.
+
+    1. Their cost: phase 8's wave and a round of `n` requests (ISL `isl`,
+       OSL `osl`) on an engine at the defaults (flight recorder on, the
+       5 s audit) with tracing armed, and on one with `flight_recorder=
+       False, kv_audit_s=0` and tracing off, in turns (on, off, off, on),
+       each after its own warm-up:
+       wave TTFT p50, the decode step's host walls (as phase 5 reads them)
+       and its device ms a token between two CUDA events
+       (`events_round`), the launches the dispatch counters imply with
+       every plane on, and one audit pass's host ms at the auto-sized
+       pool (`planes_audit`).
+    2. The watchdog: `engine.dispatch.delay` of four budgets, once, on a
+       warmed engine: it fires once and trips `step_pipeline`, the crash
+       artifact holds the digests and the trace ring, every request
+       streams its full count, and after `degrade_reprobe_s` the rung
+       recovers (`recoveries_total` 1); trip-to-recovery seconds printed.
+    3. A failed mixed step (`engine.mixed.fail@1x1`) in the wave: the
+       `mixed` rung trips for good and no request fails; on the vendored
+       checkpoint (bf16) the greedy streams equal the no-fault run's.
+    4. A skipped release (`engine.release.failx1`): the audit names the
+       orphan pages under the request's id and one kv_leak artifact is
+       written.
+    Returns the cost figures and the weights."""
+    from dynamo_tpu_torch import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.utils import faults, tracing
+
+    tr = dict(PLANES_TRAFFIC, **(traffic or {}))
+    base = dict(PLANES_CFG, **(cfg or {}))
+    rng = np.random.RandomState(5)
+    tmp = tempfile.TemporaryDirectory()
+    out = {}
+
+    def engine(params, **kw):
+        eng = TorchEngine(EngineConfig(**dict(base, **kw)), params=params, device=dev)
+        return eng, eng.params
+
+    def prompts(n, isl):
+        return [rng.randint(0, vocab, size=isl).tolist() for _ in range(n)]
+
+    # 1. the cost of the defaults, against every plane off
+    from dynamo_tpu_torch.models.config import get_config
+
+    mc0 = base["model"] if not isinstance(base["model"], str) else get_config(base["model"])
+    vocab = mc0.vocab_size
+    held, wave = prompts(tr["held"], tr["held_isl"]), prompts(tr["wave"], tr["wave_isl"])
+    warm = prompts(tr["wave"], tr["wave_isl"])
+    round_p = prompts(tr["n"], tr["isl"])
+    defaults = ("defaults", {}, True)
+    off = ("planes off", dict(flight_recorder=False, kv_audit_s=0.0), False)
+    for i, (label, kw, trace) in enumerate((defaults, off, off, defaults)):  # in turns
+        torch.cuda.empty_cache()
+        eng, params = engine(params, **kw)
+        tag = f"[planes {label}]"
+
+        async def go(eng=eng):
+            await wave_requests(eng, warm, warm, 16, 8, 4)
+            await events_round(eng, round_p, 16, eng.config.decode_steps)
+            await idle(eng)
+            if trace:
+                tracing.clear()
+                tracing.enable()
+            try:
+                s0 = eng.phase_stats
+                reset_counts()
+                res = await wave_requests(eng, held, wave, tr["held_osl"], tr["wave_osl"],
+                                          tr["held_before"])
+                await idle(eng)
+                counts = read_counts()
+                s1 = eng.phase_stats
+                tok_ms, _, ttft = await events_round(eng, round_p, tr["osl"],
+                                                     eng.config.decode_steps)
+                s2 = eng.phase_stats
+                n_ev = sum(1 for e in tracing.export()["traceEvents"] if e["ph"] != "M")
+            finally:
+                tracing.disable()
+                tracing.clear()
+            m = eng.metrics()
+            await eng.close()
+            return res, counts, s0, s1, s2, tok_ms, ttft, n_ev, m
+
+        (held_res, wave_res, _, t_wave), counts, s0, s1, s2, tok_ms, ttft, n_ev, m = \
+            asyncio.run(go())
+        d = {k: s1[k] - s0[k] for k in s1}
+        d2 = {k: s2[k] - s1[k] for k in s2}
+        check_counts(counts, path_launches(d, eng.model_cfg.num_layers, eng.config.decode_steps,
+                                           None), f"{tag} wave")
+        assert d["mixed_steps"] > 0, f"{tag}: no mixed step ran"
+        wttft = sorted(times[0] - t0 for _, times, t0 in wave_res)
+        out.setdefault(label, []).append({
+            "wave_ttft_p50_s": statistics.median(wttft), "wave_ttft_max_s": wttft[-1],
+            "round_ttft_p50_s": statistics.median(ttft),
+            "decode_step_ms_host": decode_step_ms(d2, eng.config.decode_steps),
+            "decode_ms_a_token_events": tok_ms,
+            "flight_digests": m["flight_digests"], "kv_ledger_audits": m["kv_ledger_audits"],
+            "trace_events": n_ev, "compile_events": m["compile_events"],
+            "compile_time_s": m["compile_time_s"],
+        })
+        log(f"{tag} run {i + 1} of 4: wave ({tr['held']} held + {tr['wave']}) and a round of "
+            f"{tr['n']} x (ISL {tr['isl']}, OSL {tr['osl']}); launches as the dispatch counters "
+            f"imply, no plain call: " + json.dumps(out[label][-1]) + f"; {smi}")
+        del eng
+        gc.collect()
+    log("[planes] the planes' cost, in turns (defaults with tracing / every plane off): "
+        + json.dumps({k: {label: [r[k] for r in out[label]] for label in ("defaults", "planes off")}
+                      for k in ("wave_ttft_p50_s", "round_ttft_p50_s", "decode_step_ms_host",
+                                "decode_ms_a_token_events")}) + f"; {smi}")
+    torch.cuda.empty_cache()
+    eng, params = engine(params, num_pages=None)
+    out["audit"] = planes_audit(eng, smi)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the watchdog: a stalled decode enqueue, then the re-probe
+    crash = os.path.join(tmp.name, "watchdog")
+    eng, params = engine(params, degrade_reprobe_s=PLANES_REPROBE_S, crash_dir=crash)
+    tag = "[planes watchdog]"
+
+    async def watchdog(eng=eng):
+        await run_requests(eng, warm, 16)  # captures this width's graphs
+        m0 = eng.metrics()
+        eng._watchdog_s = PLANES_WATCHDOG_S
+        eng._ensure_watchdog()
+        tracing.clear()
+        tracing.enable()
+        faults.configure(f"engine.dispatch.delay={PLANES_STALL_S}@1x1")
+        try:
+            await idle(eng)
+            s0 = eng.phase_stats
+            reset_counts()
+            res, _ = await run_requests(eng, round_p, tr["osl"])
+            await idle(eng)
+            counts = read_counts()
+            s1 = eng.phase_stats
+        finally:
+            faults.reset()
+            tracing.disable()
+        m1 = eng.metrics()
+        t_fire = os.path.getmtime(eng.last_crash_artifact)
+        while eng._degrade.tripped("step_pipeline"):
+            await run_requests(eng, round_p[:1], 2)
+            await asyncio.sleep(0.05)
+        t_rec = time.time()
+        m2 = eng.metrics()
+        await eng.close()
+        return m0, m1, m2, res, counts, s0, s1, t_rec - t_fire
+
+    m0, m1, m2, res, counts, s0, s1, trip_to_recovery = asyncio.run(watchdog())
+    tracing.clear()
+    d = {k: s1[k] - s0[k] for k in s1}
+    check_counts(counts, path_launches(d, eng.model_cfg.num_layers, eng.config.decode_steps,
+                                       None), tag)
+    for toks, _, reason, _ in res:
+        assert len(toks) == tr["osl"] and reason == "length", f"{tag}: {len(toks)} ({reason})"
+    assert m1["watchdog_fired"] - m0["watchdog_fired"] == 1, f"{tag}: {m1['watchdog_fired']}"
+    assert m1["degraded_step_pipeline"] == 1 and m1["degrades_total"] == 1, m1
+    assert m2["recoveries_total"] == 1 and m2["degraded_step_pipeline"] == 0, m2
+    art = json.load(open(eng.last_crash_artifact))
+    assert art["op"] in ("decode.dispatch", "spec.dispatch"), art["op"]
+    assert art["rung_tripped"] == "step_pipeline", art["rung_tripped"]
+    assert art["digests"] and art["digest_fields"], f"{tag}: no digests in the artifact"
+    n_trace = sum(1 for e in art["trace"]["traceEvents"] if e["ph"] != "M")
+    assert n_trace > 0, f"{tag}: the artifact's trace ring is empty"
+    out["watchdog"] = {"stalled_s": art["stalled_s"], "trip_to_recovery_s": trip_to_recovery,
+                       "artifact_digests": len(art["digests"]), "artifact_trace_events": n_trace,
+                       "budget_s": PLANES_WATCHDOG_S, "reprobe_s": PLANES_REPROBE_S,
+                       "compile_events": m2["compile_events"],
+                       "compile_time_s": m2["compile_time_s"]}
+    log(f"{tag} engine.dispatch.delay={PLANES_STALL_S} once: fired once, step_pipeline tripped, "
+        f"every stream whole, recovered after the re-probe: " + json.dumps(out["watchdog"])
+        + f"; {smi}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3 and 4. a failed mixed step, then a skipped release
+    crash = os.path.join(tmp.name, "leak")
+    eng, params = engine(params, kv_audit_s=PLANES_AUDIT_S, crash_dir=crash)
+    eng.flight.cooldown_s = 0.0
+    tag = "[planes mixed failure]"
+
+    async def contained(eng=eng):
+        await wave_requests(eng, warm, warm, 16, 8, 4)
+        await idle(eng)
+        s0 = eng.phase_stats
+        reset_counts()
+        faults.configure("engine.mixed.fail@1x1")
+        try:
+            await wave_requests(eng, held, wave, tr["held_osl"], tr["wave_osl"],
+                                tr["held_before"])
+            await idle(eng)
+            fired = faults.stats()["engine.mixed"]["fired"]
+        finally:
+            faults.reset()
+        counts = read_counts()
+        s1 = eng.phase_stats
+        m = eng.metrics()
+        # the leak: one request whose release is skipped
+        from dynamo_tpu_torch.llm.protocols.common import (
+            PreprocessedRequest, SamplingOptions, StopConditions)
+        from dynamo_tpu_torch.runtime.pipeline.context import Context
+
+        pre = PreprocessedRequest(token_ids=round_p[0], sampling_options=SamplingOptions(
+            greedy=True), stop_conditions=StopConditions(max_tokens=8, ignore_eos=True))
+        ctx = Context(pre.to_dict())
+        faults.configure("engine.release.failx1")
+        try:
+            async for _ in await eng.generate(ctx):
+                pass
+        finally:
+            faults.reset()
+        t0 = time.perf_counter()
+        while not eng.kv_ledger.violations_total and time.perf_counter() - t0 < 10.0:
+            await asyncio.sleep(0.02)
+        found = time.perf_counter() - t0
+        await asyncio.sleep(0.3)
+        await eng.close()
+        return fired, counts, s0, s1, m, ctx.id, found
+
+    fired, counts, s0, s1, m, rid, found_s = asyncio.run(contained())
+    d = {k: s1[k] - s0[k] for k in s1}
+    check_counts(counts, path_launches(d, eng.model_cfg.num_layers, eng.config.decode_steps,
+                                       None), tag)
+    assert fired == 1 and m["mixed_disabled"] == 1 and m["degraded_mixed"] == 1, m
+    assert eng._degrade.disabled("mixed"), f"{tag}: the mixed trip is not permanent"
+    log(f"{tag} engine.mixed.fail@1x1 in phase 8's wave: contained (every stream whole), "
+        f"mixed disabled for good; mixed steps landed {d['mixed_steps']}, "
+        f"prefill dispatches {d['prefill_dispatches']}, decode {d['decode_dispatches']}")
+    viol = list(eng.kv_ledger.violations_log)
+    assert viol and viol[0].kind == "orphan_page" and viol[0].owner == rid, viol[:1]
+    leaks = [json.load(open(p)) for p in glob.glob(os.path.join(crash, "flight_recorder_*.json"))]
+    leaks = [a for a in leaks if a["reason"].startswith("kv_leak")]
+    assert len(leaks) == 1 and leaks[0]["request_id"] == rid, [a["reason"] for a in leaks]
+    assert leaks[0]["context"]["kv_ledger"]["orphan_pages"] == viol[0].page_ids
+    log(f"[planes leak] engine.release.failx1: the audit ({PLANES_AUDIT_S} s) named "
+        f"{len(viol[0].page_ids)} orphan pages of {rid} after {found_s:.3f} s; one kv_leak "
+        f"artifact")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    streams = planes_ckpt_streams(dev)
+    tmp.cleanup()
+    out["checkpoint_streams_equal"] = streams
+    return out, params
+
+
+def planes_ckpt_streams(dev):
+    """The vendored checkpoint in bf16 on the card: the wave with mixed
+    steps served without a fault, then with `engine.mixed.fail@1x1`; the
+    greedy streams must be equal and the second run's mixed steps
+    disabled. Returns the number of tokens compared."""
+    from dynamo_tpu_torch import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions)
+    from dynamo_tpu_torch.models.weights import load_config
+    from dynamo_tpu_torch.runtime.pipeline.context import Context
+    from dynamo_tpu_torch.utils import faults
+
+    rng = np.random.RandomState(0)
+    wave = [rng.randint(3, 60, size=45).tolist() for _ in range(3)]  # vocab 68
+    held = [5, 17, 42, 9] * 6
+
+    async def serve(spec):
+        eng = TorchEngine(EngineConfig(model=load_config(CKPT), checkpoint_dir=CKPT,
+                                       dtype="bfloat16", **CKPT_WAVE), device=dev)
+        go = asyncio.Event()
+
+        async def one(ids, n, signal=False):
+            pre = PreprocessedRequest(
+                token_ids=list(ids), stop_conditions=StopConditions(max_tokens=n, ignore_eos=True),
+                sampling_options=SamplingOptions(greedy=True))
+            toks = []
+            async for f in await eng.generate(Context(pre.to_dict())):
+                toks.extend(f.get("token_ids") or [])
+                if signal and len(toks) >= 9:
+                    go.set()
+            assert len(toks) == n, f"stream of {len(toks)} tokens"
+            return toks
+
+        async def arrivals():
+            await go.wait()
+            return await asyncio.gather(*[one(p, 10) for p in wave])
+
+        faults.configure(spec)
+        try:
+            h, w = await asyncio.gather(one(held, 48, True), arrivals())
+            m = eng.metrics()  # faults_injected reads the armed registry
+        finally:
+            faults.reset()
+        await eng.close()
+        return [h, *w], m
+
+    ref, m_ref = asyncio.run(serve(None))
+    got, m_got = asyncio.run(serve("engine.mixed.fail@1x1"))
+    assert m_ref["mixed_steps"] > 0, "the checkpoint's wave took no mixed step"
+    assert m_got["mixed_disabled"] == 1 and m_got["faults_injected"] == 1, m_got
+    assert got == ref, "a contained mixed failure changed a greedy stream"
+    n = sum(len(x) for x in ref)
+    log(f"[planes checkpoint] tiny-trained-llama bf16, the wave with mixed steps "
+        f"({m_ref['mixed_steps']} in the clean run): {n} greedy tokens equal with "
+        f"engine.mixed.fail@1x1 (contained, mixed disabled) and without")
+    return n
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1,
@@ -4973,6 +5528,11 @@ def main() -> int:
     g_results, g_launches, params = phase_groups(dev, params, peaks, smi=smi)
     results.update(g_results)
     launches.update(g_launches)
+    # phase 18: the robustness and observability planes at the serving
+    # preset's width, on the same weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, params = phase_planes(dev, params, smi=smi)
     del params
     gc.collect()
     # phase 11: the serving entry at full width (its own engine, seed 0)
@@ -5026,7 +5586,7 @@ def main() -> int:
         "ragged_attention_q4g": ("dynamo_tpu_torch/csrc/prefill_attention.cu",
                                  "dynamo_tpu/ops/attention.py:75"),
     }
-    log(f"[smoke] phases 1-17 took {time.perf_counter() - t_smoke:.1f} s of wall time, build "
+    log(f"[smoke] phases 1-18 took {time.perf_counter() - t_smoke:.1f} s of wall time, build "
         f"included")
     kernels = []
     for k, r in results.items():

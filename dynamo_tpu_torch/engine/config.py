@@ -15,6 +15,9 @@ name: its scales would outweigh its codes). Speculative decoding
 (`spec_decode`) and stall-free mixed prefill+decode steps
 (`mixed_batching`) are ported, alone and together, with the step pipeline
 (`step_pipeline`, on by default as in the JAX package) and without it.
+The robustness and observability fields (`watchdog_dispatch_s`,
+`degrade_reprobe_s`, `crash_dir`, `flight_recorder`, `kv_audit_s`) are
+ported with the JAX package's defaults.
 """
 
 from __future__ import annotations
@@ -117,6 +120,29 @@ class EngineConfig:
     # waits for KV pages before PoolExhaustedError, capped by the request's
     # own deadline
     prefill_wait_s: float = 60.0
+    # the engine watchdog: a dispatch enqueue or result fetch that has not
+    # completed within this many seconds trips the degrade ladder and dumps
+    # a crash artifact (trace ring, digests, phase stats). 0 disables. Set
+    # it well above the slowest decode graph capture and kernel build the
+    # deployment sees: the watchdog cannot tell them from a stall
+    watchdog_dispatch_s: float = 0.0
+    # seconds a watchdog-tripped degrade rung stays shed before re-probing
+    # (engine/degrade.py); permanent trips (a failed dispatch family) never
+    # re-probe
+    degrade_reprobe_s: float = 30.0
+    # crash-artifact directory (watchdog and flight-recorder dumps); None =
+    # DYN_CRASH_DIR or the platform's temporary directory
+    crash_dir: Optional[str] = None
+    # the always-on flight recorder (engine/flight_recorder.py): a bounded
+    # ring of per-step digests and per-phase latency baselines; SLO
+    # breaches, watchdog fires, deadline-shed bursts, sustained anomalies
+    # and GET /debug/snapshot dump a rate-limited forensic artifact. False
+    # disables the ring (the same streams either way)
+    flight_recorder: bool = True
+    # KV custody-ledger audit period in seconds (engine/kv_ledger.py), run
+    # at the top of a loop tick; None = DYN_KV_AUDIT_S, default 5.0; 0
+    # disables the audit (the O(1) transition stamps stay on)
+    kv_audit_s: Optional[float] = None
 
     def __post_init__(self) -> None:
         for name, off in _UNPORTED.items():

@@ -6,10 +6,14 @@ The port's counterpart of the JAX package's jitted decode scan
 PyTorch pays the host's launch cost for every one of them. Here the whole
 loop is captured once for each key met, after one eager run at that key,
 and every later dispatch of that key is one `cudaGraphLaunch`. A key is
-(dispatch width, all_greedy, use_ext, want_lps, want_tops): the last three
-say which parts of the extended sampler the batch needs (penalties and
-seeds, logprobs, top-N alternatives), so a batch that needs none replays
-the same graph it would without them.
+(dispatch width, all_greedy, use_ext, want_lps, want_tops, steps): the
+middle three say which parts of the extended sampler the batch needs
+(penalties and seeds, logprobs, top-N alternatives), so a batch that needs
+none replays the same graph it would without them; `steps` is the loop's
+length, `decode_steps`, or 1 while the degrade ladder sheds the multi-step
+loop (engine/degrade.py `decode_scan`), whose re-probe returns to the
+graphs captured before it. Each capture counts as a compile event
+(engine/telemetry.py).
 
 What makes the loop capturable:
 - it reads only static device buffers that the engine writes before each
@@ -48,10 +52,12 @@ CPU the same function runs eagerly every time.
 from __future__ import annotations
 
 import gc
+import time
 from typing import Callable
 
 import torch
 
+from dynamo_tpu_torch.engine import telemetry
 from dynamo_tpu_torch.ops import _cuda, decode_attention, kv_write, prefill_attention, w8a8
 
 
@@ -88,7 +94,7 @@ class _Captured:
 
 class DecodeGraphs:
     """Runs `step(*key) -> outputs` eagerly the first time at a key
-    (width, all_greedy, use_ext, want_lps, want_tops) and as a replayed
+    (width, all_greedy, use_ext, want_lps, want_tops, steps) and as a replayed
     CUDA graph after that; on a non-CUDA device, always eagerly."""
 
     def __init__(self, step: Callable, device: torch.device, generator: torch.Generator):
@@ -134,6 +140,7 @@ class DecodeGraphs:
         register(self._gen)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+        t0 = time.perf_counter()
         before = _read_counts()
         gc.collect()
         gc_on = gc.isenabled()
@@ -147,4 +154,5 @@ class DecodeGraphs:
         counts = [b - a for a, b in zip(before, _read_counts())]
         _add_counts(counts, -1)  # capture launches nothing; replays count
         keep = list(_cuda.scratch_bufs.values())
+        telemetry.note_compile("cuda_graph", time.perf_counter() - t0, key=list(key))
         return _Captured(graph, out, counts, keep)

@@ -94,7 +94,20 @@ Port of `dynamo_tpu/engine/engine.py::JaxEngine`, main path only:
   through the page-scatter kernel in place of the prefill); the
   in-process device path between two engines is engine/kv_transfer.py;
 - streamed `EngineOutput` frames, finishing on max_tokens or EOS; the
-  first frame after an admission carries the prefix hit in its meta.
+  first frame after an admission carries the prefix hit in its meta;
+- the robustness and observability planes: `DYN_FAULTS` points
+  (utils/faults.py) at reservation, prefill, mixed and decode dispatch and
+  release; the degrade ladder (engine/degrade.py: step_pipeline, spec,
+  mixed, decode_scan) walked by the watchdog (`watchdog_dispatch_s`) on a
+  stalled dispatch enqueue or fetch, with re-probe; a failed prefill group
+  retried row by row and a failed mixed step contained (its rows rolled
+  back, the `mixed` rung tripped for good), unless a sticky CUDA error
+  poisoned the context; the KV custody ledger (engine/kv_ledger.py) with
+  its periodic audit; the flight recorder's per-step digests
+  (engine/flight_recorder.py); trace spans and instants (utils/tracing.py,
+  host clock only: no hook waits for the device); the profiler's phase
+  annotations (engine/profiler.py); compile events and device memory
+  (engine/telemetry.py).
 
 The engine runs on a CUDA device unless the caller asks for the CPU, where
 every kernel wrapper takes its plain PyTorch version and the decode step
@@ -113,7 +126,9 @@ are the same path.
 from __future__ import annotations
 
 import asyncio
+import itertools
 import logging
+import os
 import time
 from collections import deque
 from typing import AsyncIterator, Optional
@@ -121,9 +136,13 @@ from typing import AsyncIterator, Optional
 import numpy as np
 import torch
 
+from dynamo_tpu_torch.engine import flight_recorder as flightmod
+from dynamo_tpu_torch.engine import kv_ledger as kvledgermod
+from dynamo_tpu_torch.engine import profiler, telemetry
 from dynamo_tpu_torch.engine.allocator import PageAllocator
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.decode_graph import DecodeGraphs
+from dynamo_tpu_torch.engine.degrade import DegradeLadder
 from dynamo_tpu_torch.engine.offload import HostKvPool
 from dynamo_tpu_torch.engine.scheduler import (
     Sequence,
@@ -145,7 +164,7 @@ from dynamo_tpu_torch.llm.protocols.common import (
 from dynamo_tpu_torch.llm.tokens import TokenBlockSequence, compute_block_hashes
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.moe import expert_capacity
-from dynamo_tpu_torch.ops import quant
+from dynamo_tpu_torch.ops import _cuda, quant
 from dynamo_tpu_torch.ops.quant import is_quantized, logical_param_count, quantize_params
 from dynamo_tpu_torch.ops.kv_write import paged_kv_write
 from dynamo_tpu_torch.ops.rope import rope_inv_freq
@@ -157,6 +176,7 @@ from dynamo_tpu_torch.ops.sampling import (
     verify_draft_tokens,
 )
 from dynamo_tpu_torch.runtime.pipeline.context import Context
+from dynamo_tpu_torch.utils import artifacts, faults, instance, tracing
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
@@ -337,6 +357,13 @@ class TorchEngine:
             self.num_pages, self.page_size, on_event=self._emit_event,
             on_cached=self._on_page_cached if config.host_kv_pages else None,
         )
+        # the page-custody ledger (engine/kv_ledger.py): every allocator
+        # transition stamped, holdings attributed per request and plane, and
+        # a periodic loop audit (`kv_audit_s`) running the orphan detector;
+        # a violation arms the flight recorder's kv_leak trigger
+        self.kv_ledger = kvledgermod.KvLedger(
+            allocator=self.allocator, on_leak=self._on_kv_leak)
+        self.allocator.ledger = self.kv_ledger
         # the HBM -> host offload tier (engine/offload.py); None when off.
         # `offload_paused` parks it (no new copies are queued or started)
         self.host_pool: Optional[HostKvPool] = None
@@ -366,6 +393,8 @@ class TorchEngine:
                 scale_width=self._kv_scale_channels() if kv_quant else None,
                 pin_memory=self.device.type == "cuda",
             )
+            self.host_pool.ledger = self.kv_ledger
+            self.kv_ledger.host_pool = self.host_pool
         self._inv_freq = torch.from_numpy(rope_inv_freq(self.model_cfg)).to(self.device)
 
         self.waiting: deque[Sequence] = deque()
@@ -484,7 +513,53 @@ class TorchEngine:
             "offload_copy_s": 0.0,
             "restore_pages": 0,
             "restore_s": 0.0,
+            # 1 once a failed mixed dispatch tripped the permanent degrade
+            # to the normal paths; watchdog firings
+            "mixed_disabled": 0,
+            "watchdog_fired": 0,
         }
+        # dispatches made (mixed, decode and verify): the step number of
+        # the flight recorder's digests and the profiler's step marker
+        self._step_count = 0
+
+        # ---- the robustness and observability planes -------------------
+        faults.load_env()  # arm DYN_FAULTS points (a no-op when unset)
+        self.worker_label = instance.worker_id()
+        tracing.set_process_default(f"worker-{self.worker_label}")
+        # the degrade ladder (engine/degrade.py): ordered feature shedding
+        # with re-probe recovery. A trip also forgets the restore gate's
+        # rates, which were measured on the configuration before it. A
+        # failed mixed step trips `mixed` for good (mixed_disabled)
+        self._degrade = DegradeLadder(
+            reprobe_s=config.degrade_reprobe_s, on_trip=self._reset_offload_ema)
+        # the flight recorder: per-step digests sampled at the sites that
+        # feed _phase_stats; triggers dump a correlated, rate-limited
+        # artifact
+        self.flight = flightmod.FlightRecorder(
+            context_fn=self._flight_context, directory=config.crash_dir,
+        ) if config.flight_recorder else None
+        # KV ledger audit cadence: kv_audit_s, else DYN_KV_AUDIT_S, default
+        # 5 s; 0 disables. It runs at the top of a loop tick, off the
+        # dispatch path
+        audit_s = config.kv_audit_s
+        if audit_s is None:
+            try:
+                audit_s = float(os.environ.get("DYN_KV_AUDIT_S", "") or 5.0)
+            except ValueError:
+                audit_s = 5.0
+        self._kv_audit_s = float(audit_s)
+        self._kv_audit_next = 0.0
+        # the watchdog: in-flight host ops (dispatch enqueues and result
+        # fetches) as {token: (label, t_start)}; the monitor task trips the
+        # ladder and dumps a crash artifact when one stalls past
+        # _watchdog_s. Written from the CPU engine's worker threads too
+        # (a dict item set or pop is atomic under the GIL)
+        self._watchdog_s = float(config.watchdog_dispatch_s or 0.0)
+        self._ops: dict[int, tuple[str, float]] = {}
+        self._op_ids = itertools.count(1)
+        self._watch_fired: set[int] = set()
+        self._watchdog_task: Optional[asyncio.Task] = None
+        self.last_crash_artifact: Optional[str] = None
 
     def _check_kernel_shapes(self) -> None:
         """Refuse at construction what the CUDA kernels do not take, rather
@@ -568,31 +643,29 @@ class TorchEngine:
         itl_s}, fired once a sequence finishes (`_finish`)."""
         self._request_observers.append(cb)
 
-    # the reference's `metrics()` keys whose planes the port does not have
-    # yet: the KV custody ledger, the jit-compile telemetry, the degrade
-    # ladder with its watchdog and fault points, the flight recorder (M12),
-    # and the tp executor attribution (M13). Every other key is served with
-    # the reference's meaning.
-    UNPORTED_METRICS = frozenset({
-        "kv_ledger_violations", "kv_ledger_orphan_pages", "kv_ledger_audits",
-        "kv_ledger_inflight",
-        "compile_events", "compile_time_s",
-        "degraded_step_pipeline", "degraded_spec", "degraded_mixed",
-        "degraded_decode_scan", "degrades_total", "recoveries_total", "mixed_disabled",
-        "watchdog_fired", "faults_injected",
-        "flight_digests", "flight_dumps", "flight_suppressed", "step_anomalies",
-        "tp_overlap_dispatches", "gspmd_fallback_dispatches",
-    })
+    # the reference's `metrics()` keys whose plane the port does not have
+    # yet: the tp executor attribution (M13). Every other key is served
+    # with the reference's meaning, but `compile_events`/`compile_time_s`
+    # count decode graph captures and kernel builds (engine/telemetry.py).
+    UNPORTED_METRICS = frozenset({"tp_overlap_dispatches", "gspmd_fallback_dispatches"})
+
+    def dump_trace(self, path: str) -> int:
+        """Write the process trace ring (utils/tracing.py) as
+        Chrome/Perfetto trace-event JSON; returns the event count.
+        Recording must be armed (DYN_TRACE=1 or tracing.enable()) for the
+        engine's step timeline and request spans to be present."""
+        return tracing.dump(path)
 
     def metrics(self) -> dict:
         """ForwardPassMetrics equivalent (the reference's `metrics()`, less
         `UNPORTED_METRICS`): slots, queue, KV pool and prefix-cache gauges,
-        the host tier's pages and the restore gate's decisions, the step
-        walls' device/stall split, and the spec, mixed, pipeline and
-        deadline counters. On a CUDA device also the memory gauges
-        (`hbm_*`, from the caching allocator's statistics); on the CPU they
-        are absent, as the reference's are on a backend without memory
-        statistics."""
+        the custody ledger's counts, the host tier's pages and the restore
+        gate's decisions, the compile events, the step walls' device/stall
+        split, the spec, mixed, pipeline and deadline counters, the degrade
+        ladder, the watchdog, the injected faults and the flight recorder.
+        On a CUDA device also the memory gauges (`hbm_*`, from the caching
+        allocator's statistics); on the CPU they are absent, as the
+        reference's are on a backend without memory statistics."""
         active = sum(1 for s in self.slots if s is not None)
         usable = self.num_pages - 1
         ps = self._phase_stats
@@ -618,12 +691,17 @@ class TorchEngine:
             "kv_pages_free": alloc.pages_free,
             "kv_pages_peak_used": alloc.peak_used,
             "kv_fragmentation": round(alloc.fragmentation(), 4),
+            "kv_ledger_violations": self.kv_ledger.violations_total,
+            "kv_ledger_orphan_pages": len(self.kv_ledger.last_orphans),
+            "kv_ledger_audits": self.kv_ledger.audits_total,
+            "kv_ledger_inflight": len(self.kv_ledger._inflight),
             "slot_occupancy": round(active / len(self.slots), 4) if self.slots else 0.0,
             "offload_host_pages": len(self.host_pool) if self.host_pool is not None else 0,
             "offload_restored": self.offload_gate_stats["restored"],
             "offload_declined": self.offload_gate_stats["declined"],
             "offload_restore_failed": self.offload_gate_stats["failed"],
-            **self._device_memory_stats(),
+            **telemetry.compile_stats(),
+            **telemetry.device_memory_stats(self.device),
             "step_device_s": round(device_s, 4),
             "step_stall_s": round(stall_s, 4),
             "spec_acceptance_rate": (
@@ -634,24 +712,22 @@ class TorchEngine:
             "mixed_decode_rows": ps["mixed_decode_rows"],
             "mixed_prefill_tokens": ps["mixed_prefill_tokens"],
             "mixed_spec_rows": ps["mixed_spec_rows"],
+            "mixed_disabled": 1 if self._degrade.tripped("mixed") else 0,
             "pipeline_overlapped": ps["pipeline_overlapped"],
             "pipeline_overlap_s": round(ps["pipeline_overlap_s"], 4),
             "mixed_carry_rows": ps["mixed_carry_rows"],
+            **self._degrade.state(),
+            "degrades_total": self._degrade.degrades_total,
+            "recoveries_total": self._degrade.recoveries_total,
+            "watchdog_fired": ps["watchdog_fired"],
             "deadline_shed": ps["deadline_shed"],
             "deadline_timeouts": ps["deadline_timeouts"],
-        }
-
-    def _device_memory_stats(self) -> dict:
-        if self.device.type != "cuda":
-            return {}
-        stats = torch.cuda.memory_stats(self.device)
-        in_use = stats.get("allocated_bytes.all.current", 0)
-        limit = torch.cuda.get_device_properties(self.device).total_memory
-        return {
-            "hbm_bytes_in_use": int(in_use),
-            "hbm_bytes_limit": int(limit),
-            "hbm_utilization": round(in_use / limit, 4),
-            "hbm_peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
+            "faults_injected": faults.fired_total() if faults.active() else 0,
+            "flight_digests": self.flight.count if self.flight is not None else 0,
+            "flight_dumps": self.flight.dumps_total if self.flight is not None else 0,
+            "flight_suppressed": (
+                self.flight.suppressed_total if self.flight is not None else 0),
+            "step_anomalies": self.flight.anomalies_total if self.flight is not None else 0,
         }
 
     def _emit_event(self, event: dict) -> None:
@@ -663,19 +739,251 @@ class TorchEngine:
             except Exception:
                 log.exception("kv event subscriber failed")
 
-    def _launch(self, fn, *args) -> asyncio.Future:
+    # the profiler's phase annotation of each dispatch op, named like its
+    # engine.steps span
+    _OP_PHASES = {"prefill.dispatch": "prefill", "decode.dispatch": "decode",
+                  "spec.dispatch": "spec_verify", "mixed.dispatch": "mixed"}
+
+    def _launch(self, fn, *args, op: str, point: str) -> asyncio.Future:
         """Start a dispatch. On a CUDA device the launches are
-        asynchronous already, so `fn` runs inline and the future is done;
-        on the CPU the plain versions compute synchronously, so `fn` runs
-        in a worker thread (as the reference runs its dispatches) and the
-        loop keeps landing other work meanwhile. A dispatch reads only its
-        build and the device state, which nothing else touches while it
-        runs."""
+        asynchronous already, so `fn` runs inline and the future is done
+        (with `fn`'s result or its exception); on the CPU the plain versions
+        compute synchronously, so `fn` runs in a worker thread (as the
+        reference runs its dispatches) and the loop keeps landing other work
+        meanwhile. A dispatch reads only its build and the device state,
+        which nothing else touches while it runs.
+
+        The dispatch is the watchdog's op `op` from before its fault point
+        `point` (utils/faults.py) until `fn` returns, so an injected delay
+        reads as a stalled enqueue. With a fault armed, a CUDA dispatch
+        runs as a task behind the point's asynchronous check: a delay
+        sleeps without blocking the loop, which runs the watchdog. While a
+        profiler capture runs, `fn` runs inside the phase's annotations
+        (engine/profiler.py)."""
+        wd = self._op_begin(op)
         if self.device.type == "cuda":
+            if faults.active():
+                return asyncio.ensure_future(self._launch_faulted(wd, op, point, fn, args))
             fut = asyncio.get_running_loop().create_future()
-            fut.set_result(fn(*args))
+            try:
+                fut.set_result(self._annotated(op, fn, args))
+            except Exception as exc:  # noqa: BLE001 (raised where it is awaited)
+                fut.set_exception(exc)
+            finally:
+                self._op_end(wd)
             return fut
-        return asyncio.ensure_future(asyncio.to_thread(fn, *args))
+
+        def run():
+            try:
+                faults.fire(point)
+                return self._annotated(op, fn, args)
+            finally:
+                self._op_end(wd)
+
+        return asyncio.ensure_future(asyncio.to_thread(run))
+
+    async def _launch_faulted(self, wd, op: str, point: str, fn, args):
+        try:
+            await faults.afire(point)
+            return self._annotated(op, fn, args)
+        finally:
+            self._op_end(wd)
+
+    def _annotated(self, op: str, fn, args):
+        with profiler.step_annotation(self._step_count), \
+                profiler.annotate(self._OP_PHASES[op]):
+            return fn(*args)
+
+    # ---- the robustness plane: feature gates, watchdog, forensics -------
+
+    def _pipe_on(self) -> bool:
+        """The step pipeline's effective flag: the config and the degrade
+        ladder. One predicate for every read site, so a watchdog trip
+        serializes all of them at once."""
+        return self.config.step_pipeline and not self._degrade.disabled("step_pipeline")
+
+    def _spec_on(self) -> bool:
+        return self.config.spec_decode and not self._degrade.disabled("spec")
+
+    def _decode_steps(self) -> int:
+        """Steps a decode dispatch runs: `decode_steps`, or one while the
+        ladder's last rung (`decode_scan`) is shed. A decode graph's key
+        carries its step count, so the rung captures one-step graphs and a
+        re-probe returns to the graphs captured before it."""
+        return 1 if self._degrade.disabled("decode_scan") else self.config.decode_steps
+
+    def _op_begin(self, label: str) -> Optional[int]:
+        """Register a host op the device gates (a dispatch enqueue or a
+        result fetch) with the watchdog; returns a token for `_op_end`.
+        None when the watchdog is off (no steady-state cost)."""
+        if not self._watchdog_s:
+            return None
+        tok = next(self._op_ids)
+        self._ops[tok] = (label, time.perf_counter())
+        return tok
+
+    def _op_end(self, tok: Optional[int]) -> None:
+        if tok is not None:
+            self._ops.pop(tok, None)
+
+    def _ensure_watchdog(self) -> None:
+        if self._watchdog_s <= 0:
+            return
+        if self._watchdog_task is None or self._watchdog_task.done():
+            self._watchdog_task = asyncio.get_running_loop().create_task(
+                self._watchdog_loop())
+
+    async def _watchdog_loop(self) -> None:
+        """Monitor task: notice a dispatch or fetch stalled past
+        `watchdog_dispatch_s`, dump a crash artifact and walk the degrade
+        ladder. The stalled op cannot be killed (a kernel that never ends
+        shows as a stalled `sync.fetch`); the job here is to make the stall
+        visible and to shed the most speculative machinery, so the next
+        dispatch takes the conservative path."""
+        interval = min(max(self._watchdog_s / 4.0, 0.05), 1.0)
+        try:
+            while not self._closed:
+                await asyncio.sleep(interval)
+                if not self._ops:
+                    self._watch_fired.clear()
+                    continue
+                now = time.perf_counter()
+                for tok, (label, t0) in list(self._ops.items()):
+                    stalled = now - t0
+                    if stalled <= self._watchdog_s or tok in self._watch_fired:
+                        continue
+                    self._watch_fired.add(tok)
+                    self._watchdog_fire(label, stalled)
+                self._watch_fired.intersection_update(self._ops)
+        except asyncio.CancelledError:
+            return
+
+    def _watchdog_fire(self, label: str, stalled_s: float) -> None:
+        self._phase_stats["watchdog_fired"] += 1
+        reason = f"watchdog: {label} stalled {stalled_s:.2f}s"
+        rung = self._degrade.trip_next(reason)
+        path = self._dump_crash_artifact(label, stalled_s, rung)
+        log.error(
+            "engine watchdog fired: %s has not completed after %.2fs (budget %.2fs); "
+            "degrade rung tripped: %s; crash artifact: %s",
+            label, stalled_s, self._watchdog_s, rung or "none left", path)
+        if tracing.enabled():
+            tracing.instant("watchdog.fire", cat="degrade", op=label,
+                            stalled_s=round(stalled_s, 3), rung=rung or "")
+        if self.flight is not None:
+            self.flight.trigger(f"watchdog:{label}")
+
+    def _dump_crash_artifact(self, label: str, stalled_s: float,
+                             rung: Optional[str]) -> Optional[str]:
+        """Write the trace ring, the digests, the phase stats and a metrics
+        snapshot next to the stall, so the postmortem does not depend on
+        the process surviving to serve /debug/trace. Best-effort."""
+        try:
+            artifact = {
+                "op": label,
+                "stalled_s": round(stalled_s, 3),
+                "watchdog_dispatch_s": self._watchdog_s,
+                "rung_tripped": rung,
+                "degrade_state": self._degrade.state(),
+                "phase_stats": self.phase_stats,
+                "metrics": self.metrics(),
+                "inflight_ops": [
+                    {"op": lbl, "age_s": round(time.perf_counter() - t0, 3)}
+                    for lbl, t0 in list(self._ops.values())
+                ],
+                "trace": tracing.export(),
+            }
+            if self.flight is not None:
+                artifact["digest_fields"] = list(flightmod.FIELDS)
+                artifact["digests"] = self.flight.snapshot_rows()
+        except Exception:  # noqa: BLE001 (the dump is best-effort)
+            log.exception("watchdog crash-artifact dump failed")
+            return None
+        path = artifacts.write_crash_artifact(
+            "engine_watchdog", artifact, directory=self.config.crash_dir)
+        if path is not None:
+            self.last_crash_artifact = path
+        return path
+
+    def _flight_context(self) -> dict:
+        """Engine snapshot embedded in every flight-recorder artifact:
+        metrics, phase stats, in-flight ops and the custody ledger."""
+        ops = []
+        for _ in range(4):
+            try:
+                ops = list(self._ops.values())
+                break
+            except RuntimeError:  # resized by a worker thread mid-copy
+                continue
+        return {
+            "metrics": self.metrics(),
+            "phase_stats": self.phase_stats,
+            "degrade": self._degrade.state(),
+            "waiting": len(self.waiting),
+            "inflight_ops": [
+                {"op": lbl, "age_s": round(time.perf_counter() - t0, 3)} for lbl, t0 in ops
+            ],
+            "kv_ledger": self.kv_ledger.snapshot(),
+        }
+
+    def _flight_record(self, kind: str, wall_s: float, rows: int = 0, tokens: int = 0,
+                       budget: int = 0) -> None:
+        """One step digest into the flight recorder, from the sites that
+        feed _phase_stats (host walls only: nothing here waits for the
+        device). Never takes down the dispatch it observes."""
+        fr = self.flight
+        if fr is None:
+            return
+        try:
+            fr.record(
+                kind, wall_s, rows=rows, tokens=tokens,
+                budget_fill=round(tokens / budget, 4) if budget else 0.0,
+                queue_depth=len(self.waiting),
+                slots_active=sum(1 for s in self.slots if s is not None),
+                kv_frac=round(self.allocator.usage(), 4),
+                degrade_mask=self._degrade.mask(),
+                step=self._step_count,
+            )
+        except Exception:  # noqa: BLE001 (forensics must not break serving)
+            log.exception("flight-recorder digest failed")
+
+    # ---- the KV custody ledger (engine/kv_ledger.py) -------------------
+
+    def _kv_hold(self, page_ids: list[int], owner: str, tenant: str = "") -> None:
+        if page_ids:
+            self.kv_ledger.hold(page_ids, owner, tenant=tenant)
+
+    def _kv_drop(self, page_ids: list[int], owner: str) -> None:
+        if page_ids:
+            self.kv_ledger.drop(page_ids, owner)
+
+    def _run_kv_audit(self) -> None:
+        """One ledger audit pass; forensics must never break serving."""
+        try:
+            violations = self.kv_ledger.audit()
+        except Exception:  # noqa: BLE001
+            log.debug("kv ledger audit failed", exc_info=True)
+            return
+        if violations and self.flight is not None:
+            # one artifact an audit: the flight context carries the whole
+            # ledger snapshot, and the cooldown makes a storm one dump
+            v = violations[0]
+            owner = v.owner if v.owner and not v.owner.startswith("sys:") else None
+            try:
+                self.flight.trigger(f"kv_leak:{v.kind}", request_id=owner)
+            except Exception:  # noqa: BLE001
+                log.debug("kv_leak flight trigger failed", exc_info=True)
+
+    def _on_kv_leak(self, violation) -> None:
+        """Ledger hook for violations raised outside an audit pass (the
+        allocator's release misuse, at the call site); audit violations
+        arm the trigger in _run_kv_audit."""
+        if self.flight is None or violation.kind not in ("double_release", "unknown_page"):
+            return
+        try:
+            self.flight.trigger(f"kv_leak:{violation.kind}")
+        except Exception:  # noqa: BLE001
+            log.debug("kv_leak flight trigger failed", exc_info=True)
 
     def _up(self, arr: np.ndarray, out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """A host array on the device (into `out` when given). On a CUDA
@@ -721,6 +1029,9 @@ class TorchEngine:
             blocks=self._blocks_from_metadata(request, pre),
         )
         seq.t_submit = time.perf_counter()
+        if tracing.enabled():
+            tracing.instant("seq.submit", cat="lifecycle", req=request.id, ts=seq.t_submit,
+                            seq_id=seq.seq_id, prompt_tokens=seq.prompt_len)
         self._take_embeds(seq)
         seq.preloaded = _preloaded
         if not seq.deadline and self.config.request_timeout_s > 0:
@@ -813,10 +1124,22 @@ class TorchEngine:
     def _ensure_loop(self) -> None:
         if self._loop_task is None or self._loop_task.done():
             self._loop_task = asyncio.get_running_loop().create_task(self._loop())
+        self._ensure_watchdog()
 
     async def close(self) -> None:
         self._closed = True
         self._wake.set()
+        if self.flight is not None:
+            # freeze the final context and drop the bound provider: the
+            # recorder registry keeps the ring dumpable after close without
+            # holding this engine's pools
+            self.flight.seal_context()
+        if self._watchdog_task is not None and not self._watchdog_task.done():
+            self._watchdog_task.cancel()
+            try:
+                await self._watchdog_task
+            except asyncio.CancelledError:
+                pass
         if self._loop_task:
             try:
                 await self._loop_task
@@ -840,8 +1163,19 @@ class TorchEngine:
     # main loop
 
     async def _loop(self) -> None:
+        # the loop task inherits the contextvars of whichever request
+        # created it: unbind the request id, so loop logs and spans never
+        # join against that request
+        tracing.set_request(None)
         try:
             while not self._closed:
+                # the custody audit, off the dispatch path (gated on its
+                # period: a steady tick pays one clock read)
+                if self._kv_audit_s > 0:
+                    now = time.monotonic()
+                    if now >= self._kv_audit_next:
+                        self._kv_audit_next = now + self._kv_audit_s
+                        self._run_kv_audit()
                 # offload first: queued write-through copies pin their pages
                 # before this tick's admission can evict them
                 self._maybe_start_offload()
@@ -860,7 +1194,9 @@ class TorchEngine:
                     progressed |= mixed in (True, "pipelined")
                 if mixed is None:
                     progressed |= await self._prefill_tick()
-                pipe = self.config.step_pipeline
+                # a step_pipeline trip with a dispatch in flight lands it
+                # here before the next build: serialized from this tick on
+                pipe = self._pipe_on()
                 if not pipe and mixed != "pipelined":
                     # serialized: the old dispatch lands BEFORE the next
                     # one is built
@@ -882,7 +1218,10 @@ class TorchEngine:
                     if bld == "sync_first":  # nothing left in flight
                         bld = None
                 if bld is not None:
-                    new = self._launch(self._run_decode_dispatch, bld)
+                    new = self._launch(
+                        self._run_decode_dispatch, bld,
+                        op="spec.dispatch" if bld["spec"] else "decode.dispatch",
+                        point="engine.dispatch")
                     progressed = True
                 if pipe and mixed != "pipelined":
                     # pipelined: N+1 is queued on the device; land N while
@@ -901,9 +1240,23 @@ class TorchEngine:
                     return
                 if self._inflight is not None:
                     continue  # the next tick lands it
-                await self._wake.wait()
-        except Exception:
+                if self._kv_audit_s > 0:
+                    # idle must not stall the custody audit: a request that
+                    # leaked pages at _finish has no successor to wake the
+                    # loop, so the sleep ends at the next audit
+                    try:
+                        await asyncio.wait_for(
+                            self._wake.wait(),
+                            timeout=max(self._kv_audit_next - time.monotonic(), 0.001))
+                    except asyncio.TimeoutError:
+                        pass
+                else:
+                    await self._wake.wait()
+        except Exception as exc:
             log.exception("engine loop crashed; failing all requests")
+            if self.flight is not None:
+                # the black box of the crash: digests, trace and ledger
+                self.flight.trigger(f"manual:loop_crash:{type(exc).__name__}", force=True)
             for seq in list(self.waiting) + [s for s in self.slots if s]:
                 seq.out_queue.put_nowait(EngineOutput.final(FINISH_REASON_ERROR).to_dict())
             self.waiting.clear()
@@ -924,7 +1277,15 @@ class TorchEngine:
         for seq in expired:
             self.waiting.remove(seq)
             self._phase_stats["deadline_shed"] += 1
+            if tracing.enabled():
+                tracing.instant(
+                    "seq.deadline_shed", cat="lifecycle", req=seq.ctx.id,
+                    queued_s=(round(time.perf_counter() - seq.t_submit, 3)
+                              if seq.t_submit else 0))
             seq.out_queue.put_nowait(EngineOutput.final(FINISH_REASON_TIMEOUT).to_dict())
+        if expired and self.flight is not None:
+            # a shed burst (not one straggler) is a forensic trigger
+            self.flight.note_shed(len(expired))
         return bool(expired)
 
     def _sweep_expired(self, seq: Sequence, now: float) -> bool:
@@ -932,6 +1293,9 @@ class TorchEngine:
         if not seq.past_deadline(now):
             return False
         self._phase_stats["deadline_timeouts"] += 1
+        if tracing.enabled():
+            tracing.instant("seq.deadline_timeout", cat="lifecycle", req=seq.ctx.id,
+                            generated=seq.generated)
         self._finish(seq, FINISH_REASON_TIMEOUT)
         return True
 
@@ -972,6 +1336,9 @@ class TorchEngine:
             seq.slot = slot
             seq.prefilling = True
             seq.t_admit = time.perf_counter()
+            if tracing.enabled():
+                tracing.instant("seq.admit", cat="lifecycle", req=seq.ctx.id, ts=seq.t_admit,
+                                slot=slot, prefix_cached_tokens=seq.num_cached)
             seq.first_meta = {
                 "prefix_cached_tokens": seq.num_cached,
                 "prompt_tokens": seq.prompt_len,
@@ -1020,6 +1387,12 @@ class TorchEngine:
         (a host page first) and recomputed into a fresh page, so no write
         lands in a page other sequences share. On a miss the matches are
         released."""
+        try:
+            # an injected failure here reads as an exhausted pool: the
+            # caller sees the False the allocator returns out of pages
+            faults.fire("engine.reserve")
+        except faults.FaultError:
+            return False
         ps = self.page_size
         t = seq.total_tokens
         # this reservation's ledger: a preemption-resume must not carry an
@@ -1051,6 +1424,9 @@ class TorchEngine:
             self.offload_gate_stats["declined"] += 1
             seq.blocks_declined = len(host_run)
             seq.gate_reason = "restore_slower_than_recompute"
+            if tracing.enabled():
+                tracing.instant("offload.gate", cat="kv", req=seq.ctx.id, decision="declined",
+                                blocks=len(host_run), reason=seq.gate_reason)
             host_run = []
         if host_run:
             try:
@@ -1062,14 +1438,22 @@ class TorchEngine:
                 self.offload_gate_stats["failed"] += 1
                 seq.blocks_declined = len(host_run)
                 seq.gate_reason = "restore_failed"
+                if tracing.enabled():
+                    tracing.instant("offload.gate", cat="kv", req=seq.ctx.id,
+                                    decision="failed", blocks=len(host_run),
+                                    reason=seq.gate_reason)
                 host_run = []
         cached = len(matched) + len(host_run)
         seq.page_ids = matched + fresh
+        self._kv_hold(seq.page_ids, seq.ctx.id, tenant=seq.tenant)
         seq.num_cached = cached * ps
         seq.num_computed = seq.num_cached
         seq.registered_pages = cached
         seq.blocks_reused = len(matched)
         seq.blocks_restored = len(host_run)
+        if host_run and tracing.enabled():
+            tracing.instant("offload.gate", cat="kv", req=seq.ctx.id, decision="restored",
+                            blocks=len(host_run))
         if cached:
             tail = t - seq.num_cached
             st = self._phase_stats
@@ -1079,6 +1463,13 @@ class TorchEngine:
             st["prefix_reused_tokens"] += len(matched) * ps
             st["prefix_restored_tokens"] += len(host_run) * ps
             st["prefix_tail_tokens"] += tail
+            if tracing.enabled():
+                # one event a hit on the engine.prefix track, so a slow warm
+                # serve is attributable in the trace
+                tracing.instant(
+                    "prefix.hit", cat="kv", req=seq.ctx.id, track="engine.prefix",
+                    reused_blocks=len(matched), restored_blocks=len(host_run),
+                    tail_tokens=tail, full=tail <= ps)
         return True
 
     def _mark_slot_state(self, seq: Sequence) -> None:
@@ -1191,28 +1582,55 @@ class TorchEngine:
                     break
                 groups[bucket] = [seq]  # one chunk over budget still runs
                 break
-        pipe = self.config.step_pipeline
+        pipe = self._pipe_on()
         for bucket, seqs in groups.items():
             progressed = True
-            res = await self._launch(self._prefill_group_dispatch, seqs, bucket, not pipe)
-            finals = []
-            for j, seq in enumerate(seqs):
-                seq.num_computed += min(seq.total_tokens - seq.num_computed, bucket)
-                self._register_full_pages(seq)
-                if seq.num_computed >= seq.total_tokens:
-                    # final chunk: with the pipeline the sampled token stays
-                    # on the device as the slot's carry override and one
-                    # fetch per group emits it early; serialized engines
-                    # emit it here
-                    self._mark_decode_ready(seq, res, j, pipe)
-                    if pipe:
-                        finals.append((seq, j))
-                else:
-                    self._prefilling.append(seq)
-            if finals:
-                self._start_first_emit(finals, res)
+            try:
+                res = await self._launch(self._prefill_group_dispatch, seqs, bucket, not pipe,
+                                         op="prefill.dispatch", point="engine.prefill")
+            except Exception as exc:
+                if _cuda.sticky(exc):
+                    raise  # a poisoned context serves nothing more
+                # contain the failure to the offending request(s): each
+                # sequence again in a dispatch of its own, at its own bucket
+                log.exception("prefill group of %d seqs failed; retrying singly", len(seqs))
+                for seq in seqs:
+                    b1 = self._bucket_for(
+                        min(seq.total_tokens - seq.num_computed, self.config.prefill_chunk))
+                    try:
+                        res1 = await self._launch(
+                            self._prefill_group_dispatch, [seq], b1, not pipe,
+                            op="prefill.dispatch", point="engine.prefill")
+                    except Exception as exc1:
+                        if _cuda.sticky(exc1):
+                            raise
+                        log.exception("prefill of seq %s failed", seq.seq_id)
+                        self._finish(seq, FINISH_REASON_ERROR)
+                        continue
+                    self._land_prefill([seq], b1, res1, pipe)
+                continue
+            self._land_prefill(seqs, bucket, res, pipe)
         await asyncio.sleep(0)
         return progressed
+
+    def _land_prefill(self, seqs: list[Sequence], bucket: int, res, pipe: bool) -> None:
+        """Advance the sequences of a landed prefill dispatch: a final
+        chunk turns its sequence decode-ready (with the pipeline the sampled
+        token stays on the device as the slot's carry override and one fetch
+        per group emits it early; serialized engines emit it here), others
+        go back to the prefill queue."""
+        finals = []
+        for j, seq in enumerate(seqs):
+            seq.num_computed += min(seq.total_tokens - seq.num_computed, bucket)
+            self._register_full_pages(seq)
+            if seq.num_computed >= seq.total_tokens:
+                self._mark_decode_ready(seq, res, j, pipe)
+                if pipe:
+                    finals.append((seq, j))
+            else:
+                self._prefilling.append(seq)
+        if finals:
+            self._start_first_emit(finals, res)
 
     def _any_mid_decode(self) -> bool:
         """Is decode running? A live dispatch is in flight, or a stream has
@@ -1349,10 +1767,20 @@ class TorchEngine:
         if fetch:
             # the dispatch's one device->host sync
             res = [None if t is None else t.cpu().numpy() for t in res]
+        now = time.perf_counter()
+        n_tok = int(t_valid.sum())
         st = self._phase_stats
-        st["prefill_dispatch_s"] += time.perf_counter() - t0
+        st["prefill_dispatch_s"] += now - t0
         st["prefill_dispatches"] += 1
-        st["prefill_tokens"] += int(t_valid.sum())
+        st["prefill_tokens"] += n_tok
+        self._flight_record("prefill", now - t0, rows=len(seqs), tokens=n_tok)
+        if tracing.enabled():
+            # the step timeline, at the site that feeds _phase_stats
+            tracing.complete("prefill", t0, now, cat="step", track="engine.steps",
+                             rows=len(seqs), tokens=n_tok, bucket=bucket)
+            for j in finals:
+                tracing.instant("seq.first_dispatch", cat="lifecycle", req=seqs[j].ctx.id,
+                                ts=now)
         return res
 
     @staticmethod
@@ -1483,13 +1911,17 @@ class TorchEngine:
         Returns True (a serialized step ran and landed), "pipelined" (a
         step was dispatched and left in flight), "hold" (serialized
         engines: worthwhile, but the in-flight dispatch must land first),
-        or None (the normal paths run). A failed step raises: the loop's
-        crash path fails the requests, and no quiet retreat to the normal
-        paths hides a broken kernel."""
-        if self._closed or not self._prefilling:
+        or None (the normal paths run). A step that fails with an exception
+        on the host (an injected fault, a launch error that leaves the CUDA
+        context usable) is contained (`_mixed_dispatch_failed`): its rows'
+        host state rolls back, its chunks re-queue, and the `mixed` rung
+        trips for good, so the normal paths serve on. A sticky CUDA error
+        (`ops/_cuda.sticky`) poisons the context: it raises, and the loop's
+        crash path dumps the flight artifact and fails the requests."""
+        if self._closed or self._degrade.disabled("mixed") or not self._prefilling:
             return None
         cfg = self.config
-        pipeline = cfg.step_pipeline
+        pipeline = self._pipe_on()
         # classify the in-flight dispatch's rows: deterministic advances
         # can ride the device carry, data-dependent ones wait for the sync
         stale_det: dict[int, Sequence] = {}
@@ -1530,7 +1962,7 @@ class TorchEngine:
         if not rows:
             return None
         carry_rows = {i for i, s in rows if stale_det.get(i) is s}
-        spec = cfg.spec_decode and cfg.mixed_spec
+        spec = self._spec_on() and cfg.mixed_spec
         if carry_rows and spec and any(
             s.spec is not None and s.spec.gate_open() for i, s in rows if i in carry_rows
         ):
@@ -1613,20 +2045,80 @@ class TorchEngine:
         # flight; the sync re-appends non-final chunks
         for seq, _ in picks:
             self._prefilling.remove(seq)
-        task = self._launch(self._run_mixed_dispatch, bld)
+        task = self._launch(self._run_mixed_dispatch, bld, op="mixed.dispatch",
+                            point="engine.mixed")
         if pipeline:
             old, self._inflight = self._inflight, None
             if old is not None:
-                # the old dispatch lands while the step queued behind it runs
+                # the old dispatch lands while the step queued behind it
+                # runs (and before a failure of the step is handled, so the
+                # rollback reads current host history)
                 await self._sync_dispatch(old, overlapped=True)
-            self._inflight = _Dispatch(await task, [], 1, mixed=True, bld=bld)
+            try:
+                fetch = await task
+            except Exception as exc:
+                self._mixed_dispatch_failed(bld, exc)
+                return None
+            self._inflight = _Dispatch(fetch, [], 1, mixed=True, bld=bld)
             return "pipelined"
-        fetch = await task
-        t0 = time.perf_counter()
-        toks = await fetch.get()
-        self._phase_stats["mixed_sync_s"] += time.perf_counter() - t0
+        try:
+            fetch = await task
+            t0 = time.perf_counter()
+            wd = self._op_begin("sync.fetch")
+            try:
+                toks = await fetch.get()
+            finally:
+                self._op_end(wd)
+        except Exception as exc:
+            self._mixed_dispatch_failed(bld, exc)
+            return None
+        now = time.perf_counter()
+        self._phase_stats["mixed_sync_s"] += now - t0
+        self._flight_record("sync", now - t0, rows=len(bld["entries"]))
+        if tracing.enabled():
+            tracing.complete("mixed.sync", t0, now, cat="step", track="engine.sync",
+                             rows=len(bld["entries"]))
         self._sync_mixed(bld, toks)
         return True
+
+    def _mixed_dispatch_failed(self, bld: dict, exc: BaseException) -> None:
+        """Contain a failed mixed step as the reference does: nothing of it
+        landed on the host but the build's own bookkeeping, so pipelined
+        q_len 1 rows un-advance, every decode row's carry override is
+        re-armed from host truth (the in-flight dispatch before the step
+        has landed, so `last_token` is current), the prefill picks return
+        to the front of the queue in order, and mixed steps are disabled
+        for good: retrying a failing dispatch family every tick would wedge
+        the loop. Pages the step may have written before it failed are left
+        to be overwritten by the retry, which writes the same positions.
+
+        A sticky CUDA error poisons the context: nothing is retried on it.
+        The flight artifact is dumped and the error raised, and the loop's
+        crash path fails the requests."""
+        if _cuda.sticky(exc):
+            log.error("mixed step failed with a sticky CUDA error (%s): the CUDA context "
+                      "is lost, nothing is retried on it", exc)
+            raise exc
+        log.error("mixed step of %d rows failed (%s: %s); disabling mixed batching "
+                  "(normal prefill/decode paths take over)", len(bld["entries"]),
+                  type(exc).__name__, exc)
+        pf_restore = []
+        for kind, slot, seq, chunk in bld["entries"]:
+            if kind == "dec":
+                if slot >= 0 and self.slots[slot] is seq:
+                    if bld["pipelined"] and chunk == 1:
+                        seq.device_pos -= 1
+                    self._overrides[slot] = int(seq.last_token)
+                    self._carry_ok[slot] = False
+            elif (seq.slot >= 0 and self.slots[seq.slot] is seq
+                  and seq not in self._prefilling):
+                pf_restore.append(seq)
+        for seq in reversed(pf_restore):
+            self._prefilling.appendleft(seq)
+        # permanent: a failed dispatch family must not re-probe (contrast
+        # the watchdog's transient trips)
+        self._degrade.trip("mixed", "mixed dispatch failed", permanent=True)
+        self._phase_stats["mixed_disabled"] = 1
 
     def _draft_room(self, seq: Sequence, k_cap: int) -> int:
         """Drafts a row may take: never past its emit budget (a verify
@@ -1789,7 +2281,18 @@ class TorchEngine:
         self._carry.index_copy_(0, torch.where(dec_mask, slot_rows, dump),
                                 newest.to(torch.int32))
         fetch = _Fetch(res)
-        self._phase_stats["mixed_dispatch_s"] += time.perf_counter() - t0
+        self._step_count += 1
+        t1 = time.perf_counter()
+        self._phase_stats["mixed_dispatch_s"] += t1 - t0
+        entries = bld["entries"]
+        n_tok = sum(e[3] for e in entries)
+        self._flight_record("mixed", t1 - t0, rows=len(entries), tokens=n_tok,
+                            budget=self.config.mixed_step_tokens)
+        if tracing.enabled():
+            tracing.complete(
+                "mixed", t0, t1, cat="step", track="engine.steps", rows=len(entries),
+                decode_rows=sum(1 for e in entries if e[0] == "dec"), tokens=n_tok,
+                spec=bld["spec"], pipelined=bld["pipelined"])
         return fetch
 
     def _sync_mixed(self, bld: dict, toks) -> None:
@@ -1906,13 +2409,15 @@ class TorchEngine:
             # re-arms its rows' overrides at its sync: a build from the
             # host state before that sync would replay a stale carry
             return None
-        if self.config.spec_decode:
+        if self._spec_on():
             bld = self._maybe_build_spec(ready)
             if bld == "wait":
-                return "sync_first" if self.config.step_pipeline else None
+                return "sync_first" if self._pipe_on() else None
             if bld is not None:
                 return bld
-        steps = self.config.decode_steps
+        # the ladder's last rung ("serialized decode") drops the loop to one
+        # step a dispatch: still progress, every host sync re-validates
+        steps = self._decode_steps()
         prep = self._grow_and_collect(ready, lambda seq: seq.device_pos + steps - 1)
         if prep is None:
             return None
@@ -1967,6 +2472,7 @@ class TorchEngine:
             got = self.allocator.allocate(1)
             if got is not None:
                 seq.page_ids.extend(got)
+                self._kv_hold(got, seq.ctx.id, tenant=seq.tenant)
                 grew = True
                 continue
             live = [s for s in self.slots if s is not None]
@@ -1990,6 +2496,7 @@ class TorchEngine:
         log.info("preempting seq %s (out of KV pages)", seq.seq_id)
         self._phase_stats["preemptions"] += 1
         self._register_full_pages(seq)
+        self._kv_drop(seq.page_ids, seq.ctx.id)
         self.allocator.release(seq.page_ids)
         self.slots[seq.slot] = None
         self._overrides.pop(seq.slot, None)
@@ -2050,19 +2557,29 @@ class TorchEngine:
         # an extended row's count buffer exists: its final prefill chunk
         # sampled on the extended path (mixed steps never carry one)
         out = self._graphs.run(w, bld["all_greedy"], bld["use_ext"], bld["want_lps"],
-                               bld["want_tops"])
+                               bld["want_tops"], bld["steps"])
         fetch = _Fetch(list(out))
+        self._step_count += 1
+        t1 = time.perf_counter()
+        rows = len(bld["active"])
+        n_tok = rows * bld["steps"]
         st = self._phase_stats
-        st["decode_dispatch_s"] += time.perf_counter() - t0
+        st["decode_dispatch_s"] += t1 - t0
         st["decode_dispatches"] += 1
-        st["decode_tokens"] += len(bld["active"]) * bld["steps"]
+        st["decode_tokens"] += n_tok
+        self._flight_record("decode", t1 - t0, rows=rows, tokens=n_tok)
+        if tracing.enabled():
+            tracing.complete("decode", t0, t1, cat="step", track="engine.steps", rows=rows,
+                             tokens=n_tok, steps=bld["steps"])
         return _Dispatch(fetch, bld["active"], bld["steps"])
 
     @torch.inference_mode()
     def _decode_step(self, width: int, all_greedy: bool, use_ext: bool = False,
-                     want_lps: bool = False, want_tops: bool = False) -> tuple:
+                     want_lps: bool = False, want_tops: bool = False,
+                     steps: Optional[int] = None) -> tuple:
         """The decode loop over the static device buffers (what the CUDA
-        graph captures): `decode_steps` iterations with on-device token
+        graph captures): `steps` (default `decode_steps`) iterations with
+        on-device token
         feedback from the carry, tables and sampling params of the first
         `width` slots. Returns (tokens, logprobs, top ids, top logprobs),
         [steps + 1, width] (the tops [steps + 1, width, 8]), row 0 the
@@ -2092,7 +2609,7 @@ class TorchEngine:
         if want_tops:
             outs += [[self._carry_tid[:width].clone()], [self._carry_tlp[:width].clone()]]
         top_n = TOP_LOGPROBS_MAX if want_tops else 0
-        for _ in range(self.config.decode_steps):
+        for _ in range(steps or self.config.decode_steps):
             lengths = torch.where(
                 active, torch.clamp(positions + 1, max=max_len), torch.zeros_like(positions)
             ).to(torch.int32)
@@ -2135,8 +2652,13 @@ class TorchEngine:
             except Exception:
                 log.exception("first-token emit task failed")
         t0 = time.perf_counter()
-        arrs = await d.out.get()
-        dt = time.perf_counter() - t0
+        wd = self._op_begin("sync.fetch")
+        try:
+            arrs = await d.out.get()
+        finally:
+            self._op_end(wd)
+        t1 = time.perf_counter()
+        dt = t1 - t0
         st = self._phase_stats
         if overlapped:
             st["pipeline_overlap_s"] += dt
@@ -2144,6 +2666,15 @@ class TorchEngine:
         else:
             st["mixed_sync_s" if d.mixed else "spec_sync_s" if d.spec
                else "decode_sync_s"] += dt
+        rows = len(d.bld["entries"]) if d.mixed else len(d.snapshot)
+        self._flight_record("overlap" if overlapped else "sync", dt, rows=rows)
+        if tracing.enabled():
+            # overlapped fetches on their own track: the timeline shows
+            # which fetch walls the pipeline hid
+            tracing.complete(
+                "mixed.sync" if d.mixed else "spec_verify.sync" if d.spec else "decode.sync",
+                t0, t1, cat="step", track="engine.overlap" if overlapped else "engine.sync",
+                rows=rows)
         if d.mixed:
             self._sync_mixed(d.bld, arrs)
             return
@@ -2238,9 +2769,17 @@ class TorchEngine:
         results for the host."""
         t0 = time.perf_counter()
         fetch = _Fetch(list(self._spec_verify_step(bld)))
+        self._step_count += 1
+        t1 = time.perf_counter()
         st = self._phase_stats
-        st["spec_dispatch_s"] += time.perf_counter() - t0
+        st["spec_dispatch_s"] += t1 - t0
         st["spec_dispatches"] += 1
+        rows = len(bld["active"])
+        n_tok = rows + int(np.sum(bld["dlen"]))
+        self._flight_record("spec_verify", t1 - t0, rows=rows, tokens=n_tok)
+        if tracing.enabled():
+            tracing.complete("spec_verify", t0, t1, cat="step", track="engine.steps",
+                             rows=rows, tokens=n_tok)
         return _Dispatch(fetch, bld["active"], 1, spec=True, pos0=bld["pos0"],
                          draft_lens=bld["dlen"])
 
@@ -2367,10 +2906,12 @@ class TorchEngine:
         pages = self.allocator.match_prefix(hashes)
         if not pages:
             return None
+        self._kv_hold(pages, "sys:export")
         try:
             rows = self._gather_rows(pages, len(pages) * self.page_size)
             rows = [None if x is None else x.cpu() for x in rows]
         finally:
+            self._kv_drop(pages, "sys:export")
             self.allocator.release(pages)
         return (len(pages) * self.page_size, *rows)
 
@@ -2410,14 +2951,18 @@ class TorchEngine:
             return 0
         blocks = TokenBlockSequence(list(token_ids), ps).blocks[:full_pages]
         cached = self.allocator.match_prefix([b.sequence_hash for b in blocks])
+        self._kv_hold(cached, "sys:ingest")
         start = len(cached)
         if start == full_pages:
+            self._kv_drop(cached, "sys:ingest")
             self.allocator.release(cached)
             return full_pages * ps
         pages = self.allocator.allocate(full_pages - start)
         if pages is None:
+            self._kv_drop(cached, "sys:ingest")
             self.allocator.release(cached)
             return start * ps
+        self._kv_hold(pages, "sys:ingest")
         try:
             t0, t1 = start * ps, full_pages * ps
             wire = [None if a is None else _wire_tensor(a)[:, t0:t1] for a in (k, v, ks, vs)]
@@ -2429,6 +2974,7 @@ class TorchEngine:
         finally:
             # registered pages stay cached; after a failure the unhashed
             # pages free at once
+            self._kv_drop(cached + pages, "sys:ingest")
             self.allocator.release(cached + pages)
         return full_pages * ps
 
@@ -2588,7 +3134,8 @@ class TorchEngine:
             while True:
                 chunk = min(seq.total_tokens - seq.num_computed, self.config.prefill_chunk)
                 res = await self._launch(self._prefill_group_dispatch, [seq],
-                                         self._bucket_for(chunk), False)
+                                         self._bucket_for(chunk), False,
+                                         op="prefill.dispatch", point="engine.prefill")
                 seq.num_computed += chunk
                 self._register_full_pages(seq)
                 if seq.num_computed >= seq.total_tokens:
@@ -2601,6 +3148,7 @@ class TorchEngine:
                 rows = got[1:]
             return (first_token, *rows)
         finally:
+            self._kv_drop(seq.page_ids, seq.ctx.id)
             self.allocator.release(seq.page_ids)
 
     def _inject_chunk(self, seq: Sequence) -> Optional[int]:
@@ -2672,8 +3220,10 @@ class TorchEngine:
             pid = self.allocator.pin(sh)
             if pid is None:
                 continue
+            self._kv_hold([pid], "sys:offload")
             buf = self.host_pool.reserve()
             if buf is None:
+                self._kv_drop([pid], "sys:offload")
                 self.allocator.release([pid])
                 self._pending_offload[sh] = (lh, parent)
                 break
@@ -2709,7 +3259,9 @@ class TorchEngine:
         finally:
             for *_, buf in batch[consumed:]:
                 buf.release()
-            self.allocator.release([b[3] for b in batch])
+            pids = [b[3] for b in batch]
+            self._kv_drop(pids, "sys:offload")
+            self.allocator.release(pids)
             # re-arm the loop: the rest of the queue must go out before
             # admissions can evict those pages
             self._wake.set()
@@ -2767,11 +3319,11 @@ class TorchEngine:
         of every layer): the cost side of the restore gate."""
         return self.host_pool.page_bytes
 
-    def _reset_offload_ema(self) -> None:
-        """Forget the restore gate's rates: after a change of the engine's
-        configuration (the reference's degrade ladder, M12) they would
-        misprice restoring against recomputing; the next restore and
-        prefill calibrate them again."""
+    def _reset_offload_ema(self, rung: str = "", reason: str = "") -> None:
+        """Forget the restore gate's rates (the degrade ladder's trip hook):
+        measured on the configuration before the trip (a pipelined engine's
+        prefill rate, say), they would misprice restoring against
+        recomputing; the next restore and prefill calibrate them again."""
         self._ema_restore_bps = None
         self._ema_prefill_tps = None
 
@@ -2876,6 +3428,9 @@ class TorchEngine:
         seq.generated += 1
         if seq.generated == 1:
             seq.t_first_emit = time.perf_counter()
+            if tracing.enabled():
+                tracing.instant("seq.first_token", cat="lifecycle", req=seq.ctx.id,
+                                ts=seq.t_first_emit)
             if seq.preloaded is None:
                 self._note_prefill_rate(seq)
         frame = EngineOutput(token_ids=[token])
@@ -2917,7 +3472,17 @@ class TorchEngine:
 
     def _finish(self, seq: Sequence, reason: str) -> None:
         self._register_full_pages(seq)
-        self.allocator.release(seq.page_ids)
+        try:
+            # an injected failure here leaks the pages: the references
+            # stay up, the ledger holding stays with the finished request,
+            # and the next audit must flag the orphan
+            faults.fire("engine.release")
+        except faults.FaultError:
+            log.warning("fault injected: leaking %d KV page(s) of %s",
+                        len(seq.page_ids), seq.ctx.id)
+        else:
+            self._kv_drop(seq.page_ids, seq.ctx.id)
+            self.allocator.release(seq.page_ids)
         seq.page_ids = []
         if seq.slot >= 0:
             self._overrides.pop(seq.slot, None)
@@ -2932,12 +3497,22 @@ class TorchEngine:
         self._wake.set()
 
     def _note_finished(self, seq: Sequence, reason: str) -> None:
-        """The finish summary for `subscribe_requests` observers (the
-        reference's, less its tracing span and KV-ledger call, which come
-        with M12)."""
+        """Request-level observability at finish: the request's
+        submit-to-finish span, the ledger's orphan watch, and the finish
+        summary for `subscribe_requests` observers."""
+        now = time.perf_counter()
+        # the span before the observers: an observer may dump a forensic
+        # artifact for this very request (an SLO breach), whose trace slice
+        # must hold it
+        if tracing.enabled() and seq.t_submit:
+            tracing.complete("request", seq.t_submit, now, cat="request", req=seq.ctx.id,
+                             finish_reason=reason, prompt_tokens=seq.prompt_len,
+                             tokens=seq.generated)
+        # orphan watch: a request still holding pages after its release
+        # path ran is flagged by the next audit under its id
+        self.kv_ledger.request_finished(seq.ctx.id)
         if not self._request_observers:
             return
-        now = time.perf_counter()
         summary = {
             "request_id": seq.ctx.id,
             "finish_reason": reason,

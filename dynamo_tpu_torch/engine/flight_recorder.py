@@ -1,0 +1,508 @@
+"""Flight recorder: always-on per-step digest ring + forensic triggers (a
+copy of the JAX package's `engine/flight_recorder.py`).
+
+The trace ring answers "what happened to a request I'm watching" and the
+/metrics scrape "what is the engine doing right now". Neither answers the tail-latency postmortem question: *why did
+p99 blow up ten seconds ago?* — by the time anyone scrapes, the evidence
+is gone. This module is the black box:
+
+- **Digest ring.** A preallocated numpy ring of per-step digests — step
+  kind, rows/tokens, budget fill, dispatch vs sync-vs-overlap walls,
+  queue depth, KV-pool occupancy, active slots, degrade mask — sampled
+  at the exact `_phase_stats` sites in the engine, so the digests and
+  the cumulative counters can never disagree about a step. Recording a
+  digest writes scalars into preallocated arrays (no per-step
+  allocation) and is cheap enough to stay on unconditionally.
+- **Anomaly baselines.** Rolling EMA p50/p99 baselines per dispatch
+  phase; a step past the outlier threshold stamps a ``latency.outlier``
+  trace instant and ticks ``engine_step_anomalies_total{phase}``;
+  `sustain` consecutive outliers arm the dump trigger so the artifact
+  exists *before* anyone asks.
+- **Triggers.** An SLO breach (`SloTracker.on_breach`), a watchdog
+  fire, a deadline-shed burst, sustained anomalies, or a manual
+  ``GET /debug/snapshot`` dumps one correlated forensic artifact via
+  `utils/artifacts.py`: the digest window + the merged trace slice for
+  the offending request id + the engine's metrics/phase-stats snapshot.
+  Dumps are **rate-limited** (``DYN_FLIGHT_COOLDOWN_S``, default 30 s):
+  a breach storm writes one artifact, not thousands — suppressed
+  triggers are counted, not dumped.
+
+Module registry: engines register their recorder at init (bounded,
+strong refs — a closed scenario engine's ring stays dumpable) so the
+HTTP ``/debug/snapshot`` handler can dump without holding an engine
+reference.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+import weakref
+from collections import deque
+from typing import Callable, Optional
+
+import numpy as np
+
+from dynamo_tpu_torch.llm.http.metrics import Counter
+from dynamo_tpu_torch.utils import artifacts, tracing
+from dynamo_tpu_torch.utils.logging import get_logger
+
+log = get_logger("dynamo_tpu_torch.flight")
+
+# digest step kinds; dispatch phases additionally run anomaly detection
+KINDS = ("prefill", "decode", "spec_verify", "mixed", "sync", "overlap")
+_KIND_CODE = {k: i for i, k in enumerate(KINDS)}
+ANOMALY_PHASES = ("prefill", "decode", "spec_verify", "mixed")
+
+# one digest = one row of these columns (float64; ints round-trip
+# exactly up to 2^53). The schema rides every artifact as
+# ``digest_fields`` so a consumer never guesses column order.
+FIELDS = (
+    "ts_unix",       # wall-clock stamp of the record call
+    "step",          # engine _step_count at record time
+    "kind",          # index into KINDS
+    "rows",          # rows in the dispatch
+    "tokens",        # budget tokens the dispatch carried
+    "wall_s",        # dispatch wall (dispatch kinds) or fetch wall (sync)
+    "budget_fill",   # tokens / step budget (mixed steps; else 0)
+    "queue_depth",   # sequences waiting for a slot
+    "slots_active",  # occupied decode slots
+    "kv_frac",       # KV-pool occupancy fraction
+    "degrade_mask",  # bit i = degrade.RUNGS[i] tripped
+    "outlier",       # 1 = this step breached its phase baseline
+)
+_COL = {f: i for i, f in enumerate(FIELDS)}
+
+# trigger families (the label on the dump/suppressed counters; a reason
+# string "family:detail" counts under its family)
+TRIGGERS = (
+    "slo_breach", "watchdog", "deadline_shed_burst", "anomaly",
+    "manual", "scenario", "kv_leak",
+)
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+class PhaseBaseline:
+    """EMA p50/p99 baseline for one phase's dispatch wall.
+
+    p50 is a plain EMA of the wall; p99 tracks the upper envelope with
+    an asymmetric EMA (fast absorb upward, slow decay downward). A
+    sample is an **outlier** when, after `warmup` samples, its wall is
+    strictly above ``max(p99, p50) * outlier_mult`` (and above the
+    absolute `min_wall_s` noise floor) — a value exactly AT the
+    threshold is NOT an outlier. Outlier samples update the baselines
+    at a heavily reduced weight, so one spike cannot absolve the next —
+    a sustained regime shift keeps reading anomalous until the
+    flight-recorder trigger has fired and the artifact exists."""
+
+    __slots__ = ("alpha", "warmup", "outlier_mult", "min_wall_s",
+                 "n", "p50", "p99")
+
+    def __init__(
+        self,
+        alpha: float = 0.05,
+        warmup: int = 32,
+        outlier_mult: float = 3.0,
+        min_wall_s: float = 1e-4,
+    ):
+        self.alpha = alpha
+        self.warmup = warmup
+        self.outlier_mult = outlier_mult
+        self.min_wall_s = min_wall_s
+        self.n = 0
+        self.p50 = 0.0
+        self.p99 = 0.0
+
+    def threshold(self) -> float:
+        return max(
+            max(self.p99, self.p50) * self.outlier_mult, self.min_wall_s
+        )
+
+    def observe(self, wall_s: float) -> bool:
+        """Absorb one sample; returns whether it was an outlier (judged
+        against the baseline BEFORE this sample updates it)."""
+        outlier = self.n >= self.warmup and wall_s > self.threshold()
+        if self.n == 0:
+            self.p50 = self.p99 = wall_s
+        else:
+            a = self.alpha * (0.1 if outlier else 1.0)
+            self.p50 += a * (wall_s - self.p50)
+            if wall_s > self.p99:
+                # absorb upward fast so the p99 envelope is honest —
+                # but not from outliers, which must stay visible
+                self.p99 += (0.5 * (0.1 if outlier else 1.0)) * (
+                    wall_s - self.p99
+                )
+            else:
+                self.p99 += (self.alpha * 0.1) * (wall_s - self.p99)
+        self.n += 1
+        return outlier
+
+
+class FlightRecorder:
+    """Per-engine digest ring + trigger/dump policy. `record` is called
+    from dispatch worker threads (a small lock guards the ring index);
+    everything else runs on the loop thread or an HTTP handler."""
+
+    def __init__(
+        self,
+        capacity: Optional[int] = None,
+        cooldown_s: Optional[float] = None,
+        sustain: Optional[int] = None,
+        shed_burst: Optional[int] = None,
+        shed_window_s: float = 10.0,
+        context_fn: Optional[Callable[[], dict]] = None,
+        directory: Optional[str] = None,
+        prefix: str = "dynamo_tpu",
+        clock: Callable[[], float] = time.monotonic,
+        baseline_kw: Optional[dict] = None,
+    ):
+        cap = int(capacity or _env_float("DYN_FLIGHT_BUFFER", 1024))
+        self.capacity = max(cap, 8)
+        self.cooldown_s = (
+            cooldown_s if cooldown_s is not None
+            else _env_float("DYN_FLIGHT_COOLDOWN_S", 30.0)
+        )
+        self.sustain = int(
+            sustain if sustain is not None
+            else _env_float("DYN_FLIGHT_SUSTAIN", 3)
+        )
+        self.shed_burst = int(
+            shed_burst if shed_burst is not None
+            else _env_float("DYN_FLIGHT_SHED_BURST", 8)
+        )
+        self.shed_window_s = shed_window_s
+        # bound methods are held via WeakMethod: the module registry
+        # keeps recorders STRONGLY, and a bound engine method would pin
+        # the engine's params + KV pools behind a ~100 KB ring if the
+        # engine is abandoned without close() (startup failure, dead
+        # scenario) — a dead provider just reads as empty context
+        self._context_ref: Optional[weakref.WeakMethod] = None
+        self._context_fn: Optional[Callable[[], dict]] = None
+        if context_fn is not None and hasattr(context_fn, "__self__"):
+            self._context_ref = weakref.WeakMethod(context_fn)
+        else:
+            self._context_fn = context_fn
+        self._final_context: dict = {}
+        self._directory = directory
+        self._clock = clock
+        self._buf = np.zeros((self.capacity, len(FIELDS)), np.float64)
+        self._n = 0  # total records ever; ring index = _n % capacity
+        self._lock = threading.Lock()
+        self._baselines = {
+            p: PhaseBaseline(**(baseline_kw or {})) for p in ANOMALY_PHASES
+        }
+        self._outlier_run = dict.fromkeys(ANOMALY_PHASES, 0)
+        self._sheds: deque = deque()
+        self._last_dump: Optional[float] = None
+        self.last_artifact: Optional[str] = None
+        self.dumps_total = 0
+        self.suppressed_total = 0
+        self.anomalies_total = 0
+        # Prometheus counters, zero-series declared at registration so
+        # dashboards see every family from the first scrape
+        # rendered through
+        # EngineMetrics next to the engine gauges
+        self.anomalies = Counter(
+            f"{prefix}_engine_step_anomalies_total",
+            "Engine steps past their phase's rolling p99 outlier "
+            "threshold",
+        )
+        for ph in ANOMALY_PHASES:
+            self.anomalies.declare(phase=ph)
+        self.dumps = Counter(
+            f"{prefix}_flight_recorder_dumps_total",
+            "Forensic artifacts written by the flight recorder",
+        )
+        self.suppressed = Counter(
+            f"{prefix}_flight_recorder_suppressed_total",
+            "Flight-recorder triggers suppressed by the dump rate limit",
+        )
+        for tr in TRIGGERS:
+            self.dumps.declare(trigger=tr)
+            self.suppressed.declare(trigger=tr)
+        register(self)
+
+    # ------------------------------------------------------------ record
+
+    @property
+    def count(self) -> int:
+        """Digests currently held (<= capacity)."""
+        return min(self._n, self.capacity)
+
+    def record(
+        self,
+        kind: str,
+        wall_s: float,
+        rows: int = 0,
+        tokens: int = 0,
+        budget_fill: float = 0.0,
+        queue_depth: int = 0,
+        slots_active: int = 0,
+        kv_frac: float = 0.0,
+        degrade_mask: int = 0,
+        step: int = 0,
+    ) -> bool:
+        """Append one step digest; returns whether the step was a
+        latency outlier for its phase (always False for sync kinds)."""
+        outlier = False
+        base = self._baselines.get(kind)
+        if base is not None:
+            outlier = base.observe(wall_s)
+        # build the row OUTSIDE the lock, publish it inside: a
+        # concurrent snapshot_rows (trigger dump) copies the buffer
+        # under the same lock, so it can never capture a half-written
+        # newest digest — the rows a postmortem reads first
+        row = np.empty(len(FIELDS), np.float64)
+        row[_COL["ts_unix"]] = time.time()
+        row[_COL["step"]] = step
+        row[_COL["kind"]] = _KIND_CODE.get(kind, -1)
+        row[_COL["rows"]] = rows
+        row[_COL["tokens"]] = tokens
+        row[_COL["wall_s"]] = wall_s
+        row[_COL["budget_fill"]] = budget_fill
+        row[_COL["queue_depth"]] = queue_depth
+        row[_COL["slots_active"]] = slots_active
+        row[_COL["kv_frac"]] = kv_frac
+        row[_COL["degrade_mask"]] = degrade_mask
+        row[_COL["outlier"]] = 1.0 if outlier else 0.0
+        with self._lock:
+            self._buf[self._n % self.capacity] = row
+            self._n += 1
+        if base is None:
+            return False
+        if outlier:
+            self.anomalies_total += 1
+            self.anomalies.inc(phase=kind)
+            if tracing.enabled():
+                tracing.instant(
+                    "latency.outlier", cat="anomaly", track="engine.anomaly",
+                    phase=kind, wall_s=round(wall_s, 5),
+                    p50_s=round(base.p50, 5), p99_s=round(base.p99, 5),
+                )
+            run = self._outlier_run[kind] + 1
+            self._outlier_run[kind] = run
+            if run == self.sustain:
+                # sustained anomaly: the artifact should exist BEFORE
+                # anyone asks — rate-limited like every other trigger
+                self.trigger(f"anomaly:{kind}")
+        else:
+            self._outlier_run[kind] = 0
+        return outlier
+
+    def baseline(self, phase: str) -> PhaseBaseline:
+        return self._baselines[phase]
+
+    def note_shed(self, n: int = 1) -> None:
+        """Deadline sheds feed a rolling window; a burst past
+        `shed_burst` within `shed_window_s` arms the dump trigger."""
+        now = self._clock()
+        self._sheds.append((now, n))
+        horizon = now - self.shed_window_s
+        while self._sheds and self._sheds[0][0] < horizon:
+            self._sheds.popleft()
+        total = sum(c for _, c in self._sheds)
+        if total >= self.shed_burst:
+            self._sheds.clear()
+            self.trigger(f"deadline_shed_burst:{total}")
+
+    # ----------------------------------------------------------- dumping
+
+    def snapshot_rows(self, last: Optional[int] = None) -> list:
+        """Digest rows, oldest first, as plain lists (column order =
+        FIELDS). `last` keeps only the newest N."""
+        with self._lock:
+            n, cap = self._n, self.capacity
+            if n <= cap:
+                rows = self._buf[:n].copy()
+            else:
+                i = n % cap
+                rows = np.concatenate([self._buf[i:], self._buf[:i]])
+        if last is not None:
+            rows = rows[-last:]
+        return [[round(float(v), 6) for v in r] for r in rows]
+
+    def snapshot(self, last: Optional[int] = None) -> list:
+        """Digests as dicts (test/debug convenience; artifacts ship the
+        compact row form + ``digest_fields``)."""
+        return [digest_to_dict(r) for r in self.snapshot_rows(last)]
+
+    def build_artifact(
+        self,
+        reason: str,
+        request_id: Optional[str] = None,
+        max_trace_events: int = 5000,
+    ) -> dict:
+        """The correlated forensic artifact: digest window + merged
+        trace slice for the offending request + context snapshot."""
+        context = self._final_context
+        fn = self._context_provider()
+        if fn is not None:
+            try:
+                context = fn()
+            except Exception:  # noqa: BLE001 — forensics must not raise
+                log.exception("flight-recorder context probe failed")
+        trace = None
+        if tracing.enabled():
+            try:
+                # merged export (foreign spans included): the breaching
+                # request's cross-process story when an id is known,
+                # else the newest window of everything
+                trace = tracing.export(
+                    request_id=request_id, max_events=max_trace_events
+                )
+            except Exception:  # noqa: BLE001
+                log.exception("flight-recorder trace export failed")
+        return {
+            "kind": "flight_recorder",
+            "reason": reason,
+            "trigger": reason.split(":", 1)[0],
+            "request_id": request_id,
+            "ts": time.time(),
+            "digest_fields": list(FIELDS),
+            "digest_kinds": list(KINDS),
+            "digests": self.snapshot_rows(),
+            "anomaly_baselines": {
+                p: {"n": b.n, "p50_s": round(b.p50, 6),
+                    "p99_s": round(b.p99, 6),
+                    "threshold_s": round(b.threshold(), 6)}
+                for p, b in self._baselines.items()
+            },
+            "context": context,
+            "trace": trace,
+        }
+
+    def trigger(
+        self,
+        reason: str,
+        request_id: Optional[str] = None,
+        force: bool = False,
+        directory: Optional[str] = None,
+    ) -> Optional[str]:
+        """Dump one forensic artifact, rate-limited: within `cooldown_s`
+        of the previous dump the trigger is counted as suppressed and
+        nothing is written (a breach storm writes ONE artifact).
+        `force` bypasses the limit (manual snapshots). Returns the
+        artifact path, or None (suppressed / write failed)."""
+        fam = reason.split(":", 1)[0]
+        with self._lock:
+            now = self._clock()
+            if (
+                not force
+                and self._last_dump is not None
+                and now - self._last_dump < self.cooldown_s
+            ):
+                self.suppressed_total += 1
+                self.suppressed.inc(trigger=fam)
+                return None
+            self._last_dump = now
+        artifact = self.build_artifact(reason, request_id=request_id)
+        path = artifacts.write_crash_artifact(
+            "flight_recorder", artifact,
+            directory=directory or self._directory,
+        )
+        if path is not None:
+            self.last_artifact = path
+            self.dumps_total += 1
+            self.dumps.inc(trigger=fam)
+            log.warning(
+                "flight recorder dumped %s (%d digests) -> %s",
+                reason, self.count, path,
+            )
+            if tracing.enabled():
+                tracing.instant(
+                    "flight_recorder.dump", cat="forensics", reason=reason,
+                    req=request_id, path=path,
+                )
+        return path
+
+    def _context_provider(self) -> Optional[Callable[[], dict]]:
+        if self._context_ref is not None:
+            return self._context_ref()  # None once the engine is gone
+        return self._context_fn
+
+    def seal_context(self) -> None:
+        """Freeze the live context into a final snapshot and drop the
+        provider callable. Called at engine close: the module registry
+        holds recorders STRONGLY (a just-closed scenario engine's ring
+        is exactly what a postmortem wants) — sealing keeps the ~100 KB
+        ring dumpable with its last context attached."""
+        fn = self._context_provider()
+        if fn is None:
+            return
+        try:
+            self._final_context = fn()
+        except Exception:  # noqa: BLE001
+            self._final_context = {}
+        self._context_fn = None
+        self._context_ref = None
+
+    def on_slo_breach(
+        self, tenant: str, metric: str, value, target,
+        request_id: Optional[str] = None,
+    ) -> None:
+        """`SloTracker.on_breach`-shaped hook: wire with
+        ``slo.on_breach = engine.flight.on_slo_breach`` so a breach
+        dumps the artifact carrying the breaching request's trace."""
+        self.trigger(f"slo_breach:{tenant}/{metric}", request_id=request_id)
+
+    def render_prom(self):
+        """Prometheus lines for the anomaly/dump counters — yielded by
+        EngineMetrics so one /metrics scrape covers them."""
+        yield from self.anomalies.render()
+        yield from self.dumps.render()
+        yield from self.suppressed.render()
+
+
+def digest_to_dict(row: list) -> dict:
+    """Decode one artifact digest row (column order = FIELDS) back into
+    a named dict — the artifact-schema round trip consumers use."""
+    d = dict(zip(FIELDS, row))
+    code = int(d["kind"])
+    d["kind"] = KINDS[code] if 0 <= code < len(KINDS) else "unknown"
+    for k in ("step", "rows", "tokens", "queue_depth", "slots_active",
+              "degrade_mask", "outlier"):
+        d[k] = int(d[k])
+    return d
+
+
+# -------------------------------------------------------------- registry
+#
+# Strong refs, bounded: a scenario engine closed five seconds ago is
+# exactly the one whose ring the postmortem wants, and the ring itself
+# is ~100 KB — keeping the last few alive is the point, not a leak.
+
+_registry: deque = deque(maxlen=8)
+
+
+def register(rec: FlightRecorder) -> None:
+    if rec not in _registry:
+        _registry.append(rec)
+
+
+def registered() -> list:
+    return list(_registry)
+
+
+def dump_all(
+    reason: str, directory: Optional[str] = None, force: bool = True
+) -> list:
+    """Dump every registered recorder (manual/scenario triggers);
+    returns the artifact paths that were written."""
+    paths = []
+    for rec in registered():
+        try:
+            p = rec.trigger(reason, force=force, directory=directory)
+        except Exception:  # noqa: BLE001 — best-effort across recorders
+            log.exception("flight-recorder dump failed")
+            continue
+        if p is not None:
+            paths.append(p)
+    return paths

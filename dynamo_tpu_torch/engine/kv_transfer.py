@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from dynamo_tpu_torch.llm.protocols.common import KvQuantMismatchError
+from dynamo_tpu_torch.utils import faults
 
 
 def device_transfer_kv(src, dst, src_page_ids: list[int], dst_page_ids: list[int],
@@ -35,7 +36,11 @@ def device_transfer_kv(src, dst, src_page_ids: list[int], dst_page_ids: list[int
     Page sizes must match (the reference repacks first), and so must the
     KV tiers and the int4 scale grouping: a quantized pool's bytes move as
     they are, never requantized (mixed pairs take the host-staged wire,
-    which converts on landing)."""
+    which converts on landing). The fault point ``kv_transfer`` fires first
+    (a 'fail' reaches the caller as `FaultError`, whose fallback is
+    recomputing the prefill); each end's custody ledger counts the pages
+    moved (telemetry: the references stay the caller's)."""
+    faults.fire("kv_transfer")
     if src.page_size != dst.page_size:
         raise ValueError(
             f"page-size mismatch {src.page_size} != {dst.page_size}: repack_pages first")
@@ -74,3 +79,7 @@ def device_transfer_kv(src, dst, src_page_ids: list[int], dst_page_ids: list[int
         if skv.quantized:
             ks, vs = tiles(skv.ks), tiles(skv.vs)
     dst._write_pages(list(dst_page_ids[:n]), k, v, ks, vs)
+    for eng, event, pids in ((src, "xfer_out", src_page_ids), (dst, "xfer_in", dst_page_ids)):
+        ledger = getattr(eng, "kv_ledger", None)
+        if ledger is not None:
+            ledger.note_transfer(event, len(pids))

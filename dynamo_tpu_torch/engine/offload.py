@@ -81,6 +81,9 @@ class HostKvPool:
         self._buffers: Pool = Pool(factory=factory, capacity=capacity_pages)
         self._entries: "OrderedDict[int, HostPageEntry]" = OrderedDict()
         self.on_event = on_event
+        # optional KvLedger (engine/kv_ledger.py): host custody stamps; the
+        # audit cross-checks the ledger's host set against _entries
+        self.ledger = None
         self.lookups = 0
         self.hits = 0
 
@@ -104,6 +107,8 @@ class HostKvPool:
             return None
         evicted_hash, entry = self._entries.popitem(last=False)
         entry.buf.release()
+        if self.ledger is not None:
+            self.ledger.host_removed(evicted_hash)
         if self.on_event:
             self.on_event({**removed_event([evicted_hash]), "tier": "host"})
         return self._buffers.try_acquire()
@@ -120,6 +125,8 @@ class HostKvPool:
             buf.release()
             return
         self._entries[sequence_hash] = HostPageEntry(local_hash, parent_hash, buf)
+        if self.ledger is not None:
+            self.ledger.host_stored(sequence_hash)
         if self.on_event:
             self.on_event(
                 {

@@ -8,9 +8,8 @@ lib/llm/src/http/service/metrics.rs:36-201): `{prefix}_requests_total`
 engine's `metrics()` gauges and its request histograms) and `SloTracker`
 (per-tenant SLO attainment), both fed by `TorchEngine.subscribe_requests`.
 
-A copy of the JAX package's `llm/http/metrics.py` without the flight
-recorder's and the KV ledger's counter families and the SLO tracker's
-`on_breach` hook (M12).
+A copy of the JAX package's `llm/http/metrics.py`, less its tp executor
+attribution (M13).
 """
 
 from __future__ import annotations
@@ -253,6 +252,15 @@ class EngineMetrics:
                 name = f"{self._prefix}_engine_{key}"
                 yield f"# TYPE {name} gauge"
                 yield f"{name}{self._worker_label} {float(val)}"
+        # the forensics counters (engine/flight_recorder.py) and the
+        # custody ledger's (engine/kv_ledger.py), zero-series declared at
+        # construction, ride the same scrape as the engine gauges
+        fr = getattr(self.engine, "flight", None)
+        if fr is not None:
+            yield from fr.render_prom()
+        ledger = getattr(self.engine, "kv_ledger", None)
+        if ledger is not None:
+            yield from ledger.render_prom()
         for h in (self.ttft, self.itl, self.queue_wait, self.tokens):
             yield from h.render()
         if self.slo is not None:
@@ -298,6 +306,11 @@ class SloTracker:
         self.max_samples = max_samples
         # (tenant, metric) -> deque[(monotonic_ts, attained_bool)]
         self._windows: dict[tuple, deque] = {}
+        # breach hook (the forensics plane): called with (tenant row,
+        # metric slug, value, target, request_id) for every request that
+        # missed its target; the serving entry wires it to the engine
+        # flight recorder's `on_slo_breach`. Exceptions are contained
+        self.on_breach: Optional[callable] = None
         self.breaches = Counter(
             f"{prefix}_slo_breaches_total",
             "Requests that missed their SLO target (burn rate numerator)",
@@ -349,6 +362,11 @@ class SloTracker:
             self.requests.inc(tenant=row, metric=slug)
             if not attained:
                 self.breaches.inc(tenant=row, metric=slug)
+                if self.on_breach is not None:
+                    try:
+                        self.on_breach(row, slug, value, target, summary.get("request_id"))
+                    except Exception:  # noqa: BLE001 (forensics must not
+                        pass           # break the finish path)
             self._refresh(row, slug, now)
 
     def _refresh(self, tenant: str, slug: str, now: float) -> None:

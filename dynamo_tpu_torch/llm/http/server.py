@@ -29,7 +29,7 @@ import json
 import logging
 from http import HTTPStatus
 from typing import Awaitable, Callable, Optional, Union
-from urllib.parse import urlsplit
+from urllib.parse import parse_qsl, urlsplit
 
 log = logging.getLogger("dynamo_tpu_torch.http.server")
 
@@ -48,7 +48,10 @@ class Request:
     def __init__(self, method: str, target: str, version: str, headers: Headers,
                  body: bytes, conn: "_Connection"):
         self.method = method
-        self.path = urlsplit(target).path
+        parts = urlsplit(target)
+        self.path = parts.path
+        # the query string's parameters (the last value of a repeated name)
+        self.query = dict(parse_qsl(parts.query))
         self.version = version
         self.headers = headers
         self.body = body

@@ -9,15 +9,20 @@ port's own asyncio server (`server.py`):
   stop wasting compute (openai.rs:433 monitor_for_disconnects);
 - ``GET /v1/models`` — model listing;
 - ``GET /metrics`` — Prometheus text;
+- ``GET /debug/trace``, ``GET /debug/snapshot``, ``GET /debug/kv`` and
+  ``POST /debug/profile`` — the trace ring, a manual flight-recorder dump,
+  the KV custody snapshot and an on-demand profiler capture, with the
+  JAX service's parameters and response schemas;
 - ``GET /health`` / ``GET /live``.
 
 As in the JAX service: the `x-request-id` echo, the `x-request-timeout`
 deadline into Context metadata, the request template, SSE frames with a
 `: ready` comment, `event:` annotations, monotonic `id:` lines, `error`
 events and `data: [DONE]`, non-streaming aggregation and one status policy
-(`_classify_error`). Left out (ROADMAP M12/M17): the SSE relay and
-failover (`Last-Event-ID` resume), the admission gate, `/debug/*` and the
-tracing spans.
+(`_classify_error`), the ``http.request`` span of every completion and
+the request id bound for its task tree (the JSONL log join and the
+preprocessor's span). Left out (ROADMAP M17): the SSE relay and failover
+(`Last-Event-ID` resume) and the admission gate.
 
 `ModelManager` (reference: lib/llm/src/http/service.rs:59-130) maps model
 name → engine per flavor (chat/completion).
@@ -54,6 +59,7 @@ from dynamo_tpu_torch.llm.protocols.openai import (
 )
 from dynamo_tpu_torch.runtime.pipeline.context import Context
 from dynamo_tpu_torch.runtime.pipeline.engine import AsyncEngine
+from dynamo_tpu_torch.utils import tracing
 from dynamo_tpu_torch.utils.logging import get_logger
 
 log = get_logger("dynamo_tpu_torch.http")
@@ -108,6 +114,10 @@ class HttpService:
             ("POST", "/v1/completions"): self._completions,
             ("GET", "/v1/models"): self._models,
             ("GET", "/metrics"): self._metrics,
+            ("GET", "/debug/trace"): self._debug_trace,
+            ("GET", "/debug/snapshot"): self._debug_snapshot,
+            ("GET", "/debug/kv"): self._debug_kv,
+            ("POST", "/debug/profile"): self._debug_profile,
             ("GET", "/health"): self._health,
             ("GET", "/live"): self._health,
         }
@@ -151,6 +161,85 @@ class HttpService:
     async def _metrics(self, request: Request) -> Response:
         return Response(self.metrics.render().encode())
 
+    async def _debug_trace(self, request: Request) -> Response:
+        """Chrome/Perfetto trace-event JSON of the span ring
+        (utils/tracing.py). `?request_id=<id>` filters to one request,
+        `?track=<name>` to one named track (e.g. ``engine.steps``); the
+        body keeps the `?limit=` newest events (default
+        ``DYN_TRACE_HTTP_MAX_EVENTS``, 20000; ``limit=0`` lifts the cap),
+        and a capped body carries ``truncatedEvents``. Empty unless
+        tracing is armed (DYN_TRACE=1)."""
+        import os
+
+        raw_limit = request.query.get("limit")
+        if raw_limit is not None:
+            try:
+                limit = int(raw_limit)
+            except ValueError:
+                return _error_response(400, f"invalid limit {raw_limit!r} (want an int)")
+        else:
+            try:
+                limit = int(os.environ.get("DYN_TRACE_HTTP_MAX_EVENTS", "") or 20000)
+            except ValueError:
+                limit = 20000
+        return json_response(tracing.export(
+            request_id=request.query.get("request_id"), track=request.query.get("track"),
+            max_events=limit if limit > 0 else None))
+
+    async def _debug_snapshot(self, request: Request) -> Response:
+        """Manual flight-recorder trigger: every registered recorder dumps
+        its correlated forensic artifact now (the rate limit bypassed) and
+        the paths come back; ``?request_id=<id>`` scopes the embedded
+        trace slice to one request."""
+        from dynamo_tpu_torch.engine import flight_recorder
+
+        rid = request.query.get("request_id")
+        arts = []
+        for rec in flight_recorder.registered():
+            path = rec.trigger("manual", request_id=rid, force=True)
+            arts.append({"path": path, "digests": rec.count, "dumps_total": rec.dumps_total})
+        return json_response({"recorders": len(arts), "artifacts": arts})
+
+    async def _debug_kv(self, request: Request) -> Response:
+        """KV page-custody snapshot of every registered ledger: tiers,
+        per-tenant attribution, the top holders (``?top=N``, default 10),
+        churn, open in-flight windows and the bounded violation log."""
+        from dynamo_tpu_torch.engine import kv_ledger
+
+        try:
+            top_n = int(request.query.get("top", "") or 10)
+        except ValueError:
+            return _error_response(400, "invalid top= (want an int)")
+        ledgers = [led.snapshot(top_n=top_n) for led in kv_ledger.registered()]
+        return json_response({"ledgers": len(ledgers), "kv": ledgers})
+
+    async def _debug_profile(self, request: Request) -> Response:
+        """On-demand profiling (``POST /debug/profile?duration_ms=N``): one
+        bounded `torch.profiler` capture whose Chrome trace lands in
+        ``<dir>/trace.json`` under ``DYN_PROFILE_DIR``, the dispatches
+        annotated to join the trace ring by name (engine/profiler.py). A
+        capture already in flight answers 409."""
+        from dynamo_tpu_torch.engine import profiler
+
+        raw = request.query.get("duration_ms", "1000")
+        try:
+            duration_ms = float(raw)
+        except ValueError:
+            return _error_response(400, f"invalid duration_ms {raw!r} (want milliseconds)")
+        duration_ms = min(max(duration_ms, 1.0), 60000.0)
+        if not profiler.available():
+            return _error_response(501, "torch.profiler unavailable (or DYN_PROFILE=0)")
+        try:
+            info = await profiler.capture(duration_ms)
+        except profiler.ProfilerBusy as exc:
+            return _error_response(409, str(exc))
+        except profiler.ProfilerUnavailable as exc:
+            return _error_response(501, str(exc))
+        except Exception as exc:  # noqa: BLE001 (capture is best-effort)
+            log.exception("profile capture failed")
+            return _error_response(500, f"profile capture failed: {exc}")
+        return json_response(info)
+
     async def _chat_completions(self, request: Request):
         return await self._serve_llm(
             request, kind="chat", parse=ChatCompletionRequest.from_body
@@ -163,14 +252,28 @@ class HttpService:
 
     async def _serve_llm(self, request: Request, kind: str, parse):
         # request id: echo the caller's x-request-id or mint one; it
-        # becomes the Context id
+        # becomes the Context id, the trace key and the JSONL log join key
+        # of everything downstream in this task tree
         rid = request.headers.get("x-request-id") or uuid.uuid4().hex
-        resp = await self._handle_llm(request, kind, parse, rid)
-        if not resp.prepared:
-            # streaming responses already sent their headers (the echo rides
-            # in _stream_sse); only unsent ones take it here
-            resp.headers.setdefault("X-Request-Id", rid)
-        return resp
+        t0 = time.perf_counter()
+        status = 500
+        token = tracing.set_request(rid)
+        try:
+            resp = await self._handle_llm(request, kind, parse, rid)
+            status = resp.status
+            if not resp.prepared:
+                # streaming responses already sent their headers (the echo
+                # rides in _stream_sse); only unsent ones take it here
+                resp.headers.setdefault("X-Request-Id", rid)
+            return resp
+        except (asyncio.CancelledError, ConnectionResetError):
+            # the client closed the request (nginx's 499 convention)
+            status = 499
+            raise
+        finally:
+            tracing.reset_request(token)
+            tracing.complete("http.request", t0, time.perf_counter(), cat="http", req=rid,
+                             endpoint=kind, status=status)
 
     async def _handle_llm(self, request: Request, kind: str, parse, rid: str):
         try:

@@ -14,8 +14,8 @@ Annotations (reference: nvext annotations, preprocessor.rs): requesting
 HTTP layer renders them as SSE events.
 
 The port of the JAX package's `llm/preprocessor.py`: the same operator on
-the port's plain-Python tokenizer and template renderer, without the
-tracing span (M12).
+the port's plain-Python tokenizer and template renderer, with its
+``preprocess`` span (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from dynamo_tpu_torch.llm.protocols.openai import (
 from dynamo_tpu_torch.llm.tokenizer import HuggingFaceTokenizer
 from dynamo_tpu_torch.runtime.pipeline.context import Context
 from dynamo_tpu_torch.runtime.pipeline.engine import AsyncEngine, Operator
+from dynamo_tpu_torch.utils import tracing
 from dynamo_tpu_torch.utils.logging import get_logger
 
 log = get_logger("dynamo_tpu_torch.preprocessor")
@@ -183,14 +184,17 @@ class OpenAIPreprocessor(Operator):
         self, request: Context, next_engine: AsyncEngine
     ) -> AsyncIterator[dict]:
         req = request.payload
-        if isinstance(req, ChatCompletionRequest):
-            pre, prompt = self.preprocess_chat(req)
-            kind = "chat"
-        elif isinstance(req, CompletionRequest):
-            pre, prompt = self.preprocess_completion(req)
-            kind = "completion"
-        else:
-            raise TypeError(f"unsupported request type {type(req).__name__}")
+        with tracing.span("preprocess", cat="preprocess", req=request.id) as sp:
+            if isinstance(req, ChatCompletionRequest):
+                pre, prompt = self.preprocess_chat(req)
+                kind = "chat"
+            elif isinstance(req, CompletionRequest):
+                pre, prompt = self.preprocess_completion(req)
+                kind = "completion"
+            else:
+                raise TypeError(f"unsupported request type {type(req).__name__}")
+            if sp is not None:
+                sp.set(kind=kind, prompt_tokens=len(pre.token_ids))
 
         delta = DeltaGenerator(req.model, kind=kind)
         delta.prompt_tokens = len(pre.token_ids)

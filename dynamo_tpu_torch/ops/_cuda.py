@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Iterable, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,6 +61,7 @@ def build(names: Optional[Iterable[str]] = None) -> dict[str, str]:
     parallel; returns {name: library path}. Raises with the compiler's
     output if any build fails."""
     names = list(names or SOURCES)
+    t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
     procs = {}
@@ -81,6 +83,12 @@ def build(names: Optional[Iterable[str]] = None) -> dict[str, str]:
         os.replace(tmp, paths[n])
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    if procs:
+        # a build at first use stalls the step that needs it, as a jit
+        # compile does: one compile event (engine/telemetry.py)
+        from dynamo_tpu_torch.engine import telemetry
+
+        telemetry.note_compile("kernel_build", time.perf_counter() - t0, sources=sorted(procs))
     return paths
 
 
@@ -94,10 +102,42 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+# cudaError_t codes after which the CUDA context is unusable (every later
+# call fails too): illegal address, device assert, hardware stack error,
+# illegal instruction, misaligned address, invalid address space, invalid
+# PC, launch failure, cooperative launch too large
+STICKY_ERRORS = frozenset({700, 710, 714, 715, 716, 717, 718, 719, 720})
+# how torch words the same errors
+_STICKY_WORDS = ("illegal memory access", "device-side assert", "hardware stack error",
+                 "illegal instruction", "misaligned address", "invalid address space",
+                 "invalid program counter", "unspecified launch failure")
+
+
+class CudaLaunchError(RuntimeError):
+    """A launcher returned a non-zero cudaError_t (`code`); `sticky` when
+    the context cannot serve any more work after it."""
+
+    def __init__(self, what: str, code: int):
+        super().__init__(f"{what}: CUDA launch failed with cudaError {code}")
+        self.code = code
+        self.sticky = code in STICKY_ERRORS
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+        raise CudaLaunchError(what, err)
+
+
+def sticky(exc: BaseException) -> bool:
+    """Did `exc` leave the CUDA context unusable? A launcher's sticky code,
+    or torch's error for one; an exception raised on the host (an injected
+    fault, a refused shape, a launch error such as too many resources)
+    leaves it usable."""
+    if isinstance(exc, CudaLaunchError):
+        return exc.sticky
+    text = str(exc).lower()
+    return "cuda" in text and any(w in text for w in _STICKY_WORDS)
 
 
 def stream_ptr(device) -> int:

@@ -17,7 +17,11 @@ cuda: with no GPU the engine's own error, never a fallback). With
 out=torch, `/metrics` also renders the engine's gauges and request
 histograms (`EngineMetrics`), and per-tenant SLO attainment (`SloTracker`)
 when `--slo-targets FILE` (or the DYN_SLO_TARGETS inline JSON) names
-targets. Not ported,
+targets, whose breaches dump the engine's flight-recorder artifact; the
+process-global health counters (utils/counters.py) ride the same scrape,
+and `/debug/trace`, `/debug/snapshot`, `/debug/kv` and `/debug/profile`
+serve the trace ring, the flight recorder, the KV ledger and the profiler.
+Not ported,
 and refused with the ROADMAP item that brings them: `in=dyn://...` and
 `out=dyn://...` (M17), `--tp/--pp/--sp` above 1 and `--num-nodes` above 1
 (M13), `--admission` (M17), and any value but the
@@ -234,13 +238,21 @@ async def serve_http(args, out: str):
     (service, torch_engine|None) once it listens (`service.port`); the
     caller owns the wait and `await service.stop()`/`engine.close()`."""
     from dynamo_tpu_torch.llm.http.service import HttpService
+    from dynamo_tpu_torch.utils import tracing
+    from dynamo_tpu_torch.utils.counters import PromCounters
 
+    # the frontend's label in a merged trace (DYN_TRACE_PROCESS and earlier
+    # callers win)
+    tracing.set_process_default("frontend")
     template = None
     if args.request_template:
         from dynamo_tpu_torch.llm.request_template import RequestTemplate
 
         template = RequestTemplate.load(args.request_template)
     svc = HttpService(request_template=template, request_timeout_s=args.request_timeout)
+    # the process-global health counters (injected faults, profiler
+    # captures) ride the same scrape as the service and engine series
+    svc.metrics.extra.append(PromCounters())
     pipeline, card, engine = await build_output(args, out)
     name = args.model_name or (card.display_name if card else "echo")
     svc.manager.add_chat_model(name, pipeline)
@@ -252,8 +264,14 @@ async def serve_http(args, out: str):
         from dynamo_tpu_torch.llm.http.metrics import EngineMetrics
         from dynamo_tpu_torch.utils import instance
 
+        slo = build_slo_tracker(args)
+        if slo is not None and engine.flight is not None:
+            # an SLO breach dumps the flight recorder's correlated artifact
+            # (digest window and the breaching request's trace slice) as it
+            # lands, rate-limited by the recorder
+            slo.on_breach = engine.flight.on_slo_breach
         svc.metrics.extra.append(EngineMetrics(
-            engine, slo=build_slo_tracker(args), worker_id=instance.worker_id()))
+            engine, slo=slo, worker_id=instance.worker_id()))
     await svc.start(args.http_host, args.http_port)
     log.info("serving OpenAI HTTP on %s:%d", args.http_host, svc.port)
     return svc, engine

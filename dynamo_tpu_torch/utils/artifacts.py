@@ -1,0 +1,48 @@
+"""Crash-artifact writing, shared across the failure paths (a copy of the
+JAX package's `utils/artifacts.py`).
+
+When something hangs, dump the trace ring + phase stats + metrics NEXT TO
+the hang, so the postmortem does not depend on the process surviving to
+serve /debug/trace. This module is that writer, shared so every failure
+path (the engine watchdog, the flight recorder, the KV ledger's leak
+trigger) leaves the same evidence instead of a bare exit code: a timeout
+with no artifact cannot be bisected.
+
+Best-effort by contract: artifact IO must never take down the path that
+is already failing.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+import time
+from typing import Optional
+
+from dynamo_tpu_torch.utils.logging import get_logger
+
+log = get_logger("dynamo_tpu_torch.artifacts")
+
+
+def crash_dir(override: Optional[str] = None) -> str:
+    """Resolve the artifact directory: explicit override >
+    ``DYN_CRASH_DIR`` > the platform tmpdir."""
+    return override or os.environ.get("DYN_CRASH_DIR") or tempfile.gettempdir()
+
+
+def write_crash_artifact(
+    tag: str, artifact: dict, directory: Optional[str] = None
+) -> Optional[str]:
+    """Write ``artifact`` as ``<dir>/<tag>_<ms>.json``; returns the path
+    or None on failure (logged, never raised)."""
+    try:
+        d = crash_dir(directory)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"{tag}_{int(time.time() * 1000)}.json")
+        with open(path, "w") as f:
+            json.dump(artifact, f)
+        return path
+    except Exception:  # noqa: BLE001 — the dump is best-effort
+        log.exception("crash-artifact dump failed (tag=%s)", tag)
+        return None

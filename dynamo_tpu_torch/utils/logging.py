@@ -1,6 +1,5 @@
 """Structured logging for the port (a copy of the JAX package's
-`utils/logging.py`, without the trace plane's request id and the instance
-label, which come with M12/M17).
+`utils/logging.py`, without the instance label, which comes with M17).
 
 Mirrors the reference's tracing init (reference: lib/runtime/src/logging.rs:62-130):
 env-var level filter (``DYN_LOG``, e.g. ``debug`` or ``info,dynamo_tpu_torch.http=debug``),
@@ -14,6 +13,8 @@ import logging
 import os
 import sys
 import time
+
+from dynamo_tpu_torch.utils import tracing
 
 _CONFIGURED = False
 
@@ -37,6 +38,13 @@ class JsonlFormatter(logging.Formatter):
             "target": record.name,
             "message": record.getMessage(),
         }
+        # join key against the trace plane: the active request id (bound
+        # by the HTTP frontend for the handler's task tree, see
+        # utils/tracing.py) stamps every record emitted serving that
+        # request, so JSONL logs line up with /debug/trace spans
+        rid = tracing.current_request()
+        if rid is not None:
+            out["request_id"] = rid
         if record.exc_info:
             out["exception"] = self.formatException(record.exc_info)
         return json.dumps(out)

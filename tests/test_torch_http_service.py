@@ -13,11 +13,14 @@ attention), both float32 and greedy.
   invalid and a zero `x-request-timeout`, a prompt over the context
   length, and an engine that raises (`AlwaysFailEngine`).
 - `x-request-id` echo, `/v1/models`, `/health` and the `/metrics` series:
-  both sides wire `EngineMetrics` and an `SloTracker` from `--slo-targets`
-  as their run entries do, and the series equal apart from the JAX
-  engine's gauges whose planes the port lacks
-  (`TorchEngine.UNPORTED_METRICS`) and its flight-recorder and KV-ledger
-  families; a tenant whose TTFT target is 0 s shows the same breach.
+  both sides wire `EngineMetrics`, an `SloTracker` from `--slo-targets`
+  (its breach hook on the flight recorder) and the process-global health
+  counters as their run entries do, and the series equal apart from the
+  JAX engine's gauges whose planes the port lacks
+  (`TorchEngine.UNPORTED_METRICS`); of the process-global counters both
+  render the known ones (what else a registry holds depends on the tests
+  run before in the process); a tenant whose TTFT target is 0 s shows the
+  same breach.
 - A client that disconnects mid-stream frees its engine slot, and one
   that leaves a non-streamed request stops its generation.
 - The port is driven by aiohttp and by its own raw-socket client
@@ -57,6 +60,9 @@ def _run(loop, coro):
     return loop.run_until_complete(asyncio.wait_for(coro, timeout=60))
 
 
+_KNOWN_COUNTERS = ("hub_reconnects_total", "lease_expired_total", "client_retries_total",
+                   "breaker_open_total", "router_workers_excluded_total",
+                   "faults_injected_total")
 SLO_TARGETS = {"default": {"ttft_s": 60.0, "itl_s": 10.0, "queue_wait_s": 60.0},
                "gold": {"ttft_s": 0.0}}
 
@@ -69,6 +75,7 @@ def services(loop, tmp_path_factory):
     from dynamo_tpu.run import build_parser as jax_parser
     from dynamo_tpu.run import build_slo_tracker as jax_slo_tracker
     from dynamo_tpu.utils import instance as jax_instance
+    from dynamo_tpu.utils.counters import PromCounters as JaxPromCounters
     from dynamo_tpu_torch.run import build_parser, serve_http
 
     slo = tmp_path_factory.mktemp("slo") / "targets.json"
@@ -84,8 +91,11 @@ def services(loop, tmp_path_factory):
         pipe, card, jeng = await jax_build_output(jargs, "jax")
         jsvc = JaxService()
         # as the JAX run entry wires them (dynamo_tpu/run.py)
+        jsvc.metrics.extra.append(JaxPromCounters())
+        jslo = jax_slo_tracker(jargs)
+        jslo.on_breach = jeng.flight.on_slo_breach
         jsvc.metrics.extra.append(JaxEngineMetrics(
-            jeng, slo=jax_slo_tracker(jargs), worker_id=jax_instance.worker_id()))
+            jeng, slo=jslo, worker_id=jax_instance.worker_id()))
         jsvc.manager.add_chat_model(card.display_name, pipe)
         jsvc.manager.add_completion_model(card.display_name, pipe)
         for pkg, service in (("dynamo_tpu", jsvc), ("dynamo_tpu_torch", svc)):
@@ -255,7 +265,12 @@ def test_request_id_models_health_metrics(loop, services):
         got[impl] = (headers.get("X-Request-Id"), sheaders.get("X-Request-Id"), models,
                      health, series)
     jax_only = _jax_only_series()
-    got["jax"] = got["jax"][:4] + ([n for n in got["jax"][4] if n not in jax_only],)
+    process = _process_counter_series()
+    for impl in got:
+        # the process-global health counters render on both sides
+        assert {f"dynamo_tpu_{n}" for n in _KNOWN_COUNTERS} <= set(got[impl][4]), impl
+        got[impl] = got[impl][:4] + ([n for n in got[impl][4]
+                                      if n not in jax_only and n not in process],)
     assert got["torch"] == got["jax"]
     assert got["torch"][:2] == ("rid-42", "rid-43")
     for name in ("dynamo_tpu_http_service_requests_total", "dynamo_tpu_engine_ttft_seconds",
@@ -265,14 +280,24 @@ def test_request_id_models_health_metrics(loop, services):
 
 def _jax_only_series() -> set:
     """The JAX side's series the port does not render: the engine gauges
-    of unported planes, and the flight recorder's and KV ledger's counter
-    families (M12)."""
+    of unported planes."""
     from dynamo_tpu_torch.engine import TorchEngine
 
-    return {f"dynamo_tpu_engine_{k}" for k in TorchEngine.UNPORTED_METRICS} | {
-        "dynamo_tpu_flight_recorder_dumps_total", "dynamo_tpu_flight_recorder_suppressed_total",
-        "dynamo_tpu_engine_step_anomalies_total", "dynamo_tpu_kv_ledger_transitions_total",
-        "dynamo_tpu_kv_ledger_violations_total", "dynamo_tpu_kv_ledger_audits_total"}
+    return {f"dynamo_tpu_engine_{k}" for k in TorchEngine.UNPORTED_METRICS}
+
+
+def _process_counter_series() -> set:
+    """The series of both packages' process-global counter registries
+    (utils/counters.py): beyond the known ones they hold what this
+    process's other tests declared or counted (the JAX failover's, the
+    profiler's), so they are compared by their known names alone."""
+    from dynamo_tpu.utils import counters as jax_counters
+    from dynamo_tpu_torch.utils import counters as port_counters
+
+    names = set()
+    for reg in (jax_counters, port_counters):
+        names |= set(reg.PromCounters.KNOWN) | reg._declared | set(reg.snapshot())
+    return {f"dynamo_tpu_{n}" for n in names}
 
 
 def test_engine_metrics_and_slo_on_metrics(loop, services):

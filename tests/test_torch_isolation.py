@@ -4,9 +4,12 @@ packages the card's machine does not promise (tokenizers, jinja2, aiohttp,
 msgpack, safetensors, xxhash); building a CPU TorchEngine (with
 speculative decoding and mixed steps, so the copied n-gram proposer loads
 too, and one of the tiny-moe model, so models/moe.py does) loads none of
-them, and with all of them made unimportable the whole
-`out=torch` HTTP pipeline builds on the CPU from the vendored checkpoint
-and serves a streamed chat request. The test process itself has jax
+them but loads the robustness and observability planes (the fault
+registry, counters, artifacts, tracing, degrade ladder, KV ledger, flight
+recorder, telemetry and profiler), and with all of them made unimportable
+the whole `out=torch` HTTP pipeline builds on the CPU from the vendored
+checkpoint, serves a streamed chat request with tracing armed, and answers
+the four `/debug/*` routes. The test process itself has jax
 loaded (tests/conftest.py), so those checks run in a fresh interpreter."""
 
 from __future__ import annotations
@@ -52,7 +55,13 @@ def test_no_forbidden_imports():
     assert bad == []
 
 
+PLANES = [f"dynamo_tpu_torch.{m}" for m in (
+    "utils.faults", "utils.counters", "utils.artifacts", "utils.tracing", "engine.degrade",
+    "engine.kv_ledger", "engine.flight_recorder", "engine.telemetry", "engine.profiler")]
+
+
 def test_engine_import_loads_no_jax():
+    planes = PLANES
     code = f"""
 import json, sys
 sys.path.insert(0, {ROOT!r})
@@ -69,6 +78,7 @@ print(json.dumps({{
     "port": "dynamo_tpu_torch.engine.engine" in new,
     "spec": "dynamo_tpu_torch.engine.spec" in new,
     "moe": "dynamo_tpu_torch.models.moe" in new and "we_gate" in moe.params["layers"][0],
+    "planes": sorted(m for m in {planes!r} if m not in new),
 }}))
 """
     out = subprocess.run(
@@ -77,7 +87,8 @@ print(json.dumps({{
     )
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {"dynamo_tpu": [], "jax": [], "port": True, "spec": True, "moe": True}
+    assert got == {"dynamo_tpu": [], "jax": [], "port": True, "spec": True, "moe": True,
+                   "planes": []}
 
 
 def test_http_pipeline_serves_with_the_packages_blocked():
@@ -95,6 +106,10 @@ class Block:
         return None
 
 sys.meta_path.insert(0, Block())
+import os, tempfile
+os.environ["DYN_TRACE"] = "1"
+os.environ["DYN_PROFILE_DIR"] = tempfile.mkdtemp()
+os.environ["DYN_CRASH_DIR"] = tempfile.mkdtemp()
 for m in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
     del sys.modules[m]
 sys.path.insert(0, {ROOT!r})
@@ -110,11 +125,21 @@ async def main():
         "model": "tiny-trained-llama", "stream": True, "max_tokens": 6,
         "messages": [{{"role": "user", "content": "the capital of france is"}}]}})
     msgs = [m async for _, m in reply.sse()]
+    debug = {{}}
+    for method, path in (("GET", "/debug/trace"), ("GET", "/debug/snapshot"),
+                         ("GET", "/debug/kv"), ("POST", "/debug/profile?duration_ms=20")):
+        r = await client.request("127.0.0.1", svc.port, method, path,
+                                 {{}} if method == "POST" else None)
+        debug[path] = (r.status, sorted(json.loads(await r.read())))
+    from dynamo_tpu_torch.utils import tracing
+    spans = sorted({{e["name"] for e in tracing.export()["traceEvents"]}}
+                   & {{"http.request", "preprocess", "request", "prefill", "decode"}})
     await svc.stop()
     await eng.close()
     text = "".join(c["delta"].get("content", "") for m in msgs if m.data
                    for c in m.json()["choices"])
     print(json.dumps({{"status": reply.status, "done": msgs[-1].done, "text": text,
+                      "debug": debug, "spans": spans,
                       "blocked_loaded": sorted(m for m in sys.modules
                                                if m.split(".")[0] in BLOCKED)}}))
 
@@ -128,3 +153,10 @@ asyncio.run(main())
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["status"] == 200 and got["done"] and got["text"]
     assert got["blocked_loaded"] == []
+    assert got["debug"] == {
+        "/debug/trace": [200, ["displayTimeUnit", "traceEvents"]],
+        "/debug/snapshot": [200, ["artifacts", "recorders"]],
+        "/debug/kv": [200, ["kv", "ledgers"]],
+        "/debug/profile?duration_ms=20": [200, ["dir", "duration_ms"]],
+    }
+    assert got["spans"] == ["decode", "http.request", "prefill", "preprocess", "request"]
