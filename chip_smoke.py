@@ -263,8 +263,9 @@ final result line is printed only when every phase passed:
    and weights (made again from seed 0): first the vision encoder
    (models/vision.py) at LLaVA-1.5's vision tower widths (CLIP ViT-L/14 at
    336 px: 576 patches, hidden 1024, 24 layers, 16 heads, projected to
-   4096; the reference's block), seeded random weights in bf16, against
-   the port's f32 encoder on the CPU on the same weights for two images
+   4096; the reference's block), seeded random weights in bf16 on bf16
+   images (so it computes in bf16; f32 images would promote it to f32),
+   against the port's f32 encoder on the CPU on the same weights for two images
    (relative error and least patch cosine, VISION_REL_ERR and
    VISION_MIN_COS), and its time for 8 images beside its bound. Then, in
    bf16 and int8 KV: the oracle (a request whose embeds are the embed-table
@@ -316,6 +317,25 @@ final result line is printed only when every phase passed:
    trace must hold the `prefill`/`decode` annotations and name the KV
    write and the decode attention kernels), then the trace ring, a flight
    recorder snapshot and the KV ledger.
+19. the loadgen's scenario suite (M15's measurement plane,
+   `phase_scenarios`, after phase 11): `run_suite` over the eight default
+   scenarios at `real_scale` with Llama-3.1-8B (seeded random bf16 weights,
+   page 64, batch 32, an auto-sized pool, 96 requests at 12 req/s, ISL 512,
+   OSL 64; chat over the live HTTP surface, rag, shared_prefix, bursty
+   behind the admission gate, long_context at sp=1 (ISL 3072), vision and
+   structured), but `moe` on Mixtral-8x7B's widths at 16 layers (the CUDA
+   kernels do not take tiny-moe's head_dim 16; 32 layers do not fit), one
+   engine a scenario, each closed and collected before the next: every
+   section passes `check_section` (compile events within budget), every
+   request `ok` but bursty's sheds, every KV census clean, the device's
+   allocated bytes back within SCENARIO_MEM_SLACK of the phase's start
+   after each scenario; K1, K2 and K3 launched (counts reset before the
+   suite, read after) and no plain version; per scenario goodput, TTFT and
+   ITL p50/p99, the launch lag's p50/p99, compile events and wall, bursty's
+   peak ladder state and sheds by tenant; then the roofline ledger on the
+   rag and chat engines' digests (walls from the dispatches' CUDA-event
+   device spans) at the card's peaks, each dispatch kind's share of the
+   bf16 peak and of the memory rate, none above 100 %.
 With --pairs N, phases 5, 6 and 7 (each a pipeline off/on pair) and
 phase 8's bf16 pipeline off/on pair run N times in turns, to show their
 spread. With --serving N only the build and phase 11 run, N times, and
@@ -4761,11 +4781,12 @@ def check_vision(dev, peaks, vcfg, images):
         2 * t * dh * 3 * dh + 4 * t * t * dh + 2 * t * dh * dh + 2 * 2 * t * dh * 4 * dh))
     n_par = sum(x.numel() for x in [params["patch_proj"], params["pos_embed"], params["out_proj"]]
                 ) + sum(x.numel() for lp in params["layers"] for x in lp.values())
-    b_ms, by = bound_ms(2 * n_par + images.numel() * 4 + out.numel() * 2,
+    b_ms, by = bound_ms(2 * n_par + images.numel() * images.element_size() + out.numel() * 2,
                         len(images) * per_image, peaks)
     summary = dict(rel_err=rel, min_cos=cos, encode_ms=ms, bound_ms=b_ms, bound_by=by,
                    images=len(images), params_b=n_par / 1e9, cpu_f32_s=cpu_s)
-    log(f"[vision] encoder {vcfg} ({n_par / 1e9:.3f} B params, bf16) on the card against the "
+    log(f"[vision] encoder {vcfg} ({n_par / 1e9:.3f} B params, bf16 weights, "
+        f"{str(images.dtype)[6:]} images) on the card against the "
         f"port's f32 encoder on the CPU for {n_cpu} images: relative error {rel:.3e} (gate "
         f"{VISION_REL_ERR}), least patch cosine {cos:.6f} (gate {VISION_MIN_COS}); "
         f"{len(images)} images in {ms:.4f} ms (bound {b_ms:.4f} by {by}, "
@@ -4815,7 +4836,10 @@ def phase_vision(dev, params, peaks, smi="", cfg=None, vcfg=None, traffic=None):
     n, text, tail, osl, p = tr["n"], tr["text"], tr["tail"], tr["osl"], vc.num_patches
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    images = torch.rand((n, vc.image_size, vc.image_size, 3), generator=gen, device=dev)
+    # bf16 images: with bf16 weights the encoder then computes in bf16 (f32
+    # images would promote it to f32, as the reference's encode does)
+    images = torch.rand((n, vc.image_size, vc.image_size, 3), generator=gen,
+                        device=dev).to(torch.bfloat16)
     embeds, vsum = check_vision(dev, peaks, vc, images)
     for kv_quant in VISION_KV:
         torch.cuda.empty_cache()
@@ -5379,6 +5403,153 @@ def planes_ckpt_streams(dev):
     return n
 
 
+# ---------------------------------------------------------------- phase 19
+
+
+SCENARIO_MODEL = "llama-3.1-8b"
+# the moe scenario on the card: tiny-moe's head_dim 16 is not one the CUDA
+# kernels take, and Mixtral-8x7B's 32 layers (92.9 GB of bf16 weights) do
+# not fit; its widths at phase 15's 16 layers do
+SCENARIO_MOE = ("mixtral-8x7b", 16)
+# the engines whose digests the roofline ledger reads
+ROOFLINE_SCENARIOS = ("rag", "chat")
+# the device bytes a closed, collected scenario engine may leave allocated
+# (the kernels' scratch grows once and stays; 8B weights are ~16 GB)
+SCENARIO_MEM_SLACK = 1 << 30
+# a flight-recorder ring that holds a whole scenario's digests
+SCENARIO_FLIGHT_BUFFER = 65536
+
+
+def _pcts(vals):
+    return (float(np.percentile(vals, 50)), float(np.percentile(vals, 99))) if vals else (
+        float("nan"), float("nan"))
+
+
+def phase_scenarios(dev, peaks, part, smi="", scale=None, names=None, moe=SCENARIO_MOE):
+    """Phase 19: the port's loadgen scenario suite at full width, one
+    scenario at a time through `run_suite` (each in its own event loop with
+    its own engine), then the roofline ledger on the rag and chat engines'
+    digests. Returns the K1-K3 launches of the phase and the sections."""
+    from dynamo_tpu_torch.loadgen import bench, scenarios
+    from dynamo_tpu_torch.scripts import roofline
+    from dynamo_tpu_torch.scripts.run_scenarios import COMPILE_EVENTS_BUDGET, check_section
+
+    scale = scale or scenarios.real_scale(model=SCENARIO_MODEL, device=str(dev))
+    names = list(names or bench.DEFAULT_SET)
+    cuda = dev.type == "cuda"
+
+    def allocated():
+        if not cuda:
+            return 0
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(dev)
+
+    env = {"LOADGEN_MOE_MODEL": moe[0], "LOADGEN_MOE_LAYERS": str(moe[1]),
+           "DYN_FLIGHT_BUFFER": str(SCENARIO_FLIGHT_BUFFER)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    peak_hbm, peak_flops = peaks
+    seen = {}
+
+    def observe(name, results, engine):
+        # what the phase reads of each scenario, before its engine closes
+        # (nothing here keeps the engine)
+        ok = [r for r in results if r.status == "ok"]
+        # when the first request over the TTFT target (client-side) had
+        # finished, against the last arrival: the admission gate's
+        # attainment signal exists only from the first
+        late = [r.launched_s + r.ttft_s + (r.itl_s or 0.0) * max(r.tokens - 1, 0)
+                for r in ok if r.ttft_s > scale.slo_ttft_s]
+        seen[name] = {
+            "first_breach_s": min(late, default=float("nan")),
+            "last_launch_s": max((r.launched_s for r in results), default=float("nan")),
+            "lag": [r.launch_lag_s for r in results],
+            "layers": engine.model_cfg.num_layers,
+            "pages": engine.num_pages,
+            "ttft_max": max((r.ttft_s for r in ok), default=float("nan")),
+        }
+        if name in ROOFLINE_SCENARIOS:
+            seen[name]["ledger"] = roofline.engine_ledger(
+                engine, peak_flops=peak_flops, peak_hbm=peak_hbm)
+
+    unsubscribe = scenarios.subscribe_results(observe)
+    t_phase = time.perf_counter()
+    base = allocated()
+    sections = {}
+    try:
+        reset_counts()
+        for name in names:
+            sec = bench.run_suite([name], scale)["results"][name]
+            sections[name] = sec
+            left = allocated() - base
+            problems = check_section(name, sec)
+            assert not problems, f"[scenarios] {name}: {problems}"
+            reqs, got = sec["requests"], seen[name]
+            assert reqs["errors"] == 0 and reqs["ok"] + reqs["shed"] == reqs["total"], \
+                f"[scenarios] {name}: requests {reqs}"
+            assert name == "bursty" or reqs["shed"] == 0, f"[scenarios] {name} shed {reqs}"
+            census = sec["kv_census"]
+            assert census["ok"] and census["orphan_pages"] == [] and census["engines"] == 1, \
+                f"[scenarios] {name}: KV census {census}"
+            assert left <= SCENARIO_MEM_SLACK, \
+                f"[scenarios] {name}: {left / 2**30:.2f} GiB stay allocated after its engine closed"
+            lag50, lag99 = _pcts(got["lag"])
+            gp, tt, it = sec["goodput"], sec["ttft"], sec["itl"]
+            log(f"[scenarios] {name} ({sec['workload']}, {sec['trace']['n']} requests over "
+                f"{sec['trace']['duration_s']} s of trace, ISL mean {sec['trace']['isl_mean']}, "
+                f"OSL mean {sec['trace']['osl_mean']}, {got['layers']} layers, {got['pages']} "
+                f"pages): goodput {gp['goodput_toks_per_sec']} tok/s (attained "
+                f"{gp['attained_frac']}, throughput {sec['throughput_toks_per_sec']}), TTFT "
+                f"p50/p99 {tt['p50_s']}/{tt['p99_s']} s (max {got['ttft_max']:.4f}), ITL "
+                f"p50/p99 {it['p50_s']}/{it['p99_s']} s, queue wait p50 "
+                f"{sec['queue_wait_p50_s']} s, launch lag p50/p99 {lag50:.4f}/{lag99:.4f} s "
+                f"(max {sec['open_loop']['max_launch_lag_s']}), compile events "
+                f"{sec['compile']['events']} ({sec['compile']['time_s']} s; budget "
+                f"{COMPILE_EVENTS_BUDGET}), wall {sec['scenario_wall_s']} s "
+                f"(replay {sec['wall_s']} s), reuse {sec['reuse']}, "
+                f"{left / 2**20:.1f} MiB left allocated; {smi}")
+            if name == "bursty":
+                adm = sec["admission"]
+                log(f"[scenarios] bursty: peak ladder state {adm['peak_state']}, by tenant "
+                    f"{json.dumps(adm['by_tenant'], sort_keys=True)}; the first request over "
+                    f"the TTFT target finished {got['first_breach_s']:.3f} s into the replay, "
+                    f"the last arrival launched at {got['last_launch_s']:.3f} s; {smi}")
+        counts = read_counts()
+    finally:
+        unsubscribe()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for kern, (launches, plain) in counts.items():
+        assert plain == 0, f"[scenarios] the plain version of {kern} ran {plain} times"
+    for kern in BF16_KERNELS:
+        assert counts[kern][0] > 0, f"[scenarios] {kern} never launched in the suite"
+    launches = {k: counts[k][0] for k in BF16_KERNELS}
+    log(f"[scenarios] launches over the suite: {launches}; others "
+        f"{ {k: n for k, (n, _) in counts.items() if n and k not in launches} }")
+    for name in ROOFLINE_SCENARIOS:
+        if name not in seen:
+            continue
+        led = seen[name]["ledger"]
+        for kind, e in led["kinds"].items():
+            log(f"[roofline] {name} {kind}: {e['steps']} dispatches, {e['tokens']} tokens, "
+                f"wall {e['wall_s']} s, {e.get('achieved_tflops')} TFLOP/s = "
+                f"{e.get('pct_peak_flops')} % of {peak_flops / 1e12:.0f}, "
+                f"{e.get('achieved_hbm_gbps')} GB/s = {e.get('pct_peak_hbm')} % of "
+                f"{peak_hbm / 1e12:.2f} TB/s (H100 {part}; modeled floors: dense "
+                f"projections, weights once a dispatch, KV writes); {smi}")
+            for key in ("pct_peak_flops", "pct_peak_hbm"):
+                assert 0 <= e.get(key, 0.0) <= 100, \
+                    f"[roofline] {name} {kind}: {key} {e.get(key)} reads over the card's peak"
+        assert "device spans" in led["note"] or not cuda, led["note"]
+    log(f"[scenarios] phase 19 took {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return launches, sections
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1,
@@ -5538,6 +5709,11 @@ def main() -> int:
     # phase 11: the serving entry at full width (its own engine, seed 0)
     torch.cuda.empty_cache()
     phase_serving(dev, smi=smi)
+    # phase 19: the loadgen's eight scenarios at full width, one engine
+    # each, then the roofline ledger
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_scenarios(dev, peaks, part, smi=smi)
 
     meta = {
         "kv_write": ("dynamo_tpu_torch/csrc/kv_write.cu", "dynamo_tpu/ops/pallas_kv_write.py:60"),
@@ -5586,7 +5762,7 @@ def main() -> int:
         "ragged_attention_q4g": ("dynamo_tpu_torch/csrc/prefill_attention.cu",
                                  "dynamo_tpu/ops/attention.py:75"),
     }
-    log(f"[smoke] phases 1-18 took {time.perf_counter() - t_smoke:.1f} s of wall time, build "
+    log(f"[smoke] phases 1-19 took {time.perf_counter() - t_smoke:.1f} s of wall time, build "
         f"included")
     kernels = []
     for k, r in results.items():

@@ -107,7 +107,11 @@ Port of `dynamo_tpu/engine/engine.py::JaxEngine`, main path only:
   (engine/flight_recorder.py); trace spans and instants (utils/tracing.py,
   host clock only: no hook waits for the device); the profiler's phase
   annotations (engine/profiler.py); compile events and device memory
-  (engine/telemetry.py).
+  (engine/telemetry.py); on a CUDA device, each dispatch's device span
+  (`{kind}_device_s`/`_device_n` in `phase_stats`: CUDA events around its
+  enqueue, read once they complete), since a dispatch's host wall there is
+  only its enqueue (the roofline ledger, scripts/roofline.py, divides by
+  these).
 
 The engine runs on a CUDA device unless the caller asks for the CPU, where
 every kernel wrapper takes its plain PyTorch version and the decode step
@@ -179,6 +183,11 @@ from dynamo_tpu_torch.runtime.pipeline.context import Context
 from dynamo_tpu_torch.utils import artifacts, faults, instance, tracing
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
+
+
+# the dispatch kinds whose device spans a CUDA engine times (the roofline
+# ledger's dispatch kinds)
+DEVICE_SPAN_KINDS = ("prefill", "decode", "mixed", "spec_verify")
 
 
 def _pow2(n: int) -> int:
@@ -445,6 +454,8 @@ class TorchEngine:
         self._wake = asyncio.Event()
         self._loop_task: Optional[asyncio.Task] = None
         self._closed = False
+        # (kind, start, end) CUDA events of dispatches not yet drained
+        self._spans: deque = deque()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(config.seed ^ 0x5EED)
         self._graphs = DecodeGraphs(self._decode_step, self.device, self._gen)
@@ -456,6 +467,13 @@ class TorchEngine:
         # land them (`*_sync_s`, or `pipeline_overlap_s` for a fetch that
         # waited while another dispatch was already queued on the device)
         self._phase_stats = {
+            # the device span of each dispatch kind on a CUDA engine (CUDA
+            # events around the enqueue; `_span_end`), and how many spans
+            # were timed: there a dispatch's host wall is its enqueue, and
+            # the roofline ledger reads these instead (0 on the CPU, where
+            # the host walls are the work)
+            **{f"{k}_device_s": 0.0 for k in DEVICE_SPAN_KINDS},
+            **{f"{k}_device_n": 0 for k in DEVICE_SPAN_KINDS},
             "prefill_dispatch_s": 0.0,
             "prefill_tokens": 0,
             "prefill_dispatches": 0,
@@ -630,7 +648,35 @@ class TorchEngine:
 
     @property
     def phase_stats(self) -> dict:
+        self._drain_spans()
         return dict(self._phase_stats)
+
+    def _span_begin(self):
+        """A timing event recorded where a dispatch starts enqueueing on the
+        compute stream (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _span_end(self, kind: str, ev0) -> None:
+        """Close a dispatch's device span: the device time from the stream
+        reaching its first launch to finishing its last, summed into
+        `{kind}_device_s` once the work completes (polled, never a sync)."""
+        if ev0 is None:
+            return
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev1.record()
+        self._spans.append((kind, ev0, ev1))
+        self._drain_spans()
+
+    def _drain_spans(self) -> None:
+        st = self._phase_stats
+        while self._spans and self._spans[0][2].query():
+            kind, ev0, ev1 = self._spans.popleft()
+            st[f"{kind}_device_s"] += ev0.elapsed_time(ev1) / 1e3
+            st[f"{kind}_device_n"] += 1
 
     def subscribe_events(self, cb) -> None:
         """KV cache events (`stored`/`removed`, each with `event_id` and
@@ -1730,6 +1776,7 @@ class TorchEngine:
         want_lps = any(s.want_logprobs for s in seqs)
         want_tops = any(s.top_logprobs > 0 for s in seqs)
         t0 = time.perf_counter()
+        span = self._span_begin()
         dev = self.device
         pos_t = self._up(pos_arr)
         attn = llama.AttnSpec.page_write(
@@ -1764,6 +1811,7 @@ class TorchEngine:
             toks = res[0].index_select(0, rows).long()
             cur = counts[sl, toks].to(torch.int32)
             counts[sl, toks] = torch.clamp(cur + 1, max=127).to(torch.int8)
+        self._span_end("prefill", span)
         if fetch:
             # the dispatch's one device->host sync
             res = [None if t is None else t.cpu().numpy() for t in res]
@@ -2237,6 +2285,7 @@ class TorchEngine:
         (prefill rows have no drafts, so window column 0 is their plain
         sample and n_emit 1)."""
         t0 = time.perf_counter()
+        span = self._span_begin()
         dev = self.device
         n = bld["tokens"].shape[0]
         tokens = self._up(bld["tokens"])
@@ -2280,6 +2329,7 @@ class TorchEngine:
         dump = torch.full_like(slot_rows, len(self.slots))
         self._carry.index_copy_(0, torch.where(dec_mask, slot_rows, dump),
                                 newest.to(torch.int32))
+        self._span_end("mixed", span)
         fetch = _Fetch(res)
         self._step_count += 1
         t1 = time.perf_counter()
@@ -2550,6 +2600,7 @@ class TorchEngine:
         if bld["spec"]:
             return self._run_spec_dispatch(bld)
         t0 = time.perf_counter()
+        span = self._span_begin()
         self._flush_dev_state(bld["dirty"])
         self._apply_overrides(bld["overrides"])
         w = bld["width"]
@@ -2558,6 +2609,7 @@ class TorchEngine:
         # sampled on the extended path (mixed steps never carry one)
         out = self._graphs.run(w, bld["all_greedy"], bld["use_ext"], bld["want_lps"],
                                bld["want_tops"], bld["steps"])
+        self._span_end("decode", span)
         fetch = _Fetch(list(out))
         self._step_count += 1
         t1 = time.perf_counter()
@@ -2768,7 +2820,10 @@ class TorchEngine:
         """Enqueue a verify step (`_spec_verify_step`) and start its
         results for the host."""
         t0 = time.perf_counter()
-        fetch = _Fetch(list(self._spec_verify_step(bld)))
+        span = self._span_begin()
+        out = self._spec_verify_step(bld)
+        self._span_end("spec_verify", span)
+        fetch = _Fetch(list(out))
         self._step_count += 1
         t1 = time.perf_counter()
         st = self._phase_stats

@@ -21,8 +21,11 @@ deadline into Context metadata, the request template, SSE frames with a
 events and `data: [DONE]`, non-streaming aggregation and one status policy
 (`_classify_error`), the ``http.request`` span of every completion and
 the request id bound for its task tree (the JSONL log join and the
-preprocessor's span). Left out (ROADMAP M17): the SSE relay and failover
-(`Last-Event-ID` resume) and the admission gate.
+preprocessor's span), and the front-door admission gate
+(`llm/http/admission.py`: the typed 429/503 with `Retry-After` before any
+tokenization or engine work, the tenant's priority class stamped into
+Context metadata, the gate's series on `/metrics`). Left out (ROADMAP
+M17): the SSE relay and failover (`Last-Event-ID` resume).
 
 `ModelManager` (reference: lib/llm/src/http/service.rs:59-130) maps model
 name → engine per flavor (chat/completion).
@@ -99,9 +102,18 @@ class HttpService:
         metrics: Optional[ServiceMetrics] = None,
         request_template=None,
         request_timeout_s: Optional[float] = None,
+        admission=None,
     ):
         self.manager = manager or ModelManager()
         self.metrics = metrics or ServiceMetrics()
+        # llm.http.admission.AdmissionController: under overload it sheds the
+        # lowest-priority tenants with the typed 429/503 + Retry-After before
+        # any engine work, and stamps the tenant's priority class into Context
+        # metadata, which becomes Sequence.priority (the engine's admission
+        # and preemption order). None admits every request.
+        self.admission = admission
+        if admission is not None:
+            self.metrics.extra.append(admission)
         # llm.request_template.RequestTemplate: deployment defaults filled
         # into bodies that omit model/temperature/max tokens
         self.request_template = request_template
@@ -320,10 +332,22 @@ class HttpService:
                 )
 
         tenant = request.headers.get("x-tenant-id")
+        # the admission ladder: under overload the lowest classes shed here,
+        # before tokenization or engine admission
+        if self.admission is not None:
+            verdict = self.admission.check(tenant or "default")
+            if verdict is not None:
+                return _error_response(
+                    verdict.status, verdict.message,
+                    headers={"Retry-After": str(max(1, verdict.retry_after_s))},
+                )
+
         guard = self.metrics.inflight_guard(req.model, kind)
         ctx = Context(req, request_id=rid)
         if tenant:
             ctx.metadata["tenant"] = tenant
+        if self.admission is not None:
+            ctx.metadata["priority"] = self.admission.priority_of(tenant or "default")
         if timeout_s is not None:
             ctx.metadata["timeout_s"] = timeout_s
             ctx.metadata["deadline"] = time.time() + timeout_s

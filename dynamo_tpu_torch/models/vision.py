@@ -91,9 +91,14 @@ def patchify(cfg: VisionConfig, images: torch.Tensor) -> torch.Tensor:
 
 
 def encode(params: dict, cfg: VisionConfig, images: torch.Tensor) -> torch.Tensor:
-    """[B, H, W, 3] float in [0, 1] -> [B, num_patches, out_size], in the
-    parameters' dtype (the images are cast to it)."""
-    dtype = params["patch_proj"].dtype
+    """[B, H, W, 3] float in [0, 1] -> [B, num_patches, out_size], computed
+    and returned in the promotion of the images' and the parameters' dtypes,
+    as the reference's `images @ patch_proj` promotes: f32 images with bf16
+    weights run in f32 (the weights widened, exactly), bf16 images with bf16
+    weights in bf16."""
+    dtype = torch.promote_types(images.dtype, params["patch_proj"].dtype)
+    if dtype != params["patch_proj"].dtype:
+        params = _cast(params, dtype)
     x = patchify(cfg, images.to(dtype)) @ params["patch_proj"] + params["pos_embed"]
     h = cfg.num_heads
     hd = cfg.hidden_size // h
@@ -111,6 +116,12 @@ def encode(params: dict, cfg: VisionConfig, images: torch.Tensor) -> torch.Tenso
         y = rms_norm(x, lp["norm2"], EPS)
         x = x + F.gelu(y @ lp["w_up"], approximate="tanh") @ lp["w_down"]
     return x @ params["out_proj"]
+
+
+def _cast(params: dict, dtype: torch.dtype) -> dict:
+    out = {k: v.to(dtype) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: v.to(dtype) for k, v in lp.items()} for lp in params["layers"]]
+    return out
 
 
 def vision_params_from_jax(tree: dict, *, device, dtype=None) -> dict:

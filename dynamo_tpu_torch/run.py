@@ -17,15 +17,17 @@ cuda: with no GPU the engine's own error, never a fallback). With
 out=torch, `/metrics` also renders the engine's gauges and request
 histograms (`EngineMetrics`), and per-tenant SLO attainment (`SloTracker`)
 when `--slo-targets FILE` (or the DYN_SLO_TARGETS inline JSON) names
-targets, whose breaches dump the engine's flight-recorder artifact; the
-process-global health counters (utils/counters.py) ride the same scrape,
+targets, whose breaches dump the engine's flight-recorder artifact;
+`--admission` (or DYN_ADMISSION=1) arms the front-door admission gate
+(llm/http/admission.py) on the engine's waiting depth and the tracker's
+worst attainment, with tenant priority classes from the same targets file;
+the process-global health counters (utils/counters.py) ride the same scrape,
 and `/debug/trace`, `/debug/snapshot`, `/debug/kv` and `/debug/profile`
 serve the trace ring, the flight recorder, the KV ledger and the profiler.
-Not ported,
-and refused with the ROADMAP item that brings them: `in=dyn://...` and
-`out=dyn://...` (M17), `--tp/--pp/--sp` above 1 and `--num-nodes` above 1
-(M13), `--admission` (M17), and any value but the
-default of `--hub`, `--router-mode` (M17), `--disagg-mode`,
+Not ported, and refused with the ROADMAP item that brings them:
+`in=dyn://...` and `out=dyn://...` (M17; with them the admission gate's
+fleet signals), `--tp/--pp/--sp` above 1 and `--num-nodes` above 1 (M13),
+and any value but the default of `--hub`, `--router-mode` (M17), `--disagg-mode`,
 `--max-local-prefill-length` (the disagg plane, which waits for the
 runtime of M17), `--node-rank` and `--coordinator` (M13). The engine
 flags go to the port's `EngineConfig`: `--host-kv-pages` serves the host
@@ -99,7 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JSON file of per-tenant SLO targets ({tenant: {ttft_s|itl_s|"
                         "queue_wait_s: seconds}}) rendered as attainment on /metrics")
     p.add_argument("--admission", action="store_true",
-                   help="front-door admission gate (not ported: M17)")
+                   help="arm the front-door admission gate (DYN_ADMISSION=1 too): shed "
+                        "the lowest tenant priority classes (the 'priority' of "
+                        "--slo-targets) with 429/503 + Retry-After under overload")
     p.add_argument("--disagg-mode", choices=["agg", "decode", "prefill"],
                    default="agg", help="worker role in a disaggregated graph (refused: the "
                         "disagg plane waits for the runtime, ROADMAP M17)")
@@ -153,10 +157,6 @@ def refuse_unported(args, out: str, inp: str = "") -> None:
         raise NotImplementedError(
             "--node-rank/--coordinator: multi-node serving is not ported to "
             "dynamo_tpu_torch yet (ROADMAP M13)")
-    if args.admission:
-        raise NotImplementedError(
-            "--admission: the admission gate is not ported to dynamo_tpu_torch yet "
-            "(ROADMAP M17)")
     if args.attn_backend != "auto":
         raise NotImplementedError(
             f"--attn-backend {args.attn_backend}: the port has one attention path, its "
@@ -180,6 +180,30 @@ def build_slo_tracker(args):
 
     targets = load_slo_targets(args)
     return SloTracker(targets) if targets else None
+
+
+def build_admission(args):
+    """The front-door admission gate, armed by --admission or DYN_ADMISSION=1,
+    with tenant priority classes from the --slo-targets file ("priority":
+    int per tenant); None when unarmed. Its signals are bound once the
+    engine exists (`serve_http`)."""
+    if not (getattr(args, "admission", False)
+            or os.environ.get("DYN_ADMISSION", "") not in ("", "0")):
+        return None
+    from dynamo_tpu_torch.llm.http.admission import (
+        AdmissionConfig,
+        AdmissionController,
+        priorities_from_targets,
+    )
+
+    cfg = AdmissionConfig()
+    if os.environ.get("DYN_ADMISSION_QUEUE_HIGH"):
+        cfg.queue_high_watermark = float(os.environ["DYN_ADMISSION_QUEUE_HIGH"])
+    if os.environ.get("DYN_ADMISSION_ATTAIN_FLOOR"):
+        cfg.attainment_floor = float(os.environ["DYN_ADMISSION_ATTAIN_FLOOR"])
+    return AdmissionController(
+        priorities=priorities_from_targets(load_slo_targets(args)), cfg=cfg
+    )
 
 
 def build_engine_config_kwargs(args) -> dict:
@@ -249,7 +273,9 @@ async def serve_http(args, out: str):
         from dynamo_tpu_torch.llm.request_template import RequestTemplate
 
         template = RequestTemplate.load(args.request_template)
-    svc = HttpService(request_template=template, request_timeout_s=args.request_timeout)
+    admission = build_admission(args)
+    svc = HttpService(request_template=template, request_timeout_s=args.request_timeout,
+                      admission=admission)
     # the process-global health counters (injected faults, profiler
     # captures) ride the same scrape as the service and engine series
     svc.metrics.extra.append(PromCounters())
@@ -272,6 +298,17 @@ async def serve_http(args, out: str):
             slo.on_breach = engine.flight.on_slo_breach
         svc.metrics.extra.append(EngineMetrics(
             engine, slo=slo, worker_id=instance.worker_id()))
+        if admission is not None:
+            # local signals: the engine's waiting depth and the tracker's
+            # worst rolling fraction
+            def local_attainment():
+                snap = slo.snapshot() if slo is not None else {}
+                return min(snap.values()) if snap else None
+
+            admission.bind(
+                queue_depth_fn=lambda: float(engine.metrics().get("num_requests_waiting", 0)),
+                attainment_fn=local_attainment,
+            )
     await svc.start(args.http_host, args.http_port)
     log.info("serving OpenAI HTTP on %s:%d", args.http_host, svc.port)
     return svc, engine

@@ -17,6 +17,11 @@ The kernels are in `csrc/probes.cu`. Run on a GPU:
 Each `main()` returns 2, and measures nothing, when no CUDA device is
 visible. The helpers here are what the three share; `chip_smoke.py` times
 every kernel with `time_ms` too.
+
+Beside them, the measurement plane's two entries, counterparts of the JAX
+package's scripts of the same names: `run_scenarios` (the loadgen's
+scenario suite, `--device cpu` on the CPU) and `roofline` (an engine's
+flight-recorder digests against the H100's peaks).
 """
 
 from __future__ import annotations

@@ -8,8 +8,10 @@ them but loads the robustness and observability planes (the fault
 registry, counters, artifacts, tracing, degrade ladder, KV ledger, flight
 recorder, telemetry and profiler), and with all of them made unimportable
 the whole `out=torch` HTTP pipeline builds on the CPU from the vendored
-checkpoint, serves a streamed chat request with tracing armed, and answers
-the four `/debug/*` routes. The test process itself has jax
+checkpoint with the admission gate armed, serves a streamed chat request
+with tracing armed, renders the gate on `/metrics`, and answers the four
+`/debug/*` routes; the loadgen, its scenario CLI and the roofline ledger
+import, and the `chat` scenario runs over HTTP at tiny scale. The test process itself has jax
 loaded (tests/conftest.py), so those checks run in a fresh interpreter."""
 
 from __future__ import annotations
@@ -93,7 +95,8 @@ print(json.dumps({{
 
 def test_http_pipeline_serves_with_the_packages_blocked():
     """A `sys.meta_path` finder makes the six packages (and jax) fail to
-    import; the port's `out=torch` entry still serves one streamed chat."""
+    import; the port's `out=torch` entry still serves one streamed chat
+    behind the admission gate, and the loadgen's `chat` scenario runs."""
     ckpt = os.path.join(ROOT, "tests", "data", "tiny-trained-llama")
     code = f"""
 import asyncio, json, sys
@@ -110,6 +113,8 @@ import os, tempfile
 os.environ["DYN_TRACE"] = "1"
 os.environ["DYN_PROFILE_DIR"] = tempfile.mkdtemp()
 os.environ["DYN_CRASH_DIR"] = tempfile.mkdtemp()
+os.environ["DYN_ADMISSION"] = "1"
+os.environ["DYN_SLO_TARGETS"] = '{{"default": {{"ttft_s": 2.0, "priority": 1}}}}'
 for m in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
     del sys.modules[m]
 sys.path.insert(0, {ROOT!r})
@@ -131,6 +136,12 @@ async def main():
         r = await client.request("127.0.0.1", svc.port, method, path,
                                  {{}} if method == "POST" else None)
         debug[path] = (r.status, sorted(json.loads(await r.read())))
+    metrics = (await (await client.request("127.0.0.1", svc.port, "GET", "/metrics")).read())
+    gate = svc.admission is not None and b"dynamo_tpu_admission_state 0.0" in metrics
+    from dynamo_tpu_torch.loadgen.scenarios import SCENARIOS, tiny_scale
+    from dynamo_tpu_torch.scripts import roofline, run_scenarios
+    chat = await SCENARIOS["chat"].fn(tiny_scale(n=4, device="cpu"))
+    scenario = run_scenarios.check_section("chat", dict(chat, compile={{"events": 0}}))
     from dynamo_tpu_torch.utils import tracing
     spans = sorted({{e["name"] for e in tracing.export()["traceEvents"]}}
                    & {{"http.request", "preprocess", "request", "prefill", "decode"}})
@@ -139,7 +150,8 @@ async def main():
     text = "".join(c["delta"].get("content", "") for m in msgs if m.data
                    for c in m.json()["choices"])
     print(json.dumps({{"status": reply.status, "done": msgs[-1].done, "text": text,
-                      "debug": debug, "spans": spans,
+                      "debug": debug, "spans": spans, "gate": gate, "scenario": scenario,
+                      "chat_ok": chat["requests"]["ok"],
                       "blocked_loaded": sorted(m for m in sys.modules
                                                if m.split(".")[0] in BLOCKED)}}))
 
@@ -160,3 +172,4 @@ asyncio.run(main())
         "/debug/profile?duration_ms=20": [200, ["dir", "duration_ms"]],
     }
     assert got["spans"] == ["decode", "http.request", "prefill", "preprocess", "request"]
+    assert got["gate"] and got["scenario"] == [] and got["chat_ok"] == 4

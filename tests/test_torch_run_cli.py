@@ -3,10 +3,12 @@ same flags with the same defaults (the port adds `--device`), `in=batch:F`
 on the vendored checkpoint writing the same outputs (greedy, float32; the
 JAX side on gather attention), and the refusals of what the port does not
 serve: `dyn://` modes, parallelism above 1, the hub, router, disagg and
-multi-node flags at any value but their default, the admission gate, and no
-GPU with the default device (the engine's own error, never a fallback).
-`--slo-targets` serves (tests/test_torch_http_service.py renders it), and so
-does `--host-kv-pages`."""
+multi-node flags at any value but their default, the admission gate over a
+`dyn://` fleet, and no GPU with the default device (the engine's own error,
+never a fallback). `--admission` in local mode builds the gate
+(tests/test_torch_admission.py), `--slo-targets` serves
+(tests/test_torch_http_service.py renders it), and so does
+`--host-kv-pages`."""
 
 from __future__ import annotations
 
@@ -64,7 +66,8 @@ def test_batch_outputs_equal(tmp_path, capsys):
     (["in=http", "out=torch", "--tp", "2"], "M13"),
     (["in=http", "out=torch", "--pp", "2"], "M13"),
     (["in=http", "out=torch", "--num-nodes", "2"], "M13"),
-    (["in=http", "out=torch", "--admission"], "M17"),
+    # the gate serves in local mode now; its fleet binding waits with dyn://
+    (["in=http", "out=dyn://demo.backend.generate", "--admission"], "M17"),
     (["in=http", "out=torch", "--attn-backend", "gather"], "attn-backend"),
     (["in=http", "out=torch", "--hub", "127.0.0.1:2379"], "M17"),
     (["in=http", "out=torch", "--router-mode", "kv"], "M17"),
