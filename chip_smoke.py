@@ -336,6 +336,33 @@ final result line is printed only when every phase passed:
    rag and chat engines' digests (walls from the dispatches' CUDA-event
    device spans) at the card's peaks, each dispatch kind's share of the
    bf16 peak and of the memory rate, none above 100 %.
+20. the fleet (M17's main path, `phase_fleet`, after phase 19 with the
+   smoke's engines freed and at least 66 GB free on the card, else it
+   fails with the figure): the port's hub (`python -m
+   dynamo_tpu_torch.runtime.hub`) and three workers (`python -m
+   dynamo_tpu_torch.run in=dyn://... out=torch`, phase 11's flags,
+   Llama-3.1-8B from seed 0 in each) as subprocesses that must register
+   within FLEET_REGISTER_S: two on dyn://demo.backend.generate behind a kv
+   frontend and a round_robin one (`in=http out=dyn://...` through
+   `serve_http` on this process's loop), and a cold one on another
+   endpoint and model name, whose 12-page pool holds one request. 3
+   groups x 8 streamed completions (ISL 512, a 384-token group prefix, OSL
+   64, greedy): each group's first alone, then, once the kv frontend's
+   indexer holds its 6 prefix blocks, the other 21 at once; the same
+   shapes on fresh prefixes through round_robin. Gates: HTTP 200, SSE
+   ending in [DONE], 64 tokens a stream; each kv follow-up routed with >=
+   6 overlap blocks and 384 cached tokens in its first frame; every kv
+   stream equal to the same prompt's through `Client.direct` to the cold
+   worker (one at a time, groups in turns, 0 cached tokens each), or
+   leaving it only at a near-tie of the cold run's logprobs there (both
+   tokens in its top 8, FLEET_NEAR_TIE apart at most); in each round, each worker that served a request
+   launched K1/K2/K3 and neither ran a plain version (the differences of
+   its stats replies around the round). Prints TTFT p50/p99 and output
+   tok/s per mode (the workers time-slice the card), each worker's
+   requests, `prefix_reused_tokens` and launches a round, the router's
+   host us a decision, the KV event lag from the worker's store to the
+   indexer's apply, the readings behind the near-tie bound, the data
+   plane's us a frame, each worker's start-to-registered s and the wall.
 With --pairs N, phases 5, 6 and 7 (each a pipeline off/on pair) and
 phase 8's bf16 pipeline off/on pair run N times in turns, to show their
 spread. With --serving N only the build and phase 11 run, N times, and
@@ -5550,6 +5577,531 @@ def phase_scenarios(dev, peaks, part, smi="", scale=None, names=None, moe=SCENAR
     return launches, sections
 
 
+
+# --------------------------------------------------------------- phase 20
+
+# the fleet: the hub, two `in=dyn://` workers of phase 11's engine flags and
+# `out=dyn://` frontends; a third worker, off the routed endpoint and under
+# another model name, computes every kv-round prompt cold for the stream
+# gate (a CPU rehearsal patches these constants and SERVE_PRESET/SERVE_FLAGS)
+FLEET_EP = "dyn://demo.backend.generate"
+FLEET_COLD_EP = "dyn://demo.cold.generate"
+FLEET_COLD_MODEL = "fleet-cold"
+FLEET_TRAFFIC = dict(groups=3, per_group=8, isl=512, prefix=384, osl=64, warm=4, warm_osl=16)
+# two routed 8B workers (16.06 GB weights + 2.15 GB KV each) and the cold
+# one (16.06 GB weights, 12 pages of KV), each with its graphs and activations
+FLEET_MIN_FREE = 66e9
+FLEET_REGISTER_S = 240.0   # a worker that has not registered by then fails the phase
+FLEET_INDEX_S = 20.0       # the wait for a solo request's prefix blocks in the indexer
+FLEET_KERNELS = ("kv_write", "prefill_attention", "decode_attention")
+# a kv stream may leave the cold one only at a near-tie: both tokens among
+# the cold run's top FLEET_TOPS there, their logprobs (their logits less one
+# shared log-sum-exp) at most this far apart.
+# The logits are bf16 (`llama.logits`), 2**-5 apart at this model's top
+# logits (4 to 8), so this is 4 bf16 steps, one above the largest change
+# of such a gap that chip runs read between a cached and a cold
+# computation, 3 steps (PERF.md holds the readings)
+FLEET_NEAR_TIE = 0.125
+FLEET_READINGS = 6         # follow-ups served again alone on their holder, logprobs on
+FLEET_TOPS = 8             # top logprobs a position in those runs (the engine's most)
+
+
+class _Proc:
+    """A subprocess of the phase: stdout read line by line on a thread (a
+    pipe nobody drains would block the child), stderr to a file whose
+    tail a failure prints."""
+
+    def __init__(self, name, cmd):
+        import queue
+        import threading
+
+        self.name, self.t0 = name, time.perf_counter()
+        self.err = tempfile.TemporaryFile("w+")
+        self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=self.err,
+                                     text=True, bufsize=1)
+        self.lines = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.put(line.rstrip("\n"))
+
+    def tail(self, n=30):
+        self.err.seek(0)
+        return "\n".join(self.err.read().splitlines()[-n:])
+
+    async def line(self, prefix, timeout):
+        """The first stdout line starting with `prefix` and the seconds from
+        the start; fails if the process exits or the time runs out."""
+        import queue
+
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            try:
+                line = self.lines.get_nowait()
+            except queue.Empty:
+                if self.proc.poll() is not None:
+                    raise AssertionError(f"[fleet] {self.name} exited with {self.proc.returncode}"
+                                         f" before '{prefix}':\n{self.tail()}")
+                await asyncio.sleep(0.05)
+                continue
+            if line.startswith(prefix):
+                return line, time.perf_counter() - self.t0
+        raise AssertionError(f"[fleet] {self.name} printed no '{prefix}' within {timeout:.0f} s:"
+                             f"\n{self.tail()}")
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.err.close()
+
+
+def _instrument(client, log):
+    """Wrap a frontend's discovery client so each routed request records
+    its prompt, payload, serving worker, first-frame meta, token ids and
+    first-frame arrival; returns the unwrapped `generate` for direct sends."""
+    orig = client.generate
+
+    async def generate(payload, context=None, mode="random", instance_id=None):
+        stream = await orig(payload, context=context, mode=mode, instance_id=instance_id)
+        rec = {"ids": tuple(payload["token_ids"]), "payload": payload, "toks": [],
+               "worker": (context.metadata.get("served_by") if context is not None else None),
+               "meta": None, "t_first": None, "frame": None}
+        log.append(rec)
+
+        async def frames():
+            async for f in stream:
+                if rec["t_first"] is None:
+                    rec["t_first"] = time.perf_counter()
+                    rec["meta"] = f.get("meta")
+                elif rec["frame"] is None and f.get("token_ids"):
+                    rec["frame"] = f  # a decode frame, for the codec's timing
+                rec["toks"].extend(f.get("token_ids") or [])
+                yield f
+
+        return frames()
+
+    client.generate = generate
+    return orig
+
+
+def frame_codec_us(frame, n=2000):
+    """The data plane's host cost of one streamed frame: the port's
+    plain-Python msgpack packing the typed payload into a `data` frame and
+    unpacking both on the other side (median of 5 passes of `n`)."""
+    from dynamo_tpu_torch.runtime.hub import codec
+    from dynamo_tpu_torch.utils import msgpack
+
+    def one():
+        raw = codec.encode_frame({"i": 7, "k": "data", "p": msgpack.packb(frame)})
+        msgpack.unpackb(msgpack.unpackb(raw[4:])["p"])
+
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            one()
+        ts.append(1e6 * (time.perf_counter() - t0) / n)
+    size = len(codec.encode_frame({"i": 7, "k": "data", "p": msgpack.packb(frame)}))
+    return statistics.median(ts), size
+
+
+def fleet_kernel_counts(before, after, served):
+    """Gate on one worker's kernel counters over one round, the difference
+    of two of its stats replies' "engine" maps: K1, K2 and K3 launched if
+    it served a request of the round, no other serving kernel and no plain
+    version; returns the round's K1/K2/K3 launches."""
+    names = {n: f"{k.__name__}.{a}" for n, (k, a, _) in counters().items()
+             if f"{k.__name__}.{a}" in after["launches"]}
+    plains = {n: p.__name__ for n, (_, _, p) in counters().items() if n in names}
+    got = {n: after["launches"][key] - before["launches"][key] for n, key in names.items()}
+    plain = {n: after["plain_calls"].get(plains[n], 0) - before["plain_calls"].get(plains[n], 0)
+             for n in names}
+    for n in names:
+        if n in FLEET_KERNELS:
+            assert got[n] > 0 or not served, \
+                f"[fleet] a worker served {served} requests and never launched {n}: {got}"
+        else:
+            assert got[n] == 0, f"[fleet] a worker launched {n} {got[n]} times"
+        assert plain[n] == 0, f"[fleet] a worker ran the plain version of {n} {plain[n]} times"
+    return {n: got[n] for n in FLEET_KERNELS}
+
+
+def _first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def phase_fleet(dev, smi=""):
+    """Phase 20: M17's fleet main path at full width. The smoke's own
+    engines and cache freed first, at least FLEET_MIN_FREE bytes free on
+    the card (else the phase fails with the figure); the port's hub
+    (`python -m dynamo_tpu_torch.runtime.hub --port 0`) and three workers
+    (`python -m dynamo_tpu_torch.run in=dyn://... out=torch`) over one
+    `serving_model_dir` (seeded random weights, seed 0: every worker holds
+    the same weights) with phase 11's engine flags, each a subprocess that
+    must register within FLEET_REGISTER_S: two on FLEET_EP, and a cold one
+    on FLEET_COLD_EP under FLEET_COLD_MODEL whose pool (a request's pages
+    and 3) holds one request, so each request evicts the one before; two
+    frontends (`in=http out=dyn://...`, `--router-mode kv`, then
+    `round_robin`) through `serve_http` on this process's loop. A warm-up
+    (`warm` requests to each routed worker through `Client.direct`)
+    captures the decode graphs. Traffic: `groups` groups of `per_group`
+    streamed completions (ISL `isl` words, each group sharing a
+    `prefix`-token prefix, OSL `osl`, greedy, ignore_eos); each group's
+    first sent alone, then, once the kv frontend's indexer holds its
+    prefix blocks, the rest at once. Gates: HTTP 200, SSE ending with
+    [DONE], `osl` tokens a stream; in kv mode each follow-up routed to a
+    worker whose overlap is >= the prefix's blocks and its first frame's
+    `prefix_cached_tokens` >= the prefix; every kv stream equal to the same
+    prompt's through `Client.direct` to the cold worker, sent one at a time
+    with the groups taking turns (each reporting 0 cached tokens: a cold
+    prefill), or leaving it only at a near-tie (both tokens among the cold
+    run's top FLEET_TOPS there, at most FLEET_NEAR_TIE nats apart); in each
+    round (kv, then
+    round_robin), each routed worker that served a request launched K1, K2
+    and K3 and no other serving kernel, and neither ran a plain version
+    (the differences of its stats replies around the round). The
+    round_robin round runs the same shapes on prompts of a fresh seed
+    (prefixes neither worker's cache holds). Prints TTFT p50/p99 and
+    output tok/s in both modes, each worker's requests,
+    `prefix_reused_tokens` and K1/K2/K3 launches in both, the router's
+    host us a decision (the prompt's hash chain, then `find_matches` and
+    the selector), the KV event lag from the worker's store to the
+    indexer's apply (host wall clock, one host), the readings behind the
+    near-tie bound (the gaps' change between a follow-up served
+    alone on its holder, prefix cached, and cold), the data plane's us a
+    frame, each worker's start-to-registered s and the wall. The workers
+    share the card, time-sliced: every TTFT is under that."""
+    from dynamo_tpu_torch.llm.model_card import slugify
+    from dynamo_tpu_torch.llm.tokens import TokenBlockSequence
+    from dynamo_tpu_torch.models.config import get_config
+    from dynamo_tpu_torch.run import build_parser, serve_http
+    from dynamo_tpu_torch.runtime.component import EndpointId
+
+    t_phase = time.perf_counter()
+    preset = SERVE_PRESET
+    service = slugify(preset)  # the discovery key of the model's pipeline
+    tr = FLEET_TRAFFIC
+    flags = list(SERVE_FLAGS)
+    page = int(flags[flags.index("--page-size") + 1])
+    pre_blocks = tr["prefix"] // page
+    cold_flags = list(flags)
+    cold_flags[cold_flags.index("--num-pages") + 1] = str(-(-(tr["isl"] + tr["osl"]) // page) + 3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[fleet] {smi}; device memory free {free / 1e9:.2f} of {total / 1e9:.2f} GB after "
+        f"freeing the smoke's engines (need {FLEET_MIN_FREE / 1e9:.0f})")
+    assert free >= FLEET_MIN_FREE, (f"[fleet] only {free / 1e9:.2f} GB free on the card, under "
+                                    f"the {FLEET_MIN_FREE / 1e9:.0f} GB three workers need")
+    vocab = get_config(preset).vocab_size
+    tmp = tempfile.TemporaryDirectory()
+    model_dir = os.path.join(tmp.name, preset)
+    os.mkdir(model_dir)
+    serving_model_dir(model_dir, preset, vocab)
+    rng = np.random.RandomState(5)
+    first = len(SERVE_WORDS)
+
+    def traffic_ids():
+        groups = []
+        for _ in range(tr["groups"]):
+            prefix = rng.randint(first, vocab, size=tr["prefix"]).tolist()
+            groups.append([prefix + rng.randint(first, vocab, size=tr["isl"] - tr["prefix"])
+                           .tolist() for _ in range(tr["per_group"])])
+        return groups
+
+    warm = [rng.randint(first, vocab, size=tr["isl"]).tolist() for _ in range(2 * tr["warm"])]
+    kv_groups, rr_groups = traffic_ids(), traffic_ids()
+    procs = []
+
+    def body(ids):
+        return {"model": preset, "prompt": " ".join(f"w{i}" for i in ids),
+                "max_tokens": tr["osl"], "temperature": 0, "stream": True,
+                "nvext": {"ignore_eos": True}}
+
+    async def round_trip(port, groups, index=None, after_solos=None):
+        """Each group's first request alone (then, for kv, its prefix
+        blocks in the indexer), `after_solos()`, then the rest at once."""
+        solo = []
+        for g in groups:
+            solo.append(await sse_completion(port, body(g[0])))
+            if index is not None:
+                want = TokenBlockSequence(g[0], page).sequence_hashes()[:pre_blocks]
+                deadline = time.perf_counter() + FLEET_INDEX_S
+                while index.find_matches(want).best() < pre_blocks:
+                    assert time.perf_counter() < deadline, \
+                        f"[fleet] the indexer never held the {pre_blocks} prefix blocks"
+                    await asyncio.sleep(0.001)
+        if after_solos is not None:
+            await after_solos()
+        rest = [ids for g in groups for ids in g[1:]]
+        t0 = time.perf_counter()
+        res = await asyncio.gather(*[sse_completion(port, body(ids), t0) for ids in rest])
+        wall = time.perf_counter() - t0
+        for r in list(solo) + list(res):
+            assert r[0] == 200, f"[fleet] HTTP {r[0]}: {r[1]}"
+            usage = [c["usage"] for c in r[1] if c.get("usage")]
+            assert usage and usage[-1]["completion_tokens"] == tr["osl"], usage
+        ttft = [r[2] for r in res]
+        return {"ttft_p50_s": float(np.percentile(ttft, 50)),
+                "ttft_p99_s": float(np.percentile(ttft, 99)),
+                "solo_ttft_s": [round(r[2], 4) for r in solo],
+                "output_tok_s": len(rest) * tr["osl"] / wall, "wall_s": wall}
+
+    async def go():
+        from dynamo_tpu_torch.llm.protocols.common import (
+            PreprocessedRequest, SamplingOptions, StopConditions)
+
+        hub = _Proc("hub", [sys.executable, "-m", "dynamo_tpu_torch.runtime.hub", "--host",
+                            "127.0.0.1", "--port", "0"])
+        procs.append(hub)
+        line, _ = await hub.line("hub listening on ", 60)
+        addr = line.rsplit(" ", 1)[-1]
+        common = ["--model-path", model_dir, "--hub", addr, "--device", str(dev)]
+        workers = [_Proc(f"worker {i}", [
+            sys.executable, "-m", "dynamo_tpu_torch.run", f"in={FLEET_EP}", "out=torch",
+            *common, *flags]) for i in range(2)]
+        cold_proc = _Proc("cold worker", [
+            sys.executable, "-m", "dynamo_tpu_torch.run", f"in={FLEET_COLD_EP}", "out=torch",
+            *common, "--model-name", FLEET_COLD_MODEL, *cold_flags])
+        procs.extend([*workers, cold_proc])
+        registered = [await w.line("worker registered ", FLEET_REGISTER_S)
+                      for w in (*workers, cold_proc)]
+        up_s = [round(s, 2) for _, s in registered]
+        order = [int(line.split(" instance ")[1].split()[0], 16) for line, _ in registered]
+        order, cold_id = order[:2], order[2]
+
+        fronts = {}
+        for mode in ("kv", "round_robin"):
+            args = build_parser().parse_args([
+                "in=http", f"out={FLEET_EP}", "--hub", addr, "--router-mode", mode,
+                "--http-host", "127.0.0.1", "--http-port", "0"])
+            svc, ingress = await serve_http(args, FLEET_EP)
+            fronts[mode] = (svc, ingress)
+        cold_client = None
+        try:
+            deadline = time.perf_counter() + 60
+            while not all(len(getattr(ing.watcher._clients.get(service), "instances", ())) == 2
+                          for _, ing in fronts.values()):
+                assert time.perf_counter() < deadline, "[fleet] the frontends did not see both workers"
+                await asyncio.sleep(0.05)
+            eid = EndpointId.parse(FLEET_COLD_EP)
+            cold_client = await (fronts["kv"][1].drt.namespace(eid.namespace)
+                                 .component(eid.component).endpoint(eid.name).client())
+            await cold_client.wait_for_instances(timeout=60)
+            logs = {m: [] for m in fronts}
+            origs = {m: _instrument(ing.watcher._clients[service], logs[m])
+                     for m, (_, ing) in fronts.items()}
+            client = fronts["kv"][1].watcher._clients[service]
+            kv_router = fronts["kv"][1].watcher._kv_routers[service].router
+            decisions, schedule = [], kv_router.schedule
+
+            async def timed_schedule(token_ids, *a, **kw):
+                t0 = time.perf_counter()
+                d = await schedule(token_ids, *a, **kw)
+                decisions.append((tuple(token_ids), d, 1e6 * (time.perf_counter() - t0)))
+                return d
+
+            kv_router.schedule = timed_schedule
+            applied, event_of, apply = {}, {}, kv_router.indexer.tree.apply_event
+
+            def timed_apply(ev):
+                apply(ev)
+                key = (ev.worker_id, ev.event.event_id)
+                applied.setdefault(key, time.time())
+                for b in ev.event.blocks:
+                    event_of.setdefault(b.block_hash, key)
+
+            kv_router.indexer.tree.apply_event = timed_apply
+
+            def payload(ids, osl, lps=False):
+                return PreprocessedRequest(
+                    token_ids=list(ids), stop_conditions=StopConditions(
+                        max_tokens=osl, ignore_eos=True),
+                    sampling_options=SamplingOptions(greedy=True, logprobs=lps,
+                                                     top_logprobs=FLEET_TOPS if lps else 0)
+                    ).to_dict()
+
+            async def direct(gen, ids, wid, osl, lps=False):
+                """Tokens, first-frame meta and (with `lps`) each position's
+                top FLEET_TOPS [id, logprob] of one prompt through Client.direct."""
+                toks, meta, tops = [], None, []
+                async for f in await gen(payload(ids, osl, lps), mode="direct", instance_id=wid):
+                    if meta is None and f.get("meta"):
+                        meta = f["meta"]
+                    toks.extend(f.get("token_ids") or [])
+                    tops.extend(f.get("top_log_probs") or [])
+                return toks, meta, tops
+
+            async def worker_stats():
+                stats = await client.scrape_stats(timeout=10.0)
+                assert set(stats) == set(order), f"[fleet] stats from {sorted(stats)} of {order}"
+                return {w: stats[w]["engine"] for w in order}
+
+            stamps = {}
+
+            async def read_stamps():
+                # the workers' store times of the solos' events, before the
+                # follow-ups' events push them out of the publisher's ring
+                for w, st in (await worker_stats()).items():
+                    stamps.update({(w, i): t for i, t in st["kv_event_stored_at"]})
+
+            # warm-up: each worker's decode graph, cuBLAS and the allocator
+            await asyncio.gather(*[direct(origs["kv"], ids, order[i % 2], tr["warm_osl"])
+                                   for i, ids in enumerate(warm)])
+            s0 = await worker_stats()
+            kv = await round_trip(fronts["kv"][0].port, kv_groups, kv_router.indexer,
+                                  read_stamps)
+            s1 = await worker_stats()
+            # the gates on the kv round
+            recs = {r["ids"]: r for r in logs["kv"]}
+            dec = {ids: d for ids, d, _ in decisions}
+            follow = [tuple(ids) for g in kv_groups for ids in g[1:]]
+            for ids in follow:
+                d, r = dec[ids], recs[ids]
+                assert d.worker_id == r["worker"], "[fleet] served by another worker than chosen"
+                assert d.overlap_blocks >= pre_blocks, \
+                    f"[fleet] a follow-up routed with overlap {d.overlap_blocks} < {pre_blocks}"
+                assert r["meta"]["prefix_cached_tokens"] >= tr["prefix"], \
+                    f"[fleet] a follow-up reused {r['meta']['prefix_cached_tokens']} tokens"
+            # every kv prompt cold on the cold worker, one at a time with
+            # the groups taking turns: its pool holds one request, so each
+            # evicts the one before and none finds its group's prefix
+            cold, t0 = {}, time.perf_counter()
+            for j in range(tr["per_group"]):
+                for g in kv_groups:
+                    cold[tuple(g[j])] = await direct(cold_client.generate, g[j], cold_id,
+                                                     tr["osl"], lps=True)
+            cold_s = time.perf_counter() - t0
+            # readings for the near-tie bound: follow-ups again alone on
+            # their holder (prefix cached), logprobs on
+            again = {ids: await direct(origs["kv"], ids, recs[ids]["worker"], tr["osl"], lps=True)
+                     for ids in [tuple(g[j]) for j in range(1, tr["per_group"])
+                                 for g in kv_groups][:FLEET_READINGS]}
+            s2 = await worker_stats()
+            rr = await round_trip(fronts["round_robin"][0].port, rr_groups)
+            s3 = await worker_stats()
+            lag_ms = []
+            for g in kv_groups:
+                want = TokenBlockSequence(g[0], page).sequence_hashes()[:pre_blocks]
+                lag_ms.append(round(1e3 * max(applied[event_of[h]] - stamps[event_of[h]]
+                                              for h in want), 3))
+            hash_us = []
+            for ids in follow:
+                t0 = time.perf_counter()
+                tbs = TokenBlockSequence(list(ids), page)
+                tbs.sequence_hashes()
+                [b.local_hash for b in tbs.blocks]
+                hash_us.append(1e6 * (time.perf_counter() - t0))
+            frame = next(r["frame"] for r in logs["kv"] if r["frame"] is not None)
+            return dict(up_s=up_s, order=order, kv=kv, rr=rr, logs=logs, recs=recs, cold=cold,
+                        cold_s=cold_s, again=again, stats=(s0, s1, s2, s3), lag_ms=lag_ms,
+                        sched_us=[us for _, _, us in decisions], hash_us=hash_us,
+                        codec=frame_codec_us(frame), decisions=len(decisions))
+        finally:
+            if cold_client is not None:
+                await cold_client.close()
+            for svc, ingress in fronts.values():
+                await svc.stop()
+                await ingress.close()
+
+    try:
+        out = asyncio.run(asyncio.wait_for(go(), 600))
+    except BaseException:
+        for p in procs:
+            log(f"[fleet] {p.name} stderr (tail):\n{p.tail()}")
+        raise
+    finally:
+        for p in procs:
+            p.stop()
+        tmp.cleanup()
+    order, (s0, s1, s2, s3) = out["order"], out["stats"]
+    rounds = {"kv": (s0, s1), "round_robin": (s2, s3)}
+    served = {m: {w: sum(r["worker"] == w for r in out["logs"][m]) for w in order}
+              for m in rounds}
+    launches = {m: {f"{w:x}": fleet_kernel_counts(a[w], b[w], served[m][w]) for w in order}
+                for m, (a, b) in rounds.items()}
+    reused = {m: {f"{w:x}": b[w]["prefix_reused_tokens"] - a[w]["prefix_reused_tokens"]
+                  for w in order} for m, (a, b) in rounds.items()}
+    # the stream gate: each kv stream against its cold computation
+    recs, cold = out["recs"], out["cold"]
+    differ, refused = [], []
+    for ids, (toks, meta, tops) in cold.items():
+        assert meta["prefix_cached_tokens"] == 0, \
+            f"[fleet] a cold computation found {meta['prefix_cached_tokens']} cached tokens"
+        kv_toks = recs[ids]["toks"]
+        if kv_toks == toks:
+            continue
+        at = _first_diff(kv_toks, toks)
+        lp = {t: x for t, x in tops[at]} if at < len(tops) else {}
+        k = kv_toks[at] if at < len(kv_toks) else None
+        c = toks[at] if at < len(toks) else None
+        gap = lp[c] - lp[k] if k in lp and c in lp else None
+        d = dict(token=at, gap=None if gap is None else round(gap, 6), kv=k, cold=c)
+        differ.append(d)
+        if gap is None or abs(gap) > FLEET_NEAR_TIE:
+            refused.append(d)
+    # the readings, holder (cached prefix, alone) against cold, at each
+    # position up to their first differing token: the change of the gap
+    # from the chosen token to each other token both runs' tops hold, and
+    # of the chosen token's logprob
+    d_gap, d_top = [], []
+    for ids, (toks, _, tops) in out["again"].items():
+        c_toks, _, c_tops = cold[ids]
+        for p in range(_first_diff(toks, c_toks)):
+            a, b = dict(tops[p]), dict(c_tops[p])
+            r = toks[p]
+            if r not in a or r not in b:
+                continue
+            d_top.append(abs(a[r] - b[r]))
+            d_gap.extend(abs((a[r] - a[t]) - (b[r] - b[t])) for t in a.keys() & b.keys())
+    gaps = [t[0][1] - t[1][1] for _, _, tops in cold.values() for t in tops]
+    sched, hashed = statistics.median(out["sched_us"]), statistics.median(out["hash_us"])
+    codec_us, frame_bytes = out["codec"]
+    log(f"[fleet] {smi}; the workers time-slice the card, so every TTFT is under that")
+    log(f"[fleet] workers registered in {out['up_s']} s (start to registered; the last the "
+        f"cold one), instances {[f'{w:x}' for w in order]}")
+    for m in ("kv", "rr"):
+        r = out[m]
+        log(f"[fleet] {m}: the {sum(len(g) - 1 for g in kv_groups)} concurrent requests TTFT "
+            f"p50 {r['ttft_p50_s']:.4f} s, p99 {r['ttft_p99_s']:.4f} s, output "
+            f"{r['output_tok_s']:.1f} tok/s over {r['wall_s']:.3f} s; solo TTFT "
+            f"{r['solo_ttft_s']} s")
+    log(f"[fleet] requests per worker "
+        f"{json.dumps({m: {f'{w:x}': n for w, n in s.items()} for m, s in served.items()})}; "
+        f"prefix_reused_tokens per worker {json.dumps(reused)}")
+    log(f"[fleet] router host us a decision: hash chain {hashed:.1f} + schedule (find_matches, "
+        f"selector) {sched:.1f} = {hashed + sched:.1f} (medians over {len(out['hash_us'])} and "
+        f"{out['decisions']}); KV event lag, the worker's store to the indexer's apply (host "
+        f"wall clock), of each solo request's prefix blocks: {out['lag_ms']} ms")
+    log(f"[fleet] data plane: {codec_us:.2f} us a frame (plain-Python msgpack, pack + unpack "
+        f"of a {frame_bytes}-byte decode frame)")
+    log(f"[fleet] kv streams against the cold worker (Client.direct, one at a time, 0 cached "
+        f"tokens each, {out['cold_s']:.3f} s): {len(cold) - len(differ)}/{len(cold)} equal; "
+        f"those that differ (first differing token, the cold run's logprob of its token less "
+        f"that of the kv stream's there, the two tokens) {differ}; near-tie bound "
+        f"{FLEET_NEAR_TIE} nats")
+    log(f"[fleet] near-tie readings, holder (cached prefix, alone) against cold, "
+        f"{len(out['again'])} follow-ups up to their first differing token: the gap from the "
+        f"chosen token to each token both tops hold, {len(d_gap)} pairs at {len(d_top)} "
+        f"positions, max change {max(d_gap, default=0.0):.6f}, p99 "
+        f"{float(np.percentile(d_gap, 99)) if d_gap else 0.0:.6f}; the chosen token's logprob, "
+        f"max change {max(d_top, default=0.0):.6f}; the cold runs' top-two gaps "
+        f"over {len(gaps)} positions: min {min(gaps):.6f}, median "
+        f"{statistics.median(gaps):.6f}, {sum(g <= FLEET_NEAR_TIE for g in gaps)} at most the "
+        f"bound")
+    log(f"[fleet] worker kernel launches a round (K1/K2/K3 per worker): {json.dumps(launches)}, "
+        f"no plain call; phase wall {time.perf_counter() - t_phase:.1f} s")
+    assert not refused, ("[fleet] a kv stream leaves its cold computation at no near-tie: "
+                         f"{refused}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1,
@@ -5714,6 +6266,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_scenarios(dev, peaks, part, smi=smi)
+    # phase 20: the fleet, two 8B workers behind the kv frontend and a cold
+    # one for the stream gate (their own processes; this one's engines and
+    # cache freed first)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_fleet(dev, smi=smi)
 
     meta = {
         "kv_write": ("dynamo_tpu_torch/csrc/kv_write.cu", "dynamo_tpu/ops/pallas_kv_write.py:60"),
@@ -5762,7 +6320,7 @@ def main() -> int:
         "ragged_attention_q4g": ("dynamo_tpu_torch/csrc/prefill_attention.cu",
                                  "dynamo_tpu/ops/attention.py:75"),
     }
-    log(f"[smoke] phases 1-19 took {time.perf_counter() - t_smoke:.1f} s of wall time, build "
+    log(f"[smoke] phases 1-20 took {time.perf_counter() - t_smoke:.1f} s of wall time, build "
         f"included")
     kernels = []
     for k, r in results.items():

@@ -6,8 +6,10 @@ info (architecture, context length), tokenizer artifacts, prompt-template
 source, KV block size, and a checksum (`mdcsum`) that lets workers verify a
 frontend preprocessed with the same card.
 
-This is the JAX package's card without `publish`/`fetch`, which move it
-through the hub (the fleet planes, M17).
+Publishing (reference: model.rs:233-331 move_to_nats/move_from_nats): the
+card JSON goes into hub KV under ``/models/cards/{service_name}``; tokenizer
+artifacts go into the hub object store bucket ``mdc``; fetchers materialize
+them into a local cache dir.
 """
 
 from __future__ import annotations
@@ -16,12 +18,16 @@ import hashlib
 import json
 import os
 import re
+import tempfile
 from dataclasses import dataclass, field
 from typing import Optional
 
 MODEL_TYPE_CHAT = "chat"
 MODEL_TYPE_COMPLETION = "completion"
 MODEL_TYPE_BACKEND = "backend"  # token-level worker endpoint
+
+CARD_KV_ROOT = "/models/cards/"
+CARD_BUCKET = "mdc"
 
 _SLUG_RE = re.compile(r"[^a-zA-Z0-9_-]+")
 
@@ -111,6 +117,47 @@ class ModelDeploymentCard:
             checksum=d.get("checksum", ""),
         )
         card._artifact_names = d.get("artifact_names", [])
+        return card
+
+    # ------------------------------------------------------------- transfer
+
+    def kv_key(self) -> str:
+        return f"{CARD_KV_ROOT}{self.service_name}"
+
+    async def publish(self, hub, lease=None) -> None:
+        """Upload artifacts to the hub object store + card JSON to KV."""
+        for fname, fpath in self.artifacts.items():
+            with open(fpath, "rb") as f:
+                await hub.obj_put(CARD_BUCKET, f"{self.service_name}/{fname}", f.read())
+        await hub.kv_put(self.kv_key(), self.to_json().encode(), lease=lease)
+
+    @classmethod
+    async def fetch(
+        cls, hub, service_name: str, cache_dir: Optional[str] = None
+    ) -> Optional["ModelDeploymentCard"]:
+        """Materialize a published card + artifacts locally (under the
+        system temp dir unless `cache_dir` names one)."""
+        entry = await hub.kv_get(f"{CARD_KV_ROOT}{service_name}")
+        if entry is None:
+            return None
+        card = cls.from_json(entry["value"])
+        cache_dir = cache_dir or os.path.join(
+            tempfile.gettempdir(), "dynamo_tpu_torch_mdc", service_name
+        )
+        os.makedirs(cache_dir, exist_ok=True)
+        for fname in getattr(card, "_artifact_names", []):
+            data = await hub.obj_get(CARD_BUCKET, f"{service_name}/{fname}")
+            if data is None:
+                continue
+            fpath = os.path.join(cache_dir, fname)
+            # atomic: a crash mid-write must not leave a torn artifact for
+            # the next process to trip over
+            tmp = f"{fpath}.tmp.{os.getpid()}"
+            with open(tmp, "wb") as f:
+                f.write(data)
+            os.replace(tmp, fpath)
+            card.artifacts[fname] = fpath
+        card.model_path = cache_dir
         return card
 
     # ------------------------------------------------------------ accessors

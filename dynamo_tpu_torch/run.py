@@ -7,10 +7,12 @@ The port of `python -m dynamo_tpu.run` (reference: launch/dynamo-run/src/
     in=text       interactive chat REPL
     in=stdin      one prompt from stdin, completion to stdout
     in=batch:F    JSONL prompts file -> outputs + TTFT stats
+    in=dyn://...  worker mode: serve the engine on a distributed endpoint
 
     out=torch     TorchEngine on the GPU (requires --model-path; --device
                   cpu runs the plain PyTorch versions of the kernels)
     out=echo_core / out=echo_full   CPU fake backends
+    out=dyn://... ingress mode: route to discovered remote workers
 
 It has the JAX run's flags, names and defaults, plus `--device` (default
 cuda: with no GPU the engine's own error, never a fallback). With
@@ -24,19 +26,29 @@ worst attainment, with tenant priority classes from the same targets file;
 the process-global health counters (utils/counters.py) ride the same scrape,
 and `/debug/trace`, `/debug/snapshot`, `/debug/kv` and `/debug/profile`
 serve the trace ring, the flight recorder, the KV ledger and the profiler.
-Not ported, and refused with the ROADMAP item that brings them:
-`in=dyn://...` and `out=dyn://...` (M17; with them the admission gate's
-fleet signals), `--tp/--pp/--sp` above 1 and `--num-nodes` above 1 (M13),
-and any value but the default of `--hub`, `--router-mode` (M17), `--disagg-mode`,
-`--max-local-prefill-length` (the disagg plane, which waits for the
-runtime of M17), `--node-rank` and `--coordinator` (M13). The engine
-flags go to the port's `EngineConfig`: `--host-kv-pages` serves the host
-offload tier, `--quantization int8` W8A8 weights.
+The fleet modes (M17) run on the hub (`python -m
+dynamo_tpu_torch.runtime.hub`, address by `--hub` or DYN_HUB_ADDR): a
+worker registers its engine, its KV event publisher and its stats handler
+under its lease; the frontend discovers models and routes each request by
+`--router-mode` (random, round_robin, or kv: to the worker whose KV cache
+holds the most of the prompt's prefix). Not ported, and refused with the
+ROADMAP item that brings them: the admission gate over a `dyn://` fleet
+and a non-zero DYN_KV_PULL_TOKENS (M17, later), `--tp/--pp/--sp` above 1
+and `--num-nodes` above 1 (M13), and any value but the default of
+`--disagg-mode`, `--max-local-prefill-length` (the disagg plane, M17),
+`--node-rank` and `--coordinator` (M13). The engine flags go to the port's
+`EngineConfig`: `--host-kv-pages` serves the host offload tier,
+`--quantization int8` W8A8 weights.
 
 Examples:
     python -m dynamo_tpu_torch.run in=http out=torch --model-path /models/llama
     curl -N localhost:8080/v1/chat/completions -d '{"model": "llama",
         "messages": [{"role": "user", "content": "hi"}], "stream": true}'
+    python -m dynamo_tpu_torch.runtime.hub --host 127.0.0.1 --port 24379
+    python -m dynamo_tpu_torch.run in=dyn://demo.backend.generate out=torch \
+        --model-path /models/llama --hub 127.0.0.1:24379
+    python -m dynamo_tpu_torch.run in=http out=dyn://demo.backend.generate \
+        --hub 127.0.0.1:24379 --router-mode kv
 """
 
 from __future__ import annotations
@@ -65,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device of the engine (default cuda; cpu runs the "
                         "kernels' plain PyTorch versions)")
-    p.add_argument("--hub", help="hub address host:port (distributed modes, not ported)")
+    p.add_argument("--hub", help="hub address host:port (distributed modes)")
     p.add_argument("--http-host", default="0.0.0.0")
     p.add_argument("--http-port", type=int, default=8080)
     p.add_argument("--router-mode", default="round_robin",
@@ -106,7 +118,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "--slo-targets) with 429/503 + Retry-After under overload")
     p.add_argument("--disagg-mode", choices=["agg", "decode", "prefill"],
                    default="agg", help="worker role in a disaggregated graph (refused: the "
-                        "disagg plane waits for the runtime, ROADMAP M17)")
+                        "disagg plane is not ported, ROADMAP M17)")
     p.add_argument("--max-local-prefill-length", type=int, default=128)
     p.add_argument("--max-tokens", type=int, default=256,
                    help="default generation budget for text/stdin/batch inputs")
@@ -132,27 +144,30 @@ def refuse_unported(args, out: str, inp: str = "") -> None:
     """Raise NotImplementedError, naming its ROADMAP item, for what the
     port does not serve yet. `main` checks before it dispatches, and
     `build_output` again, for callers that start a mode directly."""
-    if inp.startswith("dyn://") or out.startswith("dyn://"):
+    if out.startswith("dyn://") and (
+            getattr(args, "admission", False)
+            or os.environ.get("DYN_ADMISSION", "") not in ("", "0")):
         raise NotImplementedError(
-            f"{'in' if inp.startswith('dyn://') else 'out'}=dyn://...: the distributed "
-            "runtime is not ported to dynamo_tpu_torch yet (ROADMAP M17)")
+            "--admission with out=dyn://...: the admission gate's fleet signals (the "
+            "workers' queue depth and SLO attainment through the stats aggregators, "
+            "_bind_ingress_admission) are not ported to dynamo_tpu_torch yet "
+            "(ROADMAP M17)")
+    if out.startswith("dyn://") and int(os.environ.get("DYN_KV_PULL_TOKENS", "0") or 0):
+        raise NotImplementedError(
+            "DYN_KV_PULL_TOKENS > 0: the cross-worker prefix pull (llm/kv_router/pull.py) "
+            "is not ported to dynamo_tpu_torch yet (ROADMAP M17, later)")
     for flag, n in (("--tp", args.tp), ("--pp", args.pp), ("--sp", args.sp),
                     ("--num-nodes", args.num_nodes)):
         if n > 1:
             raise NotImplementedError(
                 f"{flag} {n}: parallelism is not ported to dynamo_tpu_torch yet "
                 "(ROADMAP M13)")
-    if args.hub or args.router_mode != "round_robin":
-        raise NotImplementedError(
-            "--hub/--router-mode: the hub and the KV router serve the dyn:// modes, "
-            "which are not ported to dynamo_tpu_torch yet (ROADMAP M17)")
     if args.disagg_mode != "agg" or args.max_local_prefill_length != 128:
         raise NotImplementedError(
             "--disagg-mode/--max-local-prefill-length: M11's disaggregated serving "
-            "plane (the prefill queue, the DisaggRouter, the remote-prefill endpoint) "
-            "runs on the distributed runtime, which is not ported to dynamo_tpu_torch "
-            "yet (ROADMAP M17); TorchEngine.prefill_only and generate_remote are its "
-            "engine side")
+            "plane (llm/disagg/: the prefill queue, the DisaggRouter, the "
+            "remote-prefill endpoint) is not ported to dynamo_tpu_torch yet (ROADMAP "
+            "M17); TorchEngine.prefill_only and generate_remote are its engine side")
     if args.node_rank != 0 or args.coordinator:
         raise NotImplementedError(
             "--node-rank/--coordinator: multi-node serving is not ported to "
@@ -257,10 +272,27 @@ async def build_output(args, out: str):
 # ---------------------------------------------------------------- in= modes
 
 
+class FleetIngress:
+    """What `serve_http` starts for out=dyn://... in place of an engine:
+    the process's hub runtime (`drt`) and the model watcher that builds a
+    pipeline for each discovered model (`watcher`); `close()` takes both
+    down."""
+
+    def __init__(self, drt, watcher) -> None:
+        self.drt = drt
+        self.watcher = watcher
+
+    async def close(self) -> None:
+        await self.watcher.stop()
+        await self.drt.shutdown()
+
+
 async def serve_http(args, out: str):
     """Build the output, start the OpenAI HTTP service on it and return
-    (service, torch_engine|None) once it listens (`service.port`); the
-    caller owns the wait and `await service.stop()`/`engine.close()`."""
+    (service, torch_engine|FleetIngress|None) once it listens
+    (`service.port`); the caller owns the wait and `await service.stop()`/
+    `engine.close()`. With out=dyn://... the service discovers models on
+    the hub and routes to their workers by `--router-mode`."""
     from dynamo_tpu_torch.llm.http.service import HttpService
     from dynamo_tpu_torch.utils import tracing
     from dynamo_tpu_torch.utils.counters import PromCounters
@@ -279,6 +311,18 @@ async def serve_http(args, out: str):
     # the process-global health counters (injected faults, profiler
     # captures) ride the same scrape as the service and engine series
     svc.metrics.extra.append(PromCounters())
+    if out.startswith("dyn://"):
+        from dynamo_tpu_torch.llm.http.discovery import ModelWatcher
+        from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+        refuse_unported(args, out)
+        drt = await DistributedRuntime.from_settings(hub_addr=args.hub)
+        watcher = ModelWatcher(drt, svc.manager, router_mode=args.router_mode)
+        await watcher.start()
+        await svc.start(args.http_host, args.http_port)
+        log.info("serving OpenAI HTTP on %s:%d, routing %s to dyn:// workers",
+                 args.http_host, svc.port, args.router_mode)
+        return svc, FleetIngress(drt, watcher)
     pipeline, card, engine = await build_output(args, out)
     name = args.model_name or (card.display_name if card else "echo")
     svc.manager.add_chat_model(name, pipeline)
@@ -322,6 +366,115 @@ async def run_http(args, out: str) -> None:
         await svc.stop()
         if engine is not None:
             await engine.close()
+
+
+def kernel_counts() -> dict:
+    """The serving kernels' launch counters and their plain versions'
+    call counts in this process: {"launches": {"paged_kv_write.launches":
+    n, ...}, "plain_calls": {"paged_kv_write_plain": n, ...}}."""
+    from dynamo_tpu_torch.engine import decode_graph
+    from dynamo_tpu_torch.ops import decode_attention, kv_write, prefill_attention, w8a8
+
+    plain = {name: fn.calls for mod in (kv_write, prefill_attention, decode_attention, w8a8)
+             for name, fn in vars(mod).items()
+             if name.endswith("_plain") and hasattr(fn, "calls")}
+    return {"launches": {f"{w.__name__}.{a}": getattr(w, a)
+                         for w, a in decode_graph.launch_counters()},
+            "plain_calls": plain}
+
+
+class FleetWorker:
+    """A registered `in=dyn://...` worker: its hub runtime (`drt`), its
+    engine (None for the echo backends) and its instance id (the primary
+    lease's); `close()` deregisters it and closes the engine."""
+
+    def __init__(self, drt, engine, publisher=None) -> None:
+        self.drt = drt
+        self.engine = engine
+        self.publisher = publisher
+        self.instance_id = drt.primary_lease.lease_id
+
+    async def close(self) -> None:
+        if self.publisher is not None:
+            await self.publisher.close()
+        await self.drt.shutdown()
+        if self.engine is not None:
+            await self.engine.close()
+
+
+async def start_worker(args, inp: str, out: str) -> FleetWorker:
+    """in=dyn://ns.comp.ep: build the engine and register it on the hub,
+    with its KV event publisher (attached before the worker is
+    discoverable: the router's indexer has no replay) and a stats handler
+    (the engine's ForwardPassMetrics, and under "engine" its prefix-cache
+    counters, `kernel_counts()` and the publisher's `stored_at` stamps as
+    "kv_event_stored_at"). The reference's run_worker without its
+    disagg branch and its prefix-pull wrap (`KvExportHandler`,
+    `PrefixPuller`), which are not ported (ROADMAP M17): with the router's
+    pull threshold at 0 no request carries `kv_pull_from`. Prints one line
+    on stdout once registered."""
+    from dynamo_tpu_torch.llm.http.discovery import register_llm
+    from dynamo_tpu_torch.llm.kv_router import KvEventPublisher, KvMetricsPublisher
+    from dynamo_tpu_torch.llm.local_model import LocalModel
+    from dynamo_tpu_torch.runtime.component import EndpointId
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.utils import instance
+
+    if out != "torch" and not out.startswith("echo"):
+        raise SystemExit("worker mode needs out=torch or out=echo_*")
+    refuse_unported(args, out, inp)
+    if not args.model_path:
+        raise SystemExit(f"in={inp} out={out} needs --model-path")
+    eid = EndpointId.parse(inp)
+    drt = await DistributedRuntime.from_settings(hub_addr=args.hub)
+    lm = LocalModel.prepare(args.model_path, name=args.model_name)
+    if out.startswith("echo"):
+        from dynamo_tpu_torch.llm.engines import EchoEngineCore
+
+        await register_llm(drt, EchoEngineCore(), lm.card, inp)
+        worker = FleetWorker(drt, None)
+    else:
+        # "cuda" goes to the engine as its default, which checks for a GPU
+        device = None if args.device == "cuda" else args.device
+        engine = lm.build_engine(device=device, **build_engine_config_kwargs(args))
+        lm.card.kv_cache_block_size = args.page_size
+        component = drt.namespace(eid.namespace).component(eid.component)
+        # per-tenant SLO attainment: the tracker feeds off the engine's
+        # finish summaries and its fractions ride every stats reply
+        slo = build_slo_tracker(args)
+        if slo is not None:
+            engine.subscribe_requests(slo.observe)
+            if engine.flight is not None:
+                slo.on_breach = engine.flight.on_slo_breach
+        metrics = KvMetricsPublisher.for_engine(engine, slo=slo)
+
+        # the event publisher BEFORE the worker becomes discoverable: events
+        # of requests arriving in the gap would be lost (no replay)
+        publisher = KvEventPublisher(component, drt.primary_lease.lease_id).attach(engine)
+
+        def stats() -> dict:
+            m = engine.metrics()
+            return {**metrics.stats_handler(), "engine": {
+                **{k: m[k] for k in ("prefix_hits", "prefix_full_hits",
+                                     "prefix_reused_tokens")},
+                **kernel_counts(),
+                "kv_event_stored_at": [list(s) for s in publisher.stored_at]}}
+
+        publisher.start()
+        await register_llm(drt, engine, lm.card, inp, stats_handler=stats,
+                           metadata={"instance": instance.worker_id()})
+        worker = FleetWorker(drt, engine, publisher)
+    print(f"worker registered {inp} instance {worker.instance_id:x} at "
+          f"{drt.data_plane.address}", flush=True)
+    return worker
+
+
+async def run_worker(args, inp: str, out: str) -> None:
+    worker = await start_worker(args, inp, out)
+    try:
+        await asyncio.Event().wait()
+    finally:
+        await worker.close()
 
 
 async def _chat_once(pipeline, model: str, messages: list, max_tokens: int):
@@ -431,6 +584,8 @@ def main(argv: Optional[list[str]] = None) -> None:
         coro = run_stdin(args, out)
     elif inp.startswith("batch:"):
         coro = run_batch(args, out, inp[len("batch:"):])
+    elif inp.startswith("dyn://"):
+        coro = run_worker(args, inp, out)
     else:
         raise SystemExit(f"unknown in={inp!r}")
     try:

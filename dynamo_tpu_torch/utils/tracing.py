@@ -38,9 +38,12 @@ Design:
   timeline).
 - **Process label.** `set_process_default` names this process in the
   export's metadata (the serving entry claims ``frontend``, an engine
-  ``worker-<id>``). The JAX package's cross-process merge (wire events,
-  ingest, span sinks, traceparents) serves the fleet runtime, which the
-  port does not have yet (M17), and is left out.
+  ``worker-<id>``).
+- **Traceparents.** `make_traceparent`/`parse_traceparent` carry a
+  request id and the caller's hop id across the fleet's data plane
+  (runtime/client.py stamps it, runtime/component.py `Ingress` binds it).
+  The JAX package's cross-process merge (wire events, ingest, span sinks,
+  the trace plane) is not ported yet (ROADMAP M17) and is left out.
 
 docs/observability.md describes the trace model, with a Perfetto walkthrough.
 """
@@ -53,6 +56,7 @@ import json
 import os
 import threading
 import time
+import uuid
 from collections import deque
 from typing import Iterator, Optional
 
@@ -68,6 +72,8 @@ __all__ = [
     "set_process",
     "set_process_default",
     "process_label",
+    "make_traceparent",
+    "parse_traceparent",
     "span",
     "instant",
     "complete",
@@ -191,6 +197,23 @@ def set_process_default(name: str) -> None:
 def process_label() -> str:
     """The local process label, defaulting to ``proc-<pid>``."""
     return _process or f"proc-{os.getpid()}"
+
+
+def make_traceparent(request_id: str) -> str:
+    """A traceparent for an outbound hop, W3C-shaped:
+    ``00-<request_id>-<parent_span_hex16>-01``. The request id doubles as
+    the trace id; the span id names this hop."""
+    return f"00-{request_id}-{uuid.uuid4().hex[:16]}-01"
+
+
+def parse_traceparent(tp: str) -> tuple[Optional[str], Optional[str]]:
+    """(request_id, parent_span_id) of a traceparent; (None, None) when
+    malformed. Request ids may hold dashes (forked contexts), so the span
+    id is taken from the fixed tail."""
+    parts = tp.split("-")
+    if len(parts) < 4:
+        return None, None
+    return "-".join(parts[1:-2]) or None, parts[-2] or None
 
 
 # ---------------------------------------------------------------- recording

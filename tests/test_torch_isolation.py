@@ -11,7 +11,11 @@ the whole `out=torch` HTTP pipeline builds on the CPU from the vendored
 checkpoint with the admission gate armed, serves a streamed chat request
 with tracing armed, renders the gate on `/metrics`, and answers the four
 `/debug/*` routes; the loadgen, its scenario CLI and the roofline ledger
-import, and the `chat` scenario runs over HTTP at tiny scale. The test process itself has jax
+import, and the `chat` scenario runs over HTTP at tiny scale; and the fleet
+serves one streamed chat request through the port's hub, an `in=dyn://...
+out=torch` worker and an `out=dyn://... --router-mode kv` frontend (the
+hub, data plane, discovery and KV router frame everything with the port's
+own msgpack). The test process itself has jax
 loaded (tests/conftest.py), so those checks run in a fresh interpreter."""
 
 from __future__ import annotations
@@ -96,7 +100,8 @@ print(json.dumps({{
 def test_http_pipeline_serves_with_the_packages_blocked():
     """A `sys.meta_path` finder makes the six packages (and jax) fail to
     import; the port's `out=torch` entry still serves one streamed chat
-    behind the admission gate, and the loadgen's `chat` scenario runs."""
+    behind the admission gate, the loadgen's `chat` scenario runs, and the
+    fleet (hub -> worker -> kv frontend) serves one streamed chat."""
     ckpt = os.path.join(ROOT, "tests", "data", "tiny-trained-llama")
     code = f"""
 import asyncio, json, sys
@@ -147,11 +152,40 @@ async def main():
                    & {{"http.request", "preprocess", "request", "prefill", "decode"}})
     await svc.stop()
     await eng.close()
+    os.environ.pop("DYN_ADMISSION")  # the gate's fleet binding is not ported
+    from dynamo_tpu_torch.run import start_worker
+    from dynamo_tpu_torch.runtime.hub import HubServer
+    hub = HubServer()
+    await hub.start("127.0.0.1", 0)
+    addr = f"127.0.0.1:{{hub.port}}"
+    worker = await start_worker(build_parser().parse_args([
+        "in=dyn://demo.backend.generate", "out=torch", "--model-path", {ckpt!r},
+        "--device", "cpu", "--num-pages", "32", "--hub", addr]),
+        "dyn://demo.backend.generate", "torch")
+    fsvc, ingress = await serve_http(build_parser().parse_args([
+        "in=http", "out=dyn://demo.backend.generate", "--hub", addr, "--router-mode", "kv",
+        "--http-host", "127.0.0.1", "--http-port", "0"]), "dyn://demo.backend.generate")
+    for _ in range(200):
+        if fsvc.manager.list_models():
+            break
+        await asyncio.sleep(0.05)
+    freply = await client.request("127.0.0.1", fsvc.port, "POST", "/v1/chat/completions", {{
+        "model": "tiny-trained-llama", "stream": True, "max_tokens": 6,
+        "messages": [{{"role": "user", "content": "the capital of france is"}}]}})
+    fmsgs = [m async for _, m in freply.sse()]
+    fleet_text = "".join(c["delta"].get("content", "") for m in fmsgs if m.data
+                         for c in m.json()["choices"])
+    fleet = [freply.status, fmsgs[-1].done, bool(fleet_text),
+             "dynamo_tpu_torch.llm.kv_router.indexer" in sys.modules]
+    await fsvc.stop()
+    await ingress.close()
+    await worker.close()
+    await hub.stop()
     text = "".join(c["delta"].get("content", "") for m in msgs if m.data
                    for c in m.json()["choices"])
     print(json.dumps({{"status": reply.status, "done": msgs[-1].done, "text": text,
                       "debug": debug, "spans": spans, "gate": gate, "scenario": scenario,
-                      "chat_ok": chat["requests"]["ok"],
+                      "chat_ok": chat["requests"]["ok"], "fleet": fleet,
                       "blocked_loaded": sorted(m for m in sys.modules
                                                if m.split(".")[0] in BLOCKED)}}))
 
@@ -173,3 +207,4 @@ asyncio.run(main())
     }
     assert got["spans"] == ["decode", "http.request", "prefill", "preprocess", "request"]
     assert got["gate"] and got["scenario"] == [] and got["chat_ok"] == 4
+    assert got["fleet"] == [200, True, True, True]

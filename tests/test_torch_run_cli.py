@@ -1,11 +1,13 @@
 """`python -m dynamo_tpu_torch.run` against `python -m dynamo_tpu.run`: the
 same flags with the same defaults (the port adds `--device`), `in=batch:F`
 on the vendored checkpoint writing the same outputs (greedy, float32; the
-JAX side on gather attention), and the refusals of what the port does not
-serve: `dyn://` modes, parallelism above 1, the hub, router, disagg and
-multi-node flags at any value but their default, the admission gate over a
-`dyn://` fleet, and no GPU with the default device (the engine's own error,
-never a fallback). `--admission` in local mode builds the gate
+JAX side on gather attention), the fleet modes (`in=dyn://...` workers and
+`out=dyn://...` behind `--hub` and `--router-mode`) parsing and serving,
+and the refusals of what the port does not serve: parallelism above 1, the
+disagg and multi-node flags at any value but their default, the admission
+gate over a `dyn://` fleet, a non-zero DYN_KV_PULL_TOKENS, `hub --native`,
+and no GPU with the default device (the engine's own error, never a
+fallback). `--admission` in local mode builds the gate
 (tests/test_torch_admission.py), `--slo-targets` serves
 (tests/test_torch_http_service.py renders it), and so does
 `--host-kv-pages`."""
@@ -61,16 +63,13 @@ def test_batch_outputs_equal(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, named", [
-    (["in=dyn://demo.backend.generate", "out=torch"], "M17"),
-    (["in=http", "out=dyn://demo.backend.generate"], "M17"),
     (["in=http", "out=torch", "--tp", "2"], "M13"),
     (["in=http", "out=torch", "--pp", "2"], "M13"),
     (["in=http", "out=torch", "--num-nodes", "2"], "M13"),
     # the gate serves in local mode now; its fleet binding waits with dyn://
     (["in=http", "out=dyn://demo.backend.generate", "--admission"], "M17"),
     (["in=http", "out=torch", "--attn-backend", "gather"], "attn-backend"),
-    (["in=http", "out=torch", "--hub", "127.0.0.1:2379"], "M17"),
-    (["in=http", "out=torch", "--router-mode", "kv"], "M17"),
+    (["in=dyn://demo.backend.generate", "out=torch", "--disagg-mode", "prefill"], "M17"),
     (["in=http", "out=torch", "--disagg-mode", "prefill"], "M11"),
     (["in=http", "out=torch", "--max-local-prefill-length", "64"], "M11"),
     (["in=http", "out=torch", "--node-rank", "1"], "M13"),
@@ -79,6 +78,76 @@ def test_batch_outputs_equal(tmp_path, capsys):
 def test_unported_modes_raise(argv, named):
     with pytest.raises(NotImplementedError, match=named):
         main(argv + ["--model-path", CKPT])
+
+
+def test_pull_threshold_and_native_hub_raise(monkeypatch):
+    """A non-zero DYN_KV_PULL_TOKENS with out=dyn:// names the pull plane
+    (llm/kv_router/pull.py, M17), and `python -m
+    dynamo_tpu_torch.runtime.hub --native` the native hub (M17)."""
+    from dynamo_tpu_torch.runtime.hub.__main__ import main as hub_main
+
+    monkeypatch.setenv("DYN_KV_PULL_TOKENS", "64")
+    with pytest.raises(NotImplementedError, match="pull.py"):
+        main(["in=http", "out=dyn://demo.backend.generate", "--router-mode", "kv"])
+    monkeypatch.setattr("sys.argv", ["hub", "--native", "--port", "0"])
+    with pytest.raises(NotImplementedError, match="M17"):
+        hub_main()
+
+
+@pytest.mark.parametrize("argv", [
+    ["in=dyn://demo.backend.generate", "out=torch", "--hub", "127.0.0.1:2379"],
+    ["in=dyn://demo.backend.generate", "out=echo_core"],
+    ["in=http", "out=dyn://demo.backend.generate", "--hub", "127.0.0.1:2379"],
+    ["in=http", "out=dyn://demo.backend.generate", "--router-mode", "kv"],
+    ["in=http", "out=dyn://demo.backend.generate", "--router-mode", "random"],
+])
+def test_fleet_modes_parse_and_pass_the_refusals(argv):
+    from dynamo_tpu_torch.run import parse_io, refuse_unported
+
+    args = build_parser().parse_args(argv + ["--model-path", CKPT])
+    inp, out = parse_io(args.io)
+    refuse_unported(args, out, inp)
+    assert inp.startswith("dyn://") or out.startswith("dyn://")
+
+
+def test_fleet_modes_serve_an_echo_worker_behind_round_robin():
+    """The hub, an `in=dyn://... out=echo_core` worker and an `in=http
+    out=dyn://...` frontend, as `main` starts them, in one process: a
+    streamed completion echoes the prompt through the data plane."""
+    from dynamo_tpu_torch.llm.http import client
+    from dynamo_tpu_torch.run import start_worker
+    from dynamo_tpu_torch.runtime.hub import HubServer
+
+    async def go():
+        hub = HubServer()
+        await hub.start("127.0.0.1", 0)
+        addr = f"127.0.0.1:{hub.port}"
+        worker = await start_worker(build_parser().parse_args(
+            ["in=dyn://demo.backend.generate", "out=echo_core", "--model-path", CKPT,
+             "--hub", addr]), "dyn://demo.backend.generate", "echo_core")
+        svc, ingress = await serve_http(build_parser().parse_args(
+            ["in=http", "out=dyn://demo.backend.generate", "--hub", addr, "--http-host",
+             "127.0.0.1", "--http-port", "0"]), "dyn://demo.backend.generate")
+        try:
+            for _ in range(100):
+                if svc.manager.list_models():
+                    break
+                await asyncio.sleep(0.05)
+            reply = await client.request("127.0.0.1", svc.port, "POST", "/v1/completions", {
+                "model": "tiny-trained-llama", "prompt": "the capital of france is",
+                "max_tokens": 8, "stream": True})
+            msgs = [m async for _, m in reply.sse()]
+            text = "".join(c["text"] for m in msgs if m.data for c in m.json()["choices"])
+            return reply.status, msgs[-1].done, text
+        finally:
+            await svc.stop()
+            await ingress.close()
+            await worker.close()
+            await hub.stop()
+
+    status, done, text = asyncio.run(asyncio.wait_for(go(), 60))
+    assert status == 200 and done
+    assert text.strip() == "the capital of france is"
 
 
 def test_slo_targets_load_as_the_jax_run_loads_them(tmp_path, monkeypatch):
